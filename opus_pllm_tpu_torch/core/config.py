@@ -186,8 +186,8 @@ class OpusConfig:
 @dataclass(frozen=True)
 class GenerationConfig:
     """Mirrors the reference generate() call sites (run_opus_ddp.py:120-132).
-    The port's runner refuses `quantize_cache`, `num_beams > 1` and
-    `draft_layers > 0` (not ported yet, ROADMAP.md)."""
+    The port's runner refuses `num_beams > 1` and `draft_layers > 0` (not
+    ported yet, ROADMAP.md)."""
 
     max_new_tokens: int = 256
     temperature: float = 0.1

@@ -16,8 +16,12 @@ What changes on the way, and nothing else:
     (3, E, E)) is taken as it is.
   * Linear kernels stay (in, out): the port multiplies x @ kernel as the
     JAX package does, so no kernel is transposed.
-Quantized (int8 / int4) leaves and fused decoder projections are not
-ported yet and raise NotImplementedError.
+  * int4 v2 decoder leaves ("kernel_p" int32 words, "gscale" fp32) are
+    copied as they are: the port keeps the JAX storage layout
+    (kernels/quant4.py).
+int8 weights ("kernel_q"), int4 v1 nibble bytes ("kernel_p" int8), any
+quantized ESM2 leaf and fused decoder projections are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,16 +67,20 @@ def _unstack(tree: dict) -> dict:
     return out
 
 
-def _refuse_quantized(tree, where: str) -> None:
+def _refuse_quantized(tree, where: str, *, int4_v2: bool = False) -> None:
+    """Raise on quantized leaves the port cannot run; with `int4_v2`, int32
+    "kernel_p" words pass."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            if k in ("kernel_q", "kernel_p"):
+            if k == "kernel_q" or (k == "kernel_p" and not (
+                    int4_v2 and np.asarray(v).dtype == np.int32)):
                 raise NotImplementedError(
-                    f"quantized weights ({where}.{k}) are not ported yet")
-            _refuse_quantized(v, f"{where}.{k}")
-    elif isinstance(tree, list):
+                    f"quantized weights ({where}.{k}, dtype "
+                    f"{np.asarray(v).dtype}) are not ported yet")
+            _refuse_quantized(v, f"{where}.{k}", int4_v2=int4_v2)
+    elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            _refuse_quantized(v, f"{where}[{i}]")
+            _refuse_quantized(v, f"{where}[{i}]", int4_v2=int4_v2)
 
 
 def _esm_layer(lp: dict) -> dict:
@@ -100,7 +108,7 @@ def esm2_from_jax(tree: dict, device=None) -> dict:
 
 
 def decoder_from_jax(tree: dict, device=None) -> dict:
-    _refuse_quantized(tree, "llm")
+    _refuse_quantized(tree, "llm", int4_v2=True)
     t = _unstack(_tree(tree, device))
     for lp in t["layers"]:
         if "qkv_proj" in lp or "gateup_proj" in lp:

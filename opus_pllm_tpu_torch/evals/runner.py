@@ -82,7 +82,8 @@ def _generate_spliced(params, cfg: OpusConfig, tokenizer, ids, mask,
         params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
         max_new_tokens=gen.max_new_tokens, temperature=gen.temperature,
         top_p=gen.top_p, eos_token_id=gen.eos_token_id,
-        pad_token_id=gen.pad_token_id)
+        pad_token_id=gen.pad_token_id, quantize_cache=gen.quantize_cache,
+        impl=impl)
     toks = out.tokens.cpu().numpy()
     lens = out.lengths.cpu().numpy()
     texts = []
@@ -102,10 +103,9 @@ def _pad_chunk(chunk, batch_size: int):
 
 
 def _check_gen(gen: GenerationConfig) -> None:
-    if gen.num_beams > 1 or gen.draft_layers > 0 or gen.quantize_cache:
+    if gen.num_beams > 1 or gen.draft_layers > 0:
         raise NotImplementedError(
-            "beam search, speculative drafts and quantized KV caches are "
-            "not ported yet")
+            "beam search and speculative drafts are not ported yet")
 
 
 @torch.no_grad()

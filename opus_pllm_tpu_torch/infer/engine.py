@@ -109,28 +109,34 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
              generator: torch.Generator, *, max_new_tokens: int,
              temperature: float = 0.1, top_p: float = 0.7,
              eos_token_id: int = -1, pad_token_id: int = 0,
-             stop_sequences: Optional[tuple] = None) -> GenerateOutput:
+             stop_sequences: Optional[tuple] = None, quantize_cache=False,
+             impl: str = "auto") -> GenerateOutput:
     """input_embeds (B, L, H) LEFT-padded; attn_mask/positions (B, L).
 
     Prefill runs causally over the prompt into a (B, 1, L, cap) mask and
     applies the vocab head to the last position only; then one token per
     step until max_new_tokens or every row has hit EOS or a stop
-    sequence."""
+    sequence. quantize_cache: False, True/"int8" or "int4" KV cache
+    (decoder.init_cache); impl: the decoder's kernel choice
+    (engine.py:207-227)."""
     b, l, _ = input_embeds.shape
     dev = input_embeds.device
     dt = cfg.torch_dtype
     tail_len = (max(len(s) for s in stop_sequences) if stop_sequences
                 else 0)
     cap = cache_capacity(cfg, l, max_new_tokens)
-    cache = decoder.init_cache(cfg, b, cap, dtype=dt, device=dev)
+    cache = decoder.init_cache(cfg, b, cap, dtype=dt, device=dev,
+                               quantize=quantize_cache)
     cache["mask"][:, :l] = attn_mask
 
     rows = torch.arange(l, device=dev)[None, None, :, None]
     cols = torch.arange(cap, device=dev)[None, None, None, :]
     pre_mask4 = cache["mask"][:, None, None, :] & (cols <= rows)
     hid, cache = decoder.forward(params, cfg, input_embeds.to(dt), positions,
-                                 pre_mask4, cache, return_hidden=True)
-    cur_logits = decoder.head_logits(params, cfg, hid[:, -1:])[:, 0].float()
+                                 pre_mask4, cache, impl=impl,
+                                 return_hidden=True)
+    cur_logits = decoder.head_logits(params, cfg, hid[:, -1:],
+                                     impl=impl)[:, 0].float()
 
     last_pos = positions[:, -1]
     out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int32,
@@ -152,7 +158,8 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
         pos = (last_pos + 1 + step)[:, None]
         cache["mask"][:, l + step] = ~done
         step_mask4 = cache["mask"][:, None, None, :]
-        lg, cache = decoder.forward(params, cfg, emb, pos, step_mask4, cache)
+        lg, cache = decoder.forward(params, cfg, emb, pos, step_mask4, cache,
+                                    impl=impl)
         cur_logits = lg[:, 0].float()
         done = new_done
         step += 1

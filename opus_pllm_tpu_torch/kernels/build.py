@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (route (b): nvcc + ctypes).
 
-Every `*.cu` file in `opus_pllm_tpu_torch/csrc/` is compiled by `nvcc` for
-`sm_90a` into one shared library with a plain C interface, which `ctypes`
-loads. The library lives in `build/cuda/` at the root of the checkout
-(listed in `.gitignore`), under a name that carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is. Nothing is built when this module is imported: the first call
-of `library()` builds, later calls return the loaded library.
+Each `*.cu` file in `opus_pllm_tpu_torch/csrc/` is compiled by its own
+`nvcc` (sm_90a) into a shared library with a plain C interface, which
+`ctypes` loads. The libraries live in `build/cuda/` at the root of the
+checkout (listed in `.gitignore`), each under a name that carries a hash of
+its source and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is. Nothing is built when this module is imported:
+`library(name)` builds that source at its first call; `build_all()` starts
+one nvcc per source at once and waits for all of them.
 """
 
 from __future__ import annotations
@@ -28,17 +29,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of csrc/fused_encoder.cu (all return a cudaError_t as int)
+# C signatures per source (every entry point returns a cudaError_t as int;
+# the last argument is the stream)
 SIGNATURES = {
-    "opus_ln_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "opus_encoder_attention": [_P, _P, _P, _I, _I, _I, _P],
-    "opus_out_proj": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "opus_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "fused_encoder": {
+        "opus_ln_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                             _P],
+        "opus_encoder_attention": [_P, _P, _P, _I, _I, _I, _P],
+        "opus_out_proj": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "opus_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    },
+    "int4_matmul": {
+        "opus_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "decode_attention": {
+        "opus_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _P],
+    },
 }
 
-_lib = None
-build_seconds = None     # wall time of the build this process ran, if any
-build_log = ""           # nvcc's output (register / shared-memory report)
+_libs = {}
+build_seconds = {}   # nvcc wall time per source built by this process
+build_log = ""       # nvcc's output (register / shared-memory report)
 
 
 def _nvcc() -> str:
@@ -54,45 +66,78 @@ def _nvcc() -> str:
 
 
 def sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return [CSRC / f"{name}.cu" for name in SIGNATURES]
 
 
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raise on failure."""
-    global _lib, build_seconds, build_log
-    if _lib is not None:
-        return _lib
+def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out = BUILD_DIR / f"libopus_kernels_{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for inc in sorted(CSRC.glob("*.cuh")):
+        h.update(inc.name.encode())
+        h.update(inc.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(names) -> None:
+    """Start one nvcc per source that has no library yet; wait for all."""
+    global build_log
+    todo = [(n, out) for n in names if not (out := _target(n)).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, cmd, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, cmd, t0, proc in procs:
+        log, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        build_log += f"[{name}.cu]\n{log}"
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.opus_error_string.argtypes = [ctypes.c_int]
     lib.opus_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _libs[name] = lib
     return lib
 
 
-def check(rc: int, name: str) -> None:
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed; raises
+    on failure."""
+    if name not in _libs:
+        if name not in SIGNATURES:
+            raise KeyError(f"no CUDA source named {name!r}")
+        _compile([name])
+        _load(name)
+    return _libs[name]
+
+
+def build_all() -> None:
+    """Build every source in parallel (one nvcc each) and load them."""
+    _compile([n for n in SIGNATURES if n not in _libs])
+    for name in SIGNATURES:
+        library(name)
+
+
+def check(rc: int, name: str, lib: ctypes.CDLL) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if rc != 0:
-        msg = _lib.opus_error_string(rc).decode() if _lib else ""
+        msg = lib.opus_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: error {rc} ({msg})")

@@ -161,7 +161,7 @@ def _launch(name, device, entry, *args):
     with torch.cuda.device(device):
         rc = entry(*args, torch.cuda.current_stream(device).cuda_stream)
     launches[name] += 1
-    build.check(rc, name)
+    build.check(rc, name, build.library("fused_encoder"))
 
 
 def ln_qkv_rope(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
@@ -176,7 +176,7 @@ def ln_qkv_rope(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
             or ln_sb.shape != (2, e) or cos.shape != (s, HEAD_DIM)
             or sin.shape != (s, HEAD_DIM)):
         raise ValueError("ln_qkv_rope: parameter shapes do not match x")
-    lib = build.library()
+    lib = build.library("fused_encoder")
     out = torch.empty((3, b, e // HEAD_DIM, s, HEAD_DIM), dtype=x.dtype,
                       device=x.device)
     stats = torch.empty((2, b * s), dtype=torch.float32, device=x.device)
@@ -199,7 +199,7 @@ def encoder_attention(qkv, mask=None):
             or mask.device != qkv.device or not mask.is_contiguous()):
         raise ValueError("encoder_attention: mask must be contiguous bool "
                          "(B, S) key rows on the same device")
-    lib = build.library()
+    lib = build.library("fused_encoder")
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
     _launch("encoder_attention", qkv.device, lib.opus_encoder_attention,
             _ptr(qkv), _ptr(mask), _ptr(out), b, h, s)
@@ -215,7 +215,7 @@ def out_proj(a, w, b, x):
     _check_width("out_proj", e)
     if a.shape != x.shape or w.shape != (e, e) or b.shape != (e,):
         raise ValueError("out_proj: shapes do not match")
-    lib = build.library()
+    lib = build.library("fused_encoder")
     out = torch.empty_like(x)
     _launch("out_proj", x.device, lib.opus_out_proj, _ptr(a), _ptr(w),
             _ptr(b), _ptr(x), _ptr(out), bsz * s, e)
@@ -233,7 +233,7 @@ def ffn(x, w1, b1, w2, b2, ln_sb, *, eps=1e-5):
     if (w1.shape != (e, f) or w2.shape != (f, e) or b1.shape != (f,)
             or b2.shape != (e,) or ln_sb.shape != (2, e) or f % 128 != 0):
         raise ValueError("ffn: shapes do not match")
-    lib = build.library()
+    lib = build.library("fused_encoder")
     m = bsz * s
     hidden = torch.empty((m, f), dtype=x.dtype, device=x.device)
     stats = torch.empty((2, m), dtype=torch.float32, device=x.device)

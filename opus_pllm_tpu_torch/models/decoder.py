@@ -1,16 +1,27 @@
 """Decoder-only LLM, family "llama" (port of `opus_pllm_tpu/models/decoder.py`).
 
-`init` (decoder.py:37), `init_cache` (:87, bf16/fp32 leaves only),
-`_write_cache` (:171, scalar index), `_block` (:278), `forward` (:555),
-`positions_and_rope` (:535), `head_logits` (:629), `embed_tokens` (:375)
-and `positions_from_mask` (:644). RMSNorm, half-split RoPE, GQA and the
-SiLU-gated MLP, no biases. The "qwen2" and "opt" families and quantized
-KV caches are not ported yet and raise NotImplementedError.
+`init` (decoder.py:37), `init_cache` (:87), the quantized-cache helpers
+`_quantize_kv` (:131), `_quantize_kv4` (:141), `_unpack_kv4` (:155),
+`_dequantize_kv` (:163), `_write_cache` (:171, scalar index), `_read_cache`
+(:217), `_block` (:278), `forward` (:555), `positions_and_rope` (:535),
+`head_logits` (:629), `embed_tokens` (:375) and `positions_from_mask`
+(:644). RMSNorm, half-split RoPE, GQA and the SiLU-gated MLP, no biases.
+Projections may be bf16 ("kernel") or int4 v2 ("kernel_p", see
+kernels/quant4.py). The "qwen2" and "opt" families raise
+NotImplementedError.
 
-KV cache: {"layers": [{"k", "v"}: (B, cap, Hkv, D)], "index": int,
-"mask": (B, cap) bool}. `forward` writes the new keys and values into
-the cache IN PLACE and advances `cache["index"]`; the returned cache is
-the same object (the JAX version returns a new pytree).
+KV cache: {"layers": [{"k", "v"}], "index": int, "mask": (B, cap) bool}.
+A bf16 leaf is (B, cap, Hkv, D). A quantized leaf is head-major:
+{"q": (B, Hkv, cap, D) int8, "s": (B, Hkv, cap, 1) fp32} (int8) or
+{"q4": (B, Hkv, cap, D/2) int8, "s": ...} (int4, low nibble d, high nibble
+d + D/2), with one absmax scale per (token, head). `forward` writes the new
+keys and values into the cache IN PLACE and advances `cache["index"]`; the
+returned cache is the same object (the JAX version returns a new pytree).
+
+`impl`: "auto" (or "fused") takes the kernels where the shapes allow them
+(decode attention over a quantized cache, int4 projections); the kernel
+wrappers run their plain versions on CPU tensors. "torch" takes the plain
+versions on every device.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..core.config import DecoderConfig
+from ..kernels import decode_attention as da
 from . import layers
 from .layers import (apply_rope, attention_xla, dense, embed, rms_norm,
                      rope_cos_sin, silu)
@@ -65,14 +77,29 @@ def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None):
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
                *, device=None, quantize=False):
-    """Zeroed KV cache with `max_len` slots per row."""
-    if quantize:
-        raise NotImplementedError("quantized KV caches are not ported yet")
+    """Zeroed KV cache with `max_len` slots per row. quantize=True/"int8"
+    stores int8 K/V, "int4" packed int4, each with per-(token, head) fp32
+    scales, head-major (decoder.py:87-128)."""
+    if quantize is True:
+        quantize = "int8"
+    if quantize not in (False, "int8", "int4"):
+        raise ValueError(f"quantize must be False/True/'int8'/'int4', "
+                         f"got {quantize!r}")
     dtype = dtype or cfg.torch_dtype
-    shp = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+
+    def leaf():
+        if not quantize:
+            return torch.zeros((batch, max_len, hkv, d), dtype=dtype,
+                               device=device)
+        key, width = ("q4", d // 2) if quantize == "int4" else ("q", d)
+        return {key: torch.zeros((batch, hkv, max_len, width),
+                                 dtype=torch.int8, device=device),
+                "s": torch.zeros((batch, hkv, max_len, 1),
+                                 dtype=torch.float32, device=device)}
+
     return {
-        "layers": [{"k": torch.zeros(shp, dtype=dtype, device=device),
-                    "v": torch.zeros(shp, dtype=dtype, device=device)}
+        "layers": [{"k": leaf(), "v": leaf()}
                    for _ in range(cfg.num_layers)],
         "index": 0,
         "mask": torch.zeros((batch, max_len), dtype=torch.bool,
@@ -80,32 +107,100 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
     }
 
 
+def _quantize_kv(x):
+    """(B, S, H, D) -> head-major int8 leaf {"q": (B, H, S, D) int8,
+    "s": (B, H, S, 1) fp32}; round half to even, as jnp.round."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return {"q": q.transpose(1, 2), "s": s.transpose(1, 2)}
+
+
+def _quantize_kv4(x):
+    """(B, S, H, D) -> head-major packed int4 leaf {"q4": (B, H, S, D/2)
+    int8 (lo nibble = d, hi nibble = d + D/2), "s": (B, H, S, 1) fp32}."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 7.0, 1e-8)
+    q = torch.clamp(torch.round(xf / s), -7, 7).to(torch.int32)
+    h = x.shape[-1] // 2
+    packed = (q[..., :h] & 0xF) | ((q[..., h:] & 0xF) << 4)     # [0, 255]
+    packed = packed.to(torch.uint8).view(torch.int8)
+    return {"q4": packed.transpose(1, 2), "s": s.transpose(1, 2)}
+
+
+def _unpack_kv4(packed):
+    """(..., D/2) packed bytes -> (..., D) int4-valued int8, lane halves."""
+    p = packed.to(torch.int32)
+    lo = (p << 28) >> 28                         # sign-extend low nibble
+    hi = p >> 4                                  # arithmetic: sign-correct
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def _dequantize_kv(leaf, dtype):
+    """Head-major quantized leaf (int8 or packed int4) -> (B, S, H, D) in
+    `dtype` (the attention layout)."""
+    q = _unpack_kv4(leaf["q4"]) if "q4" in leaf else leaf["q"]
+    return (q.float() * leaf["s"]).to(dtype).transpose(1, 2)
+
+
 def _write_cache(layer_cache, k_new, v_new, index: int):
     """Write S new keys/values at slots [index, index + S) of every row,
-    in place."""
+    in place; quantized leaves quantize them first (decoder.py:190-210)."""
     s = k_new.shape[1]
-    layer_cache["k"][:, index:index + s] = k_new
-    layer_cache["v"][:, index:index + s] = v_new
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = layer_cache[name]
+        if isinstance(buf, dict):
+            qn = _quantize_kv4(new) if "q4" in buf else _quantize_kv(new)
+            for key, val in qn.items():
+                buf[key][:, :, index:index + s] = val
+        else:
+            buf[:, index:index + s] = new
     return layer_cache
 
 
-def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index):
+def _read_cache(layer_cache, dtype):
+    k, v = layer_cache["k"], layer_cache["v"]
+    if isinstance(k, dict):
+        return _dequantize_kv(k, dtype), _dequantize_kv(v, dtype)
+    return k, v
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ("auto", "fused", "torch"):
+        raise ValueError(f"impl must be auto|fused|torch, got {impl!r}")
+
+
+def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
+           impl: str = "auto"):
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mm = lambda name, h: dense(p[name], h, impl=impl)
     r = rms_norm(p["attn_norm"], x, eps=cfg.rms_norm_eps)
-    q = dense(p["q_proj"], r).reshape(b, s, hq, d)
-    k = dense(p["k_proj"], r).reshape(b, s, hkv, d)
-    v = dense(p["v_proj"], r).reshape(b, s, hkv, d)
+    q = mm("q_proj", r).reshape(b, s, hq, d)
+    k = mm("k_proj", r).reshape(b, s, hkv, d)
+    v = mm("v_proj", r).reshape(b, s, hkv, d)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    a = None
     if layer_cache is not None:
         _write_cache(layer_cache, k, v, index)
-        k, v = layer_cache["k"], layer_cache["v"]
-    a = attention_xla(q, k, v, mask4).reshape(b, s, hq * d)
-    x = x + dense(p["o_proj"], a)
+        lk, lv = layer_cache["k"], layer_cache["v"]
+        if (isinstance(lk, dict) and impl != "torch"
+                and da.supports(q, lk, mask4)):
+            # one-token attention straight over the quantized cache; the
+            # dequantized K/V never exist (decoder.py:305-319)
+            fn = (da.decode_attention_int4 if "q4" in lk
+                  else da.decode_attention_int8)
+            a = fn(q, lk, lv, mask4)
+        else:
+            # prefill (and impl="torch") over a quantized cache attends over
+            # the DEQUANTIZED K/V, as decoder.py:320-323 does
+            k, v = _read_cache(layer_cache, x.dtype)
+    if a is None:
+        a = attention_xla(q, k, v, mask4)
+    x = x + mm("o_proj", a.reshape(b, s, hq * d))
     r = rms_norm(p["ffn_norm"], x, eps=cfg.rms_norm_eps)
-    return x + dense(p["down_proj"],
-                     silu(dense(p["gate_proj"], r)) * dense(p["up_proj"], r))
+    return x + mm("down_proj", silu(mm("gate_proj", r)) * mm("up_proj", r))
 
 
 def embed_tokens(params, ids):
@@ -120,7 +215,7 @@ def positions_and_rope(params, cfg: DecoderConfig, x, positions):
 
 
 def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
-            cache=None, *, return_hidden: bool = False
+            cache=None, *, impl: str = "auto", return_hidden: bool = False
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """input_embeds (B, S, H); positions (B, S); mask4 (B, 1, S, Skv) bool
     (Skv = S without a cache, the cache capacity with one). With a cache,
@@ -128,24 +223,30 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     advances. Returns (logits (B, S, V) fp32 or final-normed hidden, cache).
     """
     _check_family(cfg)
+    _check_impl(impl)
     x, cos, sin = positions_and_rope(params, cfg, input_embeds, positions)
     index = cache["index"] if cache is not None else None
     for i, p in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
-        x = _block(cfg, p, x, mask4, cos, sin, lc, index)
+        x = _block(cfg, p, x, mask4, cos, sin, lc, index, impl)
     if cache is not None:
         cache["index"] = index + input_embeds.shape[1]
     x = rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
     if return_hidden:
         return x, cache
-    return head_logits(params, cfg, x), cache
+    return head_logits(params, cfg, x, impl=impl), cache
 
 
-def head_logits(params, cfg: DecoderConfig, x):
+def head_logits(params, cfg: DecoderConfig, x, *, impl: str = "auto"):
     """Vocab projection of final-normed hidden states -> fp32 logits with
     fp32 accumulation and no rounding of the product to x's dtype. On CUDA
     a low-precision product writes fp32 directly (`out_dtype`); elsewhere
-    it multiplies in fp32."""
+    it multiplies in fp32. A quantized head goes through `dense`, so its
+    logits are rounded to x's dtype before fp32 (decoder.py:638-639)."""
+    head = params.get("lm_head", {})
+    if not cfg.tie_word_embeddings and (
+            "kernel_p" in head or "kernel_q" in head):
+        return dense(head, x, impl=impl).float()
     w = (params["embed_tokens"]["embedding"].t()
          if cfg.tie_word_embeddings or "lm_head" not in params
          else params["lm_head"]["kernel"])

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import quant4
+
 NEG_INF = -1e9  # large finite mask value (layers.py:20)
 
 
@@ -59,12 +61,19 @@ def norm_init(dim: int, *, device, dtype, bias: bool):
 # Primitive layers
 # ---------------------------------------------------------------------------
 
-def dense(params, x):
+def dense(params, x, *, impl: str = "auto"):
     """x @ kernel (+ bias) with fp32 accumulation (layers.py:48-62).
 
     fp32 inputs multiply in full fp32. Low-precision inputs multiply in
     their own dtype, which on CUDA and CPU accumulates in fp32 and rounds
-    once; a bias is then added in fp32 and the sum rounded again."""
+    once; a bias is then added in fp32 and the sum rounded again.
+    int4 weights ("kernel_p" + "gscale") go to `quant4.qdense4` (`impl` is
+    its kernel choice); int8 weights ("kernel_q") are not ported yet."""
+    if "kernel_q" in params:
+        raise NotImplementedError("int8 weights (kernel_q) are not ported "
+                                  "yet")
+    if "kernel_p" in params:
+        return quant4.qdense4(params, x, impl=impl)
     y = torch.matmul(x, params["kernel"].to(x.dtype))
     if "bias" in params:
         y = (y.float() + params["bias"].float()).to(x.dtype)

@@ -1,5 +1,6 @@
-"""The four fused-encoder CUDA kernels against their plain versions on the
-card, at small and ragged shapes the main path can also produce (a CUDA
+"""The CUDA kernels against their plain versions on the card, at small and
+ragged shapes the main path can also produce: the four fused-encoder
+kernels, the int4 v2 matmul and both quantized decode attentions (a CUDA
 kernel has no CPU mode: these skip where torch sees no GPU). Run on a GPU
 machine with:
 
@@ -11,14 +12,18 @@ need not have; nothing here imports it).
 Tolerance as in chip_smoke.py: max|kernel - plain_fp32| <= 2 *
 max|plain_bf16 - plain_fp32| + 4e-3, i.e. the kernel may not lose more than
 the bf16 output format forces plus half a bf16 ulp at magnitude 1-2.
+plain_fp32 runs the plain version on the same values in fp32 (the int4
+matmul rounds x to bf16 in both), plain_bf16 in bf16.
 """
 
 import pytest
 import torch
 
 from opus_pllm_tpu_torch.core.config import ESM2Config
+from opus_pllm_tpu_torch.kernels import decode_attention as da
 from opus_pllm_tpu_torch.kernels import fused_encoder as fe
-from opus_pllm_tpu_torch.models import esm2
+from opus_pllm_tpu_torch.kernels import quant4
+from opus_pllm_tpu_torch.models import decoder, esm2
 from opus_pllm_tpu_torch.models.layers import rope_cos_sin
 
 pytestmark = pytest.mark.cuda
@@ -116,3 +121,65 @@ def test_esm2_auto_takes_kernels_and_matches_plain():
     ref = esm2.pooled_embedding(to32(params), cfg, toks, impl="torch")
     err = (got - ref).abs().max().item()
     assert err <= 2 * (plain_bf - ref).abs().max().item() + ATOL
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 33])
+@pytest.mark.parametrize("k,n", [(512, 256), (4096, 256), (1536, 130)])
+def test_int4_matmul(m, k, n):
+    """One split (K = 512), eight K splits (N = 256: 4 column tiles) and a
+    ragged last column tile with three splits (N = 130, K = 1536)."""
+    g = _gen()
+    w = torch.randn((k, n), generator=g, device="cuda")
+    q, s = quant4.quantize_grouped(w)
+    packed = quant4.pack_int4_v2(q)
+    x = _rnd(g, m, k)
+    quant4.reset_launches()
+    _check(lambda x: quant4.int4_matmul(x, packed, s),
+           lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
+    assert quant4.launches["int4_matmul"] == 1
+    # fp32 x: the output stays fp32 and differs from the plain version by
+    # summation order only
+    out = quant4.int4_matmul(x.float(), packed, s)
+    ref = quant4.int4_matmul_plain(x.float(), packed, s)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _cache(g, b, hkv, cap, d, kind):
+    quant = decoder._quantize_kv4 if kind == "int4" else decoder._quantize_kv
+    kv = [quant(torch.randn((b, cap, hkv, d), generator=g, device="cuda"))
+          for _ in range(2)]
+    lengths = torch.randint(1, cap + 1, (b,), generator=g, device="cuda")
+    mask = torch.arange(cap, device="cuda")[None] < lengths[:, None]
+    contig = lambda leaf: {k: v.contiguous() for k, v in leaf.items()}
+    return contig(kv[0]), contig(kv[1]), mask[:, None, None, :]
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("cap", [1, 255, 391, 2048])
+def test_decode_attention(kind, d, group, cap):
+    g = _gen()
+    b, hkv = 3, 2
+    kl, vl, mask4 = _cache(g, b, hkv, cap, d, kind)
+    q = _rnd(g, b, 1, hkv * group, d, scale=0.5)
+    fn = da.decode_attention_int4 if kind == "int4" else \
+        da.decode_attention_int8
+    da.reset_launches()
+    _check(lambda q: fn(q, kl, vl, mask4),
+           lambda q: da.decode_attention_plain(q, kl, vl, mask4), (q,))
+    assert da.launches[f"decode_attention_{kind}"] == 1
+
+
+def test_quantized_wrappers_raise_instead_of_falling_back():
+    q, s = quant4.quantize_grouped(torch.randn((512, 6), device="cuda"))
+    x = torch.zeros((2, 512), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):            # odd N
+        quant4.int4_matmul(x, quant4.pack_int4_v2(q[:, :5]), s[:, :5])
+    kl, vl, mask4 = _cache(_gen(), 1, 1, 8, 128, "int8")
+    q1 = torch.zeros((1, 1, 2, 128), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):            # int mask
+        da.decode_attention_int8(q1, kl, vl, mask4.int())
+    with pytest.raises(ValueError):            # int8 leaves to the int4 one
+        da.decode_attention_int4(q1, kl, vl, mask4)
