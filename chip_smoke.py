@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's annotation-eval path once on one CUDA GPU.
+"""Drive the PyTorch port's annotation-eval paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -16,9 +16,13 @@ and prints no result:
      where plain_fp32 runs the plain version on the same inputs in fp32,
      plain_bf16 in bf16 (its error is the rounding the bf16 formats force),
      and ATOL = 4e-3 (half a bf16 ulp at magnitude 1-2) covers the kernels'
-     other summation order. Prints kernel and plain device times (the host
-     held behind a queued device sleep) and the kernel's time per call as
-     the host issues it. Shapes:
+     other summation order. Prints kernel, plain and library device times
+     (the host held behind a queued device sleep), the kernel's time per
+     call as the host issues it, and the bound: the larger of the bytes the
+     function must move over 3.35 TB/s and its bf16 tensor-core operations
+     over 989 TFLOP/s (H100 SXM data sheet), counting only the work this
+     run's data needs (valid cache slots, mask-true query-key pairs).
+     Shapes:
        - the four fused-encoder kernels at the annotate path's shapes (B=8,
          S in {128, 512}, E=1280, H=20, F=5120, bf16, padded key rows);
        - int4_matmul at M = 8 for each distinct (K, N) of a Llama-3-8B
@@ -27,16 +31,30 @@ and prints no result:
        - decode_attention_int8 / _int4 at B=8, Hq=32, Hkv=8, D=128 over a
          391-slot cache (the annotate decode capacity), and at B=32 over
          2048 slots;
+       - flash_attention at the serving prefill (16 rows of bucket 320, the
+         engine's admission mask), the static prefill (8 x 327 queries over
+         a 391-slot left-padded cache) and causal B=1, S=2048; Hq=32,
+         Hkv=8, D=128. Library: torch's scaled_dot_product_attention with
+         the same mask (K/V heads repeated beforehand);
+       - int8_matmul at M = 5120 (serving prefill) and 2616 (static
+         prefill) for the four (K, N) of a Llama-3-8B layer. Library: the
+         bf16 cuBLAS product on W dequantized beforehand; the port's own
+         dequantize route (`quant.dequant_matmul`) is printed beside it;
+     the JSON line keeps, per kernel, the largest error over its shapes and
+     the times of one shape: S=512 (encoder), 4096->4096 (int4), cap 391
+     (decode attention), the serving prefill (flash) and M=5120 4096->14336
+     (int8);
   4. slice: OpusConfig() at full width (ESM2-650M and Llama-3-8B in bf16,
      CSTP 1280->5120 and the mlp2x_gelu switch 5120->8x4096 in fp32, random
      weights drawn on the card from a seeded torch.Generator) answers 16
      synthetic keywords-task requests through
      evals.runner.run_annotation_eval (batch 8, T=0.1, top_p=0.7, 64 new
-     tokens, ByteTokenizer). Checks that every encoder kernel's launch
-     count rose by 33 x batches (and no quantized kernel ran), that ESM2's
-     pooled embedding through the kernels agrees with the plain layer
-     composition on two proteins, and that the decoder's logits are
-     finite; prints entries/s and decode tok/s;
+     tokens, ByteTokenizer). Checks the launch counts exactly: every
+     encoder kernel 33 x batches, flash_attention 32 x batches (each
+     prefill layer), no other kernel; that ESM2's pooled embedding through
+     the kernels agrees with the plain layer composition on two proteins,
+     and that the decoder's logits are finite; prints entries/s and decode
+     tok/s;
   5. quantized slice: the same LLM quantized by quant4.quantize_decoder4
      (int4 v2 words, fp32 group scales; the bf16 projections are freed)
      answers the same 16 requests with an int4 KV cache, then one batch of
@@ -46,13 +64,39 @@ and prints no result:
      and every decode projection and head the kernel):
        int4_matmul = batches + steps x (32 x 7 + 1),
        decode_attention_<cache> = steps x 32, the other one 0,
-       encoder kernels = 33 x batches;
+       flash_attention = 32 x batches, encoder kernels = 33 x batches;
      and that one decode step's logits through the kernels (impl="auto")
      stay within 2 * (plain bf16 error) + ATOL of the plain path run in
      fp32, next to the plain path in bf16 (impl="torch"). Prints entries/s,
-     decode tok/s, ms per decode step and GiB on the card.
+     decode tok/s, ms per decode step and GiB on the card;
+  6. serving slice: a bf16 Llama-3-8B drawn again from the seed, quantized
+     to int8 by quant.quantize_decoder (the bf16 weights freed), answers 32
+     synthetic requests through evals.runner.run_annotation_eval_engine
+     (the continuous-batching engine: 16 slots, 4 steps a tick, T=0.1,
+     top_p=0.7, 64 new tokens, bf16 cache), then 8 with an int8 cache.
+     Checks exact launch counts from the engine's own counters: every
+     admission group is one prefill of n x bucket >= 256 rows, so
+       flash_attention = 32 x prefills, int8_matmul = 7 x 32 x prefills,
+       decode_attention_<cache> = 32 x decode steps (int8 cache; none on
+       the bf16 cache), encoder kernels = 33 x splice batches,
+       int4_matmul = 0;
+     that every request is answered; and that one admission group's
+     prefill logits (16 rows, bucket 320) through the kernels stay within
+     the bound above of the plain path in fp32. Prints entries/s, tokens/s,
+     TTFT p50/p99 (the engine's histogram bounds) and GiB on the card.
 The last two lines: a JSON object of the kernels' numbers, then
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile-serving
+
+runs phases 1 and 2, then the serving configuration of phase 6 (bf16
+cache, 32 requests) twice unprofiled, then its first 16 requests (one
+wave: one prefill, 64 decode steps) under torch.profiler, and prints
+where the device time goes: the kernels' summed device time against the
+profiled wall time (the profiler inflates host time), the sums for the
+casts and multiplies (mostly the dequantize route's), the hand-written
+kernels and cuBLAS, and the kernels with the most device time. It checks
+nothing and prints no result line.
 """
 
 import json
@@ -80,10 +124,22 @@ QUANT_KERNELS = {
         "opus_pllm_tpu/kernels/decode_attention.py:234",
         "opus_pllm_tpu_torch/csrc/decode_attention.cu"),
 }
+SERVE_KERNELS = {
+    "flash_attention": ("opus_pllm_tpu/kernels/flash_attention.py:257",
+                        "opus_pllm_tpu_torch/csrc/flash_attention.cu"),
+    "int8_matmul": ("opus_pllm_tpu/kernels/quant.py:142",
+                    "opus_pllm_tpu_torch/csrc/int8_matmul.cu"),
+}
 SOURCE = "opus_pllm_tpu_torch/csrc/fused_encoder.cu"
 INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                (4096, 128256))          # (K, N) of one Llama-3-8B decode step
+INT8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 ATTN_SHAPES = ((8, 391), (32, 2048))    # (B, capacity); Hq 32, Hkv 8, D 128
+# H100 SXM data sheet, dense, at the full 700 W power limit
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+SERVE_REQUESTS = 32
+SERVE_SLOTS, SERVE_STEPS = 16, 4
 
 
 def fail(msg):
@@ -127,25 +183,55 @@ def time_ms(fn, iters=20, hold=True):
     return start.elapsed_time(end) / iters
 
 
-def reset_counts():
+def _kernel_modules():
     from opus_pllm_tpu_torch.kernels import decode_attention as da
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
-    from opus_pllm_tpu_torch.kernels import quant4
-    for mod in (fe, quant4, da):
+    from opus_pllm_tpu_torch.kernels import quant, quant4
+    return fe, quant4, da, fa, quant
+
+
+def reset_counts():
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
 def read_counts():
-    from opus_pllm_tpu_torch.kernels import decode_attention as da
-    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
-    from opus_pllm_tpu_torch.kernels import quant4
-    return {**fe.launches, **quant4.launches, **da.launches}
+    counts = {}
+    for mod in _kernel_modules():
+        counts.update(mod.launches)
+    return counts
 
 
-def compare(name, kern, plain, bf_in, card, extra=()):
+def expect_counts(label, counts, **want):
+    """Every kernel's launch count against `want` (names not given: 0)."""
+    full = {name: want.get(name, 0) for name in counts}
+    print(f"{label}: launches {counts}", flush=True)
+    if counts != full:
+        fail(f"{label}: launches {counts}, expected {full}")
+
+
+def nbytes(*ts):
+    import torch
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def bound_ms(flops, n_bytes):
+    """The least time the card could take: (ms, what bounds it)."""
+    ops = 1e3 * flops / PEAK_BF16_FLOPS
+    mem = 1e3 * n_bytes / PEAK_HBM_BYTES
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
+            more_bytes=0, library=None, route=None):
     """The kernel vs its plain version on the same inputs (module
-    docstring, phase 3); `extra` arguments are passed as they are. Returns
-    (max_abs_err, kernel ms, plain ms), device times."""
+    docstring, phase 3); `extra` arguments are passed as they are.
+    `flops` and the bytes of the inputs, the output and `more_bytes`
+    (operands the calls capture) give the bound; `library` is the PyTorch
+    yardstick, `route` another path of the port, both only timed. Returns
+    the kernel's row of the JSON line, device times."""
     import torch
     ref32 = plain(*(t.float() for t in bf_in), *extra).float()
     ref_bf = plain(*bf_in, *extra).float()
@@ -155,17 +241,36 @@ def compare(name, kern, plain, bf_in, card, extra=()):
         fail(f"{name}: shape {tuple(out.shape)} or non-finite")
     err = (out.float() - ref32).abs().max().item()
     err_plain = (ref_bf - ref32).abs().max().item()
-    bound = 2 * err_plain + ATOL
+    tol = 2 * err_plain + ATOL
+    b_ms, b_by = bound_ms(flops, nbytes(*bf_in, *extra, out) + more_bytes)
+    del ref32, ref_bf, out
     ms = time_ms(lambda: kern(*bf_in, *extra))
     plain_ms = time_ms(lambda: plain(*bf_in, *extra))
     call_ms = time_ms(lambda: kern(*bf_in, *extra), hold=False)
-    print(f"{name:38s} max_abs_err={err:.3e} (bound {bound:.3e}, plain bf16 "
+    lib_ms = time_ms(library) if library is not None else None
+    route_ms = time_ms(route) if route is not None else None
+    print(f"{name:38s} max_abs_err={err:.3e} (tol {tol:.3e}, plain bf16 "
           f"err {err_plain:.3e}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-          f"  (kernel per call as issued {call_ms:.4f} ms)  [{card}]",
-          flush=True)
-    if not err <= bound:
-        fail(f"{name}: error {err:.3e} above bound {bound:.3e}")
-    return err, ms, plain_ms
+          + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
+          + (f"  dequantize route {route_ms:.4f} ms"
+             if route_ms is not None else "")
+          + f"  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+          f"{100 * b_ms / ms:.1f}% of it)  (kernel per call as issued "
+          f"{call_ms:.4f} ms)  [{card}]", flush=True)
+    if not err <= tol:
+        fail(f"{name}: error {err:.3e} above {tol:.3e}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def keep(rows, name, res, main):
+    """Fold one shape's result into the kernel's JSON row: the largest
+    error over its shapes, the times of its `main` shape."""
+    row = rows.setdefault(name, {"max_abs_err": 0.0})
+    err = max(row["max_abs_err"], res["max_abs_err"])
+    if main:
+        row.update(res)
+    row["max_abs_err"] = err
 
 
 def check_quant_kernels(card):
@@ -178,49 +283,114 @@ def check_quant_kernels(card):
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     rows = {}
-
-    def keep(name, res):
-        row = rows.setdefault(name, {"max_abs_err": 0.0, "ms": res[1],
-                                     "plain_ms": res[2]})
-        row["max_abs_err"] = max(row["max_abs_err"], res[0])
-
-    for k, n in INT4_SHAPES:
+    for i, (k, n) in enumerate(INT4_SHAPES):
         q, s = quant4.quantize_grouped(
             torch.randn((k, n), generator=g, device="cuda"))
         packed = quant4.pack_int4_v2(q)
         del q
         x = torch.randn((8, k), generator=g, device="cuda").bfloat16()
-        keep("int4_matmul", compare(
+        keep(rows, "int4_matmul", compare(
             f"int4_matmul M=8 K={k} N={n}",
             lambda x: quant4.int4_matmul(x, packed, s),
-            lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card))
+            lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
+            flops=2 * 8 * k * n, more_bytes=nbytes(packed, s)), i == 0)
         del packed, s
         torch.cuda.empty_cache()
     hq, hkv, d = 32, 8, 128
-    for b, cap in ATTN_SHAPES:
+    for i, (b, cap) in enumerate(ATTN_SHAPES):
         lengths = torch.randint(cap // 2, cap + 1, (b,), generator=g,
                                 device="cuda")
         mask4 = (torch.arange(cap, device="cuda")[None] < lengths[:, None]
                  )[:, None, None, :]
         q = (torch.randn((b, 1, hq, d), generator=g, device="cuda")
              * 0.5).bfloat16()
+        valid = lengths.sum().item()
         for kind, quant, fn in (
                 ("int8", decoder._quantize_kv, da.decode_attention_int8),
                 ("int4", decoder._quantize_kv4, da.decode_attention_int4)):
             kl, vl = ({key: t.contiguous() for key, t in quant(torch.randn(
                 (b, cap, hkv, d), generator=g, device="cuda")).items()}
                 for _ in range(2))
-            keep(f"decode_attention_{kind}", compare(
+            # only the valid slots of the cache need reading
+            cache_bytes = nbytes(*kl.values(), *vl.values()) * valid / (
+                b * cap)
+            keep(rows, f"decode_attention_{kind}", compare(
                 f"decode_attention_{kind} B={b} cap={cap}",
                 lambda q: fn(q, kl, vl, mask4),
                 lambda q: da.decode_attention_plain(q, kl, vl, mask4), (q,),
-                card))
+                card, flops=4 * hq * d * valid,
+                more_bytes=nbytes(mask4) + cache_bytes), i == 0)
+    return rows
+
+
+def check_serve_kernels(card):
+    """flash_attention and int8_matmul at the prefill shapes of the serving
+    and static paths (module docstring, phase 3)."""
+    import torch
+    import torch.nn.functional as tnf
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import quant
+    from opus_pllm_tpu_torch.serve.engine import admission_inputs
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device="cuda").bfloat16()
+    rows = {}
+    hq, hkv, d = 32, 8, 128
+    # serving prefill: 16 admitted prompts of 200-320 spliced tokens
+    n_valid = torch.randint(200, 321, (16,), generator=g, device="cuda")
+    n_valid[0] = 287
+    _, serve_mask = admission_inputs(n_valid, 320)
+    # static prefill: 8 left-padded prompts of 327 tokens over 391 slots,
+    # the 64 decode slots not yet written
+    pad = 327 - torch.randint(100, 328, (8,), generator=g, device="cuda")
+    cols = torch.arange(391, device="cuda")[None, None, None, :]
+    rows_q = torch.arange(327, device="cuda")[None, None, :, None]
+    static_mask = (cols <= rows_q) & (cols >= pad[:, None, None, None])
+    cases = (("serving prefill B=16 S=320", 16, 320, 320, serve_mask, False),
+             ("static prefill B=8 327x391", 8, 327, 391, static_mask, False),
+             ("causal B=1 S=2048", 1, 2048, 2048, None, True))
+    for i, (label, b, sq, skv, mask, causal) in enumerate(cases):
+        q, k, v = rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+        pairs = (mask.sum().item() if mask is not None
+                 else b * sq * (sq + 1) // 2)
+        kx, vx = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        qx = q.transpose(1, 2)
+        keep(rows, "flash_attention", compare(
+            f"flash_attention {label}",
+            lambda q, k, v: fa.flash_attention(q, k, v, mask, causal=causal),
+            lambda q, k, v: fa.flash_attention_plain(q, k, v, mask,
+                                                     causal=causal),
+            (q, k, v), card, flops=4 * hq * d * pairs,
+            more_bytes=nbytes(mask),
+            library=lambda: tnf.scaled_dot_product_attention(
+                qx, kx, vx, attn_mask=mask, is_causal=causal)), i == 0)
+        del q, k, v, kx, vx, qx
+    for m in (5120, 2616):
+        for k, n in INT8_SHAPES:
+            wq, s = quant.quantize_per_channel(
+                torch.randn((k, n), generator=g, device="cuda"))
+            w_bf = (wq.float() * s).bfloat16()
+            x = rnd(m, k)
+            keep(rows, "int8_matmul", compare(
+                f"int8_matmul M={m} K={k} N={n}",
+                lambda x: quant.int8_matmul(x, wq, s),
+                lambda x: quant.int8_matmul_plain(x, wq, s), (x,), card,
+                flops=2 * m * n * k, more_bytes=nbytes(wq, s),
+                library=lambda: torch.mm(x, w_bf),
+                route=lambda: quant.dequant_matmul(x, wq, s)),
+                (m, k, n) == (5120, 4096, 14336))
+            del wq, s, w_bf, x
+            torch.cuda.empty_cache()
     return rows
 
 
 def kernel_cases(s, g):
-    """(name, kernel, plain, bf16 inputs) at B=8, sequence length s."""
+    """(name, kernel, plain, bf16 inputs, extra arguments, FLOP, library
+    call or None) at B=8, sequence length s."""
     import torch
+    import torch.nn.functional as tnf
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
     from opus_pllm_tpu_torch.models.layers import rope_cos_sin
     dev = "cuda"
@@ -237,18 +407,24 @@ def kernel_cases(s, g):
                      ).to(torch.bfloat16)
     cos, sin = rope_cos_sin(torch.arange(s, device=dev), 64)
     x = rnd(B, s, E)
+    qkv = rnd(3, B, H, s, 64)
+    # every query against the valid keys of its row
+    pairs = s * mask.sum().item()
     return [
         ("ln_qkv_rope", fe.ln_qkv_rope, fe.ln_qkv_rope_plain,
          (x, rnd(3, E, E, scale=E ** -0.5), rnd(3, E, scale=0.1), ln),
-         (cos, sin)),
+         (cos, sin), 2 * B * s * E * 3 * E, None),
         ("encoder_attention", fe.encoder_attention,
-         fe.encoder_attention_plain, (rnd(3, B, H, s, 64),), (mask,)),
+         fe.encoder_attention_plain, (qkv,), (mask,), 4 * H * 64 * pairs,
+         lambda: tnf.scaled_dot_product_attention(
+             qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :])),
         ("out_proj", fe.out_proj, fe.out_proj_plain,
          (rnd(B, s, E, scale=0.5), rnd(E, E, scale=E ** -0.5),
-          rnd(E, scale=0.1), x), ()),
+          rnd(E, scale=0.1), x), (), 2 * B * s * E * E, None),
         ("ffn", fe.ffn, fe.ffn_plain,
          (x, rnd(E, F, scale=E ** -0.5), rnd(F, scale=0.1),
-          rnd(F, E, scale=F ** -0.5), rnd(E, scale=0.1), ln), ()),
+          rnd(F, E, scale=F ** -0.5), rnd(E, scale=0.1), ln), (),
+         4 * B * s * E * F, None),
     ]
 
 
@@ -258,12 +434,10 @@ def check_kernels(card):
     g.manual_seed(SEED)
     rows = {}
     for s in (128, 512):
-        for name, kern, plain, bf_in, extra in kernel_cases(s, g):
-            err, ms, plain_ms = compare(f"{name} S={s}", kern, plain, bf_in,
-                                        card, extra)
-            row = rows.setdefault(name, {"max_abs_err": 0.0})
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            row["ms"], row["plain_ms"] = ms, plain_ms   # S=512 is kept
+        for name, kern, plain, bf_in, extra, flops, lib in kernel_cases(s, g):
+            keep(rows, name, compare(f"{name} S={s}", kern, plain, bf_in,
+                                     card, extra, flops=flops, library=lib),
+                 s == 512)
     return rows
 
 
@@ -318,11 +492,9 @@ def check_slice(card):
         batch_size=batch, examples=examples, log_fn=lambda *_: None)
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"launches {counts}", flush=True)
-    for name, n in counts.items():
-        want = cfg.esm.num_layers * n_batches if name in fe.launches else 0
-        if n != want:
-            fail(f"{name} launched {n} times, expected {want}")
+    expect_counts("slice", counts, flash_attention=cfg.llm.num_layers
+                  * n_batches, **{n: cfg.esm.num_layers * n_batches
+                                  for n in fe.launches})
     if len(rep.results) != len(examples) or not all(
             isinstance(r["generated"], str) for r in rep.results):
         fail("the runner did not answer every request")
@@ -378,6 +550,18 @@ def _clone(tree):
     return tree.clone() if hasattr(tree, "clone") else tree
 
 
+def _norms_to_fp32(llm):
+    """The decoder tree with its embedding and norms in fp32; projections
+    (bf16, int8 or int4 leaves) stay as they are."""
+    small = ("embed_tokens", "final_norm", "attn_norm", "ffn_norm")
+    if isinstance(llm, list):
+        return [_norms_to_fp32(v) for v in llm]
+    if not isinstance(llm, dict):
+        return llm
+    return {k: ({kk: vv.float() for kk, vv in v.items()} if k in small
+                else _norms_to_fp32(v)) for k, v in llm.items()}
+
+
 def check_decode_step(params, cfg, examples, quantize):
     """One decode step over a prefilled quantized cache: kernels
     (impl="auto", bf16) and plain (impl="torch", bf16) against the plain
@@ -420,13 +604,7 @@ def check_decode_step(params, cfg, examples, quantize):
             lg, _ = decoder.forward(llm, lcfg, emb, step["positions"],
                                     step["mask4"], _clone(cache), impl=impl)
             out[impl] = lg[:, 0].float()
-        small = ("embed_tokens", "final_norm", "attn_norm", "ffn_norm")
-        to32 = lambda t: ({k: (to32(v) if k not in small else
-                               {kk: vv.float() for kk, vv in v.items()})
-                           for k, v in t.items()} if isinstance(t, dict)
-                          else [to32(v) for v in t] if isinstance(t, list)
-                          else t)
-        lg, _ = decoder.forward(to32(llm), dataclasses.replace(
+        lg, _ = decoder.forward(_norms_to_fp32(llm), dataclasses.replace(
             lcfg, dtype="float32"), emb.float(), step["positions"],
             step["mask4"], _clone(cache), impl="torch")
         ref = lg[:, 0]
@@ -450,7 +628,6 @@ def check_quant_slice(card, params, cfg, examples, gen):
     import torch
     from opus_pllm_tpu_torch.evals import runner
     from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
-    from opus_pllm_tpu_torch.kernels import decode_attention as da
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
     from opus_pllm_tpu_torch.kernels import quant4
 
@@ -479,14 +656,12 @@ def check_quant_slice(card, params, cfg, examples, gen):
         torch.cuda.synchronize()
         counts = read_counts()
         steps = rep.decode_tokens // batch       # every batch is full here
-        want = {n: cfg.esm.num_layers * n_batches for n in fe.launches}
-        want["int4_matmul"] = n_batches + steps * per_step
-        for name in da.launches:
-            want[name] = (steps * cfg.llm.num_layers
-                          if name == f"decode_attention_{kind}" else 0)
-        print(f"{kind} cache: launches {counts}", flush=True)
-        if counts != want:
-            fail(f"{kind} cache: launches {counts}, expected {want}")
+        expect_counts(
+            f"{kind} cache", counts,
+            int4_matmul=n_batches + steps * per_step,
+            flash_attention=cfg.llm.num_layers * n_batches,
+            **{f"decode_attention_{kind}": steps * cfg.llm.num_layers},
+            **{n: cfg.esm.num_layers * n_batches for n in fe.launches})
         if len(rep.results) != n_req or not all(
                 isinstance(r["generated"], str) for r in rep.results):
             fail(f"{kind} cache: the runner did not answer every request")
@@ -504,6 +679,205 @@ def check_quant_slice(card, params, cfg, examples, gen):
         stats[kind] = counts
         check_decode_step(params, cfg, examples, kind)
     return stats
+
+
+def check_prefill_group(params, cfg, examples):
+    """One admission group's prefill as the serving engine runs it (the
+    valid tails of the spliced prompts, zero-padded to one bucket, the
+    admission mask, a scratch cache), then the head on each row's last
+    position: kernels (impl="auto", bf16: flash_attention and int8_matmul)
+    and plain (impl="torch", bf16) against the plain path in fp32 (fp32
+    activations, embedding and norms; the same int8 weights)."""
+    import dataclasses
+    import torch
+    from opus_pllm_tpu_torch.core.util import round_up
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.models import decoder, opus
+    from opus_pllm_tpu_torch.serve.engine import admission_inputs
+    n = len(examples)
+    ids, mask, esm_toks = runner._prepare_inputs(
+        ByteTokenizer(), [runner.annotation_prompt(runner.ds.instruction_for(
+            e, "synthetic_keywords.json")) for e in examples],
+        [e.sequence for e in examples], prompt_bucket=64, esm_bucket=128,
+        device="cuda")
+    llm, lcfg = params["llm"], cfg.llm
+    with torch.no_grad():
+        sp = opus.splice_prompt_left(params, cfg, ids, mask, esm_toks)
+        n_valid = sp.mask.sum(1)
+        bucket = round_up(int(n_valid.max()), 64)
+        embs = torch.zeros((n, bucket, lcfg.hidden_size), dtype=sp.embeds.dtype,
+                           device="cuda")
+        for r in range(n):
+            tail = sp.embeds[r, sp.mask[r]]
+            embs[r, :tail.shape[0]] = tail
+        pos, mask4 = admission_inputs(n_valid, bucket)
+        rows = torch.arange(n, device="cuda")
+
+        def last_logits(tree, c, x, impl):
+            cache = decoder.init_cache(c, n, bucket, device="cuda")
+            hid, _ = decoder.forward(tree, c, x, pos, mask4, cache,
+                                     impl=impl, return_hidden=True)
+            h = hid[rows, n_valid - 1][:, None]
+            return decoder.head_logits(tree, c, h, impl=impl)[:, 0].float()
+
+        got = last_logits(llm, lcfg, embs, "auto")
+        plain = last_logits(llm, lcfg, embs, "torch")
+        ref = last_logits(_norms_to_fp32(llm),
+                          dataclasses.replace(lcfg, dtype="float32"),
+                          embs.float(), "torch")
+    err = (got - ref).abs().max().item()
+    err_plain = (plain - ref).abs().max().item()
+    tol = 2 * err_plain + ATOL
+    print(f"serving prefill group ({n} rows, bucket {bucket}, M = "
+          f"{n * bucket}): vs fp32 plain: kernels {err:.3e}, bf16 plain "
+          f"{err_plain:.3e} (tol {tol:.3e}); max|logit| "
+          f"{ref.abs().max().item():.3e}", flush=True)
+    if not (torch.isfinite(got).all() and err <= tol):
+        fail(f"serving prefill through the kernels: {err:.3e} from the fp32 "
+             f"plain path, above {tol:.3e}")
+
+
+def check_serve_slice(card, params, cfg, gen):
+    """The int8 LLM behind the serving engine: 32 requests with a bf16
+    cache, 8 with an int8 cache (module docstring, phase 6)."""
+    import dataclasses
+    import torch
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.kernels import quant, quant4
+    from opus_pllm_tpu_torch.models import decoder
+
+    params["llm"] = None                      # the int4 LLM of phase 5
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params["llm"] = quant.quantize_decoder(
+        decoder.init(cfg.llm, generator=g, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    layout = quant4.quant_layout_of(params["llm"])
+    print(f"init + quantize_decoder {time.perf_counter() - t0:.1f} s, "
+          f"layout {layout}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"of weights on the card", flush=True)
+    if layout != "int8":
+        fail(f"quantized LLM has layout {layout}")
+    tok, splice_batch = ByteTokenizer(), 8
+    examples = synthetic_examples(SERVE_REQUESTS)
+    layers = cfg.llm.num_layers
+    stats = {}
+    for kind, n_req in ((False, SERVE_REQUESTS), ("int8", 8)):
+        label = f"{kind or 'bf16'} cache"
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rep = runner.run_annotation_eval_engine(
+            params, cfg, tok, "synthetic_keywords.json",
+            gen=dataclasses.replace(gen, quantize_cache=kind),
+            max_slots=SERVE_SLOTS, steps_per_tick=SERVE_STEPS,
+            splice_batch=splice_batch, examples=examples[:n_req],
+            log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        eng = rep.engine
+        prefills, steps = eng["prefills"], eng["decode_steps"]
+        want = {n: cfg.esm.num_layers * -(-n_req // splice_batch)
+                for n in fe.launches}
+        if kind:
+            want[f"decode_attention_{kind}"] = layers * steps
+        expect_counts(f"serving, {label}", counts,
+                      flash_attention=layers * prefills,
+                      int8_matmul=7 * layers * prefills, **want)
+        if len(rep.results) != n_req or eng["completions"] != n_req \
+                or not all(isinstance(r["generated"], str)
+                           for r in rep.results):
+            fail(f"serving, {label}: not every request was answered")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"serving slice, int8 weights + {label}: {n_req} entries in "
+              f"{rep.seconds:.2f} s, entries/s {rep.entries_per_sec:.3f}; "
+              f"{rep.decode_tokens} tokens in {rep.decode_seconds:.2f} s of "
+              f"engine time = {rep.decode_tokens / rep.decode_seconds:.1f} "
+              f"tok/s; {prefills} prefills, {eng['ticks']} ticks "
+              f"({steps} decode steps), {eng['parked']} parked; TTFT p50 <= "
+              f"{eng['ttft_p50']} s, p99 <= {eng['ttft_p99']} s, mean "
+              f"{eng['ttft_mean']:.3f} s; peak {peak:.2f} GiB on the card "
+              f"[{card}]", flush=True)
+        print(f"sample output: {rep.results[0]['generated'][:60]!r}",
+              flush=True)
+        stats[label] = counts
+    check_prefill_group(params, cfg, examples[:SERVE_SLOTS])
+    return stats["bf16 cache"]
+
+
+def profile_serving(card):
+    """The serving slice's device-time breakdown (module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opus_pllm_tpu_torch.core.config import (ESM2Config, GenerationConfig,
+                                                 OpusConfig)
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import quant
+    from opus_pllm_tpu_torch.models import opus
+
+    cfg = OpusConfig(esm=ESM2Config(dtype="bfloat16"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    params = opus.init(cfg, generator=g, device="cuda")
+    params["llm"] = quant.quantize_decoder(params["llm"])
+    torch.cuda.empty_cache()
+    tok = ByteTokenizer()
+    gen = GenerationConfig(max_new_tokens=64, temperature=0.1, top_p=0.7,
+                           eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id, seed=SEED)
+    examples = synthetic_examples(SERVE_REQUESTS)
+
+    def run(n):
+        rep = runner.run_annotation_eval_engine(
+            params, cfg, tok, "synthetic_keywords.json", gen=gen,
+            max_slots=SERVE_SLOTS, steps_per_tick=SERVE_STEPS,
+            examples=examples[:n], log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        print(f"{n} requests: {rep.seconds:.3f} s wall, engine "
+              f"{rep.decode_seconds:.3f} s for {rep.engine['decode_steps']} "
+              f"decode steps and {rep.engine['prefills']} prefills "
+              f"[{card}]", flush=True)
+
+    for _ in range(2):
+        run(SERVE_REQUESTS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(SERVE_SLOTS)
+        wall = 1e3 * (time.perf_counter() - t0)
+    # device kernels and copies only: a CPU op's self device time repeats
+    # the time of the kernels it launched
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3
+    kernels = sorted((e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA") and dev(e) > 0),
+                     key=dev, reverse=True)
+    busy = sum(dev(e) for e in kernels)
+    # casts and multiplies: mostly the M=17 dequantize route's
+    # int8->bf16 cast and scale multiply, with every other cast / multiply
+    groups = {"casts (direct_copy_kernel)": "direct_copy_kernel",
+              "multiplies (MulFunctor)": "MulFunctor",
+              "int8_matmul_kernel": "int8_matmul_kernel",
+              "flash_fwd_kernel": "flash_fwd_kernel",
+              "cuBLAS (nvjet / gemm)": ("nvjet", "gemmSN", "gemv")}
+    print(f"profiled: {wall:.1f} ms wall, {busy:.1f} ms of device time in "
+          f"{sum(e.count for e in kernels)} kernels and copies ("
+          f"{100 * busy / wall:.1f}% of the profiled wall) [{card}]",
+          flush=True)
+    for label, keys in groups.items():
+        keys = (keys,) if isinstance(keys, str) else keys
+        hit = [e for e in kernels if any(k in e.key for k in keys)]
+        print(f"  {label:38s} {sum(dev(e) for e in hit):10.3f} ms in "
+              f"{sum(e.count for e in hit)} launches", flush=True)
+    for e in kernels[:20]:
+        print(f"  {dev(e):10.3f} ms  {e.count:7d} x  {e.key[:100]}",
+              flush=True)
 
 
 def main():
@@ -544,16 +918,24 @@ def main():
     for line in build.build_log.splitlines():
         if line.startswith("[") or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
+    if "--profile-serving" in sys.argv[1:]:
+        phase("serving profile")
+        profile_serving(card)
+        return
 
     phase("kernels vs plain")
     rows = check_kernels(card)
     rows.update(check_quant_kernels(card))
+    rows.update(check_serve_kernels(card))
 
     phase("slice")
     counts, params, cfg, examples, gen = check_slice(card)
 
     phase("quantized slice")
     qcounts = check_quant_slice(card, params, cfg, examples, gen)
+
+    phase("serving slice")
+    scounts = check_serve_slice(card, params, cfg, gen)
 
     kernels = [{"name": n, "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNELS[n], "launches": counts[n]}
@@ -562,9 +944,13 @@ def main():
                  "launches": qcounts["int8" if n.endswith("int8")
                                      else "int4"][n]}
                 for n, (tpu, src) in QUANT_KERNELS.items()]
+    kernels += [{"name": n, "route": "cuda", "source": src, "replaces": tpu,
+                 "launches": scounts[n]}
+                for n, (tpu, src) in SERVE_KERNELS.items()]
     for k in kernels:
         k.update({key: rows[k["name"]][key]
-                  for key in ("max_abs_err", "ms", "plain_ms")})
+                  for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

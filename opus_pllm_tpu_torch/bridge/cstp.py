@@ -9,11 +9,14 @@ from __future__ import annotations
 import torch
 
 from ..core.config import CSTPConfig
+from ..core.util import resolve_device
 from ..models.layers import dense, dense_init
 
 
 def init(cfg: CSTPConfig, *, generator: torch.Generator, device=None):
-    kw = dict(generator=generator, device=device, dtype=torch.float32,
+    """Random fp32 projections on `device` (None: CUDA)."""
+    kw = dict(generator=generator, device=resolve_device(device),
+              dtype=torch.float32,
               bias=True)
     return {"protein_projection": dense_init(cfg.protein_dim, cfg.proj_dim,
                                              **kw),

@@ -10,12 +10,15 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SwitchProjectorConfig
+from ..core.util import resolve_device
 from ..models.layers import dense, dense_init, gelu
 
 
 def init(cfg: SwitchProjectorConfig, *, generator: torch.Generator,
          device=None):
-    kw = dict(generator=generator, device=device, dtype=torch.float32,
+    """Random fp32 layers on `device` (None: CUDA)."""
+    kw = dict(generator=generator, device=resolve_device(device),
+              dtype=torch.float32,
               bias=True)
     layers = [dense_init(cfg.input_dim, cfg.output_dim, **kw)]
     for _ in range(1, cfg.mlp_depth):

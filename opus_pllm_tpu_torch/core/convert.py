@@ -16,18 +16,21 @@ What changes on the way, and nothing else:
     (3, E, E)) is taken as it is.
   * Linear kernels stay (in, out): the port multiplies x @ kernel as the
     JAX package does, so no kernel is transposed.
-  * int4 v2 decoder leaves ("kernel_p" int32 words, "gscale" fp32) are
-    copied as they are: the port keeps the JAX storage layout
-    (kernels/quant4.py).
-int8 weights ("kernel_q"), int4 v1 nibble bytes ("kernel_p" int8), any
-quantized ESM2 leaf and fused decoder projections are not ported yet and
-raise NotImplementedError.
+  * int8 decoder leaves ("kernel_q" int8, "scale" fp32; kernels/quant.py)
+    and int4 v2 ones ("kernel_p" int32 words, "gscale" fp32;
+    kernels/quant4.py) are copied as they are: the port keeps the JAX
+    storage layouts.
+int4 v1 nibble bytes ("kernel_p" int8), any quantized ESM2 leaf and fused
+decoder projections are not ported yet and raise NotImplementedError.
+`device=None` puts the parameters on CUDA (core.util.resolve_device).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .util import resolve_device
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -67,20 +70,23 @@ def _unstack(tree: dict) -> dict:
     return out
 
 
-def _refuse_quantized(tree, where: str, *, int4_v2: bool = False) -> None:
-    """Raise on quantized leaves the port cannot run; with `int4_v2`, int32
-    "kernel_p" words pass."""
+def _refuse_quantized(tree, where: str, *, decoder: bool = False) -> None:
+    """Raise on quantized leaves the port cannot run; in a decoder tree,
+    int8 "kernel_q" and int32 (v2) "kernel_p" leaves pass."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            if k == "kernel_q" or (k == "kernel_p" and not (
-                    int4_v2 and np.asarray(v).dtype == np.int32)):
+            dt = np.asarray(v).dtype if k in ("kernel_q", "kernel_p") \
+                else None
+            ok = decoder and ((k == "kernel_q" and dt == np.int8)
+                              or (k == "kernel_p" and dt == np.int32))
+            if dt is not None and not ok:
                 raise NotImplementedError(
                     f"quantized weights ({where}.{k}, dtype "
                     f"{np.asarray(v).dtype}) are not ported yet")
-            _refuse_quantized(v, f"{where}.{k}", int4_v2=int4_v2)
+            _refuse_quantized(v, f"{where}.{k}", decoder=decoder)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            _refuse_quantized(v, f"{where}[{i}]", int4_v2=int4_v2)
+            _refuse_quantized(v, f"{where}[{i}]", decoder=decoder)
 
 
 def _esm_layer(lp: dict) -> dict:
@@ -102,14 +108,14 @@ def _esm_layer(lp: dict) -> dict:
 
 def esm2_from_jax(tree: dict, device=None) -> dict:
     _refuse_quantized(tree, "esm")
-    t = _unstack(_tree(tree, device))
+    t = _unstack(_tree(tree, resolve_device(device)))
     return {"embed_tokens": t["embed_tokens"], "final_norm": t["final_norm"],
             "layers": [_esm_layer(lp) for lp in t["layers"]]}
 
 
 def decoder_from_jax(tree: dict, device=None) -> dict:
-    _refuse_quantized(tree, "llm", int4_v2=True)
-    t = _unstack(_tree(tree, device))
+    _refuse_quantized(tree, "llm", decoder=True)
+    t = _unstack(_tree(tree, resolve_device(device)))
     for lp in t["layers"]:
         if "qkv_proj" in lp or "gateup_proj" in lp:
             raise NotImplementedError(
@@ -120,7 +126,8 @@ def decoder_from_jax(tree: dict, device=None) -> dict:
 
 def from_jax(tree: dict, device=None) -> dict:
     """JAX Opus parameter tree {"esm", "cstp"?, "switch", "llm"} with numpy
-    leaves -> the port's parameters on `device`."""
+    leaves -> the port's parameters on `device` (None: CUDA)."""
+    device = resolve_device(device)
     out = {"esm": esm2_from_jax(tree["esm"], device),
            "switch": _tree(tree["switch"], device),
            "llm": decoder_from_jax(tree["llm"], device)}

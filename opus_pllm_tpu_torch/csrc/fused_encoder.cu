@@ -29,6 +29,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -311,24 +313,9 @@ constexpr int AKV = 64;         // keys per iteration
 constexpr int KV_LD = HD + 8;   // padded smem row stride (144 bytes)
 constexpr int ATT_THREADS = 128;
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+using opus_mma::mma16816;
+using opus_mma::pack_bf16;
+using opus_mma::pack_raw;
 
 // key codes in shared memory: 0 attend, 1 masked (logit -> -1e30 as the TPU
 // kernel does), 2 past the end of the sequence (dropped entirely)

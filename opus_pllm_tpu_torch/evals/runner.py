@@ -1,7 +1,8 @@
-"""Batch annotation eval (port of the static path of
-`opus_pllm_tpu/evals/runner.py`: `run_annotation_eval` :193,
-`_prepare_from_ids` :51, `_prepare_inputs` :65, `_generate_spliced` :130,
-`_pad_chunk` :464).
+"""Batch annotation eval (port of `opus_pllm_tpu/evals/runner.py`: the
+static path `run_annotation_eval` :193, `_prepare_from_ids` :51,
+`_prepare_inputs` :65, `_generate_spliced` :130, `_pad_chunk` :464; and
+the serving-engine path `run_annotation_eval_engine` :372,
+`_engine_generate` :275, `_check_engine_gen` :249).
 
 Each batch: tokenize the annotation prompts with one `<seq>` sentinel,
 left-pad them to a multiple of `prompt_bucket` and the ESM tokens to a
@@ -10,10 +11,14 @@ embeddings (`opus.splice_prompt`), generate with the KV-cache engine and
 cut the text at "###". Reports entries/sec as the reference does
 (run_opus_ddp.py:143).
 
+The engine path (CLI `annotate --engine`) splices every request in
+static batches, then drives `serve.engine.ServingEngine` to completion:
+each sequence ends on its own and the next prompt takes its slot.
+
 Not ported yet (ROADMAP.md): beam search, the speculative draft, the
-device meshes, the prefetch thread, multi-host gathering and
-`compute_metrics` (its scorers need nltk and rouge_score); `metrics` is
-returned empty.
+device meshes, the prefetch thread, multi-host gathering, the engine's
+prefix cache, LoRA bank and engine reuse, and `compute_metrics` (its
+scorers need nltk and rouge_score); `metrics` is returned empty.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -40,8 +45,11 @@ class EvalReport:
     metrics: dict
     entries_per_sec: float
     seconds: float
-    decode_tokens: int = 0        # decode steps x batch rows, all batches
-    decode_seconds: float = 0.0   # wall time inside the decode loops
+    # static path: decode steps x batch rows, and the decode loops' wall
+    # time; engine path: tokens generated, and the engine's wall time
+    decode_tokens: int = 0
+    decode_seconds: float = 0.0
+    engine: Optional[dict] = None  # engine path: counters and TTFTs
 
 
 def _prepare_from_ids(tokenizer, tok_ids, sequences, *, prompt_bucket: int,
@@ -154,3 +162,127 @@ def run_annotation_eval(params, cfg: OpusConfig, tokenizer, file_path: str,
         with open(save_path, "w") as f:
             json.dump(results, f, indent=1)
     return EvalReport(results, {}, eps, dt, decode_tokens, decode_seconds)
+
+
+def _check_engine_gen(gen: GenerationConfig) -> None:
+    if gen.num_beams > 1:
+        raise ValueError("beam search needs the static path (drop --engine)")
+    if gen.draft_layers > 0:
+        from ..serve.engine import not_ported
+        raise not_ported("draft_layers (speculative ticks)")
+
+
+def _engine_generate(params, cfg: OpusConfig, tokenizer, prompts, sequences,
+                     gen: GenerationConfig, *, max_slots: int,
+                     steps_per_tick: int, splice_batch: int,
+                     prompt_bucket: int, esm_bucket: int
+                     ) -> Tuple[List[List[int]], dict]:
+    """Splice every (prompt, protein) pair in batches of `splice_batch`,
+    drive the serving engine to completion, return the token lists in input
+    order and the engine's numbers (runner.py:275-369 without the prefix
+    cache, LoRA bank, mesh and engine reuse)."""
+    from ..serve.engine import ServeRequest, ServingEngine
+
+    if not prompts:
+        return [], {}
+    device = params["llm"]["embed_tokens"]["embedding"].device
+    bos = getattr(tokenizer, "bos_token_id", None)
+    tok_ids = [tokenize_with_seq(p, tokenizer.encode, bos) for p in prompts]
+    # 1) splice in static batches; each row's valid (left-padded) tail
+    #    stays on the device as that request's prompt
+    embeds = []
+    for s in range(0, len(tok_ids), splice_batch):
+        pch, n_real = _pad_chunk(tok_ids[s:s + splice_batch], splice_batch)
+        sch, _ = _pad_chunk(sequences[s:s + splice_batch], splice_batch)
+        ids, mask, esm_toks = _prepare_from_ids(
+            tokenizer, pch, sch, prompt_bucket=prompt_bucket,
+            esm_bucket=esm_bucket, device=device)
+        sp = opus.splice_prompt_left(params, cfg, ids, mask, esm_toks)
+        valid = sp.mask.cpu()
+        embeds.extend(sp.embeds[r, valid[r].nonzero()[:, 0].to(device)]
+                      for r in range(n_real))
+
+    # 2) size the engine to the workload: buckets up to the longest
+    #    prompt, capacity = largest bucket + budget
+    longest = max(e.shape[0] for e in embeds)
+    buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048)
+                    if b < longest) + (round_up(longest, 64),)
+    eng = ServingEngine(params["llm"], cfg.llm, max_slots=max_slots,
+                        max_len=buckets[-1] + gen.max_new_tokens,
+                        prefill_buckets=buckets,
+                        steps_per_tick=steps_per_tick,
+                        quantize_cache=gen.quantize_cache, seed=gen.seed)
+    engine._sync(device)
+    t0 = time.perf_counter()
+    done = eng.run([ServeRequest(i, embeds=e,
+                                 max_new_tokens=gen.max_new_tokens,
+                                 temperature=gen.temperature,
+                                 top_p=gen.top_p if gen.do_sample else 1.0,
+                                 eos_token_id=gen.eos_token_id)
+                    for i, e in enumerate(embeds)])
+    engine._sync(device)
+    ttft = eng.latency["ttft"]
+    stats = dict(eng.counters, seconds=time.perf_counter() - t0,
+                 ticks=eng._tick,
+                 decode_steps=eng._tick * eng.steps_per_tick,
+                 ttft_p50=ttft.percentile(0.5), ttft_p99=ttft.percentile(0.99),
+                 ttft_mean=ttft.mean)
+    return [done[i].tokens for i in range(len(embeds))], stats
+
+
+@torch.no_grad()
+def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
+                               file_path: str, *,
+                               gen: Optional[GenerationConfig] = None,
+                               max_slots: int = 16, steps_per_tick: int = 4,
+                               splice_batch: int = 8, prompt_bucket: int = 64,
+                               esm_bucket: int = 128,
+                               save_path: Optional[str] = None,
+                               examples=None, lora_bank=None,
+                               adapter_id: Optional[str] = None,
+                               engine_cache: Optional[dict] = None,
+                               mesh=None, cache_prefix: bool = False,
+                               log_fn=print) -> EvalReport:
+    """Annotation eval through the continuous-batching serving engine (CLI
+    `annotate --engine`, defaults 16 slots and 4 steps a tick). Greedy
+    output is token-identical to `run_annotation_eval`; T > 0 samples with
+    per-request temperature and top_p. Runs on the device that holds the
+    parameters. `decode_tokens` / `decode_seconds` are the engine's tokens
+    and wall time, `engine` its counters and TTFT percentiles."""
+    from ..serve.engine import not_ported
+    for what, asked in (
+            ("lora_bank / adapter_id (the LoRA bank)",
+             lora_bank is not None or adapter_id is not None),
+            ("engine_cache (engine reuse)", engine_cache is not None),
+            ("mesh", mesh is not None),
+            ("cache_prefix (the prefix cache)", cache_prefix)):
+        if asked:
+            raise not_ported(what)
+    if examples is None:
+        examples = ds.load_annotation_json(file_path)
+    gen = gen or GenerationConfig(
+        max_new_tokens=ds.max_new_tokens_for(file_path),
+        eos_token_id=getattr(tokenizer, "eos_token_id", -1),
+        pad_token_id=getattr(tokenizer, "pad_token_id", 0))
+    _check_engine_gen(gen)
+
+    t0 = time.perf_counter()
+    prompts = [annotation_prompt(ds.instruction_for(e, file_path),
+                                 VICUNA_V0) for e in examples]
+    done, stats = _engine_generate(
+        params, cfg, tokenizer, prompts, [e.sequence for e in examples], gen,
+        max_slots=max_slots, steps_per_tick=steps_per_tick,
+        splice_batch=splice_batch, prompt_bucket=prompt_bucket,
+        esm_bucket=esm_bucket)
+    results = [{"ground_truth": e.output,
+                "generated": truncate_at_sep(tokenizer.decode(toks))}
+               for e, toks in zip(examples, done)]
+    dt = time.perf_counter() - t0
+
+    eps = len(results) / dt if dt > 0 else 0.0
+    log_fn(f"entries/sec: {eps:.3f}, time elapsed: {dt:.1f}s")
+    if save_path:
+        with open(save_path, "w") as f:
+            json.dump(results, f, indent=1)
+    return EvalReport(results, {}, eps, dt, stats.get("tokens", 0),
+                      stats.get("seconds", 0.0), stats)

@@ -1,7 +1,9 @@
 """Batched KV-cache generation (port of `opus_pllm_tpu/infer/engine.py`).
 
 `cache_capacity` (engine.py:44), `advance_sampling` (:63), `nucleus_kth`
-(:90), `sample_token` (:133) and `generate` (:207). Left-padded prompt
+(:90), `sample_token` (:133), the serving engine's per-row sampler
+(`warp_logits_rows` :150, `warp_probs_rows` :179, `sample_token_rows`
+:188) and `generate` (:207). Left-padded prompt
 embeddings in, greedy or temperature + nucleus sampling out; the reference's
 quirk `do_sample iff temperature > 0` is kept. The JAX `lax.while_loop`
 becomes a Python loop with the same early exit once every row is done;
@@ -72,9 +74,58 @@ def sample_token(logits, generator: torch.Generator, temperature: float,
         kth = nucleus_kth(probs, top_p)
         logits = torch.where(probs >= kth[:, None], logits,
                              torch.full_like(logits, float("-inf")))
+    return _categorical(logits, generator)
+
+
+def _categorical(logits, generator: torch.Generator):
+    """One draw per row from softmax(logits) (Gumbel-max)."""
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     return torch.argmax(logits + gumbel, dim=-1).int()
+
+
+def warp_logits_rows(logits, temps, top_ps, *, nucleus: bool = True):
+    """Per-row temperature scaling + HF nucleus mask over (..., V) fp32
+    logits; temps/top_ps (tensors) broadcast to logits.shape[:-1]. The one
+    definition of the serving engine's sampling distribution.
+
+    Greedy rows (temperature <= 0) pass through UNWARPED by the nucleus:
+    they are divided by 1e-6 and left whole, because `sample_token_rows`
+    gives them the argmax. The nucleus pass runs for rows with top_p < 1
+    and temperature > 0. `nucleus=False` skips it for the whole batch: the
+    caller decides it from its host state (the JAX `lax.cond` over
+    any(need), without a device-to-host read); it must be True whenever
+    any row needs the pass."""
+    t = torch.as_tensor(temps, dtype=torch.float32,
+                        device=logits.device).expand(logits.shape[:-1])
+    tp = torch.as_tensor(top_ps, dtype=torch.float32,
+                         device=logits.device).expand(logits.shape[:-1])
+    lg = logits.float() / torch.clamp_min(t, 1e-6)[..., None]
+    if not nucleus:
+        return lg
+    need = (tp < 1.0) & (t > 0.0)
+    probs = torch.softmax(lg, dim=-1)
+    kth = nucleus_kth(probs, tp)
+    drop = need[..., None] & (probs < kth[..., None])
+    return torch.where(drop, torch.full_like(lg, float("-inf")), lg)
+
+
+def warp_probs_rows(logits, temps, top_ps, *, nucleus: bool = True):
+    """softmax of `warp_logits_rows`: the distribution sampled from."""
+    return torch.softmax(warp_logits_rows(logits, temps, top_ps,
+                                          nucleus=nucleus), dim=-1)
+
+
+def sample_token_rows(logits, generator: torch.Generator, temps, top_ps, *,
+                      nucleus: bool = True):
+    """Per-row temperature + nucleus sampling over (B, V) fp32 logits, each
+    row with its own temperature and top_p; rows with temperature <= 0 take
+    the argmax. Randomness from `generator`."""
+    greedy = torch.argmax(logits, dim=-1).int()
+    sampled = _categorical(warp_logits_rows(logits, temps, top_ps,
+                                            nucleus=nucleus), generator)
+    t = torch.as_tensor(temps, device=logits.device)
+    return torch.where(t > 0, sampled, greedy)
 
 
 def advance_sampling(step: int, done, cur_logits, generator, out, tail,

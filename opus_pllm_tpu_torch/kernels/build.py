@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures per source (every entry point returns a cudaError_t as int;
 # the last argument is the stream)
 SIGNATURES = {
@@ -45,6 +46,13 @@ SIGNATURES = {
     "decode_attention": {
         "opus_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _P],
+    },
+    "int8_matmul": {
+        "opus_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "opus_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 12
+                                + [_I, _F, _P],
     },
 }
 

@@ -1,0 +1,166 @@
+"""Flash attention forward: a hand-written Hopper kernel and its plain
+version.
+
+Port of `opus_pllm_tpu/kernels/flash_attention.py` (the forward;
+`flash_attention_bwd` comes with the training slice). The CUDA source is
+`opus_pllm_tpu_torch/csrc/flash_attention.cu` (built and loaded by
+`kernels/build.py`).
+
+flash_attention
+  Replaces: flash_attention.py `_flash_impl` / `_kernel` (pallas_call at
+  :257, kernel body :64-115).
+  Computes: GQA attention with scale 1/sqrt(D): fp32 logits, -1e30 where
+  the (B, 1, Sq, Skv) bool mask is false or (causal) the key index exceeds
+  the query index, an online softmax with fp32 statistics, out in q's
+  dtype and, on request, lse = m + log(max(l, 1e-30)) in fp32, (B, Hq, Sq).
+  With causal=True whole KV blocks above the diagonal are skipped, so a
+  row with no valid key averages over the blocks that ran.
+  Bound (H100): the bf16 tensor cores, 4 * B * Hq * Sq * Skv * D FLOP
+  (26.8 GFLOP at the serving prefill, ~27 us a layer at 989 TFLOP/s; q, k,
+  v, mask and out are ~34 MB there, 5 us at 3.35 TB/s).
+  Design: see the source. One CTA of 4 warps per 64 query rows of one head
+  and batch row; q in registers; 64-key K/V tiles and their mask tile in
+  shared memory; mma.sync m16n8k16 for QK^T and PV; any Sq and Skv (the
+  ragged last tiles are masked, where the TPU kernel needs multiples of
+  its 256 blocks); GQA by reading KV head h / G; q, k and v read through
+  their (B, S, H, D) strides, so no transpose is made.
+
+Dispatch: `supports` is the port's gate for `models.layers.attention`:
+bf16 q on CUDA, a broadcast (B, 1, Sq, Skv) bool mask or none, D % 128 ==
+0 (the JAX package's performance rule; the kernel is instantiated for
+D = 128, and D = 64 runs when called directly), Hq % Hkv == 0 and Sq > 1.
+No block-multiple rule (the JAX gate's `sq % 256` is a Mosaic tiling rule).
+`flash_attention` on CPU tensors runs the plain version; on CUDA tensors it
+launches the kernel or raises. Launches are counted in `launches`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+
+NEG_LARGE = -1e30       # exp(NEG_LARGE - m) == 0 in fp32 (flash_attention.py:27)
+HEAD_DIMS = (64, 128)   # the kernel's template instances
+KERNEL_BLOCK = 64       # query rows and keys per tile of the CUDA kernel
+
+launches = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _check_mask(mask):
+    if mask is not None and mask.shape[1] != 1:
+        raise ValueError(
+            f"flash_attention takes a broadcast (B, 1, Sq, Skv) mask; got "
+            f"head dim {mask.shape[1]}; use attention_xla for per-head masks")
+
+
+def supports(q, k, mask) -> bool:
+    """The shapes `layers.attention(impl="auto")` sends to the kernel."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    if mask is not None and (mask.dim() != 4 or mask.shape[1] != 1
+                             or mask.dtype != torch.bool):
+        return False
+    return (q.is_cuda and q.dtype == torch.bfloat16 and d % 128 == 0
+            and d in HEAD_DIMS and hq % hkv == 0 and sq > 1)
+
+
+def flash_attention_plain(q, k, v, mask=None, *, causal: bool = False,
+                          return_lse: bool = False,
+                          block_q: int = KERNEL_BLOCK,
+                          block_k: int = KERNEL_BLOCK):
+    """The kernel's function in plain PyTorch (flash_attention.py `_kernel`
+    :64-115 as one pass): fp32 logits of q * scale against k, -1e30 for
+    masked and (causal) above-diagonal keys, keys of KV blocks wholly above
+    a query block's diagonal dropped (causal), fp32 softmax statistics.
+    `block_q`/`block_k` are the tiles whose skipping is modelled: the CUDA
+    kernel's 64 by default, the TPU kernel's by choice."""
+    _check_mask(mask)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf = (q.float() * scale).reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    if causal:
+        s = torch.where(rows >= cols, s, torch.full_like(s, NEG_LARGE))
+    if mask is not None:
+        s = torch.where(mask[:, :, None], s, torch.full_like(s, NEG_LARGE))
+    if causal:
+        bq, bk = min(block_q, sq), min(block_k, skv)
+        ran = (rows // bq) * bq + bq - 1 >= (cols // bk) * bk
+        s = torch.where(ran, s, torch.full_like(s, float("-inf")))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
+    out = out.reshape(b, sq, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(l)).reshape(b, hq, sq)
+    return out, lse
+
+
+def _strides(name, t, want):
+    if t.dtype != torch.bfloat16 or t.device != want or t.stride(-1) != 1 \
+            or any(st % 8 for st in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} must be bf16 on {want} "
+                         "with a contiguous head dim and 16-byte aligned "
+                         "rows")
+    return t.stride()[:3]
+
+
+def _kernel(q, k, v, mask, causal, return_lse):
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if (d not in HEAD_DIMS or k.shape != (b, skv, hkv, d)
+            or v.shape != k.shape or hq % hkv):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    strides = [st for name, t in (("q", q), ("k", k), ("v", v))
+               for st in _strides(name, t, q.device)]
+    if mask is not None:
+        if (mask.dtype != torch.bool or mask.device != q.device
+                or mask.shape != (b, 1, sq, skv)):
+            raise ValueError(f"flash_attention: mask must be bool (B, 1, "
+                             f"Sq, Skv) on {q.device}, got "
+                             f"{tuple(mask.shape)} {mask.dtype}")
+        m3 = mask[:, 0]
+        strides += list(m3.stride())
+    else:
+        m3 = None
+        strides += [0, 0, 0]
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    lib = build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.opus_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            m3.data_ptr() if m3 is not None else None, out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, b, sq, skv, hq,
+            hkv, d, *strides, int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    launches["flash_attention"] += 1
+    build.check(rc, "flash_attention", lib)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention(q, k, v, mask=None, *, causal: bool = False,
+                    return_lse: bool = False):
+    """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); mask (B, 1, Sq, Skv) bool
+    -> out (B, Sq, Hq, D) in q's dtype [, lse (B, Hq, Sq) fp32]."""
+    _check_mask(mask)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, mask, causal=causal,
+                                     return_lse=return_lse)
+    return _kernel(q, k, v, mask, causal, return_lse)

@@ -2,15 +2,17 @@
 
 `init` (decoder.py:37), `init_cache` (:87), the quantized-cache helpers
 `_quantize_kv` (:131), `_quantize_kv4` (:141), `_unpack_kv4` (:155),
-`_dequantize_kv` (:163), `_write_cache` (:171, scalar index), `_read_cache`
-(:217), `_block` (:278), `forward` (:555), `positions_and_rope` (:535),
+`_dequantize_kv` (:163), `_write_cache` (:171), `_read_cache` (:217),
+`_block` (:278), `forward` (:555), `positions_and_rope` (:535),
 `head_logits` (:629), `embed_tokens` (:375) and `positions_from_mask`
 (:644). RMSNorm, half-split RoPE, GQA and the SiLU-gated MLP, no biases.
-Projections may be bf16 ("kernel") or int4 v2 ("kernel_p", see
-kernels/quant4.py). The "qwen2" and "opt" families raise
-NotImplementedError.
+Projections may be bf16 ("kernel"), int8 ("kernel_q", see
+kernels/quant.py) or int4 v2 ("kernel_p", see kernels/quant4.py). The
+"qwen2" and "opt" families raise NotImplementedError.
 
-KV cache: {"layers": [{"k", "v"}], "index": int, "mask": (B, cap) bool}.
+KV cache: {"layers": [{"k", "v"}], "index", "mask": (B, cap) bool}. The
+index is an int (every row writes at the same slots) or a (B,) integer
+tensor (each row at its own slot: the serving engine).
 A bf16 leaf is (B, cap, Hkv, D). A quantized leaf is head-major:
 {"q": (B, Hkv, cap, D) int8, "s": (B, Hkv, cap, 1) fp32} (int8) or
 {"q4": (B, Hkv, cap, D/2) int8, "s": ...} (int4, low nibble d, high nibble
@@ -19,9 +21,9 @@ keys and values into the cache IN PLACE and advances `cache["index"]`; the
 returned cache is the same object (the JAX version returns a new pytree).
 
 `impl`: "auto" (or "fused") takes the kernels where the shapes allow them
-(decode attention over a quantized cache, int4 projections); the kernel
-wrappers run their plain versions on CPU tensors. "torch" takes the plain
-versions on every device.
+(flash attention for prefills, decode attention over a quantized cache,
+int8 and int4 projections); the kernel wrappers run their plain versions
+on CPU tensors. "torch" takes the plain versions on every device.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..core.config import DecoderConfig
+from ..core.util import resolve_device
 from ..kernels import decode_attention as da
 from . import layers
-from .layers import (apply_rope, attention_xla, dense, embed, rms_norm,
+from .layers import (apply_rope, attention, dense, embed, rms_norm,
                      rope_cos_sin, silu)
 
 
@@ -46,8 +49,10 @@ def _check_family(cfg: DecoderConfig) -> None:
 
 
 def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None):
-    """Random parameters drawn from `generator` (decoder.py:37-80 scheme)."""
+    """Random parameters drawn from `generator` (decoder.py:37-80 scheme) on
+    `device` (None: CUDA)."""
     _check_family(cfg)
+    device = resolve_device(device)
     dt = cfg.torch_dtype
     h, d = cfg.hidden_size, cfg.head_dim
     kw = dict(generator=generator, device=device, dtype=dt)
@@ -79,7 +84,8 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
                *, device=None, quantize=False):
     """Zeroed KV cache with `max_len` slots per row. quantize=True/"int8"
     stores int8 K/V, "int4" packed int4, each with per-(token, head) fp32
-    scales, head-major (decoder.py:87-128)."""
+    scales, head-major (decoder.py:87-128), on `device` (None: CUDA)."""
+    device = resolve_device(device)
     if quantize is True:
         quantize = "int8"
     if quantize not in (False, "int8", "int4"):
@@ -143,16 +149,48 @@ def _dequantize_kv(leaf, dtype):
     return (q.float() * leaf["s"]).to(dtype).transpose(1, 2)
 
 
-def _write_cache(layer_cache, k_new, v_new, index: int):
-    """Write S new keys/values at slots [index, index + S) of every row,
-    in place; quantized leaves quantize them first (decoder.py:190-210)."""
+def _write_rows(buf, new, index, slot_dim: int):
+    """Row b of `new` (S tokens along `slot_dim`) goes to slots
+    [index[b], index[b] + S) of row b of `buf`, in place; slots at or past
+    the capacity write nothing (mode="drop"). The drop stays on the device:
+    a dropped position writes back the value it reads, at its slot taken
+    modulo the capacity. Those slots lie below the row's first real write,
+    so each (row, slot) is written once when S <= capacity, and the
+    scatter is well defined."""
+    b, s = new.shape[0], new.shape[slot_dim]
+    cap = buf.shape[slot_dim]
+    cols = index[:, None].long() + torch.arange(s, device=buf.device)
+    keep = cols < cap
+    cols = cols % cap
+    rows = torch.arange(b, device=buf.device)[:, None]
+    if slot_dim == 1:                                   # (B, cap, H, D)
+        idx = (rows, cols)
+        keep = keep[:, :, None, None]
+    else:                                               # (B, H, cap, X)
+        heads = torch.arange(buf.shape[1], device=buf.device)
+        idx = (rows[:, None], heads[None, :, None], cols[:, None, :])
+        keep = keep[:, None, :, None]
+    buf[idx] = torch.where(keep, new.to(buf.dtype), buf[idx])
+
+
+def _write_cache(layer_cache, k_new, v_new, index):
+    """Write S new keys/values into the cache in place; quantized leaves
+    quantize them first (decoder.py:171-214). An int index writes slots
+    [index, index + S) of every row; a (B,) tensor index writes each row at
+    its own slots, dropping those past the capacity."""
     s = k_new.shape[1]
+    per_row = isinstance(index, torch.Tensor) and index.dim() == 1
     for name, new in (("k", k_new), ("v", v_new)):
         buf = layer_cache[name]
         if isinstance(buf, dict):
             qn = _quantize_kv4(new) if "q4" in buf else _quantize_kv(new)
             for key, val in qn.items():
-                buf[key][:, :, index:index + s] = val
+                if per_row:
+                    _write_rows(buf[key], val, index, 2)
+                else:
+                    buf[key][:, :, index:index + s] = val
+        elif per_row:
+            _write_rows(buf, new, index, 1)
         else:
             buf[:, index:index + s] = new
     return layer_cache
@@ -193,11 +231,11 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
                   else da.decode_attention_int8)
             a = fn(q, lk, lv, mask4)
         else:
-            # prefill (and impl="torch") over a quantized cache attends over
-            # the DEQUANTIZED K/V, as decoder.py:320-323 does
+            # attend over the cache: a quantized one DEQUANTIZED, as
+            # decoder.py:320-323 does (prefill, and impl="torch")
             k, v = _read_cache(layer_cache, x.dtype)
     if a is None:
-        a = attention_xla(q, k, v, mask4)
+        a = attention(q, k, v, mask4, impl=impl)
     x = x + mm("o_proj", a.reshape(b, s, hq * d))
     r = rms_norm(p["ffn_norm"], x, eps=cfg.rms_norm_eps)
     return x + mm("down_proj", silu(mm("gate_proj", r)) * mm("up_proj", r))
@@ -215,12 +253,15 @@ def positions_and_rope(params, cfg: DecoderConfig, x, positions):
 
 
 def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
-            cache=None, *, impl: str = "auto", return_hidden: bool = False
+            cache=None, *, impl: str = "auto", return_hidden: bool = False,
+            ntk_ctx: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """input_embeds (B, S, H); positions (B, S); mask4 (B, 1, S, Skv) bool
     (Skv = S without a cache, the cache capacity with one). With a cache,
     the new K/V land at slots [cache["index"], +S) in place and the index
     advances. Returns (logits (B, S, V) fp32 or final-normed hidden, cache).
+    `ntk_ctx` pins the dynamic-NTK context (decoder.py:573-579); it changes
+    nothing for the llama family without dynamic NTK, the only one ported.
     """
     _check_family(cfg)
     _check_impl(impl)

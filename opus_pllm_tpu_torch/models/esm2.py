@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.config import ESM2Config
+from ..core.util import resolve_device
 from ..kernels import fused_encoder
 from . import layers
 from .layers import (apply_rope, attention_xla, dense, embed, layer_norm,
@@ -54,7 +55,9 @@ def tokenize(seqs: List[str], max_len: Optional[int] = None
 
 
 def init(cfg: ESM2Config, *, generator: torch.Generator, device=None):
-    """Random parameters drawn from `generator` (esm2.py:68-90 scheme)."""
+    """Random parameters drawn from `generator` (esm2.py:68-90 scheme) on
+    `device` (None: CUDA)."""
+    device = resolve_device(device)
     dt = cfg.torch_dtype
     e = cfg.embed_dim
     kw = dict(generator=generator, device=device, dtype=dt)

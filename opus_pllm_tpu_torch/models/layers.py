@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import quant4
+from ..kernels import flash_attention as fa
+from ..kernels import quant, quant4
 
 NEG_INF = -1e9  # large finite mask value (layers.py:20)
 
@@ -67,11 +68,11 @@ def dense(params, x, *, impl: str = "auto"):
     fp32 inputs multiply in full fp32. Low-precision inputs multiply in
     their own dtype, which on CUDA and CPU accumulates in fp32 and rounds
     once; a bias is then added in fp32 and the sum rounded again.
-    int4 weights ("kernel_p" + "gscale") go to `quant4.qdense4` (`impl` is
-    its kernel choice); int8 weights ("kernel_q") are not ported yet."""
+    int8 weights ("kernel_q" + "scale") go to `quant.qdense`, int4 weights
+    ("kernel_p" + "gscale") to `quant4.qdense4`; `impl` is their kernel
+    choice."""
     if "kernel_q" in params:
-        raise NotImplementedError("int8 weights (kernel_q) are not ported "
-                                  "yet")
+        return quant.qdense(params, x, impl=impl)
     if "kernel_p" in params:
         return quant4.qdense4(params, x, impl=impl)
     y = torch.matmul(x, params["kernel"].to(x.dtype))
@@ -141,8 +142,20 @@ def apply_rope(x, cos, sin):
 
 
 # ---------------------------------------------------------------------------
-# Attention (layers.py:228-243)
+# Attention (layers.py:186-243)
 # ---------------------------------------------------------------------------
+
+def attention(q, k, v, mask=None, *, impl: str = "auto"):
+    """Grouped-query attention (layers.py:186). impl "auto" (or "fused")
+    takes the flash kernel where `flash_attention.supports` holds (bf16
+    CUDA tensors, a broadcast mask, D % 128 == 0, Sq > 1), as the JAX
+    package takes its Pallas kernel only on the TPU; "torch" and every
+    other shape take `attention_xla`. The ring and sp_decode modes come
+    with the parallel axes."""
+    if impl != "torch" and fa.supports(q, k, mask):
+        return fa.flash_attention(q, k, v, mask)
+    return attention_xla(q, k, v, mask)
+
 
 def attention_xla(q, k, v, mask=None):
     """Grouped-query scaled dot-product attention, the plain path.

@@ -11,13 +11,14 @@ from ..bridge import cstp as cstp_mod
 from ..bridge import projector as switch_mod
 from ..bridge.splice import Spliced, splice
 from ..core.config import OpusConfig
+from ..core.util import resolve_device
 from . import decoder, esm2
 
 
 def init(cfg: OpusConfig, *, generator: torch.Generator, device=None):
     """Random parameters for the whole model, drawn from `generator` on
-    `device`."""
-    kw = dict(generator=generator, device=device)
+    `device` (None: CUDA)."""
+    kw = dict(generator=generator, device=resolve_device(device))
     params = {"esm": esm2.init(cfg.esm, **kw),
               "switch": switch_mod.init(cfg.switch, **kw),
               "llm": decoder.init(cfg.llm, **kw)}
@@ -49,3 +50,10 @@ def splice_prompt(params, cfg: OpusConfig, input_ids, attn_mask, esm_tokens,
     text = decoder.embed_tokens(params["llm"], input_ids.long().clamp_min(0))
     return splice(input_ids, attn_mask, text, prot, labels,
                   n_tokens=cfg.switch.n_tokens, left_pad=left_pad)
+
+
+def splice_prompt_left(params, cfg: OpusConfig, input_ids, attn_mask,
+                       esm_tokens, *, impl: str = "auto") -> Spliced:
+    """The left-pad splice the engine eval runner uses (opus.py:114)."""
+    return splice_prompt(params, cfg, input_ids, attn_mask, esm_tokens,
+                         left_pad=True, impl=impl)

@@ -51,7 +51,7 @@ def test_projector_apply(ptype):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
     g = torch.Generator().manual_seed(0)
-    tp = projector.init(tcfg, generator=g)
+    tp = projector.init(tcfg, generator=g, device="cpu")
     assert [l["kernel"].shape for l in tp["layers"]] == \
         [tuple(l["kernel"].shape) for l in jp["layers"]]
 

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes the main path can also produce: the four fused-encoder
-kernels, the int4 v2 matmul and both quantized decode attentions (a CUDA
-kernel has no CPU mode: these skip where torch sees no GPU). Run on a GPU
-machine with:
+kernels, the int4 v2 matmul, both quantized decode attentions, flash
+attention and the int8 matmul (a CUDA kernel has no CPU mode: these skip
+where torch sees no GPU). Run on a GPU machine with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
@@ -21,9 +21,10 @@ import torch
 
 from opus_pllm_tpu_torch.core.config import ESM2Config
 from opus_pllm_tpu_torch.kernels import decode_attention as da
+from opus_pllm_tpu_torch.kernels import flash_attention as fa
 from opus_pllm_tpu_torch.kernels import fused_encoder as fe
-from opus_pllm_tpu_torch.kernels import quant4
-from opus_pllm_tpu_torch.models import decoder, esm2
+from opus_pllm_tpu_torch.kernels import quant, quant4
+from opus_pllm_tpu_torch.models import decoder, esm2, layers
 from opus_pllm_tpu_torch.models.layers import rope_cos_sin
 
 pytestmark = pytest.mark.cuda
@@ -183,3 +184,128 @@ def test_quantized_wrappers_raise_instead_of_falling_back():
         da.decode_attention_int8(q1, kl, vl, mask4.int())
     with pytest.raises(ValueError):            # int8 leaves to the int4 one
         da.decode_attention_int4(q1, kl, vl, mask4)
+
+
+def _flash_inputs(g, b, sq, skv, hq, hkv, d, mask_kind):
+    q = _rnd(g, b, sq, hq, d)
+    k, v = _rnd(g, b, skv, hkv, d), _rnd(g, b, skv, hkv, d)
+    mask = None
+    if mask_kind == "prefill":
+        # the serving prefill's mask: causal within each row's valid prompt
+        n = torch.randint(1, sq + 1, (b,), generator=g, device="cuda")
+        n[0] = sq
+        ar = torch.arange(skv, device="cuda")
+        rows = torch.arange(sq, device="cuda")
+        mask = ((ar[None, None, None, :] <= rows[None, None, :, None])
+                & (ar[None, None, None, :] < n[:, None, None, None]))
+    elif mask_kind == "padded":
+        # the static prefill's: left padding over a longer cache
+        lengths = torch.randint(1, skv + 1, (b,), generator=g, device="cuda")
+        mask = (torch.arange(skv, device="cuda")[None] < lengths[:, None]
+                )[:, None, None, :].expand(b, 1, sq, skv)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,mask_kind,causal", [
+    (2, 64, 64, 4, 2, 128, None, False),
+    (2, 70, 70, 4, 2, 128, "prefill", False),       # ragged, GQA 2
+    (1, 130, 200, 8, 2, 128, "padded", False),      # Sq != Skv, GQA 4
+    (2, 100, 100, 4, 4, 128, None, True),           # causal tile skipping
+    (1, 200, 200, 4, 1, 128, "prefill", True),
+    (2, 17, 33, 2, 1, 64, "padded", False),         # D = 64, called directly
+    (1, 2, 5, 2, 2, 128, None, False),
+])
+def test_flash_attention(b, sq, skv, hq, hkv, d, mask_kind, causal):
+    g = _gen()
+    q, k, v, mask = _flash_inputs(g, b, sq, skv, hq, hkv, d, mask_kind)
+    fa.reset_launches()
+    _check(lambda q, k, v: fa.flash_attention(q, k, v, mask, causal=causal),
+           lambda q, k, v: fa.flash_attention_plain(q, k, v, mask,
+                                                    causal=causal),
+           (q, k, v))
+    assert fa.launches["flash_attention"] == 1
+    # the lse: fp32 in both, from the same bf16 values
+    _, lse = fa.flash_attention(q, k, v, mask, causal=causal,
+                                return_lse=True)
+    _, ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), mask,
+                                      causal=causal, return_lse=True)
+    assert lse.shape == (b, hq, sq)
+    assert (lse - ref).abs().max().item() <= ATOL
+
+
+def test_flash_attention_strided_kv_and_layer_dispatch():
+    """K/V as the transposed view a dequantized cache gives, and
+    `layers.attention(impl="auto")` taking the kernel for a prefill but not
+    for a one-token step."""
+    g = _gen()
+    q, _, _, mask = _flash_inputs(g, 2, 40, 40, 4, 2, 128, "prefill")
+    k = _rnd(g, 2, 2, 40, 128).transpose(1, 2)        # (B, S, H, D) view
+    v = _rnd(g, 2, 2, 40, 128).transpose(1, 2)
+    fa.reset_launches()
+    _check(lambda q, k, v: layers.attention(q, k, v, mask),
+           lambda q, k, v: fa.flash_attention_plain(q, k, v, mask), (q, k, v))
+    assert fa.launches["flash_attention"] == 1
+    layers.attention(q[:, :1], k, v, mask[:, :, :1])
+    assert fa.launches["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 256), (300, 48, 130),
+                                   (257, 4096, 1000), (2616, 4096, 1024)])
+def test_int8_matmul(m, k, n):
+    """Ragged M and N (a scalar and a vector epilogue), K a multiple of 16
+    but not of 32, and the static prefill's M."""
+    g = _gen()
+    wq, s = quant.quantize_per_channel(torch.randn((k, n), generator=g,
+                                                   device="cuda"))
+    quant.reset_launches()
+    _check(lambda x: quant.int8_matmul(x, wq, s),
+           lambda x: quant.int8_matmul_plain(x, wq, s), (_rnd(g, m, k),))
+    assert quant.launches["int8_matmul"] == 1
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096)])
+def test_int8_matmul_llama_shapes(k, n):
+    g = _gen()
+    wq, s = quant.quantize_per_channel(torch.randn((k, n), generator=g,
+                                                   device="cuda"))
+    _check(lambda x: quant.int8_matmul(x, wq, s),
+           lambda x: quant.int8_matmul_plain(x, wq, s), (_rnd(g, 320, k),))
+
+
+def test_int8_dispatch_routes():
+    """Below M = 256 (decode, the head) and for fp32 x the wrapper takes the
+    dequantize route; on the kernel's shapes it launches."""
+    g = _gen()
+    wq, s = quant.quantize_per_channel(torch.randn((512, 256), generator=g,
+                                                   device="cuda"))
+    quant.reset_launches()
+    x = _rnd(g, 17, 512)
+    torch.testing.assert_close(quant.int8_matmul(x, wq, s),
+                               quant.dequant_matmul(x, wq, s))
+    quant.int8_matmul(_rnd(g, 256, 512).float(), wq, s)
+    assert quant.launches["int8_matmul"] == 0
+    quant.qdense({"kernel_q": wq, "scale": s}, _rnd(g, 2, 128, 512))
+    assert quant.launches["int8_matmul"] == 1
+
+
+def test_new_wrappers_raise_instead_of_falling_back():
+    g = _gen()
+    wq, s = quant.quantize_per_channel(torch.randn((512, 256), generator=g,
+                                                   device="cuda"))
+    x = _rnd(g, 256, 512)
+    with pytest.raises(ValueError):            # weights not contiguous
+        quant.int8_matmul(x, wq.t().contiguous().t(), s)
+    with pytest.raises(TypeError):             # fp16 scale
+        quant.int8_matmul(x, wq, s.half())
+    with pytest.raises(ValueError):            # weights on the CPU
+        quant.int8_matmul(x, wq.cpu(), s)
+    q = _rnd(g, 1, 8, 2, 128)
+    with pytest.raises(ValueError):            # fp32 q
+        fa.flash_attention(q.float(), q.float(), q.float())
+    q96 = _rnd(g, 1, 8, 2, 96)
+    with pytest.raises(ValueError):            # no D = 96 instance
+        fa.flash_attention(q96, q96, q96)
+    with pytest.raises(ValueError):            # per-head mask
+        fa.flash_attention(q, q, q, torch.ones((1, 2, 8, 8), dtype=torch.bool,
+                                               device="cuda"))

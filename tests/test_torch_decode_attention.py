@@ -141,7 +141,7 @@ def model():
     jcfg, tcfg = _cfgs()
     jp = jdec.init(jax.random.PRNGKey(0), jcfg)
     return jcfg, tcfg, jp, convert.decoder_from_jax(jax.tree.map(
-        np.asarray, jp))
+        np.asarray, jp), device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
@@ -167,7 +167,7 @@ def test_decoder_over_quantized_cache_matches_jax(model, kind):
 
     jc = jdec.init_cache(jcfg, b, cap, quantize=kind)
     jc["mask"] = jc["mask"].at[:, :l].set(jnp.asarray(am))
-    tc = decoder.init_cache(tcfg, b, cap, quantize=kind)
+    tc = decoder.init_cache(tcfg, b, cap, quantize=kind, device="cpu")
     tc["mask"][:, :l] = _t(am)
     ref, jc = jdec.forward(jp, jcfg, jnp.asarray(x), jnp.asarray(pos),
                            jnp.asarray(pre), jc)
@@ -175,7 +175,7 @@ def test_decoder_over_quantized_cache_matches_jax(model, kind):
     tol = dict(rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
     plain, _ = decoder.forward(tp, tcfg, _t(x), _t(pos), _t(pre),
-                               decoder.init_cache(tcfg, b, cap))
+                               decoder.init_cache(tcfg, b, cap, device="cpu"))
     assert np.abs(plain.numpy() - got.numpy()).max() > 10 * tol["atol"]
 
     for i in range(3):

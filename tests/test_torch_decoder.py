@@ -25,7 +25,7 @@ TOL = dict(rtol=1e-4, atol=2e-5)
 def model():
     jcfg, tcfg = JDecoderConfig.tiny("llama"), DecoderConfig.tiny("llama")
     jp = jdec.init(jax.random.PRNGKey(0), jcfg)
-    tp = convert.decoder_from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.decoder_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
 
 
@@ -64,7 +64,7 @@ def test_prefill_then_decode_with_cache(model):
 
     jc = jdec.init_cache(jcfg, b, cap)
     jc["mask"] = jc["mask"].at[:, :l].set(jnp.asarray(am))
-    tc = decoder.init_cache(tcfg, b, cap)
+    tc = decoder.init_cache(tcfg, b, cap, device="cpu")
     tc["mask"][:, :l] = torch.from_numpy(am)
     rows = np.arange(l)[None, None, :, None]
     cols = np.arange(cap)[None, None, None, :]
@@ -110,16 +110,18 @@ def test_head_logits_and_embed(model):
 def test_unported_families_raise(family):
     cfg = DecoderConfig.tiny(family)
     with pytest.raises(NotImplementedError):
-        decoder.init(cfg, generator=torch.Generator().manual_seed(0))
+        decoder.init(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
     # quantized caches are ported; an unknown cache format still raises
     with pytest.raises(ValueError):
-        decoder.init_cache(DecoderConfig.tiny(), 1, 4, quantize="int2")
+        decoder.init_cache(DecoderConfig.tiny(), 1, 4, quantize="int2",
+                           device="cpu")
 
 
 def test_stacked_tree_converts(model):
     jcfg, tcfg, jp, tp = model
     tp2 = convert.decoder_from_jax(
-        jax.tree.map(np.asarray, jdec.stack_params(jp)))
+        jax.tree.map(np.asarray, jdec.stack_params(jp)), device="cpu")
     assert len(tp2["layers"]) == jcfg.num_layers
     for a, b in zip(tp["layers"], tp2["layers"]):
         for k in a:

@@ -66,7 +66,7 @@ def model():
     jcfg, tcfg = JDecoderConfig.tiny("llama"), DecoderConfig.tiny("llama")
     jp = jdec.init(jax.random.PRNGKey(0), jcfg)
     jp["embed_tokens"]["embedding"] = jp["embed_tokens"]["embedding"] * 50
-    tp = convert.decoder_from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.decoder_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(0)
     x = rng.standard_normal((3, 8, 64)).astype(np.float32)
     am = np.ones((3, 8), bool)

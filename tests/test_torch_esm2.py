@@ -39,7 +39,7 @@ def model():
     jcfg = JESM2Config(num_layers=2, embed_dim=128, num_heads=2)
     tcfg = ESM2Config(num_layers=2, embed_dim=128, num_heads=2)
     jp = jesm2.init(jax.random.PRNGKey(3), jcfg)
-    tp = convert.esm2_from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.esm2_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     toks, _ = jesm2.tokenize(SEQS[:2] + ["MKV"], max_len=32)
     toks[2, 2] = jcfg.mask_idx           # exercises the token-dropout rescale
     return jcfg, tcfg, jp, tp, toks
@@ -65,7 +65,8 @@ def test_encode_matches_jax_on_stacked_and_qkv_proj_layouts(model):
     layouts to the same parameters as the plain per-layer tree."""
     jcfg, tcfg, jp, tp, toks = model
     stacked = jesm2.stack_params(jesm2.fuse_qkv(jp))
-    tp2 = convert.esm2_from_jax(jax.tree.map(np.asarray, stacked))
+    tp2 = convert.esm2_from_jax(jax.tree.map(np.asarray, stacked),
+                                device="cpu")
     for a, b in zip(tp["layers"], tp2["layers"]):
         torch.testing.assert_close(a["qkv"]["kernel"], b["qkv"]["kernel"],
                                    rtol=0, atol=0)
@@ -83,7 +84,7 @@ def test_bf16_tree_converts():
     """A bf16 JAX tree (core/builder.py loads ESM2 in bf16) arrives as bf16."""
     jcfg = dataclasses.replace(JESM2Config.tiny(), dtype="bfloat16")
     jp = jesm2.init(jax.random.PRNGKey(0), jcfg)
-    tp = convert.esm2_from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.esm2_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     emb = tp["embed_tokens"]["embedding"]
     assert emb.dtype == torch.bfloat16
     np.testing.assert_array_equal(

@@ -1,11 +1,16 @@
 """The port stands alone: importing opus_pllm_tpu_torch and running its
 CPU slice loads neither jax nor the JAX package, and chip_smoke.py refuses
-to run without a CUDA device (non-zero exit, no result line)."""
+to run without a CUDA device (non-zero exit, no result line). Its entry
+points default to CUDA."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
+
+from opus_pllm_tpu_torch.core.util import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -19,12 +24,16 @@ from opus_pllm_tpu_torch.evals.datasets import AnnotationExample
 from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
 from opus_pllm_tpu_torch.models import opus
 import opus_pllm_tpu_torch.core.convert, opus_pllm_tpu_torch.kernels.build
+import opus_pllm_tpu_torch.kernels.flash_attention
+import opus_pllm_tpu_torch.kernels.quant
+import opus_pllm_tpu_torch.serve.engine
 
 cfg = OpusConfig.tiny("llama")
 cfg = dataclasses.replace(cfg, esm=ESM2Config(num_layers=1, embed_dim=128,
                                               num_heads=2),
                           cstp=dataclasses.replace(cfg.cstp, protein_dim=128))
-params = opus.init(cfg, generator=torch.Generator().manual_seed(0))
+params = opus.init(cfg, generator=torch.Generator().manual_seed(0),
+                   device="cpu")
 rep = runner.run_annotation_eval(
     params, cfg, ByteTokenizer(), "x_keywords.json",
     gen=GenerationConfig(max_new_tokens=4, eos_token_id=2), batch_size=2,
@@ -72,3 +81,11 @@ def test_chip_smoke_alone_fails(tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_resolve_device_defaults_to_cuda():
+    """`device=None` means CUDA in every entry point, with no fallback; the
+    CPU is asked for by name."""
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)

@@ -137,7 +137,8 @@ def test_qdense4_folds_batch_and_adds_bias():
     got = dense(tp, _t(x)).numpy()
     assert got.shape == (4, 20, 128)
     assert np.abs(got - ref).max() <= 2e-6 * np.abs(ref).max()
-    with pytest.raises(NotImplementedError):
+    # "kernel_q" goes to the int8 route, which refuses int4 words
+    with pytest.raises(ValueError):
         dense({"kernel_q": tp["kernel_p"], "scale": tp["gscale"]}, _t(x))
 
 
@@ -151,13 +152,14 @@ def _cfgs(dtype):
 def test_quantize_decoder4_matches_jax_and_converts():
     """The port's quantize_decoder4 on converted weights gives the same
     leaves as the JAX one; from_jax copies JAX's int4 v2 tree and still
-    refuses v1 bytes and int8 weights."""
+    refuses v1 bytes; int8 trees are copied, fused ones refused."""
     jcfg, _ = _cfgs("float32")
     jp = jdec.init(jax.random.PRNGKey(0), jcfg)
     ref = convert.decoder_from_jax(jax.tree.map(
-        np.asarray, jq.quantize_decoder4(jax.tree.map(np.asarray, jp))))
+        np.asarray, jq.quantize_decoder4(jax.tree.map(np.asarray, jp))),
+        device="cpu")
     got = quant4.quantize_decoder4(
-        convert.decoder_from_jax(jax.tree.map(np.asarray, jp)))
+        convert.decoder_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
     assert quant4.quant_layout_of(got) == "int4-v2"
     assert jq.quant_layout_of(jq.quantize_decoder4(jp)) == "int4-v2"
     flat = lambda t: jax.tree_util.tree_flatten_with_path(
@@ -167,11 +169,18 @@ def test_quantize_decoder4_matches_jax_and_converts():
         np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError):
         convert.decoder_from_jax(jax.tree.map(
-            np.asarray, jq.quantize_decoder4(jp, layout="v1")))
+            np.asarray, jq.quantize_decoder4(jp, layout="v1")), device="cpu")
+    # int8 trees cross over as they are (kernels/quant.py); fused
+    # projections stay refused
     from opus_pllm_tpu.kernels.quant import quantize_decoder
+    j8 = jax.tree.map(np.asarray, quantize_decoder(jp))
+    t8 = convert.decoder_from_jax(j8, device="cpu")
+    assert quant4.quant_layout_of(t8) == "int8"
+    np.testing.assert_array_equal(t8["layers"][0]["q_proj"]["kernel_q"],
+                                  j8["layers"][0]["q_proj"]["kernel_q"])
     with pytest.raises(NotImplementedError):
-        convert.decoder_from_jax(jax.tree.map(np.asarray,
-                                              quantize_decoder(jp)))
+        convert.decoder_from_jax(jax.tree.map(np.asarray, quantize_decoder(
+            jdec.fuse_projections(jp, jcfg))), device="cpu")
 
 
 def test_quantized_head_rounds_logits_to_bf16():
@@ -182,7 +191,7 @@ def test_quantized_head_rounds_logits_to_bf16():
     rounding boundary: bound 2^-7 of max|logit|)."""
     jcfg, tcfg = _cfgs("bfloat16")
     jp = jq.quantize_decoder4(jdec.init(jax.random.PRNGKey(1), jcfg))
-    tp = convert.decoder_from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.decoder_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     h = np.random.default_rng(3).normal(size=(72, 512)).astype(np.float32)
     ref = np.asarray(jdec.head_logits(jp, jcfg,
                                       jnp.asarray(h, jnp.bfloat16)))

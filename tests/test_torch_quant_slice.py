@@ -70,7 +70,7 @@ def models():
         layer["kernel"], layer["bias"] = layer["kernel"] * gain, \
             layer["bias"] * 0.0
     jp["llm"] = jq.quantize_decoder4(jp["llm"])
-    tp = convert.from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     assert quant4.quant_layout_of(tp["llm"]) == "int4-v2"
     return jp, tp
 
@@ -115,7 +115,7 @@ def test_generate_matches_jax(models, kind):
     jh, _ = jdec.forward(jp["llm"], jcfg, jnp.asarray(x), jnp.asarray(pos),
                          jnp.asarray(pre), jc, return_hidden=True)
     jlog = np.asarray(jdec.head_logits(jp["llm"], jcfg, jh[:, -1]))
-    tc = decoder.init_cache(tcfg, b, cap, quantize=kind)
+    tc = decoder.init_cache(tcfg, b, cap, quantize=kind, device="cpu")
     tc["mask"][:, :l] = torch.tensor(am)
     th, _ = decoder.forward(tp["llm"], tcfg, torch.tensor(x),
                             torch.tensor(pos), torch.tensor(pre), tc,

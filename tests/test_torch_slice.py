@@ -50,7 +50,7 @@ def models():
     for layer, gain in zip(jp["switch"]["layers"], (100.0, 10.0)):
         layer["kernel"], layer["bias"] = layer["kernel"] * gain, \
             layer["bias"] * 0.0
-    return jp, convert.from_jax(jax.tree.map(np.asarray, jp))
+    return jp, convert.from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _examples():
@@ -127,8 +127,10 @@ def test_sampled_eval_runs_and_refuses_unported_options(models):
 def test_random_init_shapes_match_jax():
     """The port's own seeded init builds the same tree shapes as the JAX
     init (what chip_smoke.py draws at full width)."""
-    tp = opus.init(_cfg(config), generator=torch.Generator().manual_seed(0))
+    tp = opus.init(_cfg(config), generator=torch.Generator().manual_seed(0),
+                   device="cpu")
     ref = convert.from_jax(jax.tree.map(
-        np.asarray, jopus.init(jax.random.PRNGKey(0), _cfg(jconfig))))
+        np.asarray, jopus.init(jax.random.PRNGKey(0), _cfg(jconfig))),
+        device="cpu")
     shapes = lambda t: jax.tree.map(lambda x: tuple(x.shape), t)
     assert shapes(tp) == shapes(ref)
