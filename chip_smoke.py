@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's annotation-eval paths once on one CUDA GPU.
+"""Drive the PyTorch port's annotation-eval and LoRA-training paths once on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -40,10 +41,23 @@ and prints no result:
          prefill) for the four (K, N) of a Llama-3-8B layer. Library: the
          bf16 cuBLAS product on W dequantized beforehand; the port's own
          dequantize route (`quant.dequant_matmul`) is printed beside it;
+       - flash_attention_bwd_dq and _dkv (the saved out and lse of the
+         forward kernel as inputs, dk and dv stacked into one output) at
+         the training shape (B=16, L=519, right-padded valid lengths, the
+         causal_mask of opus.forward) and causal B=1, S=2048; Hq=32,
+         Hkv=8, D=128. Gradients are larger than 1, so ATOL is scaled by
+         max(1, max|plain_fp32|). Library: the backward of
+         scaled_dot_product_attention with the same mask, timed as
+         backward only (it computes dq, dk and dv; so does the plain
+         version, in both rows);
+       - int4_matmul_v1 at M = 8304 (a train-lora batch, 16 x 519) for the
+         five (K, N) of Llama-3-8B. Library: cuBLAS bf16 on W dequantized
+         beforehand; the dequantize route (`quant4.dequant_matmul`) beside
+         it;
      the JSON line keeps, per kernel, the largest error over its shapes and
      the times of one shape: S=512 (encoder), 4096->4096 (int4), cap 391
-     (decode attention), the serving prefill (flash) and M=5120 4096->14336
-     (int8);
+     (decode attention), the serving prefill (flash), M=5120 4096->14336
+     (int8), the training shape (flash backward) and 4096->14336 (v1);
   4. slice: OpusConfig() at full width (ESM2-650M and Llama-3-8B in bf16,
      CSTP 1280->5120 and the mlp2x_gelu switch 5120->8x4096 in fp32, random
      weights drawn on the card from a seeded torch.Generator) answers 16
@@ -83,7 +97,37 @@ and prints no result:
      that every request is answered; and that one admission group's
      prefill logits (16 rows, bucket 320) through the kernels stay within
      the bound above of the plain path in fp32. Prints entries/s, tokens/s,
-     TTFT p50/p99 (the engine's histogram bounds) and GiB on the card.
+     TTFT p50/p99 (the engine's histogram bounds) and GiB on the card;
+  7. training slice (`train-lora`): the earlier phases' LLM freed, a fresh
+     Llama-3-8B drawn from the seed inside OpusConfig() (the ESM2, CSTP and
+     switch of phase 4, frozen) trains LoRA adapters with train-lora's
+     defaults (lr 2e-5, wd 0, batch 16, max-len 512, rank 16 / alpha 32
+     on the seven projections, remat full, ce_chunk 0, grad_accum 1) on
+     64 synthetic keywords-task records (proteins of 60-500 residues,
+     24-64-token answers, instructions long enough that every batch
+     reaches the 512-token cap, so the decoder runs at L = 512 + 8 - 1 =
+     519, which the phase asserts) written to a temporary JSON and read
+     through InstructionDataset -> instruction_batches ->
+     multimodal_trainer.fit: (a) over the bf16 LLM for 4 steps, (b) over
+     the same LLM through quantize_decoder4(layout="v1") (QLoRA, the bf16
+     projections freed) for 3 steps. Exact launch counts per optimizer
+     step: one ESM2 call of 16 proteins (each encoder kernel 33); the 32
+     layers' forward and, under remat, their recompute in the backward
+     (flash_attention 2 x 32, and with the v1 base int4_matmul_v1 2 x 7 x
+     32 plus 1 for the vocab head, which is outside the remat: 449); one
+     backward of each attention (flash_attention_bwd_dq = _dkv = 32); 0
+     for every other kernel (the int4 backward dx is a dequantize + cuBLAS
+     product, as in the JAX package). Checks: a finite loss every step and
+     every LoRA B leaf changed after step 1. A gradient gate between (a)
+     and (b): the LLM's first four layers and its head, 4 rows of the same
+     traffic (their pooled ESM2 embeddings computed once), LoRA B drawn
+     from N(0, 0.01); the `loss_fn` gradient of every LoRA leaf through
+     the kernels (impl="auto", bf16) must stay within the bound of phase 3
+     of the plain path in fp32 (impl="torch", fp32 weights), in units of
+     each leaf's largest entry, printed next to the plain path in bf16.
+     Prints s/step (steps after the first), trained tokens/s (the valid
+     label tokens of a step over its wall time), GiB on the card after the
+     weights are in place and the peak.
 The last two lines: a JSON object of the kernels' numbers, then
 {"ok": true, "device": {...}}.
 
@@ -97,6 +141,14 @@ profiled wall time (the profiler inflates host time), the sums for the
 casts and multiplies (mostly the dequantize route's), the hand-written
 kernels and cuBLAS, and the kernels with the most device time. It checks
 nothing and prints no result line.
+
+    python3 chip_smoke.py --profile-training
+
+runs phases 1 and 2, then phase 7's configuration: two unprofiled steps
+and one profiled step of train-lora over the bf16 LLM, then the same over
+its v1 quantization, each printed as above with the sums for the
+hand-written kernels, cuBLAS, the elementwise casts / multiplies / adds
+and the softmax kernels. It checks nothing and prints no result line.
 """
 
 import json
@@ -130,6 +182,16 @@ SERVE_KERNELS = {
     "int8_matmul": ("opus_pllm_tpu/kernels/quant.py:142",
                     "opus_pllm_tpu_torch/csrc/int8_matmul.cu"),
 }
+TRAIN_KERNELS = {
+    "flash_attention_bwd_dq": (
+        "opus_pllm_tpu/kernels/flash_attention_bwd.py:197",
+        "opus_pllm_tpu_torch/csrc/flash_attention_bwd.cu"),
+    "flash_attention_bwd_dkv": (
+        "opus_pllm_tpu/kernels/flash_attention_bwd.py:211",
+        "opus_pllm_tpu_torch/csrc/flash_attention_bwd.cu"),
+    "int4_matmul_v1": ("opus_pllm_tpu/kernels/quant4.py:359",
+                       "opus_pllm_tpu_torch/csrc/int4_matmul_v1.cu"),
+}
 SOURCE = "opus_pllm_tpu_torch/csrc/fused_encoder.cu"
 INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                (4096, 128256))          # (K, N) of one Llama-3-8B decode step
@@ -140,6 +202,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 SERVE_REQUESTS = 32
 SERVE_SLOTS, SERVE_STEPS = 16, 4
+# train-lora (cli/main.py:1027-1069): batch 16 at --max-len 512; one
+# protein's 8 soft tokens replace its sentinel, so the decoder sees 519
+TRAIN_BATCH, TRAIN_MAX_LEN = 16, 512
+TRAIN_LEN = TRAIN_MAX_LEN + 8 - 1
+TRAIN_RECORDS, TRAIN_STEPS_BF16, TRAIN_STEPS_QLORA = 64, 4, 3
+GATE_LAYERS, GATE_ROWS = 4, 4
 
 
 def fail(msg):
@@ -186,9 +254,10 @@ def time_ms(fn, iters=20, hold=True):
 def _kernel_modules():
     from opus_pllm_tpu_torch.kernels import decode_attention as da
     from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
     from opus_pllm_tpu_torch.kernels import quant, quant4
-    return fe, quant4, da, fa, quant
+    return fe, quant4, da, fa, quant, fab
 
 
 def reset_counts():
@@ -225,12 +294,13 @@ def bound_ms(flops, n_bytes):
 
 
 def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
-            more_bytes=0, library=None, route=None):
+            more_bytes=0, library=None, route=None, scaled_atol=False):
     """The kernel vs its plain version on the same inputs (module
     docstring, phase 3); `extra` arguments are passed as they are.
     `flops` and the bytes of the inputs, the output and `more_bytes`
     (operands the calls capture) give the bound; `library` is the PyTorch
-    yardstick, `route` another path of the port, both only timed. Returns
+    yardstick, `route` another path of the port, both only timed.
+    scaled_atol: ATOL times max(1, max|plain_fp32|) (gradients). Returns
     the kernel's row of the JSON line, device times."""
     import torch
     ref32 = plain(*(t.float() for t in bf_in), *extra).float()
@@ -241,7 +311,8 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
         fail(f"{name}: shape {tuple(out.shape)} or non-finite")
     err = (out.float() - ref32).abs().max().item()
     err_plain = (ref_bf - ref32).abs().max().item()
-    tol = 2 * err_plain + ATOL
+    tol = 2 * err_plain + ATOL * (
+        max(1.0, ref32.abs().max().item()) if scaled_atol else 1.0)
     b_ms, b_by = bound_ms(flops, nbytes(*bf_in, *extra, out) + more_bytes)
     del ref32, ref_bf, out
     ms = time_ms(lambda: kern(*bf_in, *extra))
@@ -383,6 +454,92 @@ def check_serve_kernels(card):
                 (m, k, n) == (5120, 4096, 14336))
             del wq, s, w_bf, x
             torch.cuda.empty_cache()
+    return rows
+
+
+def train_mask(n_valid, length):
+    """opus.forward's training mask: right-padded valid lengths (B,) and
+    causality -> (B, 1, L, L) bool."""
+    import torch
+    from opus_pllm_tpu_torch.models.layers import causal_mask
+    attn = (torch.arange(length, device=n_valid.device)[None]
+            < n_valid[:, None])
+    return causal_mask(attn)
+
+
+def check_train_kernels(card):
+    """Both flash-attention backward kernels and int4_matmul_v1 at the
+    training slice's shapes (module docstring, phase 3)."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
+    from opus_pllm_tpu_torch.kernels import quant4
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device="cuda").bfloat16()
+    rows = {}
+    hq, hkv, d = 32, 8, 128
+    n_valid = torch.randint(TRAIN_LEN // 2, TRAIN_LEN + 1, (TRAIN_BATCH,),
+                            generator=g, device="cuda")
+    n_valid[0] = TRAIN_LEN
+    cases = ((f"training B={TRAIN_BATCH} L={TRAIN_LEN}", TRAIN_BATCH,
+              TRAIN_LEN, train_mask(n_valid, TRAIN_LEN), False),
+             ("causal B=1 S=2048", 1, 2048, None, True))
+    for i, (label, b, s, mask, causal) in enumerate(cases):
+        q, k, v, dout = rnd(b, s, hq, d), rnd(b, s, hkv, d), \
+            rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        out, lse = fa.flash_attention(q, k, v, mask, causal=causal,
+                                      return_lse=True)
+        delta = fab._delta(out, dout)
+        pairs = (mask.sum().item() if mask is not None
+                 else b * s * (s + 1) // 2)
+        plain = lambda q, k, v, dout: fab.flash_attention_bwd_plain(
+            q, k, v, mask, out, lse, dout, causal=causal)
+        # SDPA on (B, H, S, D) leaves, K/V heads repeated, backward only
+        qx, kx, vx = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k.repeat_interleave(hq // hkv, dim=2),
+                                v.repeat_interleave(hq // hkv, dim=2)))
+        ox = torch.nn.functional.scaled_dot_product_attention(
+            qx, kx, vx, attn_mask=mask, is_causal=causal)
+        gx = dout.transpose(1, 2)
+        library = lambda: torch.autograd.grad(ox, (qx, kx, vx), gx,
+                                              retain_graph=True)
+        saved = nbytes(mask, lse, delta)
+        keep(rows, "flash_attention_bwd_dq", compare(
+            f"flash_attention_bwd_dq {label}",
+            lambda q, k, v, dout: fab.flash_attention_bwd_dq(
+                q, k, v, mask, lse, delta, dout, causal=causal),
+            lambda *a: plain(*a)[0], (q, k, v, dout), card,
+            flops=6 * hq * d * pairs, more_bytes=saved, library=library,
+            scaled_atol=True), i == 0)
+        keep(rows, "flash_attention_bwd_dkv", compare(
+            f"flash_attention_bwd_dkv {label}",
+            lambda q, k, v, dout: fab.flash_attention_bwd_dkv(
+                q, k, v, mask, lse, delta, dout, causal=causal),
+            lambda *a: torch.stack(plain(*a)[1:]), (q, k, v, dout), card,
+            flops=8 * hq * d * pairs, more_bytes=saved, library=library,
+            scaled_atol=True), i == 0)
+        del q, k, v, dout, out, lse, delta, qx, kx, vx, ox, gx
+        torch.cuda.empty_cache()
+    m = TRAIN_BATCH * TRAIN_LEN
+    for k, n in INT4_SHAPES:
+        q, s = quant4.quantize_grouped(
+            torch.randn((k, n), generator=g, device="cuda"))
+        packed = quant4.pack_int4(q)
+        del q
+        w_bf = quant4.dequantize_bf16(packed, s)
+        x = rnd(m, k)
+        keep(rows, "int4_matmul_v1", compare(
+            f"int4_matmul_v1 M={m} K={k} N={n}",
+            lambda x: quant4.int4_matmul(x, packed, s),
+            lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
+            flops=2 * m * k * n, more_bytes=nbytes(packed, s),
+            library=lambda: torch.mm(x, w_bf),
+            route=lambda: quant4.dequant_matmul(x, packed, s)),
+            (k, n) == (4096, 14336))
+        del packed, s, w_bf, x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -810,6 +967,219 @@ def check_serve_slice(card, params, cfg, gen):
     return stats["bf16 cache"]
 
 
+def train_records(n, tok):
+    """n synthetic train-lora records: the keywords question followed by
+    protein context, sized so that the tokenized prompt is 460-500 tokens,
+    a protein of 60-500 residues and a 24-64-token answer (with the
+    leading space and EOS), so most records pass the 512-token cap."""
+    import numpy as np
+    from opus_pllm_tpu_torch.infer.conversation import annotation_prompt
+    from opus_pllm_tpu_torch.infer.tokenization import tokenize_with_seq
+    rng = np.random.default_rng(SEED)
+    aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    words = ["Membrane", "Transport", "Zinc", "Kinase", "Nucleus",
+             "Transmembrane helix", "Hydrolase", "Metal-binding", "Signal"]
+    question = "What are the UniProtKB keywords of this protein?"
+    context = (" The protein was isolated from a soil bacterium; its gene "
+               "lies next to an ABC transporter operon and it is expressed "
+               "under zinc limitation.") * 8
+    base = len(tokenize_with_seq(annotation_prompt("<seq>\n" + question),
+                                 tok.encode, tok.bos_token_id))
+    recs = []
+    for _ in range(n):
+        extra = int(rng.integers(460, 501)) - base
+        answer = "; ".join(rng.choice(words, 12))[:int(rng.integers(22, 63))]
+        recs.append({"instruction": question + context[:extra],
+                     "input": "".join(rng.choice(aa, int(rng.integers(
+                         60, 501)))),
+                     "output": answer})
+    return recs
+
+
+def _lora_b(trainable):
+    return [ab["B"] for lp in trainable["lora"]["layers"]
+            for ab in lp.values()]
+
+
+def run_training(label, card, params, cfg, tcfg, lcfg, batches, want):
+    """`fit` over `batches` from fresh LoRA adapters (module docstring,
+    phase 7); checks the launch counts against `want` (per step), a finite
+    loss every step and every LoRA B leaf moved by step 1. Returns the
+    launch counts."""
+    import math
+    import torch
+    from opus_pllm_tpu_torch.core.config import IGNORE_INDEX
+    from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
+    steps = len(batches)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    state, tx = mmt.create_state(cfg, tcfg, params, generator=g,
+                                 train_switch=False, lora_cfg=lcfg,
+                                 total_steps=steps, device="cuda")
+    b0 = [t.detach().clone() for t in _lora_b(state.trainable)]
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() / 2**30
+    stamps, losses = [], []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        losses.append(float(line.split("loss=")[1]))
+        if len(losses) == 1:
+            still = sum(bool(torch.equal(a, b)) for a, b in
+                        zip(b0, _lora_b(state.trainable)))
+            if still:
+                fail(f"{label}: {still} LoRA B leaves unchanged by step 1")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = mmt.fit(state, tx, cfg, tcfg, params, batches, lora_cfg=lcfg,
+                    log_fn=log, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(f"training, {label}", counts,
+                  **{n: steps * c for n, c in want.items()})
+    if state.step != steps or len(losses) != steps or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"{label}: losses {losses} after {state.step} steps")
+    walls = [b - a for a, b in zip([t0] + stamps, stamps)]
+    per_step = sum(walls[1:]) / (steps - 1)
+    tokens = sum(int((b["labels"] != IGNORE_INDEX).sum()) for b in batches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training, {label}: {steps} steps, losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + "; step walls " + ", ".join(f"{w:.3f}" for w in walls)
+          + f" s; {per_step:.3f} s/step after the first; "
+          f"{tokens / steps / per_step:.1f} trained tokens/s "
+          f"({tokens // steps} valid label tokens a step); "
+          f"{weights:.2f} GiB on the card with the weights in place, peak "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    return counts
+
+
+def _gate_grads(trainable, frozen, cfg, batch, ls, tcfg, impl):
+    import torch
+    from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
+    tr = {"lora": mmt._trainable_copy(trainable["lora"])}
+    loss, _ = mmt.loss_fn(tr, frozen, cfg, batch, ls, tcfg.remat_mode,
+                          tcfg.ce_chunk, impl)
+    return [t.float() for t in torch.autograd.grad(loss, mmt.leaves(tr))]
+
+
+def gradient_gate(params, cfg, tcfg, lcfg, batch):
+    """The LoRA gradients of loss_fn through the kernels vs the plain path
+    in fp32 (module docstring, phase 7), at depth GATE_LAYERS."""
+    import dataclasses
+    import torch
+    from opus_pllm_tpu_torch.lora import lora as lora_mod
+    from opus_pllm_tpu_torch.models import esm2
+    llm = dict(params["llm"], layers=params["llm"]["layers"][:GATE_LAYERS])
+    cfg4 = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=GATE_LAYERS))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    lora = lora_mod.init(cfg4.llm, lcfg, generator=g, device="cuda")
+    for lp in lora["layers"]:
+        for ab in lp.values():
+            ab["B"].normal_(0.0, 0.01, generator=g)
+    rows = {k: torch.as_tensor(v[:GATE_ROWS]).cuda() for k, v in batch.items()
+            if k != "esm_tokens"}
+    with torch.no_grad():
+        esm = torch.as_tensor(batch["esm_tokens"][:GATE_ROWS]).cuda()
+        rows["pooled_emb"] = esm2.pooled_embedding(
+            params["esm"], cfg.esm, esm[:, 0]).float()[:, None]
+    ls = lora_mod.scaling(lcfg)
+    frozen = dict(params, llm=llm)
+    got = _gate_grads({"lora": lora}, frozen, cfg4, rows, ls, tcfg, "auto")
+    plain = _gate_grads({"lora": lora}, frozen, cfg4, rows, ls, tcfg, "torch")
+    cfg32 = dataclasses.replace(cfg4, llm=dataclasses.replace(
+        cfg4.llm, dtype="float32"))
+    ref = _gate_grads({"lora": lora}, dict(params, llm=_to_fp32(llm)), cfg32,
+                      rows, ls, tcfg, "torch")
+    rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()
+    err = max(rel(a, r) for a, r in zip(got, ref))
+    err_plain = max(rel(a, r) for a, r in zip(plain, ref))
+    bound = 2 * err_plain + ATOL
+    print(f"gradient gate ({GATE_LAYERS} layers, {GATE_ROWS} rows of "
+          f"{rows['input_ids'].shape[1]} prompt tokens, {len(ref)} LoRA "
+          f"leaves), "
+          f"max error in units of each leaf's largest entry vs fp32 plain: "
+          f"kernels {err:.3e}, bf16 plain {err_plain:.3e} (bound "
+          f"{bound:.3e})", flush=True)
+    if not (all(torch.isfinite(a).all() for a in got) and err <= bound):
+        fail(f"gradient gate: kernels {err:.3e} from the fp32 plain path, "
+             f"above {bound:.3e}")
+
+
+def check_train_slice(card, params, cfg):
+    """Phase 7 (module docstring): `train-lora` over the bf16 LLM, the
+    gradient gate, then QLoRA over its v1 quantization."""
+    import itertools
+    import json as _json
+    import tempfile
+    import torch
+    from opus_pllm_tpu_torch.core.config import LoRAConfig, TrainConfig
+    from opus_pllm_tpu_torch.data.collate import instruction_batches
+    from opus_pllm_tpu_torch.data.datasets import InstructionDataset
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.kernels import quant4
+    from opus_pllm_tpu_torch.models import decoder
+
+    params["llm"] = None                      # the int8 LLM of phase 6
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params["llm"] = decoder.init(cfg.llm, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    tok = ByteTokenizer()
+    tcfg = TrainConfig(learning_rate=2e-5, weight_decay=0.0,
+                       batch_size=TRAIN_BATCH, remat="full", ce_chunk=0,
+                       grad_accum=1, log_every=1)
+    lcfg = LoRAConfig(rank=16, alpha=32.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.json")
+        with open(path, "w") as f:
+            _json.dump(train_records(TRAIN_RECORDS, tok), f)
+        batches = list(itertools.islice(instruction_batches(
+            InstructionDataset(path), tok, TRAIN_BATCH, seed=SEED,
+            max_len=TRAIN_MAX_LEN), TRAIN_STEPS_BF16))
+    lengths = {b["input_ids"].shape[1] + cfg.switch.n_tokens - 1
+               for b in batches}
+    if lengths != {TRAIN_LEN}:
+        fail(f"training batches reach decoder lengths {lengths}, not "
+             f"{TRAIN_LEN}")
+    layers = cfg.llm.num_layers
+    base = {"flash_attention": 2 * layers,
+            "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            **{n: cfg.esm.num_layers for n in fe.launches}}
+    counts = run_training("bf16 LLM", card, params, cfg, tcfg, lcfg, batches,
+                          base)
+    gradient_gate(params, cfg, tcfg, lcfg, batches[0])
+
+    t0 = time.perf_counter()
+    params["llm"] = quant4.quantize_decoder4(params["llm"], layout="v1")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    layout = quant4.quant_layout_of(params["llm"])
+    print(f"quantize_decoder4(layout='v1') {time.perf_counter() - t0:.1f} s, "
+          f"layout {layout}", flush=True)
+    if layout != "int4-v1" or any(
+            p.dtype != torch.int8 for p in
+            [params["llm"]["lm_head"]["kernel_p"]]
+            + [lp[t]["kernel_p"] for lp in params["llm"]["layers"]
+               for t in lcfg.target_modules]):
+        fail(f"the QLoRA LLM is not v1 everywhere ({layout})")
+    qcounts = run_training(
+        "int4-v1 LLM (QLoRA)", card, params, cfg, tcfg, lcfg,
+        batches[:TRAIN_STEPS_QLORA],
+        dict(base, int4_matmul_v1=2 * 7 * layers + 1))
+    return counts, qcounts
+
+
 def profile_serving(card):
     """The serving slice's device-time breakdown (module docstring)."""
     import torch
@@ -851,6 +1221,19 @@ def profile_serving(card):
         t0 = time.perf_counter()
         run(SERVE_SLOTS)
         wall = 1e3 * (time.perf_counter() - t0)
+    # casts and multiplies: mostly the M=17 dequantize route's
+    # int8->bf16 cast and scale multiply, with every other cast / multiply
+    print_profile(prof, wall, card, {
+        "casts (direct_copy_kernel)": "direct_copy_kernel",
+        "multiplies (MulFunctor)": "MulFunctor",
+        "int8_matmul_kernel": "int8_matmul_kernel",
+        "flash_fwd_kernel": "flash_fwd_kernel",
+        "cuBLAS (nvjet / gemm)": ("nvjet", "gemmSN", "gemv")})
+
+
+def print_profile(prof, wall, card, groups):
+    """Device time against the profiled wall `wall` (ms), summed per group
+    of kernel-name keys, then the kernels with the most device time."""
     # device kernels and copies only: a CPU op's self device time repeats
     # the time of the kernels it launched
     dev = lambda e: getattr(e, "self_device_time_total",
@@ -859,13 +1242,6 @@ def profile_serving(card):
                       if str(e.device_type).endswith("CUDA") and dev(e) > 0),
                      key=dev, reverse=True)
     busy = sum(dev(e) for e in kernels)
-    # casts and multiplies: mostly the M=17 dequantize route's
-    # int8->bf16 cast and scale multiply, with every other cast / multiply
-    groups = {"casts (direct_copy_kernel)": "direct_copy_kernel",
-              "multiplies (MulFunctor)": "MulFunctor",
-              "int8_matmul_kernel": "int8_matmul_kernel",
-              "flash_fwd_kernel": "flash_fwd_kernel",
-              "cuBLAS (nvjet / gemm)": ("nvjet", "gemmSN", "gemv")}
     print(f"profiled: {wall:.1f} ms wall, {busy:.1f} ms of device time in "
           f"{sum(e.count for e in kernels)} kernels and copies ("
           f"{100 * busy / wall:.1f}% of the profiled wall) [{card}]",
@@ -878,6 +1254,80 @@ def profile_serving(card):
     for e in kernels[:20]:
         print(f"  {dev(e):10.3f} ms  {e.count:7d} x  {e.key[:100]}",
               flush=True)
+
+
+def profile_training(card):
+    """The training slice's device-time breakdown (module docstring): one
+    bf16 step and one QLoRA step under torch.profiler, each after two
+    unprofiled steps."""
+    import itertools
+    import json as _json
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opus_pllm_tpu_torch.core.config import (ESM2Config, LoRAConfig,
+                                                 OpusConfig, TrainConfig)
+    from opus_pllm_tpu_torch.data.collate import instruction_batches
+    from opus_pllm_tpu_torch.data.datasets import InstructionDataset
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import quant4
+    from opus_pllm_tpu_torch.models import opus
+    from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
+
+    cfg = OpusConfig(esm=ESM2Config(dtype="bfloat16"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    params = opus.init(cfg, generator=g, device="cuda")
+    tok = ByteTokenizer()
+    tcfg = TrainConfig(learning_rate=2e-5, weight_decay=0.0,
+                       batch_size=TRAIN_BATCH, remat="full", ce_chunk=0,
+                       grad_accum=1, log_every=1)
+    lcfg = LoRAConfig(rank=16, alpha=32.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.json")
+        with open(path, "w") as f:
+            _json.dump(train_records(TRAIN_RECORDS, tok), f)
+        batches = list(itertools.islice(instruction_batches(
+            InstructionDataset(path), tok, TRAIN_BATCH, seed=SEED,
+            max_len=TRAIN_MAX_LEN), 3))
+    groups = {
+        "flash_fwd_kernel (forward + recompute)": "flash_fwd_kernel",
+        "flash_bwd_dq_kernel": "flash_bwd_dq_kernel",
+        "flash_bwd_dkv_kernel": "flash_bwd_dkv_kernel",
+        "int4_v1_kernel": "int4_v1_kernel",
+        "encoder kernels (fused_encoder.cu)": (
+            "gemm_kernel<", "encoder_attention_kernel", "ln_stats_kernel"),
+        "cuBLAS bf16 (nvjet)": "nvjet",
+        "cuBLAS fp32 (xmma_gemm_f32: LoRA, fp32 head)": "gemm_f32",
+        "casts (direct_copy / bfloat16_copy)": ("direct_copy_kernel",
+                                                "bfloat16_copy_kernel"),
+        "adds (CUDAFunctor_add)": "CUDAFunctor_add",
+        "other elementwise (Unary / BinaryFunctor)": ("AUnaryFunctor",
+                                                      "BinaryFunctor",
+                                                      "MulFunctor"),
+        "softmax / log_softmax": ("SoftMax", "softmax")}
+    for label in ("bf16 LLM", "int4-v1 LLM (QLoRA)"):
+        if label.startswith("int4"):
+            params["llm"] = quant4.quantize_decoder4(params["llm"],
+                                                     layout="v1")
+            torch.cuda.empty_cache()
+        state, tx = mmt.create_state(cfg, tcfg, params, generator=g,
+                                     train_switch=False, lora_cfg=lcfg,
+                                     device="cuda")
+        step = mmt.make_train_step(cfg, tx, lora_cfg=lcfg,
+                                   remat=tcfg.remat_mode)
+        placed = [mmt.place(b, "cuda") for b in batches]
+        for b in placed[:2]:
+            step(state, params, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, params, placed[2])
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        print(f"training step, {label}:", flush=True)
+        print_profile(prof, wall, card, groups)
 
 
 def main():
@@ -922,11 +1372,16 @@ def main():
         phase("serving profile")
         profile_serving(card)
         return
+    if "--profile-training" in sys.argv[1:]:
+        phase("training profile")
+        profile_training(card)
+        return
 
     phase("kernels vs plain")
     rows = check_kernels(card)
     rows.update(check_quant_kernels(card))
     rows.update(check_serve_kernels(card))
+    rows.update(check_train_kernels(card))
 
     phase("slice")
     counts, params, cfg, examples, gen = check_slice(card)
@@ -936,6 +1391,9 @@ def main():
 
     phase("serving slice")
     scounts = check_serve_slice(card, params, cfg, gen)
+
+    phase("training slice")
+    tcounts, qlora_counts = check_train_slice(card, params, cfg)
 
     kernels = [{"name": n, "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNELS[n], "launches": counts[n]}
@@ -947,6 +1405,10 @@ def main():
     kernels += [{"name": n, "route": "cuda", "source": src, "replaces": tpu,
                  "launches": scounts[n]}
                 for n, (tpu, src) in SERVE_KERNELS.items()]
+    kernels += [{"name": n, "route": "cuda", "source": src, "replaces": tpu,
+                 "launches": (qlora_counts if n == "int4_matmul_v1"
+                              else tcounts)[n]}
+                for n, (tpu, src) in TRAIN_KERNELS.items()]
     for k in kernels:
         k.update({key: rows[k["name"]][key]
                   for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",

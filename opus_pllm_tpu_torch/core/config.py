@@ -2,9 +2,9 @@
 
 The same dataclasses, fields and presets as the JAX module, for the parts
 of the model the port runs: `ESM2Config`, `CSTPConfig`,
-`SwitchProjectorConfig`, `DecoderConfig`, `OpusConfig` and
-`GenerationConfig`. The JAX dtype map (config.py:26-27) becomes a torch
-dtype map; nothing here imports jax.
+`SwitchProjectorConfig`, `DecoderConfig`, `OpusConfig`,
+`GenerationConfig`, `LoRAConfig` and `TrainConfig`. The JAX dtype map
+(config.py:26-27) becomes a torch dtype map; nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import re
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -204,3 +204,41 @@ class GenerationConfig:
     @property
     def do_sample(self) -> bool:
         return self.temperature > 0
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA adapters (config.py:333-338): rank, alpha (scaling alpha/rank)
+    and the projections they adapt; dropout is carried, not applied (the
+    JAX trainer applies none either)."""
+
+    rank: int = 16
+    alpha: float = 32.0
+    dropout: float = 0.0
+    target_modules: Tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "o_proj",
+                                       "gate_proj", "up_proj", "down_proj")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (config.py:341-375). `scan_mode` is the
+    JAX layer-loop layout and changes nothing here (the port runs a plain
+    loop over its layer list)."""
+
+    learning_rate: float = 0.05       # stage-(a) AdamW lr (modelling.py:599)
+    weight_decay: float = 1e-4
+    batch_size: int = 128
+    num_epochs: int = 1
+    warmup_steps: int = 0
+    grad_clip_norm: float = 0.0
+    seed: int = 0
+    log_every: int = 10
+    ce_chunk: int = 0                 # >0: chunked head + cross-entropy
+    scan_mode: str = "xs"
+    grad_accum: int = 1               # micro-chunks per optimizer step
+    remat: str = "full"               # "full" | "none" | "dots"
+
+    @property
+    def remat_mode(self):
+        """TrainConfig.remat -> the decoder.forward remat argument."""
+        return {"full": True, "none": False, "dots": "dots"}[self.remat]

@@ -17,12 +17,17 @@ What changes on the way, and nothing else:
   * Linear kernels stay (in, out): the port multiplies x @ kernel as the
     JAX package does, so no kernel is transposed.
   * int8 decoder leaves ("kernel_q" int8, "scale" fp32; kernels/quant.py)
-    and int4 v2 ones ("kernel_p" int32 words, "gscale" fp32;
-    kernels/quant4.py) are copied as they are: the port keeps the JAX
-    storage layouts.
-int4 v1 nibble bytes ("kernel_p" int8), any quantized ESM2 leaf and fused
-decoder projections are not ported yet and raise NotImplementedError.
-`device=None` puts the parameters on CUDA (core.util.resolve_device).
+    and int4 ones ("kernel_p" int32 v2 words or int8 v1 nibble bytes,
+    "gscale" fp32; kernels/quant4.py) are copied as they are: the port
+    keeps the JAX storage layouts.
+Any quantized ESM2 leaf and fused decoder projections are not ported yet
+and raise NotImplementedError. `device=None` puts the parameters on CUDA
+(core.util.resolve_device).
+
+`lora_from_jax` and `trainable_from_jax` carry a JAX LoRA tree
+({"layers": [{proj: {"A", "B"}}]}) and a stage-(c)/(d) trainable tree
+({"switch"?, "lora"?}) across, so both packages can start a step from the
+same numbers; `trainable_to_numpy` brings a port tree back as numpy.
 """
 
 from __future__ import annotations
@@ -72,13 +77,14 @@ def _unstack(tree: dict) -> dict:
 
 def _refuse_quantized(tree, where: str, *, decoder: bool = False) -> None:
     """Raise on quantized leaves the port cannot run; in a decoder tree,
-    int8 "kernel_q" and int32 (v2) "kernel_p" leaves pass."""
+    int8 "kernel_q" and int32 (v2) or int8 (v1) "kernel_p" leaves pass."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             dt = np.asarray(v).dtype if k in ("kernel_q", "kernel_p") \
                 else None
             ok = decoder and ((k == "kernel_q" and dt == np.int8)
-                              or (k == "kernel_p" and dt == np.int32))
+                              or (k == "kernel_p"
+                                  and dt in (np.int32, np.int8)))
             if dt is not None and not ok:
                 raise NotImplementedError(
                     f"quantized weights ({where}.{k}, dtype "
@@ -134,3 +140,31 @@ def from_jax(tree: dict, device=None) -> dict:
     if "cstp" in tree:
         out["cstp"] = _tree(tree["cstp"], device)
     return out
+
+
+def lora_from_jax(tree: dict, device=None) -> dict:
+    """JAX LoRA tree with numpy leaves -> the port's, same dtypes."""
+    return {"layers": _tree(tree["layers"], resolve_device(device))}
+
+
+def trainable_from_jax(tree: dict, device=None) -> dict:
+    """JAX trainable tree {"switch"?, "lora"?} (numpy leaves) -> the
+    port's, on `device` (None: CUDA)."""
+    device = resolve_device(device)
+    out = {}
+    if "switch" in tree:
+        out["switch"] = _tree(tree["switch"], device)
+    if "lora" in tree:
+        out["lora"] = lora_from_jax(tree["lora"], device)
+    return out
+
+
+def trainable_to_numpy(tree):
+    """A port tree of tensors -> the same structure of numpy arrays (fp32
+    and wider dtypes as they are; bf16 as fp32)."""
+    if isinstance(tree, dict):
+        return {k: trainable_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [trainable_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

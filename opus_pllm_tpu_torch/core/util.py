@@ -10,6 +10,16 @@ def round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+def mm_fp32(a, b):
+    """a (M, K) @ b (K, N) with fp32 accumulation and an fp32 result (the
+    JAX `preferred_element_type=float32` product), no autograd. On CUDA a
+    low-precision pair runs on the tensor cores and writes fp32 directly;
+    elsewhere the same values multiply in fp32."""
+    if a.is_cuda and a.dtype != torch.float32 and a.dtype == b.dtype:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `None` means CUDA. There is no
     fallback: without a GPU, torch raises where the tensors are made. CPU

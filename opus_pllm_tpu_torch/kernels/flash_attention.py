@@ -1,10 +1,9 @@
 """Flash attention forward: a hand-written Hopper kernel and its plain
 version.
 
-Port of `opus_pllm_tpu/kernels/flash_attention.py` (the forward;
-`flash_attention_bwd` comes with the training slice). The CUDA source is
+Port of `opus_pllm_tpu/kernels/flash_attention.py`. The CUDA source is
 `opus_pllm_tpu_torch/csrc/flash_attention.cu` (built and loaded by
-`kernels/build.py`).
+`kernels/build.py`); the backward kernels are in `flash_attention_bwd.py`.
 
 flash_attention
   Replaces: flash_attention.py `_flash_impl` / `_kernel` (pallas_call at
@@ -32,6 +31,13 @@ D = 128, and D = 64 runs when called directly), Hq % Hkv == 0 and Sq > 1.
 No block-multiple rule (the JAX gate's `sq % 256` is a Mosaic tiling rule).
 `flash_attention` on CPU tensors runs the plain version; on CUDA tensors it
 launches the kernel or raises. Launches are counted in `launches`.
+
+Gradients: when grad mode is on and q, k or v requires grad, the call goes
+through `_FlashFunction` (the JAX `_flash_core` custom VJP,
+flash_attention.py:135-176): its forward runs the kernel (or the plain
+version) with the lse and saves (q, k, v, mask, out, lse); its backward is
+`flash_attention_bwd.flash_attention_bwd` (the two backward kernels on
+CUDA, their plain version on CPU). Without grad no lse is computed.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import math
 import torch
 
 from . import build
+from .flash_attention_bwd import flash_attention_bwd
 
 NEG_LARGE = -1e30       # exp(NEG_LARGE - m) == 0 in fp32 (flash_attention.py:27)
 HEAD_DIMS = (64, 128)   # the kernel's template instances
@@ -155,12 +162,38 @@ def _kernel(q, k, v, mask, causal, return_lse):
     return (out, lse) if return_lse else out
 
 
-def flash_attention(q, k, v, mask=None, *, causal: bool = False,
-                    return_lse: bool = False):
-    """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); mask (B, 1, Sq, Skv) bool
-    -> out (B, Sq, Hq, D) in q's dtype [, lse (B, Hq, Sq) fp32]."""
-    _check_mask(mask)
+def _forward(q, k, v, mask, causal, return_lse):
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, mask, causal=causal,
                                      return_lse=return_lse)
     return _kernel(q, k, v, mask, causal, return_lse)
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Forward with lse saved; backward through the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        out, lse = _forward(q, k, v, mask, causal, True)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, mask, out, lse,
+                                         g.contiguous(), causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, mask=None, *, causal: bool = False,
+                    return_lse: bool = False):
+    """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); mask (B, 1, Sq, Skv) bool
+    -> out (B, Sq, Hq, D) in q's dtype [, lse (B, Hq, Sq) fp32].
+    Differentiable in q, k and v (not with return_lse)."""
+    _check_mask(mask)
+    if (not return_lse and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _FlashFunction.apply(q, k, v, mask, causal)
+    return _forward(q, k, v, mask, causal, return_lse)

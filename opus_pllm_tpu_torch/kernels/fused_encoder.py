@@ -9,7 +9,10 @@ and `chip_smoke.py` holds the kernel against, and its launch count in
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises. Nothing catches a failed build or
-launch and falls back.
+launch and falls back. ESM2 is frozen on every path (training runs it
+under torch.no_grad()), so the kernels have no backward: a wrapper called
+with grad mode on and an input that requires grad raises instead of
+returning an output cut from the graph.
 
 Layouts (the TPU's pair-packed (.., H/2, S, 128) tiles exist only for its
 128-lane vector unit and are not carried over):
@@ -151,6 +154,16 @@ def _check_width(name, e):
         raise ValueError(f"{name}: embed dim {e} must be a multiple of 128")
 
 
+def _frozen(name, *tensors):
+    """Raise where autograd would need a gradient through a kernel."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the fused encoder "
+            "kernels have no backward (ESM2 is frozen); run the encoder "
+            "under torch.no_grad()")
+
+
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -166,6 +179,7 @@ def _launch(name, device, entry, *args):
 
 def ln_qkv_rope(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
     """LN -> QKV -> rope; see ln_qkv_rope_plain for shapes."""
+    _frozen("ln_qkv_rope", x, w_qkv, b_qkv, ln_sb, cos, sin)
     if not x.is_cuda:
         return ln_qkv_rope_plain(x, w_qkv, b_qkv, ln_sb, cos, sin, eps=eps)
     b, s, e = x.shape
@@ -188,6 +202,7 @@ def ln_qkv_rope(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
 
 def encoder_attention(qkv, mask=None):
     """Non-causal flash attention at d=64 over (B, S) key rows."""
+    _frozen("encoder_attention", qkv)
     if not qkv.is_cuda:
         return encoder_attention_plain(qkv, mask)
     three, b, h, s, d = qkv.shape
@@ -208,6 +223,7 @@ def encoder_attention(qkv, mask=None):
 
 def out_proj(a, w, b, x):
     """x + a @ w + b with a residual/bias epilogue."""
+    _frozen("out_proj", a, w, b, x)
     if not x.is_cuda:
         return out_proj_plain(a, w, b, x)
     bsz, s, e = x.shape
@@ -224,6 +240,7 @@ def out_proj(a, w, b, x):
 
 def ffn(x, w1, b1, w2, b2, ln_sb, *, eps=1e-5):
     """x + FC2(gelu(FC1(LN(x)))): two launches of the GEMM core."""
+    _frozen("ffn", x, w1, b1, w2, b2, ln_sb)
     if not x.is_cuda:
         return ffn_plain(x, w1, b1, w2, b2, ln_sb, eps=eps)
     bsz, s, e = x.shape

@@ -36,7 +36,9 @@ slots + 1, the vocab head at M = rows, fp32 activations) takes
 `dequant_matmul`, as the JAX package takes `_matmul_xla` there. The two
 routes compute the same function, except that `dequant_matmul` rounds the
 scale and the dequantized weights to x's dtype. Launches are counted in
-`launches`.
+`launches`. With grad on, every route goes through `_Int8Function`, whose
+backward is the JAX custom VJP's dx (quant.py:101-113), a product the JAX
+package computes in XLA outside Pallas.
 """
 
 from __future__ import annotations
@@ -190,15 +192,40 @@ def _kernel(x, wq, scale):
     return out
 
 
-def int8_matmul(x, wq, scale, *, impl: str = "auto"):
-    """x (M, K) @ int8 wq (K, N) * scale (N,) -> (M, N) in x's dtype: the
-    kernel (or, on CPU tensors and with impl="torch", its plain version) on
-    the kernel's shapes, `dequant_matmul` elsewhere."""
+def _forward(x, wq, scale, impl):
     if not kernel_shape(x):
         return dequant_matmul(x, wq, scale)
     if impl == "torch" or not x.is_cuda:
         return int8_matmul_plain(x, wq, scale)
     return _kernel(x.contiguous(), wq, scale)
+
+
+class _Int8Function(torch.autograd.Function):
+    """The JAX custom VJP (quant.py:91-116): the forward as dispatched, and
+    dx = (g * scale) @ wq^T in fp32, rounded to x's dtype; the frozen int8
+    weights and scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, wq, scale, impl):
+        ctx.save_for_backward(wq, scale)
+        ctx.x_dtype = x.dtype
+        return _forward(x, wq, scale, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, scale = ctx.saved_tensors
+        gs = g.float() * scale.float()[None, :]
+        return (gs @ wq.float().t()).to(ctx.x_dtype), None, None, None
+
+
+def int8_matmul(x, wq, scale, *, impl: str = "auto"):
+    """x (M, K) @ int8 wq (K, N) * scale (N,) -> (M, N) in x's dtype: the
+    kernel (or, on CPU tensors and with impl="torch", its plain version) on
+    the kernel's shapes, `dequant_matmul` elsewhere. Differentiable in x
+    (`_Int8Function`) when grad mode is on and x requires grad."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Int8Function.apply(x, wq, scale, impl)
+    return _forward(x, wq, scale, impl)
 
 
 def qdense(p: Dict, x, *, impl: str = "auto"):

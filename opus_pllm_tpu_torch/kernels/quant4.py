@@ -1,32 +1,39 @@
-"""Int4 weight-only quantization (v2 layout) and its hand-written matmul.
+"""Int4 weight-only quantization (v1 and v2 layouts) and its hand-written
+matmuls.
 
-Port of the serving side of `opus_pllm_tpu/kernels/quant4.py`:
-`quantize_grouped` (:67), `pack_int4_v2` (:110), `unpack_int4_v2` (:142),
-`quantize_linear4` (:158), `quant_layout_of` (:187), `int4_matmul` (:295),
-`qdense4` (:418) and `quantize_decoder4` (:430). The storage layout is the
-JAX package's, so `core.convert.from_jax` copies the leaves as they are:
+Port of `opus_pllm_tpu/kernels/quant4.py`: `quantize_grouped` (:67),
+`pack_int4` (:83), `unpack_int4` (:98), `pack_int4_v2` (:110),
+`unpack_int4_v2` (:142), `quantize_linear4` (:158), `quant_layout_of`
+(:187), `_matmul_xla` (:215, here `dequant_matmul`), `int4_matmul` (:295),
+`qdense4` (:418) and `quantize_decoder4` (:430). The storage layouts are
+the JAX package's, so `core.convert.from_jax` copies the leaves as they
+are; `kernel_p`'s dtype says which one a leaf holds:
 
+    kernel_p  (K/2, N) int8    v1 nibble bytes (K % 256 == 0): byte row
+                               b * 128 + i holds row b * 256 + i in its low
+                               nibble and row b * 256 + 128 + i in its high
+                               nibble, two's complement
     kernel_p  (K/8, N) int32   v2 magic-bitcast words (K % 512 == 0)
     gscale    (K/128, N) fp32  symmetric absmax/7 scale per (128-row group,
                                output column)
 
-Word row i of 512-row superblock sb holds, per 4-bit field, the BIASED
+v2: word row i of 512-row superblock sb holds, per 4-bit field, the BIASED
 value q + 8 of rows 2i (low half-word) and 2i+1 (high half-word) of each
 of the superblock's four 128-row groups g (bits 4g and 16 + 4g), so that
 ((w >> 4g) & 0x000F000F) | 0x43004300, read as a bf16 pair, is 136 + q for
-both rows, in order.
+both rows, in order. `quantize_linear4(layout="auto")` packs v2 where K %
+512 == 0 and v1 elsewhere; layout="v1" (the QLoRA training load,
+`train-* --load-int4`) packs v1 everywhere.
 
-The v1 nibble-byte layout (the QLoRA training layout, K % 256 == 0 but
-K % 512 != 0 or layout="v1") comes with the training slice: asking for it
-raises NotImplementedError.
+Both kernels compute the same function: x rounded to bf16; per 128-row
+group an fp32 partial sum of x * q; each partial times its fp32 group
+scale, summed in fp32; the result rounded once to x's dtype.
 
-int4_matmul
+int4_matmul (v2)
   Replaces: quant4.py `_pallas_v2` / `_kernel_v2` (pallas_call at :392).
-  Computes: x rounded to bf16; per 128-row group an fp32 partial sum of
-  x * q; each partial times its fp32 group scale, summed in fp32; the
-  result rounded once to x's dtype. (The TPU kernel folds the +136 bias out
-  with sum(x) per group; here the bias is subtracted from the weight pair
-  exactly, so no correction term is needed.)
+  (The TPU kernel folds the +136 bias out with sum(x) per group; here the
+  bias is subtracted from the weight pair exactly, so no correction term
+  is needed.)
   Bound (H100, M = 8): per weight element one 4-bit read from HBM and M
   fp32 FMAs. Llama-3-8B's projections plus head stream ~3.75 GB of words per
   decode step (1.1 ms at 3.35 TB/s) and need ~60 G FMA (1.8 ms at the
@@ -40,16 +47,33 @@ int4_matmul
   across CTAs so that about 264 CTAs fill the 132 SMs; the split partials
   go to an fp32 workspace and a second launch sums them in a fixed order
   (deterministic, no atomics).
+int4_matmul_v1
+  Replaces: quant4.py `_int4_matmul_impl` / `_kernel` (pallas_call at :359).
+  Bound (H100): the tensor cores at the training shape: M = 16 x 519 =
+  8304, a 4096 -> 14336 product is 0.98 TFLOP (~0.99 ms at 989 TFLOP/s)
+  against ~97 MB of activations and packed bytes.
+  Design (csrc/int4_matmul_v1.cu): int8_matmul's 128 x 128 tile on
+  mma.sync; each 16-byte load of packed bytes unpacks on its way into
+  shared memory to 16 exact bf16 weights of one nibble; each 128-row
+  group's fp32 partials are multiplied by their column scales before they
+  join the accumulators; ragged M and N are masked.
 
-Shape rule: products with M > 64 rows (the annotate prefill: M = B * L =
-2616) take the dequantize-to-bf16 + matmul route of the JAX `_matmul_xla`
-(quant4.py:215), which is what the JAX package runs at that shape too
-(2616 % 256 != 0 sends `_pallas_v2` there, :387). Decode (M = batch) and
-both vocab-head calls (M = batch) go through the kernel.
+Shape rule: v2 products with M > 64 rows (the annotate prefill: M = B * L
+= 2616) take the dequantize-to-bf16 + matmul route of the JAX
+`_matmul_xla` (quant4.py:215), which is what the JAX package runs at that
+shape too (2616 % 256 != 0 sends `_pallas_v2` there, :387); decode (M =
+batch) and both vocab-head calls take the kernel. Every v1 product takes
+its kernel, at any M (the JAX TPU dispatch takes its Pallas kernel only
+where M, N and K tile its blocks, quant4.py:337-353; the CUDA kernel masks
+ragged tiles).
 
-Dispatch: CPU tensors, or impl="torch", take the kernel's plain version
+Dispatch: CPU tensors, or impl="torch", take the kernels' plain version
 (`int4_matmul_plain`); CUDA tensors launch the kernel or raise. Launches
-are counted in `launches`.
+are counted in `launches`. Gradients: with grad on and x requiring grad,
+`int4_matmul` goes through `_Int4Function`, whose backward is the JAX
+`_int4_matmul_bwd` (quant4.py:314-324): the weights dequantized to bf16
+with the scales rounded to bf16, then dx = g @ W^T with fp32 accumulation
+(`torch.mm`), a product the JAX package computes outside Pallas.
 """
 
 from __future__ import annotations
@@ -58,6 +82,7 @@ from typing import Dict
 
 import torch
 
+from ..core.util import mm_fp32
 from . import build
 
 GROUP = 128   # K rows per scale group
@@ -71,19 +96,12 @@ TARGET_CTAS = 264       # two CTAs for each of the H100's 132 SMs
 _QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                   "up_proj", "down_proj")    # quant.py:187, unfused llama
 
-launches = {"int4_matmul": 0}
+launches = {"int4_matmul": 0, "int4_matmul_v1": 0}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-
-
-def _v1_refused(why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{why}: the int4 v1 nibble-byte layout is the QLoRA training "
-        "layout and is ported with the training slice; the port packs v2 "
-        "words only (K % 512 == 0)")
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +120,28 @@ def quantize_grouped(w, group: int = GROUP):
     scale = torch.clamp_min(wf.abs().amax(dim=1, keepdim=True) / 7.0, 1e-8)
     q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int8)
     return q.reshape(k, n), scale.reshape(k // group, n)
+
+
+def pack_int4(q):
+    """int4-valued int8 (K, N) -> nibble bytes (K/2, N) int8, v1 layout:
+    byte row b*128+i = (lo: row b*256+i, hi: row b*256+128+i)."""
+    k, n = q.shape
+    if k % BK:
+        raise ValueError(f"K={k} is not a multiple of {BK}")
+    blocks = q.to(torch.int32).reshape(k // BK, 2, BK // 2, n)
+    packed = (blocks[:, 0] & 0xF) | ((blocks[:, 1] & 0xF) << 4)  # [0, 255]
+    return packed.reshape(k // 2, n).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed):
+    """Nibble bytes (K/2, N) -> int4-valued int8 (K, N)."""
+    k2, n = packed.shape
+    p = packed.to(torch.int32)
+    lo = (p << 28) >> 28                          # sign-extend low nibble
+    hi = p >> 4                                   # arithmetic: sign-correct
+    blocks = torch.stack([lo.reshape(-1, BK // 2, n),
+                          hi.reshape(-1, BK // 2, n)], dim=1)
+    return blocks.reshape(2 * k2, n).to(torch.int8)
 
 
 def pack_int4_v2(q):
@@ -135,20 +175,20 @@ def unpack_int4_v2(packed):
 
 
 def quantize_linear4(p: Dict, layout: str = "auto"):
-    """dense params {kernel, bias?} -> {kernel_p, gscale, bias?} (v2), or
-    None when K is not a multiple of 256 (the JAX package keeps such a
-    projection unquantized)."""
+    """dense params {kernel, bias?} -> {kernel_p, gscale, bias?}, or None
+    when K is not a multiple of 256 (the JAX package keeps such a
+    projection unquantized). layout "auto": v2 words where K % 512 == 0,
+    else v1 bytes; "v1": v1 bytes (the training layout); "v2": v2 where
+    the shape allows."""
     if layout not in ("auto", "v1", "v2"):
         raise ValueError(f"layout must be auto/v1/v2, got {layout!r}")
-    if layout == "v1":
-        raise _v1_refused('layout="v1"')
     k = p["kernel"].shape[0]
     if k % BK:
         return None
-    if k % SUPER:
-        raise _v1_refused(f"K={k} (the JAX package packs v1 there)")
     q, s = quantize_grouped(p["kernel"])
-    out = {"kernel_p": pack_int4_v2(q), "gscale": s}
+    use_v2 = layout != "v1" and k % SUPER == 0
+    out = {"kernel_p": pack_int4_v2(q) if use_v2 else pack_int4(q),
+           "gscale": s}
     if "bias" in p:
         out["bias"] = p["bias"]
     return out
@@ -191,42 +231,57 @@ def quant_layout_of(decoder_params: Dict) -> str:
 # Plain versions
 # ---------------------------------------------------------------------------
 
+def unpack_any(packed):
+    """Either layout -> int4-valued int8 (K, N), by kernel_p's dtype."""
+    return (unpack_int4_v2(packed) if packed.dtype == torch.int32
+            else unpack_int4(packed))
+
+
 def _check_shapes(x, packed, gscale):
     m, k = x.shape
-    k8, n = packed.shape
-    if packed.dtype != torch.int32:
-        raise _v1_refused(f"kernel_p of dtype {packed.dtype}")
-    if k != 8 * k8 or k % SUPER or gscale.shape != (k // GROUP, n):
-        raise ValueError(f"int4_matmul: x {tuple(x.shape)}, words "
-                         f"{tuple(packed.shape)}, gscale "
+    k2, n = packed.shape
+    if packed.dtype not in (torch.int32, torch.int8):
+        raise TypeError(f"int4_matmul: kernel_p of dtype {packed.dtype}")
+    v2 = packed.dtype == torch.int32
+    if (k != (8 if v2 else 2) * k2 or k % (SUPER if v2 else BK)
+            or gscale.shape != (k // GROUP, n)):
+        raise ValueError(f"int4_matmul: x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)} {packed.dtype}, gscale "
                          f"{tuple(gscale.shape)} do not match")
     return m, k, n
 
 
 def int4_matmul_plain(x, packed, gscale):
-    """The kernel's function: x rounded to bf16, fp32 partial sums per
-    128-row group times the fp32 group scale, one rounding to x's dtype."""
+    """The kernels' function: x rounded to bf16, fp32 partial sums per
+    128-row group times the fp32 group scale, one rounding to x's dtype.
+    One group at a time, so only two (M, N) fp32 buffers live at once (the
+    training shape's vocab head is M = 8304 by N = 128256)."""
     m, k, n = _check_shapes(x, packed, gscale)
-    q = unpack_int4_v2(packed).float().reshape(k // GROUP, GROUP, n)
+    q = unpack_any(packed).float().reshape(k // GROUP, GROUP, n)
     xg = x.to(torch.bfloat16).float().reshape(m, k // GROUP, GROUP)
-    part = torch.bmm(xg.transpose(0, 1), q)                  # (K/G, M, N)
-    return (part * gscale.float()[:, None, :]).sum(0).to(x.dtype)
+    s = gscale.float()
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for g in range(k // GROUP):
+        acc.addcmul_(xg[:, g] @ q[g], s[g])
+    return acc.to(x.dtype)
+
+
+def dequantize_bf16(packed, gscale):
+    """The weights as the JAX `_matmul_xla` and `_int4_matmul_bwd` build
+    them: int4 values times the scales ROUNDED TO BF16, in bf16, (K, N)."""
+    q = unpack_any(packed)
+    k, n = q.shape
+    w = q.to(torch.bfloat16).reshape(k // GROUP, GROUP, n)
+    return (w * gscale.to(torch.bfloat16)[:, None, :]).reshape(k, n)
 
 
 def dequant_matmul(x, packed, gscale):
     """The JAX `_matmul_xla` route (quant4.py:215): weights dequantized to
     bf16 with the scales ROUNDED TO BF16, then one bf16 x bf16 product
     with fp32 accumulation, rounded to x's dtype."""
-    _, k, n = _check_shapes(x, packed, gscale)
-    w = unpack_int4_v2(packed).to(torch.bfloat16).reshape(k // GROUP, GROUP,
-                                                           n)
-    w = (w * gscale.to(torch.bfloat16)[:, None, :]).reshape(k, n)
-    xb = x.to(torch.bfloat16)
-    if xb.is_cuda:
-        y = torch.mm(xb, w, out_dtype=torch.float32)
-    else:
-        y = xb.float() @ w.float()
-    return y.to(x.dtype)
+    _check_shapes(x, packed, gscale)
+    w = dequantize_bf16(packed, gscale)
+    return mm_fp32(x.to(torch.bfloat16), w).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -277,16 +332,72 @@ def _kernel(x, packed, gscale):
     return out
 
 
-def int4_matmul(x, packed, gscale, *, impl: str = "auto"):
-    """x (M, K) @ int4 v2 words (K/8, N) with (K/128, N) fp32 group scales
-    -> (M, N) in x's dtype. M > 64 takes `dequant_matmul` (the shape rule
-    above); otherwise CPU tensors or impl="torch" take the plain version
-    and CUDA tensors the kernel."""
+def _kernel_v1(x, packed, gscale):
+    m, k, n = _check_shapes(x, packed, gscale)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int4_matmul_v1: x of dtype {x.dtype}")
+    if gscale.dtype != torch.float32:
+        raise TypeError(f"int4_matmul_v1: gscale of dtype {gscale.dtype}")
+    xb = x.to(torch.bfloat16).contiguous()
+    for name, t, align in (("x", xb, 16), ("kernel_p", packed, 16),
+                           ("gscale", gscale, 4)):
+        if t.device != x.device:
+            raise ValueError(f"int4_matmul_v1: {name} on {t.device}, x on "
+                             f"{x.device}")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"int4_matmul_v1: {name} must be contiguous "
+                             f"and {align}-byte aligned")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = build.library("int4_matmul_v1")
+    with torch.cuda.device(x.device):
+        rc = lib.opus_int4_matmul_v1(
+            xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
+            out.data_ptr(), m, n, k, int(x.dtype == torch.float32),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    launches["int4_matmul_v1"] += 1
+    build.check(rc, "int4_matmul_v1", lib)
+    return out
+
+
+def _forward(x, packed, gscale, impl):
+    if packed.dtype == torch.int8:                                 # v1
+        if impl == "torch" or not x.is_cuda:
+            return int4_matmul_plain(x, packed, gscale)
+        return _kernel_v1(x, packed, gscale)
     if x.shape[0] > KERNEL_MAX_M:
         return dequant_matmul(x, packed, gscale)
     if impl == "torch" or not x.is_cuda:
         return int4_matmul_plain(x, packed, gscale)
     return _kernel(x, packed, gscale)
+
+
+class _Int4Function(torch.autograd.Function):
+    """The JAX custom VJP (quant4.py:304-327): the forward as dispatched;
+    dx = g @ W^T with W dequantized to bf16 (scales rounded to bf16), g
+    rounded to bf16, fp32 accumulation, rounded to x's dtype. The frozen
+    packed weights and scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, packed, gscale, impl):
+        ctx.save_for_backward(packed, gscale)
+        ctx.x_dtype = x.dtype
+        return _forward(x, packed, gscale, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, gscale = ctx.saved_tensors
+        w = dequantize_bf16(packed, gscale)
+        dx = mm_fp32(g.to(torch.bfloat16), w.t()).to(ctx.x_dtype)
+        return dx, None, None, None
+
+
+def int4_matmul(x, packed, gscale, *, impl: str = "auto"):
+    """x (M, K) @ int4 weights (v1 bytes (K/2, N) int8 or v2 words (K/8, N)
+    int32) with (K/128, N) fp32 group scales -> (M, N) in x's dtype (the
+    dispatch in the module docstring). Differentiable in x."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Int4Function.apply(x, packed, gscale, impl)
+    return _forward(x, packed, gscale, impl)
 
 
 def qdense4(p: Dict, x, *, impl: str = "auto"):

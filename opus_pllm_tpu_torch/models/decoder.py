@@ -3,7 +3,8 @@
 `init` (decoder.py:37), `init_cache` (:87), the quantized-cache helpers
 `_quantize_kv` (:131), `_quantize_kv4` (:141), `_unpack_kv4` (:155),
 `_dequantize_kv` (:163), `_write_cache` (:171), `_read_cache` (:217),
-`_block` (:278), `forward` (:555), `positions_and_rope` (:535),
+`_block` (:278, with LoRA adapters), `_remat_wrap` (:457), `forward`
+(:555, with `lora=`, `lora_scale=` and `remat=`), `positions_and_rope` (:535),
 `head_logits` (:629), `embed_tokens` (:375) and `positions_from_mask`
 (:644). RMSNorm, half-split RoPE, GQA and the SiLU-gated MLP, no biases.
 Projections may be bf16 ("kernel"), int8 ("kernel_q", see
@@ -31,13 +32,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.config import DecoderConfig
-from ..core.util import resolve_device
+from ..core.util import mm_fp32, resolve_device
 from ..kernels import decode_attention as da
 from . import layers
-from .layers import (apply_rope, attention, dense, embed, rms_norm,
-                     rope_cos_sin, silu)
+from .layers import (apply_rope, attention, dense, embed, lora_dense,
+                     rms_norm, rope_cos_sin, silu)
 
 
 def _check_family(cfg: DecoderConfig) -> None:
@@ -209,10 +211,13 @@ def _check_impl(impl: str) -> None:
 
 
 def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
-           impl: str = "auto"):
+           impl: str = "auto", la=None, ls: float = 1.0):
+    """One decoder layer; `la` this layer's LoRA adapters ({proj: {"A",
+    "B"}} or None) at scaling `ls` (decoder.py:278-327)."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    mm = lambda name, h: dense(p[name], h, impl=impl)
+    la = la or {}
+    mm = lambda name, h: lora_dense(p[name], la.get(name), h, ls, impl=impl)
     r = rms_norm(p["attn_norm"], x, eps=cfg.rms_norm_eps)
     q = mm("q_proj", r).reshape(b, s, hq, d)
     k = mm("k_proj", r).reshape(b, s, hkv, d)
@@ -252,24 +257,48 @@ def positions_and_rope(params, cfg: DecoderConfig, x, positions):
     return x, cos.to(x.dtype), sin.to(x.dtype)
 
 
+def _remat_wrap(fn, remat):
+    """remat False: fn as it is. True / "full": each call under
+    torch.utils.checkpoint (non-reentrant), so the layer's activations are
+    recomputed in the backward (decoder.py:457-470). "dots" (the JAX
+    checkpoint_dots policy, saving matmul outputs) maps to "full" here:
+    PyTorch's checkpoint has no per-op save policy that this port uses."""
+    if not remat:
+        return fn
+    if remat not in (True, "full", "dots"):
+        raise ValueError(f"remat must be False/True/'full'/'dots', got "
+                         f"{remat!r}")
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False)
+
+
 def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
-            cache=None, *, impl: str = "auto", return_hidden: bool = False,
+            cache=None, *, lora=None, lora_scale: float = 1.0,
+            impl: str = "auto", remat=False, return_hidden: bool = False,
             ntk_ctx: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """input_embeds (B, S, H); positions (B, S); mask4 (B, 1, S, Skv) bool
     (Skv = S without a cache, the cache capacity with one). With a cache,
     the new K/V land at slots [cache["index"], +S) in place and the index
-    advances. Returns (logits (B, S, V) fp32 or final-normed hidden, cache).
-    `ntk_ctx` pins the dynamic-NTK context (decoder.py:573-579); it changes
-    nothing for the llama family without dynamic NTK, the only one ported.
+    advances. `lora` {"layers": [...]} adapters (lora/lora.py) at scaling
+    `lora_scale`; `remat` rematerializes each layer in the backward
+    (`_remat_wrap`, cache-free calls with grad on only). Returns (logits
+    (B, S, V) fp32 or final-normed hidden, cache). `ntk_ctx` pins the
+    dynamic-NTK context (decoder.py:573-579); it changes nothing for the
+    llama family without dynamic NTK, the only one ported.
     """
     _check_family(cfg)
     _check_impl(impl)
     x, cos, sin = positions_and_rope(params, cfg, input_embeds, positions)
     index = cache["index"] if cache is not None else None
+    block = _block
+    if cache is None and torch.is_grad_enabled():
+        block = _remat_wrap(_block, remat)
     for i, p in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
-        x = _block(cfg, p, x, mask4, cos, sin, lc, index, impl)
+        la = lora["layers"][i] if lora is not None else None
+        x = block(cfg, p, x, mask4, cos, sin, lc, index, impl, la,
+                  lora_scale)
     if cache is not None:
         cache["index"] = index + input_embeds.shape[1]
     x = rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
@@ -278,12 +307,35 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     return head_logits(params, cfg, x, impl=impl), cache
 
 
+class _HeadProduct(torch.autograd.Function):
+    """x (M, H) @ w (H, V), both low precision, -> fp32 logits with fp32
+    accumulation (the JAX `preferred_element_type=float32` dot). Backward:
+    the two products in x's dtype with fp32 accumulation, the cotangent
+    rounded to x's dtype first (dx always, dw when w needs it)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return mm_fp32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gl = g.to(x.dtype)
+        dx = mm_fp32(gl, w.t()).to(x.dtype) if ctx.needs_input_grad[0] \
+            else None
+        dw = mm_fp32(x.t(), gl).to(w.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw
+
+
 def head_logits(params, cfg: DecoderConfig, x, *, impl: str = "auto"):
     """Vocab projection of final-normed hidden states -> fp32 logits with
     fp32 accumulation and no rounding of the product to x's dtype. On CUDA
     a low-precision product writes fp32 directly (`out_dtype`); elsewhere
-    it multiplies in fp32. A quantized head goes through `dense`, so its
-    logits are rounded to x's dtype before fp32 (decoder.py:638-639)."""
+    it multiplies in fp32; `_HeadProduct` gives it a backward. A quantized
+    head goes through `dense`, so its logits are rounded to x's dtype
+    before fp32 (decoder.py:638-639)."""
     head = params.get("lm_head", {})
     if not cfg.tie_word_embeddings and (
             "kernel_p" in head or "kernel_q" in head):
@@ -293,10 +345,10 @@ def head_logits(params, cfg: DecoderConfig, x, *, impl: str = "auto"):
          else params["lm_head"]["kernel"])
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype != torch.float32:
-        y = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
+    if x.dtype != torch.float32:
+        y = _HeadProduct.apply(x2, w.to(x.dtype))
     else:
-        y = x2.float() @ w.float()
+        y = x2 @ w.float()
     return y.reshape(*lead, -1)
 
 

@@ -81,6 +81,27 @@ def dense(params, x, *, impl: str = "auto"):
     return y
 
 
+def lora_delta(lora, x, scaling: float = 1.0):
+    """The fp32 LoRA delta scaling * (x A) B (layers.py:83-99), with the
+    JAX dtype chain: A rounded to x's dtype and multiplied with fp32
+    accumulation into an fp32 (M, r); B rounded to x's dtype and that
+    product taken in fp32 (JAX promotes fp32 x bf16 to fp32). The per-row
+    (3-d) adapters of the serving bank come with the engine's LoRA bank."""
+    a = x.float() @ lora["A"].to(x.dtype).float()
+    return scaling * (a @ lora["B"].to(x.dtype).float())
+
+
+def lora_dense(params, lora, x, scaling: float = 1.0, *,
+               impl: str = "auto"):
+    """dense() plus a LoRA delta (layers.py:69-80): y = xW + scaling (xA)B,
+    the delta added to the base output in fp32 and the sum rounded once to
+    the base output's dtype. `lora` None (no adapter) or {"A", "B"}."""
+    y = dense(params, x, impl=impl)
+    if lora is None:
+        return y
+    return (y.float() + lora_delta(lora, x, scaling)).to(y.dtype)
+
+
 def embed(params, ids):
     return params["embedding"][ids]
 

@@ -36,7 +36,7 @@ exposition, which comes with the HTTP server) and `ServingEngine` with the
 scheduler of :1067-1636. The padding rows of an admission group are not
 merged anywhere (the JAX engine scatters them to the trash row, index
 max_slots, which stays an inactive decode row here). Not ported (ROADMAP.md
-§1 item 3): the LoRA bank, speculative ticks, the prefix cache, chunked
+§1 item 4): the LoRA bank, speculative ticks, the prefix cache, chunked
 prefill and the mesh, each refused with NotImplementedError; `warmup` (a
 jit warm-up) is not needed: PyTorch runs eagerly.
 """
@@ -55,7 +55,7 @@ from ..core.config import DecoderConfig
 from ..infer.engine import sample_token_rows
 from ..models import decoder
 
-_LATER = ("is not ported yet (ROADMAP.md §1 item 3: the engine's LoRA "
+_LATER = ("is not ported yet (ROADMAP.md §1 item 4: the engine's LoRA "
           "bank, speculative ticks, prefix cache, chunked prefill and mesh)")
 
 

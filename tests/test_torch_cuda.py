@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes the main path can also produce: the four fused-encoder
 kernels, the int4 v2 matmul, both quantized decode attentions, flash
-attention and the int8 matmul (a CUDA kernel has no CPU mode: these skip
-where torch sees no GPU). Run on a GPU machine with:
+attention, the int8 matmul, the two flash-attention backward kernels and
+the int4 v1 matmul; then the gradients through the autograd Functions and
+the launch counts of one tiny train step (a CUDA kernel has no CPU mode:
+these skip where torch sees no GPU). Run on a GPU machine with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
@@ -19,13 +21,21 @@ matmul rounds x to bf16 in both), plain_bf16 in bf16.
 import pytest
 import torch
 
-from opus_pllm_tpu_torch.core.config import ESM2Config
+import dataclasses
+
+from opus_pllm_tpu_torch.core.config import (CSTPConfig, DecoderConfig,
+                                             ESM2Config, LoRAConfig,
+                                             OpusConfig,
+                                             SwitchProjectorConfig,
+                                             TrainConfig)
 from opus_pllm_tpu_torch.kernels import decode_attention as da
 from opus_pllm_tpu_torch.kernels import flash_attention as fa
+from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
 from opus_pllm_tpu_torch.kernels import fused_encoder as fe
 from opus_pllm_tpu_torch.kernels import quant, quant4
-from opus_pllm_tpu_torch.models import decoder, esm2, layers
+from opus_pllm_tpu_torch.models import decoder, esm2, layers, opus
 from opus_pllm_tpu_torch.models.layers import rope_cos_sin
+from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
 
 pytestmark = pytest.mark.cuda
 ATOL = 4e-3
@@ -46,13 +56,15 @@ def _rnd(g, *shape, scale=1.0):
         torch.bfloat16)
 
 
-def _check(kern, plain, bf_in, extra=()):
+def _check(kern, plain, bf_in, extra=(), scaled=False):
+    """scaled: ATOL times max(1, max|plain_fp32|), for gradients."""
     ref32 = plain(*(t.float() for t in bf_in), *extra).float()
     ref_bf = plain(*bf_in, *extra).float()
     out = kern(*bf_in, *extra)
     torch.cuda.synchronize()
     err = (out.float() - ref32).abs().max().item()
-    bound = 2 * (ref_bf - ref32).abs().max().item() + ATOL
+    atol = ATOL * (max(1.0, ref32.abs().max().item()) if scaled else 1.0)
+    bound = 2 * (ref_bf - ref32).abs().max().item() + atol
     assert out.shape == ref32.shape and err <= bound, (err, bound)
 
 
@@ -309,3 +321,264 @@ def test_new_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError):            # per-head mask
         fa.flash_attention(q, q, q, torch.ones((1, 2, 8, 8), dtype=torch.bool,
                                                device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash backward kernels, the int4 v1 matmul, the autograd
+# Functions and one tiny train step
+# ---------------------------------------------------------------------------
+
+def _train_mask(g, b, s):
+    """opus.forward's training mask: right-padded rows, causal."""
+    n = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    n[0] = s
+    return layers.causal_mask(torch.arange(s, device="cuda")[None]
+                              < n[:, None])
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,mask_kind,causal", [
+    (2, 70, 70, 4, 2, 128, "train", False),         # ragged, GQA 2
+    (1, 130, 200, 8, 2, 128, "padded", False),      # Sq != Skv, GQA 4
+    (2, 100, 100, 4, 4, 128, None, True),           # causal tile skipping
+    (1, 200, 200, 8, 2, 128, "prefill", True),
+    (2, 17, 33, 2, 1, 64, "padded", False),         # D = 64
+    (1, 2, 5, 2, 2, 128, None, False),
+])
+def test_flash_attention_bwd(b, sq, skv, hq, hkv, d, mask_kind, causal):
+    """dq and stacked dk/dv against the plain backward, from the forward
+    kernel's out and lse; gradients exceed 1, so ATOL scales with them."""
+    g = _gen()
+    q, k, v, mask = _flash_inputs(g, b, sq, skv, hq, hkv, d, mask_kind)
+    if mask_kind == "train":
+        mask = _train_mask(g, b, sq)
+    dout = _rnd(g, b, sq, hq, d)
+    out, lse = fa.flash_attention(q, k, v, mask, causal=causal,
+                                  return_lse=True)
+    delta = fab._delta(out, dout)
+    plain = lambda q, k, v, dout: fab.flash_attention_bwd_plain(
+        q, k, v, mask, out, lse, dout, causal=causal)
+    fab.reset_launches()
+    _check(lambda q, k, v, dout: fab.flash_attention_bwd_dq(
+        q, k, v, mask, lse, delta, dout, causal=causal),
+        lambda *a: plain(*a)[0], (q, k, v, dout), scaled=True)
+    _check(lambda q, k, v, dout: fab.flash_attention_bwd_dkv(
+        q, k, v, mask, lse, delta, dout, causal=causal),
+        lambda *a: torch.stack(plain(*a)[1:]), (q, k, v, dout), scaled=True)
+    assert fab.launches == {"flash_attention_bwd_dq": 1,
+                            "flash_attention_bwd_dkv": 1}
+
+
+def test_flash_attention_bwd_fully_masked_row_is_zero():
+    """A query row with no valid key gets exactly zero dq and adds nothing
+    to dk / dv (the TPU kernel's convention)."""
+    g = _gen()
+    q, k, v, _ = _flash_inputs(g, 1, 40, 40, 4, 2, 128, None)
+    mask = torch.ones((1, 1, 40, 40), dtype=torch.bool, device="cuda")
+    mask[0, 0, 7] = False
+    dout = _rnd(g, 1, 40, 4, 128)
+    out, lse = fa.flash_attention(q, k, v, mask, return_lse=True)
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, mask, out, lse, dout)
+    assert torch.all(dq[0, 7] == 0)
+    dout2 = dout.clone()
+    dout2[0, 7] = 0
+    _, dk2, dv2 = fab.flash_attention_bwd(q, k, v, mask, out, lse, dout2)
+    torch.testing.assert_close(dk, dk2, rtol=0, atol=0)
+    torch.testing.assert_close(dv, dv2, rtol=0, atol=0)
+
+
+def _grads_check(fn, leaves_bf, cot):
+    """Gradients of sum(fn(*leaves) * cot): bf16 leaves through `fn` (the
+    kernels) against fp32 leaves through `fn_plain`, bounded as _check by
+    the bf16 plain gradients' error."""
+    def grads(f, dtype):
+        ls = [t.detach().to(dtype).requires_grad_(True) for t in leaves_bf]
+        return [t.float() for t in torch.autograd.grad(
+            (f(*ls).float() * cot).sum(), ls)]
+    return grads(fn[0], torch.bfloat16), grads(fn[1], torch.float32), \
+        grads(fn[1], torch.bfloat16)
+
+
+@pytest.mark.parametrize("mask_kind,causal", [("train", False),
+                                              (None, True)])
+def test_flash_function_grads(mask_kind, causal):
+    """flash_attention with q, k, v requiring grad goes through its
+    Function (forward kernel with lse, both backward kernels); its
+    gradients against autograd through the plain forward."""
+    g = _gen()
+    q, k, v, _ = _flash_inputs(g, 2, 90, 90, 8, 2, 128, None)
+    mask = _train_mask(g, 2, 90) if mask_kind else None
+    cot = torch.randn((2, 90, 8, 128), generator=g, device="cuda")
+    fa.reset_launches()
+    fab.reset_launches()
+    got, ref, plain_bf = _grads_check(
+        (lambda q, k, v: fa.flash_attention(q, k, v, mask, causal=causal),
+         lambda q, k, v: fa.flash_attention_plain(q, k, v, mask,
+                                                  causal=causal)),
+        (q, k, v), cot)
+    assert fa.launches["flash_attention"] == 1
+    assert fab.launches == {"flash_attention_bwd_dq": 1,
+                            "flash_attention_bwd_dkv": 1}
+    for a, r, p in zip(got, ref, plain_bf):
+        bound = 2 * (p - r).abs().max().item() + ATOL * max(
+            1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("m", [1, 70, 300])
+@pytest.mark.parametrize("k,n", [(256, 128), (768, 130), (4096, 1000)])
+def test_int4_matmul_v1(m, k, n):
+    """Ragged M and N (N = 130: scalar loads and stores), K one or several
+    256-row blocks; fp32 x stays fp32 and differs by summation order."""
+    g = _gen()
+    q, s = quant4.quantize_grouped(torch.randn((k, n), generator=g,
+                                               device="cuda"))
+    packed = quant4.pack_int4(q)
+    x = _rnd(g, m, k)
+    quant4.reset_launches()
+    _check(lambda x: quant4.int4_matmul(x, packed, s),
+           lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 1}
+    out = quant4.int4_matmul(x.float(), packed, s)
+    ref = quant4.int4_matmul_plain(x.float(), packed, s)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4-v1"])
+def test_quantized_function_dx(kind):
+    """The int8 and int4 Functions on the card: the forward through the
+    kernel, dx as the JAX custom VJPs compute it (int8: (g * scale) @ wq^T
+    in fp32; int4: g @ W^T with W dequantized to bf16)."""
+    g = _gen()
+    m, k, n = 300, 512, 256
+    w = torch.randn((k, n), generator=g, device="cuda")
+    x = _rnd(g, m, k).requires_grad_(True)
+    cot = _rnd(g, m, n)
+    quant.reset_launches()
+    quant4.reset_launches()
+    if kind == "int8":
+        wq, s = quant.quantize_per_channel(w)
+        y = quant.int8_matmul(x, wq, s)
+        ref = ((cot.float() * s) @ wq.float().t()).bfloat16()
+        launched = quant.launches
+    else:
+        q, s = quant4.quantize_grouped(w)
+        packed = quant4.pack_int4(q)
+        y = quant4.int4_matmul(x, packed, s)
+        ref = (cot.float() @ quant4.dequantize_bf16(packed, s).float().t()
+               ).bfloat16()
+        launched = quant4.launches
+    assert y.grad_fn is not None and sum(launched.values()) == 1
+    dx, = torch.autograd.grad(y, x, cot)
+    assert dx.dtype == torch.bfloat16
+    # fp32 summation order, then one bf16 rounding
+    torch.testing.assert_close(dx.float(), ref.float(), rtol=2 ** -7,
+                               atol=1e-3 * ref.float().abs().max().item())
+
+
+def test_head_logits_backward():
+    """head_logits' fp32 logits from bf16 hidden states carry a gradient:
+    dx = (g rounded to bf16) @ W^T with fp32 accumulation, rounded once."""
+    g = _gen()
+    cfg = DecoderConfig(vocab_size=1000, hidden_size=256, num_layers=1,
+                        num_heads=2, num_kv_heads=1, head_dim=128,
+                        intermediate_size=512, dtype="bfloat16")
+    params = {"lm_head": {"kernel": _rnd(g, 256, 1000, scale=0.05)}}
+    x = _rnd(g, 3, 7, 256).requires_grad_(True)
+    y = decoder.head_logits(params, cfg, x)
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    torch.testing.assert_close(y, x.float() @ params["lm_head"][
+        "kernel"].float(), rtol=1e-5, atol=1e-5)
+    cot = torch.randn(y.shape, generator=g, device="cuda")
+    dx, = torch.autograd.grad(y, x, cot)
+    ref = cot.bfloat16().float() @ params["lm_head"]["kernel"].float().t()
+    torch.testing.assert_close(dx.float(), ref.bfloat16().float(),
+                               rtol=2 ** -7, atol=1e-3)
+
+
+def test_fused_encoder_wrappers_raise_under_grad():
+    """ESM2 is frozen: a kernel given an input that requires grad raises
+    rather than return an output cut from the graph; under no_grad (as
+    training runs the encoder) it launches."""
+    g = _gen()
+    e = 256
+    cos, sin = rope_cos_sin(torch.arange(8, device="cuda"), 64)
+    ln = torch.stack([torch.ones(e, device="cuda"),
+                      torch.zeros(e, device="cuda")]).to(torch.bfloat16)
+    x = _rnd(g, 1, 8, e)
+    args = (_rnd(g, 3, e, e, scale=e ** -0.5), _rnd(g, 3, e, scale=0.1), ln)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        fe.ln_qkv_rope(x.clone().requires_grad_(True), *args, cos, sin)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        fe.encoder_attention(_rnd(g, 3, 1, 4, 8, 64).requires_grad_(True))
+    with torch.no_grad():
+        fe.ln_qkv_rope(x.clone().requires_grad_(True), *args, cos, sin)
+
+
+def _tiny_train_cfg():
+    """ESM2 with d=64 heads (the encoder kernels), an LLM with D=128
+    (flash) whose projections all have K % 256 == 0 (int4 v1)."""
+    esm = ESM2Config(num_layers=2, embed_dim=256, num_heads=4,
+                     dtype="bfloat16")
+    llm = DecoderConfig(vocab_size=260, hidden_size=256,
+                        intermediate_size=512, num_layers=2, num_heads=2,
+                        num_kv_heads=1, head_dim=128,
+                        max_position_embeddings=512, dtype="bfloat16")
+    return OpusConfig(esm=esm, cstp=CSTPConfig(protein_dim=256, text_dim=256,
+                                               proj_dim=256),
+                      switch=SwitchProjectorConfig(input_dim=256,
+                                                   llm_hidden_size=256),
+                      llm=llm, max_prompt_len=64)
+
+
+@pytest.mark.parametrize("base", ["bf16", "int4-v1"])
+def test_train_step_launch_counts(base):
+    """One `fit` step of LoRA training: per layer the flash forward twice
+    (the remat recompute), each backward kernel once, every encoder kernel
+    once per ESM2 layer, and with the v1 base 2 x 7 v1 products per layer
+    plus the head; the loss is finite and LoRA B moved."""
+    cfg = _tiny_train_cfg()
+    params = opus.init(cfg, generator=_gen(), device="cuda")
+    if base == "int4-v1":
+        params["llm"] = quant4.quantize_decoder4(params["llm"], layout="v1")
+    rng = torch.Generator().manual_seed(1)
+    b, l = 4, 64
+    ids = torch.randint(4, 260, (b, l), generator=rng, dtype=torch.int32)
+    ids[:, 1] = -200                                  # the <seq> sentinel
+    attn = torch.ones((b, l), dtype=torch.bool)
+    attn[1:, 50:] = False
+    labels = torch.where(attn, ids, torch.full_like(ids, -100))
+    labels[:, :8] = -100
+    esm_toks = torch.randint(4, 24, (b, 1, 30), generator=rng,
+                             dtype=torch.int32)
+    esm_toks[..., 0], esm_toks[..., -1] = 0, 2
+    batch = {"input_ids": ids.numpy(), "attn_mask": attn.numpy(),
+             "labels": labels.numpy(), "esm_tokens": esm_toks.numpy()}
+    tcfg = TrainConfig(learning_rate=1e-3, weight_decay=0.0, log_every=1)
+    lcfg = LoRAConfig(rank=4, alpha=8.0)
+    state, tx = mmt.create_state(cfg, tcfg, params, generator=_gen(),
+                                 train_switch=False, lora_cfg=lcfg,
+                                 device="cuda")
+    b0 = [ab["B"].detach().clone() for lp in state.trainable["lora"]
+          ["layers"] for ab in lp.values()]
+    for mod in (fe, fa, fab, quant4, quant, da):
+        mod.reset_launches()
+    logs = []
+    mmt.fit(state, tx, cfg, tcfg, params, [batch], lora_cfg=lcfg,
+            log_fn=logs.append, device="cuda")
+    torch.cuda.synchronize()
+    nl = cfg.llm.num_layers
+    assert fa.launches["flash_attention"] == 2 * nl
+    assert fab.launches == {"flash_attention_bwd_dq": nl,
+                            "flash_attention_bwd_dkv": nl}
+    assert fe.launches == {k: cfg.esm.num_layers for k in fe.launches}
+    assert quant4.launches == {
+        "int4_matmul": 0,
+        "int4_matmul_v1": 2 * 7 * nl + 1 if base == "int4-v1" else 0}
+    assert quant.launches["int8_matmul"] == 0
+    assert sum(da.launches.values()) == 0
+    loss = float(logs[0].split("loss=")[1])
+    assert torch.isfinite(torch.tensor(loss))
+    b1 = [ab["B"] for lp in state.trainable["lora"]["layers"]
+          for ab in lp.values()]
+    assert all(not torch.equal(x, y) for x, y in zip(b0, b1))

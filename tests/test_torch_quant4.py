@@ -52,22 +52,23 @@ def test_quantize_and_pack_bytes_match_jax(k, n, jnp_input):
 
 
 def test_quantize_linear4_layouts():
-    """The JAX package picks v1 where K % 512 != 0 (quant4.py:179): the
-    port refuses that layout (training slice) and keeps K % 256 != 0
-    unquantized as JAX does."""
+    """The layout rule of the JAX package (quant4.py:173-184): v2 words
+    where K % 512 == 0, v1 nibble bytes where K % 512 != 0 or with
+    layout="v1" (the training layout), K % 256 != 0 unquantized; the port
+    gives the same bytes in each case."""
     p = {"kernel": _w(1, 1024, 128), "bias": np.ones(128, np.float32)}
     ref = jq.quantize_linear4(p)
     got = quant4.quantize_linear4({k: _t(v) for k, v in p.items()})
     assert set(got) == set(ref) == {"kernel_p", "gscale", "bias"}
     np.testing.assert_array_equal(got["kernel_p"].numpy(), ref["kernel_p"])
     np.testing.assert_array_equal(got["gscale"].numpy(), ref["gscale"])
-    with pytest.raises(NotImplementedError, match="training"):
-        quant4.quantize_linear4({"kernel": _t(_w(2, 768, 128))})
-    assert jq.quantize_linear4({"kernel": _w(2, 768, 128)})[
-        "kernel_p"].dtype == np.int8                 # JAX: v1 bytes there
-    with pytest.raises(NotImplementedError, match="training"):
-        quant4.quantize_linear4({"kernel": _t(_w(3, 1024, 128))},
-                                layout="v1")
+    for w, layout in ((_w(2, 768, 128), "auto"), (_w(3, 1024, 128), "v1")):
+        ref = jq.quantize_linear4({"kernel": w}, layout)
+        got = quant4.quantize_linear4({"kernel": _t(w)}, layout)
+        assert ref["kernel_p"].dtype == np.int8      # JAX: v1 bytes there
+        assert got["kernel_p"].dtype == torch.int8
+        np.testing.assert_array_equal(got["kernel_p"].numpy(),
+                                      ref["kernel_p"])
     assert quant4.quantize_linear4({"kernel": _t(_w(4, 300, 8))}) is None
     assert jq.quantize_linear4({"kernel": _w(4, 300, 8)}) is None
 
@@ -151,8 +152,8 @@ def _cfgs(dtype):
 
 def test_quantize_decoder4_matches_jax_and_converts():
     """The port's quantize_decoder4 on converted weights gives the same
-    leaves as the JAX one; from_jax copies JAX's int4 v2 tree and still
-    refuses v1 bytes; int8 trees are copied, fused ones refused."""
+    leaves as the JAX one; from_jax copies JAX's int4 v2 tree and its v1
+    bytes (layout="v1"); int8 trees are copied, fused ones refused."""
     jcfg, _ = _cfgs("float32")
     jp = jdec.init(jax.random.PRNGKey(0), jcfg)
     ref = convert.decoder_from_jax(jax.tree.map(
@@ -167,9 +168,11 @@ def test_quantize_decoder4_matches_jax_and_converts():
     for (pa, a), (pb, b) in zip(flat(got), flat(ref)):
         assert pa == pb
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        convert.decoder_from_jax(jax.tree.map(
-            np.asarray, jq.quantize_decoder4(jp, layout="v1")), device="cpu")
+    j1 = jax.tree.map(np.asarray, jq.quantize_decoder4(jp, layout="v1"))
+    t1 = convert.decoder_from_jax(j1, device="cpu")
+    assert quant4.quant_layout_of(t1) == "int4-v1"
+    np.testing.assert_array_equal(t1["layers"][0]["q_proj"]["kernel_p"],
+                                  j1["layers"][0]["q_proj"]["kernel_p"])
     # int8 trees cross over as they are (kernels/quant.py); fused
     # projections stay refused
     from opus_pllm_tpu.kernels.quant import quantize_decoder
