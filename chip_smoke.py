@@ -17,12 +17,13 @@ and prints no result:
      where plain_fp32 runs the plain version on the same inputs in fp32,
      plain_bf16 in bf16 (its error is the rounding the bf16 formats force),
      and ATOL = 4e-3 (half a bf16 ulp at magnitude 1-2) covers the kernels'
-     other summation order. Prints kernel, plain and library device times
-     (the host held behind a queued device sleep), the kernel's time per
-     call as the host issues it, and the bound: the larger of the bytes the
-     function must move over 3.35 TB/s and its bf16 tensor-core operations
-     over 989 TFLOP/s (H100 SXM data sheet), counting only the work this
-     run's data needs (valid cache slots, mask-true query-key pairs).
+     other summation order. Prints kernel (and its TFLOP/s), plain and
+     library device times (the host held behind a queued device sleep),
+     the kernel's time per call as the host issues it, and the bound: the
+     larger of the bytes the function must move over 3.35 TB/s and its
+     bf16 tensor-core operations over 989 TFLOP/s (H100 SXM data sheet),
+     counting only the work this run's data needs (valid cache slots,
+     mask-true query-key pairs).
      Shapes:
        - the four fused-encoder kernels at the annotate path's shapes (B=8,
          S in {128, 512}, E=1280, H=20, F=5120, bf16, padded key rows);
@@ -39,8 +40,10 @@ and prints no result:
          the same mask (K/V heads repeated beforehand);
        - int8_matmul at M = 5120 (serving prefill) and 2616 (static
          prefill) for the four (K, N) of a Llama-3-8B layer. Library: the
-         bf16 cuBLAS product on W dequantized beforehand; the port's own
-         dequantize route (`quant.dequant_matmul`) is printed beside it;
+         bf16 cuBLAS product on W dequantized beforehand (the dequantize
+         not timed, so not the same function); the port's own dequantize
+         route (`quant.dequant_matmul`), which is, beside it (route_ms),
+         and the kernel's earlier design, kept for unaligned N;
        - flash_attention_bwd_dq and _dkv (the saved out and lse of the
          forward kernel as inputs, dk and dv stacked into one output) at
          the training shape (B=16, L=519, right-padded valid lengths, the
@@ -53,7 +56,7 @@ and prints no result:
        - int4_matmul_v1 at M = 8304 (a train-lora batch, 16 x 519) for the
          five (K, N) of Llama-3-8B. Library: cuBLAS bf16 on W dequantized
          beforehand; the dequantize route (`quant4.dequant_matmul`) beside
-         it;
+         it (route_ms), and the earlier design, kept for unaligned N;
      the JSON line keeps, per kernel, the largest error over its shapes and
      the times of one shape: S=512 (encoder), 4096->4096 (int4), cap 391
      (decode attention), the serving prefill (flash), M=5120 4096->14336
@@ -93,7 +96,8 @@ and prints no result:
        flash_attention = 32 x prefills, int8_matmul = 7 x 32 x prefills,
        decode_attention_<cache> = 32 x decode steps (int8 cache; none on
        the bf16 cache), encoder kernels = 33 x splice batches,
-       int4_matmul = 0;
+       int4_matmul = 0, and every kernel kept for unaligned N
+       (int8_matmul_unaligned, int4_matmul_v1_unaligned) 0 in every phase;
      that every request is answered; and that one admission group's
      prefill logits (16 rows, bucket 320) through the kernels stay within
      the bound above of the plain path in fp32. Prints entries/s, tokens/s,
@@ -294,12 +298,14 @@ def bound_ms(flops, n_bytes):
 
 
 def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
-            more_bytes=0, library=None, route=None, scaled_atol=False):
+            more_bytes=0, library=None, route=None, earlier=None,
+            scaled_atol=False):
     """The kernel vs its plain version on the same inputs (module
     docstring, phase 3); `extra` arguments are passed as they are.
     `flops` and the bytes of the inputs, the output and `more_bytes`
     (operands the calls capture) give the bound; `library` is the PyTorch
-    yardstick, `route` another path of the port, both only timed.
+    yardstick, `route` another path of the port (its time is kept as
+    route_ms), `earlier` the kernel's earlier design, all only timed.
     scaled_atol: ATOL times max(1, max|plain_fp32|) (gradients). Returns
     the kernel's row of the JSON line, device times."""
     import torch
@@ -320,18 +326,41 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
     call_ms = time_ms(lambda: kern(*bf_in, *extra), hold=False)
     lib_ms = time_ms(library) if library is not None else None
     route_ms = time_ms(route) if route is not None else None
+    earlier_ms = time_ms(earlier) if earlier is not None else None
     print(f"{name:38s} max_abs_err={err:.3e} (tol {tol:.3e}, plain bf16 "
-          f"err {err_plain:.3e}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          f"err {err_plain:.3e}) kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.4f} ms"
           + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
           + (f"  dequantize route {route_ms:.4f} ms"
              if route_ms is not None else "")
+          + (f"  earlier kernel {earlier_ms:.4f} ms"
+             if earlier_ms is not None else "")
           + f"  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
           f"{100 * b_ms / ms:.1f}% of it)  (kernel per call as issued "
           f"{call_ms:.4f} ms)  [{card}]", flush=True)
     if not err <= tol:
         fail(f"{name}: error {err:.3e} above {tol:.3e}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    if route is not None:
+        res["route_ms"] = route_ms
+    return res
+
+
+def earlier_kernel(name, x, w, scale):
+    """A call of the kernel that `name` keeps for unaligned N (its earlier
+    design), made directly at an aligned shape so that phase 3 times the
+    two designs in one run; not counted in `launches`."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import build
+    lib = build.library(name)
+    fn = getattr(lib, f"opus_{name}_unaligned")
+    (m, k), n = x.shape, w.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, n, k) + ((0,) if name == "int4_matmul_v1" else ())
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: build.check(fn(*args, stream), name, lib)
 
 
 def keep(rows, name, res, main):
@@ -450,7 +479,8 @@ def check_serve_kernels(card):
                 lambda x: quant.int8_matmul_plain(x, wq, s), (x,), card,
                 flops=2 * m * n * k, more_bytes=nbytes(wq, s),
                 library=lambda: torch.mm(x, w_bf),
-                route=lambda: quant.dequant_matmul(x, wq, s)),
+                route=lambda: quant.dequant_matmul(x, wq, s),
+                earlier=earlier_kernel("int8_matmul", x, wq, s)),
                 (m, k, n) == (5120, 4096, 14336))
             del wq, s, w_bf, x
             torch.cuda.empty_cache()
@@ -536,7 +566,8 @@ def check_train_kernels(card):
             lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
             flops=2 * m * k * n, more_bytes=nbytes(packed, s),
             library=lambda: torch.mm(x, w_bf),
-            route=lambda: quant4.dequant_matmul(x, packed, s)),
+            route=lambda: quant4.dequant_matmul(x, packed, s),
+            earlier=earlier_kernel("int4_matmul_v1", x, packed, s)),
             (k, n) == (4096, 14336))
         del packed, s, w_bf, x
         torch.cuda.empty_cache()
@@ -1226,7 +1257,7 @@ def profile_serving(card):
     print_profile(prof, wall, card, {
         "casts (direct_copy_kernel)": "direct_copy_kernel",
         "multiplies (MulFunctor)": "MulFunctor",
-        "int8_matmul_kernel": "int8_matmul_kernel",
+        "int8_matmul_wgmma_kernel": "int8_matmul_wgmma_kernel",
         "flash_fwd_kernel": "flash_fwd_kernel",
         "cuBLAS (nvjet / gemm)": ("nvjet", "gemmSN", "gemv")})
 
@@ -1294,7 +1325,7 @@ def profile_training(card):
         "flash_fwd_kernel (forward + recompute)": "flash_fwd_kernel",
         "flash_bwd_dq_kernel": "flash_bwd_dq_kernel",
         "flash_bwd_dkv_kernel": "flash_bwd_dkv_kernel",
-        "int4_v1_kernel": "int4_v1_kernel",
+        "int4_v1_wgmma_kernel": "int4_v1_wgmma_kernel",
         "encoder kernels (fused_encoder.cu)": (
             "gemm_kernel<", "encoder_attention_kernel", "ln_stats_kernel"),
         "cuBLAS bf16 (nvjet)": "nvjet",
@@ -1412,7 +1443,8 @@ def main():
     for k in kernels:
         k.update({key: rows[k["name"]][key]
                   for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")})
+                              "bound_by", "library_ms", "route_ms")
+                  if key in rows[k["name"]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

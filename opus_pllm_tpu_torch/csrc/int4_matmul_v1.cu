@@ -13,26 +13,36 @@
 // Bound: the tensor cores. At the training shape (M = 16 x 519 = 8304) a
 // 4096 -> 14336 product is 2MNK = 0.98 TFLOP against 68 MB of activations
 // and 29 MB of packed weights: thousands of FLOP per byte.
-// Design: int8_matmul.cu's tile (one CTA per 128 x 128 output tile, 8 warps
-// of 64 x 32, a K loop of 32-deep tiles staged through registers into
-// double-buffered shared memory), with mma.sync m16n8k16 in place of WMMA
-// so that each thread knows the columns of its accumulators: a 32-row K
-// tile lies inside one 128-row scale group, so each 16-byte load of packed
-// bytes unpacks on its way into shared memory to the 16 bf16 weights of
-// one nibble (exact for |q| <= 7), and after every fourth tile the group's
-// fp32 partials are multiplied by their 16 column scales and added to the
-// accumulators. B fragments come from the row-major weight tile through
-// ldmatrix.trans. Each packed byte is read twice (once per nibble, by the
-// tiles of its two groups). Ragged M and N are masked; K is a multiple of
-// 256 (the layout's block).
+// Design (`int4_v1_wgmma_kernel`, the core in hopper_gemm.cuh): one CTA
+// per 128 weight columns x 128 x rows. A producer warp keeps a 5-stage
+// ring of TMA loads in flight on mbarriers; a stage is half of a 256-row
+// block: 64 byte rows x 128 columns, loaded once, the two 64 K x 128 x
+// boxes of the K rows they hold (low and high nibbles) and the block's two
+// rows of group scales. Two consumer warpgroups widen their 64 columns to
+// exact bf16 A fragments in registers (ldmatrix.trans, one lop3 into the
+// 0x4300 exponent, minus 136) and run wgmma m64n128k16 on the transposed
+// product, 32 K rows a step: the low nibbles of both halves make group 2b,
+// the high ones group 2b + 1, so each byte feeds both wgmma chains, as the
+// TPU kernel feeds `lo` and `hi` from one load. A group's products
+// accumulate into an fp32 partial fragment beside the accumulator; at the
+// group's end the partial times its fp32 column scales joins the
+// accumulator. TMA zero-fills past M and N; K is a multiple of 256 (the
+// layout's block).
+// TMA needs 16-byte global strides: N % 16 == 0 (every Llama-3-8B shape,
+// the vocab head included). Other N take `int4_v1_unaligned_kernel`, the
+// earlier design kept for them: 128 x 128 tiles of 8 warps on mma.sync
+// m16n8k16, 32-deep K tiles staged through registers into double-buffered
+// shared memory, each 16-byte load of packed bytes unpacked to one nibble
+// on its way in (each byte read twice), every load and store masked.
 //
-// The entry point returns the cudaError_t of its launch (0 = success).
+// The entry points return the cudaError_t of their launch (0 = success).
 // Nothing here allocates or synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
 #include "mma_bf16.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -58,9 +68,11 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
 }
 
 __global__ void __launch_bounds__(THREADS)
-int4_v1_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ gscale, void* __restrict__ out,
-               int M, int N, int K, int out_f32) {
+int4_v1_unaligned_kernel(const bf16* __restrict__ x,
+                         const int8_t* __restrict__ w,
+                         const float* __restrict__ gscale,
+                         void* __restrict__ out, int M, int N, int K,
+                         int out_f32) {
   __shared__ __align__(128) bf16 As[2 * A_TILE];
   __shared__ __align__(128) bf16 Bs[2 * B_TILE];
 
@@ -220,6 +232,18 @@ int4_v1_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
+__global__ void __cluster_dims__(opus_hopper::Plan<true>::CLUSTER, 1, 1)
+__launch_bounds__(opus_hopper::THREADS, 1)
+int4_v1_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap w_map,
+                     const __grid_constant__ CUtensorMap s_map,
+                     const float* __restrict__ gscale,
+                     void* __restrict__ out, int M, int N, int K,
+                     int out_f32) {
+  opus_hopper::mixed_gemm_core<true>(x_map, w_map, s_map, gscale, out, M, N,
+                                     K, out_f32);
+}
+
 }  // namespace
 
 extern "C" {
@@ -228,15 +252,25 @@ const char* opus_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// x (M, K) bf16, K % 256 == 0; w (K/2, N) int8 nibble bytes; gscale
-// (K/128, N) fp32 -> out (M, N) bf16, or fp32 when out_f32. Every buffer
-// contiguous; x and w 16-byte aligned.
+// x (M, K) bf16, K % 256 == 0; w (K/2, N) int8 nibble bytes, N % 16 == 0;
+// gscale (K/128, N) fp32 -> out (M, N) bf16, or fp32 when out_f32. Every
+// buffer contiguous and 16-byte aligned.
 int opus_int4_matmul_v1(const void* x, const void* w, const void* gscale,
                         void* out, int M, int N, int K, int out_f32,
                         void* stream) {
+  return opus_hopper::launch_mixed_gemm<true>(
+      int4_v1_wgmma_kernel, x, w, gscale, out, M, N, K, out_f32,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same function for any N: x and w 16-byte aligned.
+int opus_int4_matmul_v1_unaligned(const void* x, const void* w,
+                                  const void* gscale, void* out, int M,
+                                  int N, int K, int out_f32, void* stream) {
   if (K % (2 * GROUP)) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int4_v1_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  int4_v1_unaligned_kernel<<<grid, THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(gscale), out, M, N, K, out_f32);
   return (int)cudaGetLastError();

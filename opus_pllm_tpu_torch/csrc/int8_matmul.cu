@@ -7,24 +7,35 @@
 //
 // Bound: the tensor cores (2MNK bf16 FLOP over ~M*K*2 + K*N + M*N*2 bytes;
 // thousands of FLOP per byte at the serving prefill's M = 5120).
-// Design: one CTA per 128 x 128 output tile, 8 warps (2 along M x 4 along
-// N, 64 x 32 each) of WMMA 16x16x16 bf16 with fp32 accumulators. The K loop
-// takes 32-deep tiles, loaded into registers while the previous tile is
-// multiplied and stored into the other half of a double-buffered shared
-// memory ring. Each int8 weight becomes a bf16 on its way into shared
-// memory (exact for |q| <= 127), so no dequantized weight ever reaches
-// device memory; the scale multiplies the fp32 sums in the epilogue, which
-// goes through a 16 x 16 fp32 scratch per warp. Ragged M and N, and a K
-// that is a multiple of 16 but not of 32, are masked in the loads and the
-// stores.
+// Design (`int8_matmul_wgmma_kernel`, the core in hopper_gemm.cuh): one
+// CTA per 128 weight columns x 256 x rows, in clusters of two CTAs that
+// share the x rows. A producer warp keeps a 5-stage ring of TMA loads in
+// flight on mbarriers: per stage a 64 K x 256 x box (128-byte swizzle),
+// each CTA loading half of it and multicasting it to both, and the raw
+// 64 x 128 int8 box. Two consumer warpgroups widen their 64 columns of
+// each stage to exact bf16 A fragments in registers (ldmatrix.trans, then
+// the fp32 2^23 magic: no conversion instruction a weight) and run wgmma
+// m64n256k16 with fp32 accumulators in registers on the transposed
+// product out^T = W^T x^T, widening the next stage while one runs. The
+// scale multiplies the fp32 sums in the registers, one rounding, a store
+// from the registers masked at ragged M and N. TMA zero-fills past M, N
+// and K, so K only needs to be a multiple of 8 (16 by the wrapper's gate).
+// TMA needs 16-byte global strides: N % 16 == 0 (every Llama-3-8B shape).
+// Other N take `int8_matmul_unaligned_kernel`, the earlier design kept for
+// them: one CTA per 128 x 128 tile, 8 warps of WMMA 16x16x16, a K loop of
+// 32-deep tiles staged through registers into double-buffered shared
+// memory, each weight widened on its way in, the epilogue through a 16 x 16
+// fp32 scratch per warp, every load and store masked.
 //
-// The entry point returns the cudaError_t of its launch (0 = success).
+// The entry points return the cudaError_t of their launch (0 = success).
 // Nothing here allocates or synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -39,9 +50,10 @@ constexpr int A_TILE = BM * A_LD;            // elements per stage
 constexpr int B_TILE = BK * B_LD;
 
 __global__ void __launch_bounds__(THREADS)
-int8_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, bf16* __restrict__ out,
-                   int M, int N, int K) {
+int8_matmul_unaligned_kernel(const bf16* __restrict__ x,
+                             const int8_t* __restrict__ w,
+                             const float* __restrict__ scale,
+                             bf16* __restrict__ out, int M, int N, int K) {
   __shared__ __align__(128) bf16 As[2 * A_TILE];
   __shared__ __align__(128) bf16 Bs[2 * B_TILE];
   __shared__ __align__(128) float Cs[8][16 * 16];
@@ -160,6 +172,18 @@ int8_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
+__global__ void __cluster_dims__(opus_hopper::Plan<false>::CLUSTER, 1, 1)
+__launch_bounds__(opus_hopper::THREADS, 1)
+int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap w_map,
+                         const __grid_constant__ CUtensorMap s_map,
+                         const float* __restrict__ scale,
+                         void* __restrict__ out, int M, int N, int K,
+                         int out_f32) {
+  opus_hopper::mixed_gemm_core<false>(x_map, w_map, s_map, scale, out, M, N,
+                                      K, out_f32);
+}
+
 }  // namespace
 
 extern "C" {
@@ -168,12 +192,22 @@ const char* opus_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// x (M, K) bf16, K % 16 == 0; w (K, N) int8; scale (N,) fp32 -> out (M, N)
-// bf16. Every buffer contiguous; x and w 16-byte aligned.
+// x (M, K) bf16, K % 8 == 0; w (K, N) int8, N % 16 == 0; scale (N,) fp32
+// -> out (M, N) bf16. Every buffer contiguous; x and w 16-byte aligned.
 int opus_int8_matmul(const void* x, const void* w, const void* scale,
                      void* out, int M, int N, int K, void* stream) {
+  return opus_hopper::launch_mixed_gemm<false>(
+      int8_matmul_wgmma_kernel, x, w, scale, out, M, N, K, 0,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same function for any N (K % 16 == 0): x and w 16-byte aligned.
+int opus_int8_matmul_unaligned(const void* x, const void* w,
+                               const void* scale, void* out, int M, int N,
+                               int K, void* stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  int8_matmul_unaligned_kernel<<<grid, THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<bf16*>(out), M, N, K);
   return (int)cudaGetLastError();

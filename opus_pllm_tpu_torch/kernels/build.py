@@ -49,6 +49,7 @@ SIGNATURES = {
     },
     "int8_matmul": {
         "opus_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "opus_int8_matmul_unaligned": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         "opus_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 12
@@ -62,6 +63,8 @@ SIGNATURES = {
     },
     "int4_matmul_v1": {
         "opus_int4_matmul_v1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "opus_int4_matmul_v1_unaligned": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                          _P],
     },
 }
 

@@ -17,28 +17,38 @@ int8_matmul
   5120) a 4096 -> 14336 product is 2MNK = 0.60 TFLOP against 15 MB of
   bf16 activations and 59 MB of weights: ~8000 FLOP per byte, far above
   the ~295 FLOP/byte where 989 TFLOP/s of bf16 meets 3.35 TB/s.
-  Design (csrc/int8_matmul.cu): one CTA per 128 x 128 output tile, 8 warps
-  of bf16 WMMA 16x16x16 with fp32 accumulators, a K loop of 32-deep tiles
-  staged through registers into double-buffered shared memory. Each int8
-  weight is converted to bf16 on its way into shared memory (exact: |q| <=
-  127), so a dequantized W never exists in device memory; the scale
-  multiplies the fp32 accumulators in the epilogue. Ragged M, N and a K
-  that is a multiple of 16 but not of 32 are masked in the loads. Not the
-  int8 tensor cores: x is bf16, and an int8 x would compute another
-  function.
+  Design (csrc/int8_matmul.cu, its core in csrc/hopper_gemm.cuh): the
+  transposed product out^T = W^T x^T, so that the widened weights are
+  wgmma's A operand from registers and x is B from shared memory. One CTA
+  per 128 weight columns x 256 x rows, two CTAs of a cluster sharing the x
+  rows. A producer warp keeps a 5-stage ring of TMA loads in flight on
+  mbarriers (each CTA loads half of the x box and multicasts it to both);
+  two consumer warpgroups widen the raw int8 box to exact bf16 fragments
+  in registers with bit tricks (|q| <= 127) and run wgmma m64n256k16 with
+  fp32 accumulators in registers while the next stage is widened. So a
+  dequantized W never exists in device memory; the scale multiplies the
+  fp32 accumulators in the registers, one rounding, a masked store. TMA
+  zero-fills ragged M, N and K. Not the int8 tensor cores: x is bf16, and
+  an int8 x would compute another function.
+  Tensor maps need 16-byte row strides, so that kernel takes N % 16 == 0
+  (every Llama-3-8B shape; `kernel_variant`); any other N takes the
+  earlier CUDA kernel, kept as `int8_matmul_unaligned` (WMMA 16x16x16 on
+  32-deep tiles staged through registers, every load masked). Each has its
+  own launch count, so a run shows which one its path took.
 
 Dispatch (`int8_matmul`): the kernel's shapes are bf16 x with M >= 256
 rows and K % 16 == 0 (the JAX package's M >= 256 rule, without its
 M % 8 / N % 128 / K % 128 tiling rules). There, CPU tensors or
 impl="torch" take the kernel's plain version (`int8_matmul_plain`) and
-CUDA tensors launch the kernel or raise. Every other shape (decode at M =
-slots + 1, the vocab head at M = rows, fp32 activations) takes
-`dequant_matmul`, as the JAX package takes `_matmul_xla` there. The two
-routes compute the same function, except that `dequant_matmul` rounds the
-scale and the dequantized weights to x's dtype. Launches are counted in
-`launches`. With grad on, every route goes through `_Int8Function`, whose
-backward is the JAX custom VJP's dx (quant.py:101-113), a product the JAX
-package computes in XLA outside Pallas.
+CUDA tensors launch one of the two kernels (`kernel_variant`) or raise.
+Every other shape (decode at M = slots + 1, the vocab head at M = rows,
+fp32 activations) takes `dequant_matmul`, as the JAX package takes
+`_matmul_xla` there. The routes compute the same function, except that
+`dequant_matmul` rounds the scale and the dequantized weights to x's
+dtype. Launches are counted in `launches`. With grad on, every route
+goes through `_Int8Function`, whose backward is the JAX custom VJP's dx
+(quant.py:101-113), a product the JAX package computes in XLA outside
+Pallas.
 """
 
 from __future__ import annotations
@@ -51,13 +61,14 @@ from . import build
 
 KERNEL_MIN_M = 256     # the JAX auto-dispatch's M >= 256 (quant.py:128-130)
 KERNEL_K_MULTIPLE = 16
+TMA_N_MULTIPLE = 16    # the int8 rows' N bytes must be a 16-byte stride
 
 # unfused projections (quant.py:187); the vocab head is quantized apart
 _QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                   "up_proj", "down_proj", "fc1", "fc2")
 _FUSED = ("qkv_proj", "gateup_proj")
 
-launches = {"int8_matmul": 0}
+launches = {"int8_matmul": 0, "int8_matmul_unaligned": 0}
 
 
 def reset_launches() -> None:
@@ -165,6 +176,15 @@ def kernel_shape(x) -> bool:
             and k % KERNEL_K_MULTIPLE == 0)
 
 
+def kernel_variant(k: int, n: int) -> str:
+    """The CUDA kernel for a (K, N) product on the kernel's shapes: the TMA
+    + wgmma one where tensor maps can describe x and the weights (16-byte
+    row strides: K % 8, N % 16), else the one kept for other N."""
+    if k % 8 == 0 and n % TMA_N_MULTIPLE == 0:
+        return "int8_matmul"
+    return "int8_matmul_unaligned"
+
+
 def _kernel(x, wq, scale):
     m, k, n = _check_shapes(x, wq, scale)
     if not kernel_shape(x):
@@ -181,14 +201,15 @@ def _kernel(x, wq, scale):
         if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"int8_matmul: {name} must be contiguous and "
                              f"{align}-byte aligned")
+    name = kernel_variant(k, n)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.library("int8_matmul")
     with torch.cuda.device(x.device):
-        rc = lib.opus_int8_matmul(
+        rc = getattr(lib, f"opus_{name}")(
             x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
-    launches["int8_matmul"] += 1
-    build.check(rc, "int8_matmul", lib)
+    launches[name] += 1
+    build.check(rc, name, lib)
     return out
 
 

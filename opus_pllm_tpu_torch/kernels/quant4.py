@@ -52,11 +52,23 @@ int4_matmul_v1
   Bound (H100): the tensor cores at the training shape: M = 16 x 519 =
   8304, a 4096 -> 14336 product is 0.98 TFLOP (~0.99 ms at 989 TFLOP/s)
   against ~97 MB of activations and packed bytes.
-  Design (csrc/int4_matmul_v1.cu): int8_matmul's 128 x 128 tile on
-  mma.sync; each 16-byte load of packed bytes unpacks on its way into
-  shared memory to 16 exact bf16 weights of one nibble; each 128-row
-  group's fp32 partials are multiplied by their column scales before they
-  join the accumulators; ragged M and N are masked.
+  Design (csrc/int4_matmul_v1.cu, its core in csrc/hopper_gemm.cuh, shared
+  with int8_matmul): the transposed product, widened weights as wgmma's A
+  operand from registers. One CTA per 128 weight columns x 128 x rows; a
+  producer warp keeps a 5-stage ring of TMA loads in flight on mbarriers,
+  a stage being 64 byte rows (loaded once), the two x boxes of the K rows
+  they hold and the block's two rows of group scales. Two consumer
+  warpgroups widen the low nibbles (exact: lop3 into the 0x4300 exponent,
+  minus 136), then the high ones, for wgmma m64n128k16 with fp32
+  registers: each byte feeds both groups' chains, as the TPU kernel feeds
+  `lo` and `hi`. Each group's fp32 partial fragment is multiplied by its
+  fp32 column scales before it joins the accumulator (never folded into
+  bf16 weights); TMA zero-fills ragged M and N.
+  Tensor maps need 16-byte row strides, so that kernel takes N % 16 == 0
+  (`v1_kernel_variant`; every Llama-3-8B shape, the vocab head included);
+  other N take the earlier CUDA kernel, kept as `int4_matmul_v1_unaligned`
+  (mma.sync on 32-deep tiles staged through registers, each byte read once
+  per nibble, every load masked), with its own launch count.
 
 Shape rule: v2 products with M > 64 rows (the annotate prefill: M = B * L
 = 2616) take the dequantize-to-bf16 + matmul route of the JAX
@@ -96,7 +108,10 @@ TARGET_CTAS = 264       # two CTAs for each of the H100's 132 SMs
 _QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                   "up_proj", "down_proj")    # quant.py:187, unfused llama
 
-launches = {"int4_matmul": 0, "int4_matmul_v1": 0}
+TMA_N_MULTIPLE = 16     # the nibble rows' N bytes: a 16-byte stride
+
+launches = {"int4_matmul": 0, "int4_matmul_v1": 0,
+            "int4_matmul_v1_unaligned": 0}
 
 
 def reset_launches() -> None:
@@ -332,30 +347,41 @@ def _kernel(x, packed, gscale):
     return out
 
 
+def v1_kernel_variant(n: int) -> str:
+    """The CUDA kernel for a v1 product with N columns: the TMA + wgmma one
+    where tensor maps can describe the packed bytes and the scales (16-byte
+    row strides: N % 16), else the one kept for other N."""
+    if n % TMA_N_MULTIPLE == 0:
+        return "int4_matmul_v1"
+    return "int4_matmul_v1_unaligned"
+
+
 def _kernel_v1(x, packed, gscale):
     m, k, n = _check_shapes(x, packed, gscale)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int4_matmul_v1: x of dtype {x.dtype}")
     if gscale.dtype != torch.float32:
         raise TypeError(f"int4_matmul_v1: gscale of dtype {gscale.dtype}")
+    name = v1_kernel_variant(n)
     xb = x.to(torch.bfloat16).contiguous()
-    for name, t, align in (("x", xb, 16), ("kernel_p", packed, 16),
-                           ("gscale", gscale, 4)):
+    s_align = 16 if name == "int4_matmul_v1" else 4       # TMA reads gscale
+    for arg, t, align in (("x", xb, 16), ("kernel_p", packed, 16),
+                          ("gscale", gscale, s_align)):
         if t.device != x.device:
-            raise ValueError(f"int4_matmul_v1: {name} on {t.device}, x on "
+            raise ValueError(f"int4_matmul_v1: {arg} on {t.device}, x on "
                              f"{x.device}")
         if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"int4_matmul_v1: {name} must be contiguous "
+            raise ValueError(f"int4_matmul_v1: {arg} must be contiguous "
                              f"and {align}-byte aligned")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.library("int4_matmul_v1")
     with torch.cuda.device(x.device):
-        rc = lib.opus_int4_matmul_v1(
+        rc = getattr(lib, f"opus_{name}")(
             xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
             out.data_ptr(), m, n, k, int(x.dtype == torch.float32),
             torch.cuda.current_stream(x.device).cuda_stream)
-    launches["int4_matmul_v1"] += 1
-    build.check(rc, "int4_matmul_v1", lib)
+    launches[name] += 1
+    build.check(rc, name, lib)
     return out
 
 

@@ -2,8 +2,10 @@
 ragged shapes the main path can also produce: the four fused-encoder
 kernels, the int4 v2 matmul, both quantized decode attentions, flash
 attention, the int8 matmul, the two flash-attention backward kernels and
-the int4 v1 matmul; then the gradients through the autograd Functions and
-the launch counts of one tiny train step (a CUDA kernel has no CPU mode:
+the int4 v1 matmul (the int8 and the v1 matmul each in its TMA + wgmma
+kernel and in the kernel kept for N that is not a multiple of 16); then
+the gradients through the autograd Functions and the launch counts of one
+tiny train step (a CUDA kernel has no CPU mode:
 these skip where torch sees no GPU). Run on a GPU machine with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -272,7 +274,30 @@ def test_int8_matmul(m, k, n):
     quant.reset_launches()
     _check(lambda x: quant.int8_matmul(x, wq, s),
            lambda x: quant.int8_matmul_plain(x, wq, s), (_rnd(g, m, k),))
-    assert quant.launches["int8_matmul"] == 1
+    # N = 130 / 1000 are not 16-byte row strides: the kernel kept for them
+    tma = n % 16 == 0
+    assert quant.launches == {"int8_matmul": int(tma),
+                              "int8_matmul_unaligned": int(not tma)}
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 4112, 1040), (257, 4112, 1040),
+                                   (300, 4112, 1040), (8304, 4112, 1040),
+                                   (256, 4096, 128256)])
+def test_int8_matmul_tma(m, k, n):
+    """The TMA + wgmma kernel: ragged M (one row past a tile, 8304 = 64.875
+    tiles), N a multiple of 16 but not of the 128-column tile, K a multiple
+    of 16 but not of the 64-row step, and the full vocab head; the kept
+    kernel is not launched, and two calls agree bit for bit."""
+    g = _gen()
+    wq, s = quant.quantize_per_channel(torch.randn((k, n), generator=g,
+                                                   device="cuda"))
+    x = _rnd(g, m, k)
+    quant.reset_launches()
+    _check(lambda x: quant.int8_matmul(x, wq, s),
+           lambda x: quant.int8_matmul_plain(x, wq, s), (x,))
+    assert torch.equal(quant.int8_matmul(x, wq, s),
+                       quant.int8_matmul(x, wq, s))
+    assert quant.launches == {"int8_matmul": 3, "int8_matmul_unaligned": 0}
 
 
 @pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
@@ -437,11 +462,42 @@ def test_int4_matmul_v1(m, k, n):
     quant4.reset_launches()
     _check(lambda x: quant4.int4_matmul(x, packed, s),
            lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 1}
+    # N = 130 / 1000 are not 16-byte row strides: the kernel kept for them
+    tma = n % 16 == 0
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": int(tma),
+                               "int4_matmul_v1_unaligned": int(not tma)}
     out = quant4.int4_matmul(x.float(), packed, s)
     ref = quant4.int4_matmul_plain(x.float(), packed, s)
     assert out.dtype == torch.float32
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("m,k,n", [
+    *((m, k, 1040) for m in (256, 257, 300, 8304) for k in (256, 768, 4096)),
+    (300, 4096, 128256)])
+def test_int4_matmul_v1_tma(m, k, n):
+    """The TMA + wgmma kernel: ragged M, N a multiple of 16 but not of the
+    128-column tile, one to sixteen 256-row blocks, and the full vocab
+    head; fp32 x stays fp32 within 1e-5 of the plain version (so the fp32
+    group scales were not rounded); the kept kernel is not launched, and
+    two calls agree bit for bit."""
+    g = _gen()
+    q, s = quant4.quantize_grouped(torch.randn((k, n), generator=g,
+                                               device="cuda"))
+    packed = quant4.pack_int4(q)
+    del q
+    x = _rnd(g, m, k)
+    quant4.reset_launches()
+    _check(lambda x: quant4.int4_matmul(x, packed, s),
+           lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
+    assert torch.equal(quant4.int4_matmul(x, packed, s),
+                       quant4.int4_matmul(x, packed, s))
+    out = quant4.int4_matmul(x.float(), packed, s)
+    ref = quant4.int4_matmul_plain(x.float(), packed, s)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 4,
+                               "int4_matmul_v1_unaligned": 0}
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4-v1"])
@@ -572,10 +628,12 @@ def test_train_step_launch_counts(base):
     assert fab.launches == {"flash_attention_bwd_dq": nl,
                             "flash_attention_bwd_dkv": nl}
     assert fe.launches == {k: cfg.esm.num_layers for k in fe.launches}
-    assert quant4.launches == {
-        "int4_matmul": 0,
-        "int4_matmul_v1": 2 * 7 * nl + 1 if base == "int4-v1" else 0}
-    assert quant.launches["int8_matmul"] == 0
+    # the head's N = 260 is not a 16-byte row stride: the kept kernel
+    v1 = base == "int4-v1"
+    assert quant4.launches == {"int4_matmul": 0,
+                               "int4_matmul_v1": 2 * 7 * nl if v1 else 0,
+                               "int4_matmul_v1_unaligned": int(v1)}
+    assert set(quant.launches.values()) == {0}
     assert sum(da.launches.values()) == 0
     loss = float(logs[0].split("loss=")[1])
     assert torch.isfinite(torch.tensor(loss))

@@ -113,7 +113,7 @@ def test_int8_matmul_dispatch_on_cpu():
                                                  impl="torch"),
                                quant.int8_matmul_plain(x.reshape(-1, 64),
                                                        q, s), rtol=0, atol=0)
-    assert quant.launches == {"int8_matmul": 0}
+    assert quant.launches == {"int8_matmul": 0, "int8_matmul_unaligned": 0}
     with pytest.raises(ValueError):
         quant.int8_matmul_plain(x[0], q[:, :5], s)
 
@@ -123,6 +123,20 @@ def _cfgs(dtype):
               num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
               max_position_embeddings=512, dtype=dtype)
     return JDecoderConfig(**kw), DecoderConfig(**kw)
+
+
+@pytest.mark.parametrize("k,n,want", [
+    (4096, 4096, "int8_matmul"), (4096, 1024, "int8_matmul"),
+    (4096, 14336, "int8_matmul"), (14336, 4096, "int8_matmul"),
+    (4096, 128256, "int8_matmul"), (4112, 1040, "int8_matmul"),
+    (64, 130, "int8_matmul_unaligned"), (512, 1000, "int8_matmul_unaligned")])
+def test_int8_kernel_variant(k, n, want):
+    """The CUDA kernel a (K, N) product takes on the kernel's shapes: the
+    TMA + wgmma kernel needs 16-byte row strides in its tensor maps (N
+    int8 bytes of W, K bf16 of x), which every Llama-3-8B shape has; other
+    N take the kernel kept for them, each counted apart."""
+    assert quant.kernel_variant(k, n) == want
+    assert quant.launches[want] == 0
 
 
 @pytest.fixture(scope="module")

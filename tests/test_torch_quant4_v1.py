@@ -94,12 +94,27 @@ def test_v1_plain_matches_pallas_interpret():
                                         jnp.asarray(s), impl="pallas"))
     quant4.reset_launches()
     got = quant4.int4_matmul(_t(x), _t(packed), _t(s)).numpy()
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 0}
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 0,
+                               "int4_matmul_v1_unaligned": 0}
     assert got.dtype == np.float32 and got.shape == (m, n)
     assert np.abs(got - ref).max() <= 2e-5 * np.abs(ref).max()
     torch.testing.assert_close(
         quant4.int4_matmul_plain(_t(x), _t(packed), _t(s)), _t(got),
         rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,want", [
+    (4096, "int4_matmul_v1"), (1024, "int4_matmul_v1"),
+    (14336, "int4_matmul_v1"), (128256, "int4_matmul_v1"),
+    (1040, "int4_matmul_v1"), (130, "int4_matmul_v1_unaligned"),
+    (260, "int4_matmul_v1_unaligned"), (1000, "int4_matmul_v1_unaligned")])
+def test_v1_kernel_variant(n, want):
+    """The CUDA kernel a v1 product with N columns takes: the TMA + wgmma
+    kernel needs 16-byte row strides for the nibble bytes (N) and the fp32
+    scales, which every Llama-3-8B shape has, the vocab head included;
+    other N (a tiny test head of 260) take the kernel kept for them."""
+    assert quant4.v1_kernel_variant(n) == want
+    assert quant4.launches[want] == 0
 
 
 def test_v1_plain_vs_matmul_xla():

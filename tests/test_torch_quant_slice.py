@@ -101,7 +101,7 @@ def test_generate_matches_jax(models, kind):
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
     assert len(set(map(tuple, got.tokens.numpy()))) == b
     # CPU tensors: the plain versions ran, no kernel launched
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 0}
+    assert set(quant4.launches.values()) == {0}
     assert set(da.launches.values()) == {0}
 
     # first decode step's logits: prefill into the quantized cache, head on
