@@ -35,9 +35,14 @@ and prints no result:
          2048 slots;
        - flash_attention at the serving prefill (16 rows of bucket 320, the
          engine's admission mask), the static prefill (8 x 327 queries over
-         a 391-slot left-padded cache) and causal B=1, S=2048; Hq=32,
-         Hkv=8, D=128. Library: torch's scaled_dot_product_attention with
-         the same mask (K/V heads repeated beforehand);
+         a 391-slot left-padded cache, whose padding rows have no valid key:
+         the kernel gives them out 0, as the plain version does), causal
+         B=1, S=2048 and the training shape (B=16, L=519, the training mask:
+         64 launches a train step run there); Hq=32, Hkv=8, D=128. The
+         kernel skips the 64-key tiles whose mask is false everywhere (the
+         bound counts mask-true pairs only). Library: torch's
+         scaled_dot_product_attention with the same mask (K/V heads
+         repeated beforehand);
        - int8_matmul at M = 5120 (serving prefill) and 2616 (static
          prefill) for the four (K, N) of a Llama-3-8B layer. Library: the
          bf16 cuBLAS product on W dequantized beforehand (the dequantize
@@ -153,6 +158,17 @@ and one profiled step of train-lora over the bf16 LLM, then the same over
 its v1 quantization, each printed as above with the sums for the
 hand-written kernels, cuBLAS, the elementwise casts / multiplies / adds
 and the softmax kernels. It checks nothing and prints no result line.
+
+    python3 chip_smoke.py --flash-times [TREE ...]
+
+times the flash-attention kernels of each checkout TREE (default: this
+one; each in a process of its own, which builds that tree's kernels into
+its git-ignored build/) at phase 3's flash shapes, inputs drawn from the
+same seed: the forward at all four, dq and dk/dv at the training shape
+and causal 2048, one device time per line (as phase 3 times a kernel)
+with the card's name and power limit. Naming the parent's checkout and
+this one in turns (parent, change, change, parent) compares two designs
+on one card. It checks nothing and prints no result line.
 """
 
 import json
@@ -423,20 +439,11 @@ def check_quant_kernels(card):
     return rows
 
 
-def check_serve_kernels(card):
-    """flash_attention and int8_matmul at the prefill shapes of the serving
-    and static paths (module docstring, phase 3)."""
+def flash_cases(g):
+    """phase 3's flash_attention shapes, masks drawn from `g`: (label, B,
+    Sq, Skv, mask, causal)."""
     import torch
-    import torch.nn.functional as tnf
-    from opus_pllm_tpu_torch.kernels import flash_attention as fa
-    from opus_pllm_tpu_torch.kernels import quant
     from opus_pllm_tpu_torch.serve.engine import admission_inputs
-    g = torch.Generator(device="cuda")
-    g.manual_seed(SEED)
-    rnd = lambda *shape: torch.randn(shape, generator=g,
-                                     device="cuda").bfloat16()
-    rows = {}
-    hq, hkv, d = 32, 8, 128
     # serving prefill: 16 admitted prompts of 200-320 spliced tokens
     n_valid = torch.randint(200, 321, (16,), generator=g, device="cuda")
     n_valid[0] = 287
@@ -447,10 +454,72 @@ def check_serve_kernels(card):
     cols = torch.arange(391, device="cuda")[None, None, None, :]
     rows_q = torch.arange(327, device="cuda")[None, None, :, None]
     static_mask = (cols <= rows_q) & (cols >= pad[:, None, None, None])
-    cases = (("serving prefill B=16 S=320", 16, 320, 320, serve_mask, False),
-             ("static prefill B=8 327x391", 8, 327, 391, static_mask, False),
-             ("causal B=1 S=2048", 1, 2048, 2048, None, True))
-    for i, (label, b, sq, skv, mask, causal) in enumerate(cases):
+    # training: train-lora's batch at L = 519, right-padded
+    n_train = torch.randint(TRAIN_LEN // 2, TRAIN_LEN + 1, (TRAIN_BATCH,),
+                            generator=g, device="cuda")
+    n_train[0] = TRAIN_LEN
+    return (("serving prefill B=16 S=320", 16, 320, 320, serve_mask, False),
+            ("static prefill B=8 327x391", 8, 327, 391, static_mask, False),
+            ("causal B=1 S=2048", 1, 2048, 2048, None, True),
+            (f"training B={TRAIN_BATCH} L={TRAIN_LEN}", TRAIN_BATCH,
+             TRAIN_LEN, TRAIN_LEN, train_mask(n_train, TRAIN_LEN), False))
+
+
+def flash_times(trees):
+    """--flash-times (module docstring): each tree in a process of its own,
+    or, for one tree, its flash kernels' device times."""
+    if len(trees) != 1:
+        for tree in trees:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--flash-times", tree], check=True, timeout=900)
+        return
+    import torch
+    tree = os.path.abspath(trees[0])
+    sys.path.insert(0, tree)
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__)))
+    if os.path.dirname(pkg) != tree:
+        fail(f"imported {pkg}, not the package of {tree}")
+    card = card_line()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device="cuda").bfloat16()
+    hq, hkv, d = 32, 8, 128
+    for label, b, sq, skv, mask, causal in flash_cases(g):
+        q, k, v = rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, mask,
+                                                causal=causal))
+        print(f"{tree}: flash_attention {label}: {ms:.4f} ms [{card}]",
+              flush=True)
+        if label.startswith(("training", "causal")):
+            dout = rnd(b, sq, hq, d)
+            out, lse = fa.flash_attention(q, k, v, mask, causal=causal,
+                                          return_lse=True)
+            delta = fab._delta(out, dout)
+            for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                fn = getattr(fab, name)
+                ms = time_ms(lambda: fn(q, k, v, mask, lse, delta, dout,
+                                        causal=causal))
+                print(f"{tree}: {name} {label}: {ms:.4f} ms [{card}]",
+                      flush=True)
+
+
+def check_serve_kernels(card):
+    """flash_attention and int8_matmul at the prefill shapes of the serving
+    and static paths (module docstring, phase 3)."""
+    import torch
+    import torch.nn.functional as tnf
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import quant
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device="cuda").bfloat16()
+    rows = {}
+    hq, hkv, d = 32, 8, 128
+    for i, (label, b, sq, skv, mask, causal) in enumerate(flash_cases(g)):
         q, k, v = rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
         pairs = (mask.sum().item() if mask is not None
                  else b * sq * (sq + 1) // 2)
@@ -1258,7 +1327,8 @@ def profile_serving(card):
         "casts (direct_copy_kernel)": "direct_copy_kernel",
         "multiplies (MulFunctor)": "MulFunctor",
         "int8_matmul_wgmma_kernel": "int8_matmul_wgmma_kernel",
-        "flash_fwd_kernel": "flash_fwd_kernel",
+        "flash_fwd_wgmma_kernel": "flash_fwd_wgmma_kernel",
+        "flash mask packing (pack_row_words)": "pack_row_words",
         "cuBLAS (nvjet / gemm)": ("nvjet", "gemmSN", "gemv")})
 
 
@@ -1322,9 +1392,12 @@ def profile_training(card):
             InstructionDataset(path), tok, TRAIN_BATCH, seed=SEED,
             max_len=TRAIN_MAX_LEN), 3))
     groups = {
-        "flash_fwd_kernel (forward + recompute)": "flash_fwd_kernel",
-        "flash_bwd_dq_kernel": "flash_bwd_dq_kernel",
-        "flash_bwd_dkv_kernel": "flash_bwd_dkv_kernel",
+        "flash_fwd_wgmma_kernel (forward + recompute)":
+            "flash_fwd_wgmma_kernel",
+        "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq_wgmma_kernel",
+        "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel",
+        "flash mask packing (pack_row / col_words)": ("pack_row_words",
+                                                      "pack_col_words"),
         "int4_v1_wgmma_kernel": "int4_v1_wgmma_kernel",
         "encoder kernels (fused_encoder.cu)": (
             "gemm_kernel<", "encoder_attention_kernel", "ln_stats_kernel"),
@@ -1369,6 +1442,10 @@ def main():
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
+    if "--flash-times" in sys.argv[1:]:
+        flash_times(sys.argv[sys.argv.index("--flash-times") + 1:]
+                    or [os.path.dirname(os.path.abspath(__file__))])
+        return
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) flash attention backward: dq, and dk/dv with the GQA
-// group summed inside the CTA.
+// group summed inside the CTA. TMA loads into mbarrier rings, wgmma for
+// every product.
 //
 // Replaces the two Pallas kernels of
 // opus_pllm_tpu/kernels/flash_attention_bwd.py: `_dq_kernel` (pallas_call
@@ -10,36 +11,50 @@
 //           (causal) j > i, or the row / key lies past Sq / Skv;
 //   dp_ij = dO_i . v_j;   ds_ij = p_ij (dp_ij - delta_i) scale;
 //   dq_i  = sum_j ds_ij k_j;
-//   dk_j  = sum_{h in group, i} ds_ij q_i;  dv_j = sum_{h in group, i} p_ij dO_i.
+//   dk_j  = sum_{h in group, i} ds_ij q_i;
+//   dv_j  = sum_{h in group, i} p_ij dO_i.
 // Zeroing p where the mask is false (instead of exp(-1e30 - lse)) gives a
 // query row with no valid key zero gradient, the TPU kernel's convention
-// (flash_attention_bwd.py:37-46).
+// (flash_attention_bwd.py:37-46). p and ds are rounded to bf16 as the A
+// operands of their products.
 // Layouts are the JAX package's: q, dO (B, Sq, Hq, D), k, v (B, Skv, Hkv,
-// D), all read through their strides (head dim contiguous), so no
-// transpose is made; mask (B, Sq, Skv) through its strides; dq (B, Sq, Hq,
-// D), dk and dv (B, Skv, Hkv, D) contiguous, in bf16.
+// D), all read through their strides (head dim contiguous) by 4-D tensor
+// maps, so no transpose is made; mask (B, Sq, Skv) through its strides; dq
+// (B, Sq, Hq, D), dk and dv (B, Skv, Hkv, D) contiguous, in bf16.
 //
-// Bound: the tensor cores. dq runs three products per (query, key) pair
-// (q.k, dO.v, ds.k), dk/dv four (q.k, dO.v, p.dO, ds.q), each 2 D FLOP a
-// pair; only mask-true pairs need computing.
-// Design (both kernels: 4 warps, mma.sync m16n8k16 bf16 -> fp32, helpers of
-// mma_bf16.cuh; the sequential grid axis of each TPU kernel becomes a loop
-// inside the CTA):
-//   dq: one CTA per (64 query rows, q head, batch row). Each warp keeps its
-//   16 rows of q and dO as A fragments in registers and a 16 x D fp32 dq
-//   accumulator; a loop over 32-key tiles of K and V staged in shared
-//   memory with their mask tile. ds goes from the accumulators straight
-//   into the A fragments of ds.k (rounded to bf16).
-//   dk/dv: one CTA per (64 keys, KV head, batch row). Each warp owns 16
-//   keys, whose dk and dv accumulate in fp32 registers over the G query
-//   heads of the group and every 32-row query tile: the GQA sum happens in
-//   the CTA, with no per-q-head buffer and no atomics (deterministic). K,
-//   V, the q / dO tiles and the mask tile live in dynamic shared memory
-//   (55 KB at D = 128).
-//   A tile whose mask is false everywhere (above the causal diagonal, past
-//   a row's padding) is skipped after its mask is read, so the products
-//   run on about the mask-true pairs. Ragged tiles are masked: rows past Sq
-//   and keys past Skv load as zero and get p = 0.
+// Bound: the tensor cores. dq runs three products per mask-true (query,
+// key) pair (q.k, dO.v, ds.k), dk/dv four (q.k, dO.v, p.dO, ds.q), each
+// 2 D FLOP a pair and head.
+// Design (csrc/hopper_attention.cuh has the pieces; every tile is 128-byte
+// swizzled by TMA, zero-filled past Sq and Skv):
+//   dq: one CTA per (128 query rows, GP heads of one KV head, batch row),
+//   rows packed (query, head) as in the forward, so a K/V tile serves GP
+//   heads. 288 threads: a producer warp loads the Q and dO tiles once and
+//   sweeps the 64-key tiles as the forward does (the mask packed first into
+//   64-bit words per query row, false-everywhere tiles skipped) through a
+//   2-stage K / V ring;
+//   two consumer warpgroups of 64 rows each take a tile in two 32-key
+//   halves: S = Q.K^T and dP = dO.V^T by wgmma m64n32k16 from shared
+//   memory, p and ds in registers, dq += ds.K by wgmma m64nDk16 with ds as
+//   the register A operand and K as the N-major B (transpose bit). dq (D /
+//   2 fp32 a thread), S and dP (16 each) and the ds fragments (8) fit the
+//   168 registers of a 288-thread block.
+//   dk/dv: one CTA per (64 keys, KV head, batch row), 160 threads: a
+//   producer warp loads K and V once, then sweeps the G query heads of the
+//   group and their 64-row query tiles: the mask, packed first into one
+//   64-bit word per key and 64-row query tile, skips the tiles false
+//   everywhere; the rest go through a 2-stage ring of Q and dO tiles with
+//   their rows' lse and delta (read a tile ahead). One consumer warpgroup
+//   takes a tile in two 32-row halves: S^T = K.Q^T and dP^T = V.dO^T by
+//   wgmma m64n32k16, p^T and ds^T in registers, dv += p^T.dO and dk +=
+//   ds^T.Q by wgmma m64nDk16 (register A, N-major B). dk and dv (D fp32 a thread together) sum the
+//   whole group in registers: no per-head buffer, no atomics, so the
+//   result is deterministic. A 160-thread block may hold up to 255
+//   registers a thread, which the two accumulators need.
+//   Both grids run the tiles of one head (group) and batch row next to each
+//   other (they share tiles in L2), the longest under a causal mask first
+//   (dq: the last query tile, dk/dv: the first key tile), so that the
+//   short ones fill the tail.
 //
 // Each entry point returns the cudaError_t of its launch (0 = success).
 // Nothing here allocates or synchronises.
@@ -49,371 +64,515 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "hopper_attention.cuh"
 
 typedef __nv_bfloat16 bf16;
-using opus_mma::mma16816;
-using opus_mma::pack_bf16;
-using opus_mma::pack_raw;
 
 namespace {
 
-constexpr int THREADS = 128;    // 4 warps
-constexpr int DQ_BQ = 64;       // query rows per dq CTA: 4 warps x 16
-constexpr int DQ_BK = 32;       // keys per dq tile
-constexpr int KV_BK = 64;       // keys per dk/dv CTA: 4 warps x 16
-constexpr int KV_BQ = 32;       // query rows per dk/dv tile
+using namespace opus_attn;
+using opus_hopper::fence_regs;
+using opus_hopper::mbar_wait;
+using opus_hopper::wgmma_commit;
+using opus_hopper::wgmma_fence;
+using opus_hopper::wgmma_wait;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STAGES = 2;
+constexpr int KV_PANEL = 64 * PANEL_ROW_BYTES;     // a 64-row tile's panel
 
 struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
-  const uint8_t* mask;          // nullptr: no mask
+  MaskArgs m;
   const float* lse;             // (B, Hq, Sq)
   const float* delta;           // (B, Hq, Sq)
   bf16* out0;                   // dq, or dk
   bf16* out1;                   // dv (dk/dv kernel only)
-  int Sq, Skv, Hq, Hkv, G, causal;
+  int Hq, Hkv, G;
   float scale;
-  long long q_b, q_s, q_h;      // element strides
-  long long k_b, k_s, k_h;
-  long long v_b, v_s, v_h;
-  long long o_b, o_s, o_h;      // dO
-  long long m_b, m_q, m_k;
 };
 
-// rows [r0, r0 + nrows) of a strided (rows, HD) bf16 matrix into shared
-// memory with row stride ld; rows at or past `limit` are zero
+// d (64 x HD) += A (registers) . B (N-major, panels `panel` bytes apart)
 template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int r0,
-                                          int nrows, int limit, int tid) {
-  constexpr int CH = HD / 8;
-  for (int c = tid; c < nrows * CH; c += THREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + col);
-    *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
+__device__ __forceinline__ void rs_mn(float* d, const uint32_t* a,
+                                      uint64_t db) {
+  if (HD == 128)
+    wgmma_rs_n128_mn(d, a, db, 1);
+  else
+    wgmma_rs_n64_mn(d, a, db, 1);
+}
+
+// d (64 x 32) = A rows . B rows^T over HD, both K-major: A's 64 rows start
+// at `a` in each of its panels (`a_panel` bytes apart), B's 32 at `b`
+template <int HD>
+__device__ __forceinline__ void ss_n32(float* d, const uint8_t* a,
+                                       int a_panel, const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int p = kk >> 2, ck = 2 * (kk & 3);
+    wgmma_ss_n32(d, desc_k(a + p * a_panel) + ck,
+                 desc_k(b + p * KV_PANEL) + ck, kk > 0);
   }
 }
 
-// the (nq x nk) tile of "p may be non-zero": mask, causality and range;
-// returns (to every thread, after a barrier) whether any entry is set
-__device__ __forceinline__ int load_mask(uint8_t* mt, int ld,
-                                         const BwdArgs& a, int b, int q0,
-                                         int nq, int k0, int nk, int tid) {
-  int any = 0;
-  for (int c = tid; c < nq * nk; c += THREADS) {
-    const int r = c / nk, j = c % nk;
-    const int qi = q0 + r, kj = k0 + j;
-    uint8_t keep = 0;
-    if (qi < a.Sq && kj < a.Skv && !(a.causal && kj > qi))
-      keep = a.mask == nullptr
-                 ? 1
-                 : (a.mask[b * a.m_b + qi * a.m_q + kj * a.m_k] != 0);
-    mt[r * ld + j] = keep;
-    any |= keep;
-  }
-  return __syncthreads_or(any);
-}
-
+// The bf16 rows of a fp32 64 x HD accumulator into a (B, S, H, D) tensor
+// at rows `row0`, `row0 + 8` (nullptr: not stored).
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int LD = HD + 8;    // padded smem row stride (elements)
-  constexpr int KT = HD / 16;
-  constexpr int MLD = DQ_BK + 4;
-  __shared__ __align__(16) bf16 Ks[DQ_BK * LD];
-  __shared__ __align__(16) bf16 Vs[DQ_BK * LD];
-  __shared__ __align__(16) bf16 St[DQ_BQ * LD];   // q, then dO, staging
-  __shared__ uint8_t mt[DQ_BQ * MLD];
-
-  const int q0 = blockIdx.x * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / a.G;
-  const bf16* Q = a.q + b * a.q_b + h * a.q_h;
-  const bf16* K = a.k + b * a.k_b + hk * a.k_h;
-  const bf16* V = a.v + b * a.v_b + hk * a.v_h;
-  const bf16* O = a.dout + b * a.o_b + h * a.o_h;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  // this warp's 16 rows of q and of dO as A fragments
-  uint32_t qf[KT][4], of[KT][4];
-  const bf16* base = St + warp * 16 * LD;
-  load_rows<HD>(St, LD, Q, a.q_s, q0, DQ_BQ, a.Sq, tid);
-  __syncthreads();
-#pragma unroll
-  for (int ks = 0; ks < KT; ++ks) {
-    const bf16* p = base + ks * 16 + t * 2;
-    qf[ks][0] = *reinterpret_cast<const uint32_t*>(p + g * LD);
-    qf[ks][1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD);
-    qf[ks][2] = *reinterpret_cast<const uint32_t*>(p + g * LD + 8);
-    qf[ks][3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD + 8);
-  }
-  __syncthreads();
-  load_rows<HD>(St, LD, O, a.o_s, q0, DQ_BQ, a.Sq, tid);
-  __syncthreads();
-#pragma unroll
-  for (int ks = 0; ks < KT; ++ks) {
-    const bf16* p = base + ks * 16 + t * 2;
-    of[ks][0] = *reinterpret_cast<const uint32_t*>(p + g * LD);
-    of[ks][1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD);
-    of[ks][2] = *reinterpret_cast<const uint32_t*>(p + g * LD + 8);
-    of[ks][3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD + 8);
-  }
-
-  float lse_r[2], del_r[2];
+__device__ __forceinline__ void store_rows(const float* acc, bf16* row0,
+                                           bf16* row8, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + 8 * r;
-    const size_t at = ((size_t)b * a.Hq + h) * a.Sq + qi;
-    lse_r[r] = qi < a.Sq ? a.lse[at] : 0.f;
-    del_r[r] = qi < a.Sq ? a.delta[at] : 0.f;
+    bf16* dst = r ? row8 : row0;
+    if (dst == nullptr) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+}
 
-  const int kend = a.causal ? min(a.Skv, q0 + DQ_BQ) : a.Skv;
-  for (int k0 = 0; k0 < kend; k0 += DQ_BK) {
-    __syncthreads();   // the previous tiles are no longer read
-    if (!load_mask(mt, MLD, a, b, q0, DQ_BQ, k0, DQ_BK, tid)) continue;
-    load_rows<HD>(Ks, LD, K, a.k_s, k0, DQ_BK, a.Skv, tid);
-    load_rows<HD>(Vs, LD, V, a.v_s, k0, DQ_BK, a.Skv, tid);
-    __syncthreads();
+// ---------------------------------------------------------------------------
+// dq
+// ---------------------------------------------------------------------------
 
-    float s[DQ_BK / 8][4], dp[DQ_BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < DQ_BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KT; ++ks) {
-        const bf16* kb = Ks + (nt * 8 + g) * LD + ks * 16 + t * 2;
-        mma16816(s[nt], qf[ks], *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
-        const bf16* vb = Vs + (nt * 8 + g) * LD + ks * 16 + t * 2;
-        mma16816(dp[nt], of[ks], *reinterpret_cast<const uint32_t*>(vb),
-                 *reinterpret_cast<const uint32_t*>(vb + 8));
-      }
+constexpr int DQ_CONSUMERS = 256;
+constexpr int DQ_THREADS = DQ_CONSUMERS + 32;
+
+template <int HD, int GP>
+struct DqPlan {
+  static constexpr int QR = 128 / GP;
+  static constexpr int NP = HD / PANEL;
+  static constexpr int Q_PANEL = 128 * PANEL_ROW_BYTES;
+  static constexpr int Q_BYTES = NP * Q_PANEL;      // q; dO the same
+  static constexpr int STAGE_BYTES = 2 * NP * KV_PANEL;
+  static constexpr int STAGE_OFF = 2 * Q_BYTES;
+  static constexpr int META_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF =
+      META_OFF + ((STAGES * (int)sizeof(RowMeta<QR>) + 7) / 8) * 8;
+  static constexpr int SMEM_BYTES = 1024 + BAR_OFF + (1 + 2 * STAGES) * 8;
+  static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block can use");
+};
+
+template <int HD, int GP>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap o_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const BwdArgs a) {
+  using P = DqPlan<HD, GP>;
+  constexpr int QR = P::QR;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* os = smem + P::Q_BYTES;
+  uint8_t* stages = smem + P::STAGE_OFF;
+  RowMeta<QR>* meta = reinterpret_cast<RowMeta<QR>*>(smem + P::META_OFF);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + P::BAR_OFF);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + STAGES;
+
+  // each head group's last query tiles (the most keys under a causal
+  // mask) first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * QR;
+  const int h0 = blockIdx.y * GP, b = blockIdx.z;
+  const int hk = h0 / a.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    opus_hopper::mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      opus_hopper::mbar_init(&full[s], 32);
+      opus_hopper::mbar_init(&empty[s], DQ_CONSUMERS / 32);
     }
-    // ds = p (dp - delta) scale, in place of s
-#pragma unroll
-    for (int nt = 0; nt < DQ_BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + t * 2 + (e & 1);
-        const int r = warp * 16 + g + (e >> 1) * 8;
-        const float p = mt[r * MLD + j]
-                            ? __expf(s[nt][e] * a.scale - lse_r[e >> 1])
-                            : 0.f;
-        s[nt][e] = p * (dp[nt][e] - del_r[e >> 1]) * a.scale;
-      }
-    // dq += ds K, ds straight from the accumulators (rounded to bf16)
-#pragma unroll
-    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
-      uint32_t da[4];
-      da[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      da[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      da[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      da[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        const bf16* kb = Ks + (kk * 16 + t * 2) * LD + nt * 8 + g;
-        mma16816(dq[nt], da, pack_raw(kb[0], kb[LD]),
-                 pack_raw(kb[8 * LD], kb[9 * LD]));
-      }
+    opus_hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= DQ_CONSUMERS) {
+    if (lane == 0) {
+      opus_hopper::prefetch_map(&q_map);
+      opus_hopper::prefetch_map(&o_map);
+      opus_hopper::prefetch_map(&k_map);
+      opus_hopper::prefetch_map(&v_map);
+      opus_hopper::mbar_arrive_expect_tx(qfull, 2 * P::Q_BYTES);
+      tma_tile<HD>(qs, P::Q_PANEL, &q_map, qfull, h0, q0, b);
+      tma_tile<HD>(os, P::Q_PANEL, &o_map, qfull, h0, q0, b);
     }
+    produce_kv<HD, QR, STAGES>(a.m, b, q0, hk, &k_map, &v_map, stages,
+                               P::STAGE_BYTES, meta, full, empty, lane);
+    return;
   }
 
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * (warp & 3) + g;    // rows r0 and r0 + 8
+  const int sq[2] = {r0 / GP, (r0 + 8) / GP};
+  const int hh[2] = {h0 + r0 % GP, h0 + (r0 + 8) % GP};
+  const float c = a.scale * LOG2E;
+  float lse2[2], del[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + 8 * r;
-    if (qi >= a.Sq) continue;
-    bf16* dst = a.out0 + (((size_t)b * a.Sq + qi) * a.Hq + h) * HD;
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8 + t * 2) =
-          __floats2bfloat162_rn(dq[nt][2 * r], dq[nt][2 * r + 1]);
+    const int qi = q0 + sq[r];
+    const size_t at = ((size_t)b * a.Hq + hh[r]) * a.m.Sq + qi;
+    lse2[r] = qi < a.m.Sq ? a.lse[at] * LOG2E : 0.f;
+    del[r] = qi < a.m.Sq ? a.delta[at] : 0.f;
   }
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(qfull, 0);
+  for (int u = 0;; ++u) {
+    const int s = u % STAGES;
+    mbar_wait(&full[s], (u / STAGES) & 1);
+    if (meta[s].k0 < 0) break;
+    const uint8_t* ks = stages + s * P::STAGE_BYTES;
+    const uint8_t* vs = ks + P::NP * KV_PANEL;
+    const bool all_true = meta[s].full;
+    const uint64_t bits[2] = {meta[s].bits[sq[0]], meta[s].bits[sq[1]]};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {             // keys 32 hf .. 32 hf + 31
+      float sacc[16], dp[16];
+      wgmma_fence();
+      ss_n32<HD>(sacc, qs + wg * 8192, P::Q_PANEL, ks + hf * 4096);
+      ss_n32<HD>(dp, os + wg * 8192, P::Q_PANEL, vs + hf * 4096);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc, 16);
+      fence_regs(dp, 16);
+      // ds = p (dp - delta) scale, in place of s
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = 32 * hf + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool on = all_true || ((bits[r] >> col) & 1);
+        const float p = on ? exp2_approx(sacc[i] * c - lse2[r]) : 0.f;
+        sacc[i] = p * (dp[i] - del[r]) * a.scale;
+      }
+      uint32_t da[8];
+      acc_to_a(sacc, 0, da);
+      acc_to_a(sacc, 1, da + 4);
+      // dq += ds K: K rows 32 hf + 16 kk .. as the N-major B
+      const uint64_t kd = desc_mn(ks, KV_PANEL);
+      wgmma_fence();
+      rs_mn<HD>(dq, da, kd + ((32 * hf) * PANEL_ROW_BYTES >> 4));
+      rs_mn<HD>(dq, da + 4, kd + ((32 * hf + 16) * PANEL_ROW_BYTES >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq, HD / 2);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  bf16* rows[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + sq[r];
+    rows[r] = qi < a.m.Sq
+                  ? a.out0 + (((size_t)b * a.m.Sq + qi) * a.Hq + hh[r]) * HD
+                  : nullptr;
+  }
+  store_rows<HD>(dq, rows[0], rows[1], t);
 }
 
-template <int HD>
-constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * KV_BK + 2 * KV_BQ) * (HD + 8) * sizeof(bf16) +
-         2 * KV_BQ * sizeof(float) + KV_BQ * (KV_BK + 4);
-}
+// ---------------------------------------------------------------------------
+// dk / dv
+// ---------------------------------------------------------------------------
+
+constexpr int KV_CONSUMERS = 128;
+constexpr int KV_THREADS = KV_CONSUMERS + 32;
+
+// A stage of the Q / dO ring besides its tiles: whether the sweep is over,
+// whether the tile's mask is true everywhere, its rows' lse (base 2) and
+// delta, and the 64-bit query mask of each of the CTA's 64 keys.
+struct ColMeta {
+  int live;
+  int full;
+  float lse2[64];
+  float delta[64];
+  uint64_t bits[64];
+};
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const BwdArgs a) {
-  constexpr int LD = HD + 8;
-  constexpr int KT = HD / 16;
-  constexpr int MLD = KV_BK + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + KV_BK * LD;
-  bf16* Qs = Vs + KV_BK * LD;
-  bf16* Os = Qs + KV_BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(Os + KV_BQ * LD);
-  float* del_s = lse_s + KV_BQ;
-  uint8_t* mt = reinterpret_cast<uint8_t*>(del_s + KV_BQ);
+struct DkvPlan {
+  static constexpr int NP = HD / PANEL;
+  static constexpr int T_BYTES = NP * KV_PANEL;     // one 64-row tile
+  static constexpr int STAGE_OFF = 2 * T_BYTES;     // after K and V
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;   // Q and dO
+  static constexpr int META_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = META_OFF + STAGES * (int)sizeof(ColMeta);
+  static constexpr int SMEM_BYTES = 1024 + BAR_OFF + (1 + 2 * STAGES) * 8;
+  static_assert(sizeof(ColMeta) % 8 == 0, "mbarriers need 8-byte alignment");
+  static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block can use");
+};
 
-  const int k0 = blockIdx.x * KV_BK, hk = blockIdx.y, b = blockIdx.z;
-  const bf16* K = a.k + b * a.k_b + hk * a.k_h;
-  const bf16* V = a.v + b * a.v_b + hk * a.v_h;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  load_rows<HD>(Ks, LD, K, a.k_s, k0, KV_BK, a.Skv, tid);
-  load_rows<HD>(Vs, LD, V, a.v_s, k0, KV_BK, a.Skv, tid);
-  const bf16* kbase = Ks + warp * 16 * LD;
-  const bf16* vbase = Vs + warp * 16 * LD;
+template <int HD>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap o_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const BwdArgs a) {
+  using P = DkvPlan<HD>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem;
+  uint8_t* vs = smem + P::T_BYTES;
+  uint8_t* stages = smem + P::STAGE_OFF;
+  ColMeta* meta = reinterpret_cast<ColMeta*>(smem + P::META_OFF);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(smem + P::BAR_OFF);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + STAGES;
 
-  float dk[HD / 8][4], dv[HD / 8][4];
+  const int k0 = blockIdx.x * 64, hk = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    opus_hopper::mbar_init(kvfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      opus_hopper::mbar_init(&full[s], 32);
+      opus_hopper::mbar_init(&empty[s], KV_CONSUMERS / 32);
+    }
+    opus_hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= KV_CONSUMERS) {
+    // ---- producer warp: K and V once, then the group's Q / dO tiles ----
+    if (lane == 0) {
+      opus_hopper::prefetch_map(&q_map);
+      opus_hopper::prefetch_map(&o_map);
+      opus_hopper::prefetch_map(&k_map);
+      opus_hopper::prefetch_map(&v_map);
+      opus_hopper::mbar_arrive_expect_tx(kvfull, 2 * P::T_BYTES);
+      tma_tile<HD>(ks, KV_PANEL, &k_map, kvfull, hk, k0, b);
+      tma_tile<HD>(vs, KV_PANEL, &v_map, kvfull, hk, k0, b);
+    }
+    // tiles j = (head j / nqt, query tile qt0 + j % nqt); causal: query
+    // rows below the first key see none of the CTA's keys. What a tile
+    // needs besides its TMA boxes (the words of this lane's two keys, the
+    // lse and delta of two rows) is read one tile ahead.
+    const int qt0 = a.m.causal ? k0 / 64 : 0;
+    const int nqt = (a.m.Sq + 63) / 64 - qt0;
+    const int n = a.G * nqt;
+    struct Fetch {
+      uint64_t lo, hi;
+      float lse2[2], delta[2];
+    };
+    auto fetch = [&](int j, Fetch& f) {
+      const int h = hk * a.G + j / nqt, qt = qt0 + j % nqt;
+      f.lo = col_word(a.m, b, k0 + lane, qt);
+      f.hi = col_word(a.m, b, k0 + 32 + lane, qt);
+      const size_t rows = ((size_t)b * a.Hq + h) * a.m.Sq;
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-
-  // causal: query rows below this CTA's first key see none of its keys
-  const int qstart = a.causal ? (k0 / KV_BQ) * KV_BQ : 0;
-  for (int hh = 0; hh < a.G; ++hh) {
-    const int h = hk * a.G + hh;
-    const bf16* Q = a.q + b * a.q_b + h * a.q_h;
-    const bf16* O = a.dout + b * a.o_b + h * a.o_h;
-    const size_t rows = ((size_t)b * a.Hq + h) * a.Sq;
-    for (int q0 = qstart; q0 < a.Sq; q0 += KV_BQ) {
-      __syncthreads();   // the previous tiles are no longer read
-      if (!load_mask(mt, MLD, a, b, q0, KV_BQ, k0, KV_BK, tid)) continue;
-      load_rows<HD>(Qs, LD, Q, a.q_s, q0, KV_BQ, a.Sq, tid);
-      load_rows<HD>(Os, LD, O, a.o_s, q0, KV_BQ, a.Sq, tid);
-      for (int i = tid; i < KV_BQ; i += THREADS) {
-        const int qi = q0 + i;
-        lse_s[i] = qi < a.Sq ? a.lse[rows + qi] : 0.f;
-        del_s[i] = qi < a.Sq ? a.delta[rows + qi] : 0.f;
+      for (int e = 0; e < 2; ++e) {
+        const int qi = 64 * qt + lane + 32 * e;
+        f.lse2[e] = qi < a.m.Sq ? a.lse[rows + qi] * LOG2E : 0.f;
+        f.delta[e] = qi < a.m.Sq ? a.delta[rows + qi] : 0.f;
       }
-      __syncthreads();
-
-      // s^T = K Q^T and dp^T = V dO^T for this warp's 16 keys
-      float st[KV_BQ / 8][4], dpt[KV_BQ / 8][4];
+    };
+    Fetch cur, nxt;
+    if (n > 0) fetch(0, nxt);
+    int u = 0;
+    for (int j = 0; j < n; ++j) {
+      cur = nxt;
+      if (j + 1 < n) fetch(j + 1, nxt);
+      if (!__any_sync(0xffffffffu, (cur.lo | cur.hi) != 0))
+        continue;                                // false everywhere: skipped
+      const bool all = __all_sync(0xffffffffu, (cur.lo & cur.hi) == ~0ull);
+      const int s = u % STAGES;
+      mbar_wait(&empty[s], ((u / STAGES) & 1) ^ 1);
+      ColMeta& mt = meta[s];
+      mt.bits[lane] = cur.lo;
+      mt.bits[lane + 32] = cur.hi;
 #pragma unroll
-      for (int nt = 0; nt < KV_BQ / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KT; ++ks) {
-        uint32_t kf[4], vf[4];
-        const bf16* kp = kbase + ks * 16 + t * 2;
-        const bf16* vp = vbase + ks * 16 + t * 2;
-        kf[0] = *reinterpret_cast<const uint32_t*>(kp + g * LD);
-        kf[1] = *reinterpret_cast<const uint32_t*>(kp + (g + 8) * LD);
-        kf[2] = *reinterpret_cast<const uint32_t*>(kp + g * LD + 8);
-        kf[3] = *reinterpret_cast<const uint32_t*>(kp + (g + 8) * LD + 8);
-        vf[0] = *reinterpret_cast<const uint32_t*>(vp + g * LD);
-        vf[1] = *reinterpret_cast<const uint32_t*>(vp + (g + 8) * LD);
-        vf[2] = *reinterpret_cast<const uint32_t*>(vp + g * LD + 8);
-        vf[3] = *reinterpret_cast<const uint32_t*>(vp + (g + 8) * LD + 8);
-#pragma unroll
-        for (int nt = 0; nt < KV_BQ / 8; ++nt) {
-          const bf16* qb = Qs + (nt * 8 + g) * LD + ks * 16 + t * 2;
-          mma16816(st[nt], kf, *reinterpret_cast<const uint32_t*>(qb),
-                   *reinterpret_cast<const uint32_t*>(qb + 8));
-          const bf16* ob = Os + (nt * 8 + g) * LD + ks * 16 + t * 2;
-          mma16816(dpt[nt], vf, *reinterpret_cast<const uint32_t*>(ob),
-                   *reinterpret_cast<const uint32_t*>(ob + 8));
-        }
+      for (int e = 0; e < 2; ++e) {
+        mt.lse2[lane + 32 * e] = cur.lse2[e];
+        mt.delta[lane + 32 * e] = cur.delta[e];
       }
+      if (lane == 0) {
+        const int h = hk * a.G + j / nqt, q0 = 64 * (qt0 + j % nqt);
+        mt.live = 1;
+        mt.full = all;
+        uint8_t* st = stages + s * P::STAGE_BYTES;
+        opus_hopper::mbar_arrive_expect_tx(&full[s], P::STAGE_BYTES);
+        tma_tile<HD>(st, KV_PANEL, &q_map, &full[s], h, q0, b);
+        tma_tile<HD>(st + P::T_BYTES, KV_PANEL, &o_map, &full[s], h, q0, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+      ++u;
+    }
+    const int s = u % STAGES;
+    mbar_wait(&empty[s], ((u / STAGES) & 1) ^ 1);
+    if (lane == 0) meta[s].live = 0;
+    mbar_arrive(&full[s]);
+    return;
+  }
+
+  // ---- the consumer warpgroup: keys r0 and r0 + 8 of each warp's 16 ----
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;
+  const float c = a.scale * LOG2E;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kvfull, 0);
+  for (int u = 0;; ++u) {
+    const int s = u % STAGES;
+    mbar_wait(&full[s], (u / STAGES) & 1);
+    const ColMeta& mt = meta[s];
+    if (!mt.live) break;
+    const uint8_t* qs = stages + s * P::STAGE_BYTES;
+    const uint8_t* os = qs + P::T_BYTES;
+    const bool all_true = mt.full;
+    const uint64_t bits[2] = {mt.bits[r0], mt.bits[r0 + 8]};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {             // query rows 32 hf ..
+      float st[16], dpt[16];
+      wgmma_fence();
+      ss_n32<HD>(st, ks, KV_PANEL, qs + hf * 4096);
+      ss_n32<HD>(dpt, vs, KV_PANEL, os + hf * 4096);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st, 16);
+      fence_regs(dpt, 16);
       // p^T in place of s^T, ds^T in place of dp^T
 #pragma unroll
-      for (int nt = 0; nt < KV_BQ / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + t * 2 + (e & 1);          // query
-          const int rl = warp * 16 + g + (e >> 1) * 8;     // key
-          const float p = mt[c * MLD + rl]
-                              ? __expf(st[nt][e] * a.scale - lse_s[c])
-                              : 0.f;
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - del_s[c]) * a.scale;
-        }
-      // dv += p^T dO, dk += ds^T Q (A fragments from the accumulators)
-#pragma unroll
-      for (int kk = 0; kk < KV_BQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        da[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-        da[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-        da[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        da[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-        for (int nt = 0; nt < HD / 8; ++nt) {
-          const bf16* ob = Os + (kk * 16 + t * 2) * LD + nt * 8 + g;
-          mma16816(dv[nt], pa, pack_raw(ob[0], ob[LD]),
-                   pack_raw(ob[8 * LD], ob[9 * LD]));
-          const bf16* qb = Qs + (kk * 16 + t * 2) * LD + nt * 8 + g;
-          mma16816(dk[nt], da, pack_raw(qb[0], qb[LD]),
-                   pack_raw(qb[8 * LD], qb[9 * LD]));
-        }
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = 32 * hf + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool on = all_true || ((bits[r] >> col) & 1);
+        const float p = on ? exp2_approx(st[i] * c - mt.lse2[col]) : 0.f;
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - mt.delta[col]) * a.scale;
       }
+      uint32_t pa[8], da[8];
+      acc_to_a(st, 0, pa);
+      acc_to_a(st, 1, pa + 4);
+      acc_to_a(dpt, 0, da);
+      acc_to_a(dpt, 1, da + 4);
+      // dv += p^T dO, dk += ds^T Q: rows 32 hf + 16 kk .. as N-major B
+      const uint64_t od = desc_mn(os, KV_PANEL), qd = desc_mn(qs, KV_PANEL);
+      const int off0 = (32 * hf) * PANEL_ROW_BYTES >> 4;
+      const int off1 = (32 * hf + 16) * PANEL_ROW_BYTES >> 4;
+      wgmma_fence();
+      rs_mn<HD>(dv, pa, od + off0);
+      rs_mn<HD>(dv, pa + 4, od + off1);
+      rs_mn<HD>(dk, da, qd + off0);
+      rs_mn<HD>(dk, da + 4, qd + off1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv, HD / 2);
+      fence_regs(dk, HD / 2);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
+  bf16* rows0[2];
+  bf16* rows1[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int kj = k0 + warp * 16 + g + 8 * r;
-    if (kj >= a.Skv) continue;
-    const size_t at = (((size_t)b * a.Skv + kj) * a.Hkv + hk) * HD;
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(a.out0 + at + nt * 8 + t * 2) =
-          __floats2bfloat162_rn(dk[nt][2 * r], dk[nt][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(a.out1 + at + nt * 8 + t * 2) =
-          __floats2bfloat162_rn(dv[nt][2 * r], dv[nt][2 * r + 1]);
-    }
+    const int kj = k0 + r0 + 8 * r;
+    const size_t at = (((size_t)b * a.m.Skv + kj) * a.Hkv + hk) * HD;
+    rows0[r] = kj < a.m.Skv ? a.out0 + at : nullptr;
+    rows1[r] = kj < a.m.Skv ? a.out1 + at : nullptr;
   }
+  store_rows<HD>(dk, rows0[0], rows0[1], t);
+  store_rows<HD>(dv, rows1[0], rows1[1], t);
 }
 
-BwdArgs make_args(const void* q, const void* k, const void* v,
-                  const void* dout, const void* mask, const void* lse,
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+BwdArgs make_args(const void* mask, const void* words, const void* lse,
                   const void* delta, void* out0, void* out1, int Sq, int Skv,
                   int Hq, int Hkv, const long long* st, int causal,
                   float scale) {
   BwdArgs a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.mask = static_cast<const uint8_t*>(mask);
+  a.m.mask = static_cast<const uint8_t*>(mask);
+  a.m.words = mask != nullptr ? static_cast<const uint64_t*>(words) : nullptr;
+  a.m.m_b = st[12]; a.m.m_q = st[13]; a.m.m_k = st[14];
+  a.m.Sq = Sq; a.m.Skv = Skv; a.m.causal = causal;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.out0 = static_cast<bf16*>(out0);
   a.out1 = static_cast<bf16*>(out1);
-  a.Sq = Sq; a.Skv = Skv; a.Hq = Hq; a.Hkv = Hkv; a.G = Hq / Hkv;
-  a.causal = causal; a.scale = scale;
-  a.q_b = st[0]; a.q_s = st[1]; a.q_h = st[2];
-  a.k_b = st[3]; a.k_s = st[4]; a.k_h = st[5];
-  a.v_b = st[6]; a.v_s = st[7]; a.v_h = st[8];
-  a.o_b = st[9]; a.o_s = st[10]; a.o_h = st[11];
-  a.m_b = st[12]; a.m_q = st[13]; a.m_k = st[14];
+  a.Hq = Hq; a.Hkv = Hkv; a.G = Hq / Hkv; a.scale = scale;
   return a;
 }
 
+// The largest power of two dividing the group G, at most 8: the heads a
+// dq CTA packs.
+inline int gp_of(int G) { return (G & -G) > 8 ? 8 : (G & -G); }
+
+// The four tensor maps: q and dO in boxes of (qh heads, qr rows), k and v
+// in boxes of (1 head, 64 rows).
 template <int HD>
-int launch_dkv(const BwdArgs& a, int B, cudaStream_t st) {
-  const size_t bytes = dkv_smem_bytes<HD>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+int make_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
+              const void* dout, int B, int Sq, int Skv, int Hq, int Hkv,
+              const long long* st, int qh, int qr) {
+  int rc = make_map_bshd(&m[0], q, B, Sq, Hq, HD, st[0], st[1], st[2], qh,
+                         qr);
+  if (!rc) rc = make_map_bshd(&m[1], dout, B, Sq, Hq, HD, st[9], st[10],
+                              st[11], qh, qr);
+  if (!rc) rc = make_map_bshd(&m[2], k, B, Skv, Hkv, HD, st[3], st[4],
+                              st[5], 1, 64);
+  if (!rc) rc = make_map_bshd(&m[3], v, B, Skv, Hkv, HD, st[6], st[7],
+                              st[8], 1, 64);
+  return rc;
+}
+
+template <int HD, int GP>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const BwdArgs& a, int B, const long long* st,
+              cudaStream_t stream) {
+  using P = DqPlan<HD, GP>;
+  CUtensorMap m[4];
+  int rc = make_maps<HD>(m, q, k, v, dout, B, a.m.Sq, a.m.Skv, a.Hq, a.Hkv,
+                         st, GP, P::QR);
+  if (rc) return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<HD, GP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.Skv + KV_BK - 1) / KV_BK, a.Hkv, B);
-  flash_bwd_dkv_kernel<HD><<<grid, THREADS, bytes, st>>>(a);
+  dim3 grid((a.m.Sq + P::QR - 1) / P::QR, a.Hq / GP, B);
+  flash_bwd_dq_wgmma_kernel<HD, GP>
+      <<<grid, DQ_THREADS, P::SMEM_BYTES, stream>>>(m[0], m[1], m[2], m[3],
+                                                    a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dq_gp(const void* q, const void* k, const void* v,
+                 const void* dout, const BwdArgs& a, int B,
+                 const long long* st, cudaStream_t s) {
+  switch (gp_of(a.G)) {
+    case 1: return launch_dq<HD, 1>(q, k, v, dout, a, B, st, s);
+    case 2: return launch_dq<HD, 2>(q, k, v, dout, a, B, st, s);
+    case 4: return launch_dq<HD, 4>(q, k, v, dout, a, B, st, s);
+    default: return launch_dq<HD, 8>(q, k, v, dout, a, B, st, s);
+  }
+}
+
+template <int HD>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const BwdArgs& a, int B, const long long* st,
+               cudaStream_t stream) {
+  using P = DkvPlan<HD>;
+  CUtensorMap m[4];
+  int rc = make_maps<HD>(m, q, k, v, dout, B, a.m.Sq, a.m.Skv, a.Hq, a.Hkv,
+                         st, 1, 64);
+  if (rc) return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.m.Skv + 63) / 64, a.Hkv, B);
+  flash_bwd_dkv_wgmma_kernel<HD>
+      <<<grid, KV_THREADS, P::SMEM_BYTES, stream>>>(m[0], m[1], m[2], m[3],
+                                                    a);
   return (int)cudaGetLastError();
 }
 
@@ -427,50 +586,65 @@ const char* opus_error_string(int e) {
 
 // Both entry points: q, dout (B, Sq, Hq, D), k / v (B, Skv, Hkv, D) bf16
 // with the given element strides (q, k, v, dout, mask: batch, row, head;
-// head dim contiguous, rows 16-byte aligned); mask (B, Sq, Skv) bool or
-// NULL; lse and delta (B, Hq, Sq) fp32 contiguous. D is 64 or 128.
+// head dim contiguous, strides multiples of 8, bases 16-byte aligned); mask
+// (B, Sq, Skv) bool or NULL, and with a mask `words`, scratch for its
+// packed words (dq: (B, ceil(Skv / 64), Sq), dk/dv: (B, ceil(Sq / 64),
+// Skv) 64-bit; the entry point packs them, then launches the kernel); lse
+// and delta (B, Hq, Sq) fp32 contiguous. D is 64 or 128.
 // dq: out0 = dq (B, Sq, Hq, D) bf16 contiguous; out1 unused.
 int opus_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* mask, const void* lse, const void* delta, void* out0,
+    const void* mask, void* words, const void* lse, const void* delta,
+    void* out0,
     void* out1, int B, int Sq, int Skv, int Hq, int Hkv, int D,
     long long q_b, long long q_s, long long q_h, long long k_b,
     long long k_s, long long k_h, long long v_b, long long v_s,
     long long v_h, long long o_b, long long o_s, long long o_h,
     long long m_b, long long m_q, long long m_k, int causal, float scale,
     void* stream) {
+  if (Hkv < 1 || Hq % Hkv || B < 1 || Sq < 1 || Skv < 1)
+    return (int)cudaErrorInvalidValue;
   const long long st[15] = {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s,
                             v_h, o_b, o_s, o_h, m_b, m_q, m_k};
-  BwdArgs a = make_args(q, k, v, dout, mask, lse, delta, out0, out1, Sq,
-                        Skv, Hq, Hkv, st, causal, scale);
-  dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ, Hq, B);
+  const BwdArgs a = make_args(mask, words, lse, delta, out0, out1, Sq, Skv,
+                              Hq, Hkv, st, causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    flash_bwd_dq_kernel<128><<<grid, THREADS, 0, s>>>(a);
-  else if (D == 64)
-    flash_bwd_dq_kernel<64><<<grid, THREADS, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (D != 128 && D != 64) return (int)cudaErrorInvalidValue;
+  if (mask != nullptr) {
+    const int rc = pack_words(a.m, B, static_cast<uint64_t*>(words), true, s);
+    if (rc) return rc;
+  }
+  if (D == 128) return launch_dq_gp<128>(q, k, v, dout, a, B, st, s);
+  if (D == 64) return launch_dq_gp<64>(q, k, v, dout, a, B, st, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dk/dv: out0 = dk, out1 = dv, (B, Skv, Hkv, D) bf16 contiguous.
 int opus_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* mask, const void* lse, const void* delta, void* out0,
+    const void* mask, void* words, const void* lse, const void* delta,
+    void* out0,
     void* out1, int B, int Sq, int Skv, int Hq, int Hkv, int D,
     long long q_b, long long q_s, long long q_h, long long k_b,
     long long k_s, long long k_h, long long v_b, long long v_s,
     long long v_h, long long o_b, long long o_s, long long o_h,
     long long m_b, long long m_q, long long m_k, int causal, float scale,
     void* stream) {
+  if (Hkv < 1 || Hq % Hkv || B < 1 || Sq < 1 || Skv < 1)
+    return (int)cudaErrorInvalidValue;
   const long long st[15] = {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s,
                             v_h, o_b, o_s, o_h, m_b, m_q, m_k};
-  BwdArgs a = make_args(q, k, v, dout, mask, lse, delta, out0, out1, Sq,
-                        Skv, Hq, Hkv, st, causal, scale);
+  const BwdArgs a = make_args(mask, words, lse, delta, out0, out1, Sq, Skv,
+                              Hq, Hkv, st, causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch_dkv<128>(a, B, s);
-  if (D == 64) return launch_dkv<64>(a, B, s);
+  if (D != 128 && D != 64) return (int)cudaErrorInvalidValue;
+  if (mask != nullptr) {
+    const int rc = pack_words(a.m, B, static_cast<uint64_t*>(words), false,
+                              s);
+    if (rc) return rc;
+  }
+  if (D == 128) return launch_dkv<128>(q, k, v, dout, a, B, st, s);
+  if (D == 64) return launch_dkv<64>(q, k, v, dout, a, B, st, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,8 +17,8 @@ each sequence ends on its own and the next prompt takes its slot.
 
 Not ported yet (ROADMAP.md): beam search, the speculative draft, the
 device meshes, the prefetch thread, multi-host gathering, the engine's
-prefix cache, LoRA bank and engine reuse, and `compute_metrics` (its
-scorers need nltk and rouge_score); `metrics` is returned empty.
+prefix cache, LoRA bank and engine reuse, and `compute_metrics`:
+`metrics` is returned empty.
 """
 
 from __future__ import annotations

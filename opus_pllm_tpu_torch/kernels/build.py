@@ -52,13 +52,13 @@ SIGNATURES = {
         "opus_int8_matmul_unaligned": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
-        "opus_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 12
+        "opus_flash_attention": [_P] * 7 + [_I] * 6 + [_L] * 12
                                 + [_I, _F, _P],
     },
     "flash_attention_bwd": {
-        "opus_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + [_L] * 15
+        "opus_flash_attention_bwd_dq": [_P] * 10 + [_I] * 6 + [_L] * 15
                                        + [_I, _F, _P],
-        "opus_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 6 + [_L] * 15
+        "opus_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 6 + [_L] * 15
                                         + [_I, _F, _P],
     },
     "int4_matmul_v1": {

@@ -8,21 +8,25 @@ Port of `opus_pllm_tpu/kernels/flash_attention.py`. The CUDA source is
 flash_attention
   Replaces: flash_attention.py `_flash_impl` / `_kernel` (pallas_call at
   :257, kernel body :64-115).
-  Computes: GQA attention with scale 1/sqrt(D): fp32 logits, -1e30 where
-  the (B, 1, Sq, Skv) bool mask is false or (causal) the key index exceeds
-  the query index, an online softmax with fp32 statistics, out in q's
-  dtype and, on request, lse = m + log(max(l, 1e-30)) in fp32, (B, Hq, Sq).
-  With causal=True whole KV blocks above the diagonal are skipped, so a
-  row with no valid key averages over the blocks that ran.
-  Bound (H100): the bf16 tensor cores, 4 * B * Hq * Sq * Skv * D FLOP
-  (26.8 GFLOP at the serving prefill, ~27 us a layer at 989 TFLOP/s; q, k,
-  v, mask and out are ~34 MB there, 5 us at 3.35 TB/s).
-  Design: see the source. One CTA of 4 warps per 64 query rows of one head
-  and batch row; q in registers; 64-key K/V tiles and their mask tile in
-  shared memory; mma.sync m16n8k16 for QK^T and PV; any Sq and Skv (the
-  ragged last tiles are masked, where the TPU kernel needs multiples of
-  its 256 blocks); GQA by reading KV head h / G; q, k and v read through
-  their (B, S, H, D) strides, so no transpose is made.
+  Computes: GQA attention with scale 1/sqrt(D): fp32 logits, an online
+  softmax with fp32 statistics over the keys each query row may attend
+  (the (B, 1, Sq, Skv) bool mask true and, causal, the key index at most
+  the query index), out in q's dtype and, on request, lse = m + log(l) in
+  fp32, (B, Hq, Sq). A key the row may not attend has weight exactly 0.
+  For a row with a valid key this is the TPU kernel's function (its -1e30
+  logits weigh exp(-1e30 - m) = 0); a row with no valid key gives out 0
+  and lse -1e30, where the TPU kernel averages v over whichever of its
+  blocks ran (no caller reads such rows: they are padding).
+  Bound (H100): 4 * D FLOP per mask-true (query, key) pair and head; at the
+  serving prefill (16 x 320, the admission mask) ~16 GFLOP, 16 us at 989
+  TFLOP/s, under the ~106 MB of q, k, v, mask and out (32 us at 3.35 TB/s).
+  Design: see the source. TMA loads of 4-D tensor-map boxes (q, k and v
+  read through their (B, S, H, D) strides, so no transpose is made) into
+  an mbarrier ring fed by a producer warp; two consumer warpgroups run
+  S = QK^T and O += PV as wgmma; one CTA serves 128 rows of up to 8 query
+  heads that share a K/V head, so a K/V tile is loaded once for all of
+  them; 64-key tiles whose mask is false everywhere are skipped; any Sq
+  and Skv (TMA zero-fills the ragged tiles, which are masked).
 
 Dispatch: `supports` is the port's gate for `models.layers.attention`:
 bf16 q on CUDA, a broadcast (B, 1, Sq, Skv) bool mask or none, D % 128 ==
@@ -43,6 +47,7 @@ CUDA, their plain version on CPU). Without grad no lse is computed.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -51,7 +56,6 @@ from .flash_attention_bwd import flash_attention_bwd
 
 NEG_LARGE = -1e30       # exp(NEG_LARGE - m) == 0 in fp32 (flash_attention.py:27)
 HEAD_DIMS = (64, 128)   # the kernel's template instances
-KERNEL_BLOCK = 64       # query rows and keys per tile of the CUDA kernel
 
 launches = {"flash_attention": 0}
 
@@ -81,14 +85,17 @@ def supports(q, k, mask) -> bool:
 
 def flash_attention_plain(q, k, v, mask=None, *, causal: bool = False,
                           return_lse: bool = False,
-                          block_q: int = KERNEL_BLOCK,
-                          block_k: int = KERNEL_BLOCK):
+                          block_q: Optional[int] = None,
+                          block_k: Optional[int] = None):
     """The kernel's function in plain PyTorch (flash_attention.py `_kernel`
-    :64-115 as one pass): fp32 logits of q * scale against k, -1e30 for
-    masked and (causal) above-diagonal keys, keys of KV blocks wholly above
-    a query block's diagonal dropped (causal), fp32 softmax statistics.
-    `block_q`/`block_k` are the tiles whose skipping is modelled: the CUDA
-    kernel's 64 by default, the TPU kernel's by choice."""
+    :64-115 as one pass): fp32 logits of q * scale against k, fp32 softmax
+    statistics. By default the CUDA kernel's: keys a row may not attend
+    (mask false, causal above the diagonal) weigh exactly 0, so its tile
+    skipping changes nothing and a row with no valid key gives out 0 and
+    lse -1e30. With `block_q`/`block_k` the TPU kernel's at those blocks:
+    such keys get the logit -1e30 (a row with no valid key weighs each of
+    them 1) and, causal, whole KV blocks above a query block's diagonal are
+    dropped. The two agree on every row with a valid key."""
     _check_mask(mask)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -98,16 +105,23 @@ def flash_attention_plain(q, k, v, mask=None, *, causal: bool = False,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
     rows = torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
-        s = torch.where(rows >= cols, s, torch.full_like(s, NEG_LARGE))
+        keep = rows >= cols
+    keep = keep[None, None, None]
     if mask is not None:
-        s = torch.where(mask[:, :, None], s, torch.full_like(s, NEG_LARGE))
-    if causal:
-        bq, bk = min(block_q, sq), min(block_k, skv)
-        ran = (rows // bq) * bq + bq - 1 >= (cols // bk) * bk
-        s = torch.where(ran, s, torch.full_like(s, float("-inf")))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
+        keep = keep & mask[:, :, None]
+    s = torch.where(keep, s, torch.full_like(s, NEG_LARGE))
+    if block_q is None:
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(keep, torch.exp(s - m), torch.zeros_like(s))
+    else:
+        if causal:
+            bq, bk = min(block_q, sq), min(block_k, skv)
+            ran = (rows // bq) * bq + bq - 1 >= (cols // bk) * bk
+            s = torch.where(ran, s, torch.full_like(s, float("-inf")))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
     out = out.reshape(b, sq, hq, d).to(q.dtype)
@@ -143,8 +157,12 @@ def _kernel(q, k, v, mask, causal, return_lse):
                              f"{tuple(mask.shape)} {mask.dtype}")
         m3 = mask[:, 0]
         strides += list(m3.stride())
+        # scratch: the mask packed by the entry point, a 64-bit word per
+        # query row and 64-key tile
+        words = torch.empty((b, -(-skv // 64), sq), dtype=torch.int64,
+                            device=q.device)
     else:
-        m3 = None
+        m3 = words = None
         strides += [0, 0, 0]
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -153,7 +171,8 @@ def _kernel(q, k, v, mask, causal, return_lse):
     with torch.cuda.device(q.device):
         rc = lib.opus_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            m3.data_ptr() if m3 is not None else None, out.data_ptr(),
+            m3.data_ptr() if m3 is not None else None,
+            words.data_ptr() if words is not None else None, out.data_ptr(),
             lse.data_ptr() if lse is not None else None, b, sq, skv, hq,
             hkv, d, *strides, int(causal), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)

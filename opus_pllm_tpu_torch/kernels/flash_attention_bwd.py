@@ -24,12 +24,16 @@ flash_attention_bwd_dq
 flash_attention_bwd_dkv
   Replaces: `_dkv_kernel` (pallas_call at flash_attention_bwd.py:211).
   Bound: four products per pair, 8 D FLOP, ~71 GFLOP (~72 us) there.
-  Design (both: see the source): 4 warps of mma.sync m16n8k16; dq one CTA
-  per (64 query rows, q head, batch row) looping over 32-key tiles; dk/dv
-  one CTA per (64 keys, KV head, batch row) looping over the group's query
-  heads and 32-row query tiles, so the GQA sum stays in fp32 registers (no
-  per-q-head buffers, no atomics); tiles whose mask is false everywhere are
-  skipped; ragged tiles are masked (no block-multiple rule).
+  Design (both: see the source): TMA loads of 4-D tensor-map boxes into
+  mbarrier rings fed by a producer warp, every product a wgmma (the ds and
+  p operands from registers, the transposed ones read N-major); dq one CTA
+  per (128 rows of up to 8 query heads sharing a K/V head, batch row)
+  sweeping 64-key tiles in 32-key halves; dk/dv one CTA per (64 keys, KV
+  head, batch row) sweeping the group's query heads and 64-row query
+  tiles, so the GQA sum stays in fp32 registers (no per-q-head buffers, no
+  atomics: deterministic); tiles whose mask is false everywhere are
+  skipped; ragged tiles are zero-filled by TMA and masked (no
+  block-multiple rule).
 
 `delta` is one torch reduction, as the JAX package computes it in XLA
 (flash_attention_bwd.py:155-158). On CPU tensors `flash_attention_bwd`
@@ -121,15 +125,22 @@ def _launch(name, q, k, v, mask, lse, delta, g, causal, out0, out1):
                              f"{mask.dtype}")
         m3 = mask[:, 0]
         strides += list(m3.stride())
+        # scratch: the mask packed by the entry point, 64-bit words per
+        # query row and 64-key tile (dq) or per key and 64-row tile (dk/dv)
+        shape = ((b, -(-skv // 64), sq) if name.endswith("dq")
+                 else (b, -(-sq // 64), skv))
+        words = torch.empty(shape, dtype=torch.int64, device=q.device)
     else:
-        m3 = None
+        m3 = words = None
         strides += [0, 0, 0]
     lse, delta = lse.contiguous(), delta.contiguous()
     lib = build.library("flash_attention_bwd")
     entry = getattr(lib, f"opus_{name}")
     with torch.cuda.device(q.device):
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                   m3.data_ptr() if m3 is not None else None, lse.data_ptr(),
+                   m3.data_ptr() if m3 is not None else None,
+                   words.data_ptr() if words is not None else None,
+                   lse.data_ptr(),
                    delta.data_ptr(), out0.data_ptr(),
                    out1.data_ptr() if out1 is not None else None, b, sq, skv,
                    hq, hkv, d, *strides, int(causal), 1.0 / math.sqrt(d),

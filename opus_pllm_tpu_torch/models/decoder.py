@@ -29,10 +29,12 @@ on CPU tensors. "torch" takes the plain versions on every device.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
 from ..core.config import DecoderConfig
 from ..core.util import mm_fp32, resolve_device
@@ -257,19 +259,31 @@ def positions_and_rope(params, cfg: DecoderConfig, x, positions):
     return x, cos.to(x.dtype), sin.to(x.dtype)
 
 
+# The JAX checkpoint_dots policy: what matmul / einsum / linear reach at
+# the dispatcher is saved, everything else recomputed (the hand-written
+# kernels, launched from outside the dispatcher, included, as Pallas calls
+# are under checkpoint_dots).
+_DOT_OPS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default]
+
+
 def _remat_wrap(fn, remat):
     """remat False: fn as it is. True / "full": each call under
     torch.utils.checkpoint (non-reentrant), so the layer's activations are
-    recomputed in the backward (decoder.py:457-470). "dots" (the JAX
-    checkpoint_dots policy, saving matmul outputs) maps to "full" here:
-    PyTorch's checkpoint has no per-op save policy that this port uses."""
+    recomputed in the backward (decoder.py:457-470). "dots": the same with
+    the JAX checkpoint_dots policy: the outputs of `_DOT_OPS` are saved,
+    and only the rest is recomputed."""
     if not remat:
         return fn
     if remat not in (True, "full", "dots"):
         raise ValueError(f"remat must be False/True/'full'/'dots', got "
                          f"{remat!r}")
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOT_OPS)
     return lambda *a: torch.utils.checkpoint.checkpoint(
-        fn, *a, use_reentrant=False)
+        fn, *a, use_reentrant=False, **kw)
 
 
 def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,

@@ -217,7 +217,30 @@ def _flash_inputs(g, b, sq, skv, hq, hkv, d, mask_kind):
         lengths = torch.randint(1, skv + 1, (b,), generator=g, device="cuda")
         mask = (torch.arange(skv, device="cuda")[None] < lengths[:, None]
                 )[:, None, None, :].expand(b, 1, sq, skv)
+    elif mask_kind == "static":
+        # the static prefill's: left padding and causality over a longer
+        # cache, so the rows before a row's padding ends see no key
+        pad = torch.randint(0, sq, (b,), generator=g, device="cuda")
+        cols = torch.arange(skv, device="cuda")[None, None, None, :]
+        rows = torch.arange(sq, device="cuda")[None, None, :, None]
+        mask = (cols <= rows) & (cols >= pad[:, None, None, None])
+    elif mask_kind == "hole":
+        # keys 64..127 false for every row (a whole tile mid-sweep) and one
+        # row with no key at all
+        mask = torch.ones((b, 1, sq, skv), dtype=torch.bool, device="cuda")
+        mask[..., 64:128] = False
+        mask[:, :, min(3, sq - 1)] = False
     return q, k, v, mask
+
+
+def _no_key_rows(mask, causal, b, sq, skv, hq):
+    """(B, Sq, Hq) bool: the query rows with no key to attend."""
+    keep = torch.ones((b, 1, sq, skv), dtype=torch.bool, device="cuda")
+    if causal:
+        keep = keep & torch.tril(keep[0, 0])
+    if mask is not None:
+        keep = keep & mask
+    return (~keep.any(-1))[:, 0, :, None].expand(b, sq, hq)
 
 
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,mask_kind,causal", [
@@ -228,6 +251,16 @@ def _flash_inputs(g, b, sq, skv, hq, hkv, d, mask_kind):
     (1, 200, 200, 4, 1, 128, "prefill", True),
     (2, 17, 33, 2, 1, 64, "padded", False),         # D = 64, called directly
     (1, 2, 5, 2, 2, 128, None, False),
+    # the edges of the tiles (query rows 128 / GP, GP = 1, 2, 4, 8 heads
+    # packed a CTA; 64 keys): just under, at and just past a multiple
+    (2, 63, 63, 8, 1, 128, "prefill", False),       # G = 8
+    (2, 64, 64, 8, 4, 128, None, True),             # G = 2
+    (1, 65, 129, 16, 2, 128, "padded", False),      # G = 8, stride-0 mask
+    (2, 129, 129, 8, 8, 128, "prefill", True),      # G = 1
+    (2, 127, 200, 8, 2, 128, "hole", False),        # a dead tile mid-sweep
+    (2, 33, 191, 4, 1, 64, "static", False),        # D = 64, rows no key
+    (1, 300, 391, 32, 8, 128, "static", False),     # the static prefill's
+    (2, 96, 96, 12, 4, 128, "prefill", False),      # G = 3: one head a CTA
 ])
 def test_flash_attention(b, sq, skv, hq, hkv, d, mask_kind, causal):
     g = _gen()
@@ -245,6 +278,11 @@ def test_flash_attention(b, sq, skv, hq, hkv, d, mask_kind, causal):
                                       causal=causal, return_lse=True)
     assert lse.shape == (b, hq, sq)
     assert (lse - ref).abs().max().item() <= ATOL
+    # a row with no valid key: out exactly 0, lse -1e30
+    empty = _no_key_rows(mask, causal, b, sq, skv, hq)
+    out = fa.flash_attention(q, k, v, mask, causal=causal)
+    assert torch.all(out[empty] == 0)
+    assert torch.all(lse.transpose(1, 2)[empty] == -1e30)
 
 
 def test_flash_attention_strided_kv_and_layer_dispatch():
@@ -261,6 +299,18 @@ def test_flash_attention_strided_kv_and_layer_dispatch():
     assert fa.launches["flash_attention"] == 1
     layers.attention(q[:, :1], k, v, mask[:, :, :1])
     assert fa.launches["flash_attention"] == 1
+    # both backward kernels read the same view through its strides
+    dout = _rnd(g, 2, 40, 4, 128)
+    out, lse = fa.flash_attention(q, k, v, mask, return_lse=True)
+    delta = fab._delta(out, dout)
+    plain = lambda q, k, v, dout: fab.flash_attention_bwd_plain(
+        q, k, v, mask, out, lse, dout)
+    _check(lambda q, k, v, dout: fab.flash_attention_bwd_dq(
+        q, k, v, mask, lse, delta, dout),
+        lambda *a: plain(*a)[0], (q, k, v, dout), scaled=True)
+    _check(lambda q, k, v, dout: fab.flash_attention_bwd_dkv(
+        q, k, v, mask, lse, delta, dout),
+        lambda *a: torch.stack(plain(*a)[1:]), (q, k, v, dout), scaled=True)
 
 
 @pytest.mark.parametrize("m,k,n", [(256, 512, 256), (300, 48, 130),
@@ -368,6 +418,15 @@ def _train_mask(g, b, s):
     (1, 200, 200, 8, 2, 128, "prefill", True),
     (2, 17, 33, 2, 1, 64, "padded", False),         # D = 64
     (1, 2, 5, 2, 2, 128, None, False),
+    # the edges of the tiles (dq as the forward; dk/dv 64 keys a CTA over
+    # 64-row query tiles), G = 1, 2, 4, 8, rows with no valid key
+    (2, 63, 63, 8, 1, 128, "train", False),         # G = 8
+    (2, 64, 65, 8, 4, 128, None, True),             # G = 2
+    (1, 65, 129, 16, 2, 128, "padded", False),      # stride-0 mask
+    (2, 129, 127, 8, 8, 128, "prefill", True),      # G = 1
+    (2, 127, 200, 8, 2, 128, "hole", False),        # a dead tile mid-sweep
+    (2, 33, 191, 4, 1, 64, "static", False),        # D = 64, rows no key
+    (2, 96, 96, 12, 4, 128, "train", False),        # G = 3
 ])
 def test_flash_attention_bwd(b, sq, skv, hq, hkv, d, mask_kind, causal):
     """dq and stacked dk/dv against the plain backward, from the forward

@@ -19,6 +19,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from opus_pllm_tpu.core.config import LoRAConfig as JLoRAConfig
 from opus_pllm_tpu.core.config import OpusConfig as JOpusConfig
@@ -211,6 +212,66 @@ def test_ce_chunk_and_remat_give_the_same_loss_and_grads():
     torch.testing.assert_close(plain[0], full[0], rtol=0, atol=0)
     for a, b in zip(plain[2], full[2]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+class _CountDots(TorchDispatchMode):
+    """Counts the matrix products that reach the dispatcher."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in decoder._DOT_OPS
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_dots_gives_the_grads_of_full_and_none():
+    """remat="dots" (the checkpoint_dots policy: matmul outputs saved,
+    the rest recomputed) is the same computation as remat on and off: the
+    same loss and LoRA / switch gradients, bit for bit."""
+    _, tcfg, _, tfrozen, _, ttrain, _ = _setup("both")
+    tb = {k: _t(v) for k, v in _batch(tcfg, seed=3).items()}
+    dots = _port_grads(ttrain, tfrozen, tcfg, tb, remat="dots")
+    for remat in (True, False):
+        ref = _port_grads(ttrain, tfrozen, tcfg, tb, remat=remat)
+        torch.testing.assert_close(dots[0], ref[0], rtol=0, atol=0)
+        for a, b in zip(dots[2], ref[2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_remat_dots_recomputes_no_matmul():
+    """In the backward, remat="full" recomputes each layer's forward
+    products and "dots" none of them: dots runs exactly the products of
+    the backward with no remat, full runs more."""
+    _, tcfg, _, tfrozen, _, ttrain, _ = _setup("both")
+    tb = {k: _t(v) for k, v in _batch(tcfg, seed=4).items()}
+    counts = {}
+    for remat in (False, True, "dots"):
+        loss, _ = mmt.loss_fn(ttrain, tfrozen, tcfg, tb, LS, remat=remat)
+        with _CountDots() as mode:
+            torch.autograd.grad(loss, mmt.leaves(ttrain))
+        counts[remat] = mode.n
+    assert counts["dots"] == counts[False] > 0
+    assert counts[True] > counts["dots"]
+
+
+def test_remat_dots_grads_match_jax():
+    """`loss_fn` under remat="dots" against jax.value_and_grad of the JAX
+    `loss_fn` with its checkpoint_dots policy, fp32: loss 1e-5 relative,
+    each gradient leaf 1e-4 of its largest entry."""
+    jcfg, tcfg, jfrozen, tfrozen, jtrain, ttrain, _ = _setup("both")
+    batch = _batch(tcfg, seed=5)
+    (jl, _), jg = jax.value_and_grad(jmmt.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, jtrain), jfrozen, jcfg,
+        {k: jnp.asarray(v) for k, v in batch.items()}, LS, "dots", 0)
+    tb = {k: _t(v) for k, v in batch.items()}
+    loss, _, grads = _port_grads(ttrain, tfrozen, tcfg, tb, remat="dots")
+    _close(loss.item(), float(jl), 1e-5)
+    jleaves = mmt.leaves(_np(jg))
+    assert len(jleaves) == len(grads)
+    for got, ref in zip(grads, jleaves):
+        _close(got.numpy(), ref, 1e-4)
 
 
 def test_grad_accum_equals_one_big_batch():
