@@ -26,10 +26,14 @@ and prints no result:
      mask-true query-key pairs).
      Shapes:
        - the four fused-encoder kernels at the annotate path's shapes (B=8,
-         S in {128, 512}, E=1280, H=20, F=5120, bf16, padded key rows);
+         S in {128, 512}, E=1280, H=20, F=5120, bf16, padded key rows; the
+         bound of encoder_attention counts the valid keys only, whose
+         64-key tiles the kernel loads). Library for encoder_attention:
+         scaled_dot_product_attention with the same key mask;
        - int4_matmul at M = 8 for each distinct (K, N) of a Llama-3-8B
          decode step: 4096->4096, 4096->1024, 4096->14336, 14336->4096,
-         4096->128256 (random weights quantized by quant4.quantize_grouped);
+         4096->128256 (random weights quantized by quant4.quantize_grouped),
+         with the kernel's earlier design (kept for N % 4 != 0) beside it;
        - decode_attention_int8 / _int4 at B=8, Hq=32, Hkv=8, D=128 over a
          391-slot cache (the annotate decode capacity), and at B=32 over
          2048 slots;
@@ -102,7 +106,8 @@ and prints no result:
        decode_attention_<cache> = 32 x decode steps (int8 cache; none on
        the bf16 cache), encoder kernels = 33 x splice batches,
        int4_matmul = 0, and every kernel kept for unaligned N
-       (int8_matmul_unaligned, int4_matmul_v1_unaligned) 0 in every phase;
+       (int8_matmul_unaligned, int4_matmul_unaligned,
+       int4_matmul_v1_unaligned) 0 in every phase;
      that every request is answered; and that one admission group's
      prefill logits (16 rows, bucket 320) through the kernels stay within
      the bound above of the plain path in fp32. Prints entries/s, tokens/s,
@@ -159,16 +164,28 @@ its v1 quantization, each printed as above with the sums for the
 hand-written kernels, cuBLAS, the elementwise casts / multiplies / adds
 and the softmax kernels. It checks nothing and prints no result line.
 
+    python3 chip_smoke.py --kernel-times [TREE ...]
+
+times the kernels of each checkout TREE (default: this one; each in a
+process of its own, which builds that tree's kernels into its git-ignored
+build/), inputs drawn from the same seed, one device time per line (as
+phase 3 times a kernel) with the card's name and power limit:
+  - the flash-attention kernels at phase 3's flash shapes: the forward at
+    all four, dq and dk/dv at the training shape and causal 2048;
+  - encoder_attention at B=8, S in {128, 512}, with SDPA on the same
+    inputs and key mask, and the bound;
+  - int4_matmul (v2) at M=8 on the five decode shapes and at M in {1, 16,
+    64} on 4096->14336, with the weights cold (the calls rotate over
+    copies of the words and scales larger than the 50 MB L2 together, as
+    a decode step streams 4 GB of them), each with its bound, then the
+    sum of one decode step's 225 launches at M=8.
+Naming the parent's checkout and this one in turns (parent, change,
+change, parent) compares two designs on one card. It checks nothing and
+prints no result line.
+
     python3 chip_smoke.py --flash-times [TREE ...]
 
-times the flash-attention kernels of each checkout TREE (default: this
-one; each in a process of its own, which builds that tree's kernels into
-its git-ignored build/) at phase 3's flash shapes, inputs drawn from the
-same seed: the forward at all four, dq and dk/dv at the training shape
-and causal 2048, one device time per line (as phase 3 times a kernel)
-with the card's name and power limit. Naming the parent's checkout and
-this one in turns (parent, change, change, parent) compares two designs
-on one card. It checks nothing and prints no result line.
+the same for the flash-attention kernels only.
 """
 
 import json
@@ -314,12 +331,13 @@ def bound_ms(flops, n_bytes):
 
 
 def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
-            more_bytes=0, library=None, route=None, earlier=None,
-            scaled_atol=False):
+            more_bytes=0, n_bytes=None, library=None, route=None,
+            earlier=None, scaled_atol=False):
     """The kernel vs its plain version on the same inputs (module
     docstring, phase 3); `extra` arguments are passed as they are.
     `flops` and the bytes of the inputs, the output and `more_bytes`
-    (operands the calls capture) give the bound; `library` is the PyTorch
+    (operands the calls capture), or `n_bytes` where the data needs fewer
+    (keys of padding that are never read), give the bound; `library` is the PyTorch
     yardstick, `route` another path of the port (its time is kept as
     route_ms), `earlier` the kernel's earlier design, all only timed.
     scaled_atol: ATOL times max(1, max|plain_fp32|) (gradients). Returns
@@ -335,7 +353,8 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
     err_plain = (ref_bf - ref32).abs().max().item()
     tol = 2 * err_plain + ATOL * (
         max(1.0, ref32.abs().max().item()) if scaled_atol else 1.0)
-    b_ms, b_by = bound_ms(flops, nbytes(*bf_in, *extra, out) + more_bytes)
+    b_ms, b_by = bound_ms(flops, n_bytes if n_bytes is not None else
+                          nbytes(*bf_in, *extra, out) + more_bytes)
     del ref32, ref_bf, out
     ms = time_ms(lambda: kern(*bf_in, *extra))
     plain_ms = time_ms(lambda: plain(*bf_in, *extra))
@@ -368,11 +387,21 @@ def earlier_kernel(name, x, w, scale):
     design), made directly at an aligned shape so that phase 3 times the
     two designs in one run; not counted in `launches`."""
     import torch
-    from opus_pllm_tpu_torch.kernels import build
+    from opus_pllm_tpu_torch.kernels import build, quant4
     lib = build.library(name)
     fn = getattr(lib, f"opus_{name}_unaligned")
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if name == "int4_matmul":                  # v2: its split-K workspace
+        n_sb = k // quant4.SUPER
+        splits = quant4._splits(n_sb, -(-n // quant4.KERNEL_COLS)
+                                * -(-m // quant4.KERNEL_MT))
+        ws = torch.empty((splits, m, n), dtype=torch.float32,
+                         device=x.device)
+        args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), m, n, k, -(-n_sb // splits), splits, 1)
+        stream = torch.cuda.current_stream().cuda_stream
+        return lambda: build.check(fn(*args, stream), name, lib)
     args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, n, k) + ((0,) if name == "int4_matmul_v1" else ())
     stream = torch.cuda.current_stream().cuda_stream
@@ -409,7 +438,8 @@ def check_quant_kernels(card):
             f"int4_matmul M=8 K={k} N={n}",
             lambda x: quant4.int4_matmul(x, packed, s),
             lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
-            flops=2 * 8 * k * n, more_bytes=nbytes(packed, s)), i == 0)
+            flops=2 * 8 * k * n, more_bytes=nbytes(packed, s),
+            earlier=earlier_kernel("int4_matmul", x, packed, s)), i == 0)
         del packed, s
         torch.cuda.empty_cache()
     hq, hkv, d = 32, 8, 128
@@ -465,23 +495,36 @@ def flash_cases(g):
              TRAIN_LEN, TRAIN_LEN, train_mask(n_train, TRAIN_LEN), False))
 
 
-def flash_times(trees):
-    """--flash-times (module docstring): each tree in a process of its own,
-    or, for one tree, its flash kernels' device times."""
+def kernel_times(flag, trees):
+    """--kernel-times / --flash-times (module docstring): each tree in a
+    process of its own, or, for one tree, its kernels' device times."""
     if len(trees) != 1:
         for tree in trees:
-            subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--flash-times", tree], check=True, timeout=900)
+            subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                            tree], check=True, timeout=900)
         return
     import torch
     tree = os.path.abspath(trees[0])
     sys.path.insert(0, tree)
+    import opus_pllm_tpu_torch
+    pkg = os.path.dirname(os.path.dirname(
+        os.path.abspath(opus_pllm_tpu_torch.__file__)))
+    if pkg != tree:
+        fail(f"imported {pkg}, not the package of {tree}")
+    from opus_pllm_tpu_torch.kernels import build
+    card = card_line()
+    build.build_all()
+    flash_kernel_times(tree, card)
+    if flag == "--kernel-times":
+        encoder_attention_times(tree, card)
+        int4_times(tree, card)
+
+
+def flash_kernel_times(tree, card):
+    """The flash kernels at phase 3's flash shapes."""
+    import torch
     from opus_pllm_tpu_torch.kernels import flash_attention as fa
     from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
-    pkg = os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__)))
-    if os.path.dirname(pkg) != tree:
-        fail(f"imported {pkg}, not the package of {tree}")
-    card = card_line()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     rnd = lambda *shape: torch.randn(shape, generator=g,
@@ -504,6 +547,77 @@ def flash_times(trees):
                                         causal=causal))
                 print(f"{tree}: {name} {label}: {ms:.4f} ms [{card}]",
                       flush=True)
+
+
+def encoder_attention_times(tree, card):
+    """encoder_attention at B = 8, S in {128, 512} (ragged key rows, one
+    unpadded), with SDPA on the same inputs and mask beside it, and the
+    bound (mask-true pairs, each byte once)."""
+    import torch
+    import torch.nn.functional as tnf
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    for s in (128, 512):
+        lengths = torch.randint(s // 4, s + 1, (B,), generator=g,
+                                device="cuda")
+        lengths[0] = s
+        mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+        qkv = torch.randn((3, B, H, s, 64), generator=g,
+                          device="cuda").bfloat16()
+        b_ms, b_by = bound_ms(4 * H * 64 * s * mask.sum().item(),
+                              attention_bytes(qkv, mask))
+        ms = time_ms(lambda: fe.encoder_attention(qkv, mask))
+        lib = time_ms(lambda: tnf.scaled_dot_product_attention(
+            qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :]))
+        print(f"{tree}: encoder_attention B={B} S={s}: {ms:.4f} ms, SDPA "
+              f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / ms:.1f}% of it) [{card}]", flush=True)
+
+
+INT4_TIMES = tuple((8, k, n) for k, n in INT4_SHAPES) + tuple(
+    (m, 4096, 14336) for m in (1, 16, 64))
+COLD_BYTES = 120e6          # > the H100's 50 MB L2, as a decode step finds it
+
+
+def int4_times(tree, card):
+    """int4_matmul (v2) at M = 8 on the five decode shapes and M in {1, 16,
+    64} on 4096->14336, the weights cold: the calls rotate over copies of
+    the words and scales that together exceed the L2 (COLD_BYTES), as a
+    decode step streams 4 GB of them. Then the sum of one Llama-3-8B
+    decode step (32 x the seven projections + the head) at M = 8."""
+    import itertools
+    import torch
+    from opus_pllm_tpu_torch.kernels import quant4
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    step = {(4096, 4096): 2 * 32, (4096, 1024): 2 * 32,
+            (4096, 14336): 2 * 32, (14336, 4096): 32, (4096, 128256): 1}
+    total = total_bound = 0.0
+    for m, k, n in INT4_TIMES:
+        q, s = quant4.quantize_grouped(
+            torch.randn((k, n), generator=g, device="cuda"))
+        packed = quant4.pack_int4_v2(q)
+        del q
+        x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+        copies = max(1, int(-(-COLD_BYTES // nbytes(packed, s))))
+        weights = [(packed, s)] + [(packed.clone(), s.clone())
+                                   for _ in range(copies - 1)]
+        out = quant4.int4_matmul(x, packed, s)
+        b_ms, b_by = bound_ms(2 * m * k * n, nbytes(x, packed, s, out))
+        turn = itertools.cycle(weights)
+        ms = time_ms(lambda: quant4.int4_matmul(x, *next(turn)))
+        print(f"{tree}: int4_matmul M={m} K={k} N={n}: {ms:.4f} ms (weights "
+              f"cold, {copies} copies), bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / ms:.1f}% of it) [{card}]", flush=True)
+        if m == 8:
+            total += step[(k, n)] * ms
+            total_bound += step[(k, n)] * b_ms
+        del weights, packed, s, turn
+        torch.cuda.empty_cache()
+    print(f"{tree}: int4_matmul one decode step at M=8 (225 launches): "
+          f"{total:.4f} ms, bound {total_bound:.4f} ms "
+          f"({100 * total_bound / total:.1f}% of it) [{card}]", flush=True)
 
 
 def check_serve_kernels(card):
@@ -643,9 +757,18 @@ def check_train_kernels(card):
     return rows
 
 
+def attention_bytes(qkv, mask):
+    """The bytes encoder_attention must move: every query row and output
+    row, the keys and values of valid keys only (a 64-key tile of padding
+    is never loaded), the key mask."""
+    _, b, h, s, d = qkv.shape
+    row = h * d * qkv.element_size()
+    return row * (2 * b * s + 2 * mask.sum().item()) + nbytes(mask)
+
+
 def kernel_cases(s, g):
     """(name, kernel, plain, bf16 inputs, extra arguments, FLOP, library
-    call or None) at B=8, sequence length s."""
+    call or None, bytes or None) at B=8, sequence length s."""
     import torch
     import torch.nn.functional as tnf
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
@@ -670,18 +793,19 @@ def kernel_cases(s, g):
     return [
         ("ln_qkv_rope", fe.ln_qkv_rope, fe.ln_qkv_rope_plain,
          (x, rnd(3, E, E, scale=E ** -0.5), rnd(3, E, scale=0.1), ln),
-         (cos, sin), 2 * B * s * E * 3 * E, None),
+         (cos, sin), 2 * B * s * E * 3 * E, None, None),
         ("encoder_attention", fe.encoder_attention,
          fe.encoder_attention_plain, (qkv,), (mask,), 4 * H * 64 * pairs,
          lambda: tnf.scaled_dot_product_attention(
-             qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :])),
+             qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :]),
+         attention_bytes(qkv, mask)),
         ("out_proj", fe.out_proj, fe.out_proj_plain,
          (rnd(B, s, E, scale=0.5), rnd(E, E, scale=E ** -0.5),
-          rnd(E, scale=0.1), x), (), 2 * B * s * E * E, None),
+          rnd(E, scale=0.1), x), (), 2 * B * s * E * E, None, None),
         ("ffn", fe.ffn, fe.ffn_plain,
          (x, rnd(E, F, scale=E ** -0.5), rnd(F, scale=0.1),
           rnd(F, E, scale=F ** -0.5), rnd(E, scale=0.1), ln), (),
-         4 * B * s * E * F, None),
+         4 * B * s * E * F, None, None),
     ]
 
 
@@ -691,10 +815,11 @@ def check_kernels(card):
     g.manual_seed(SEED)
     rows = {}
     for s in (128, 512):
-        for name, kern, plain, bf_in, extra, flops, lib in kernel_cases(s, g):
+        for (name, kern, plain, bf_in, extra, flops, lib,
+             n_bytes) in kernel_cases(s, g):
             keep(rows, name, compare(f"{name} S={s}", kern, plain, bf_in,
-                                     card, extra, flops=flops, library=lib),
-                 s == 512)
+                                     card, extra, flops=flops,
+                                     n_bytes=n_bytes, library=lib), s == 512)
     return rows
 
 
@@ -1442,10 +1567,11 @@ def main():
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
-    if "--flash-times" in sys.argv[1:]:
-        flash_times(sys.argv[sys.argv.index("--flash-times") + 1:]
-                    or [os.path.dirname(os.path.abspath(__file__))])
-        return
+    for flag in ("--kernel-times", "--flash-times"):
+        if flag in sys.argv[1:]:
+            kernel_times(flag, sys.argv[sys.argv.index(flag) + 1:]
+                         or [os.path.dirname(os.path.abspath(__file__))])
+            return
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:

@@ -19,6 +19,41 @@
 // LayerNorm statistics come from a small row-stats pass (one warp per row,
 // one-pass E[x^2] - mu^2 in fp32) so each GEMM tile does not recompute them.
 //
+// The encoder attention (`flash_attention_pairs` / `_flash_pairs_kernel`):
+// non-causal, D = 64, scale 1/8, a (B, S) key-row mask. Per query row over
+// the valid keys: an online softmax in fp32 (base 2), the numerators rounded
+// to bf16 for P . V, out = acc / max(l, 1e-30). A masked key gets p = 0
+// exactly, so a row with a valid key gets the TPU kernel's function (its
+// -1e30 logits give exp(-1e30 - m) = 0); a batch row with no valid key gets
+// out 0 (the TPU kernel averages v there; no path has such a row: every
+// ESM2 row keeps CLS and EOS). Bound: at B = 8, S = 512, H = 20 and the
+// annotate path's padding, ~7.7 GFLOP over the valid (query, key) pairs
+// (0.008 ms at 989 TFLOP/s) against q, out and the valid keys' k and v
+// (~36 MB, 0.011 ms at 3.35 TB/s): the bytes, a little ahead. Design (the
+// pieces of hopper_attention.cuh):
+//   - The entry point packs the mask into one 64-bit word per (batch row,
+//     64-key tile), shared by every query row and head of the batch row
+//     (`pack_key_words`, one warp a word), launched inside the wrapper's one
+//     counted call; without a mask the words are computed.
+//   - One CTA per (128 query rows, head, batch row), the query tiles of one
+//     (batch row, head) next to each other in the grid (they share K and V
+//     in L2): 640 CTAs at S = 512.
+//   - TMA loads through 4-D tensor maps over each of the q, k and v planes
+//     as (B, S, H, 64) with head-major strides (no transpose); 64 columns
+//     are one 128-byte swizzled panel. Rows past S are zero-filled.
+//   - 256 threads, two consumer warpgroups of 64 query rows and no producer
+//     warp: thread 0 loads the Q tile and fills a 4-stage ring of K and V
+//     tiles, refilling each stage once every warp has released it. It reads
+//     the tile's word: a tile false everywhere (the padded tail) is neither
+//     loaded nor computed, one true everywhere needs no per-element mask.
+//     Without a ninth warp the block fits two CTAs an SM at 128 registers a
+//     thread (with a producer warp ptxas granted 96, spilled and serialised
+//     the wgmma).
+//   - Each warpgroup: S = Q . K^T by wgmma m64n64k16 from shared memory,
+//     the online softmax on the fp32 accumulators, P packed to bf16 A
+//     fragments in registers, O += P . V by wgmma m64n64k16 with V as the
+//     N-major B operand. O 32, S 32 and P 16 registers a thread.
+//
 // Every entry point returns the cudaError_t of its launches (0 = success);
 // the Python wrapper raises on anything else. Nothing here allocates or
 // synchronises: the wrapper allocates outputs and scratch with torch and
@@ -26,10 +61,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "hopper_attention.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -304,147 +340,203 @@ cudaError_t launch_ln_stats(const bf16* x, float* stats, int M, int K,
 }
 
 // ---------------------------------------------------------------------------
-// Encoder attention: non-causal flash forward at d = 64
+// Encoder attention: non-causal flash forward at d = 64 (TMA + wgmma)
 // ---------------------------------------------------------------------------
 
+namespace enc {
+
+using namespace opus_attn;
+using opus_hopper::fence_regs;
+using opus_hopper::mbar_wait;
+using opus_hopper::wgmma_commit;
+using opus_hopper::wgmma_fence;
+using opus_hopper::wgmma_wait;
+
 constexpr int HD = 64;
-constexpr int AQ = 64;          // query rows per CTA: 4 warps x 16
-constexpr int AKV = 64;         // keys per iteration
-constexpr int KV_LD = HD + 8;   // padded smem row stride (144 bytes)
-constexpr int ATT_THREADS = 128;
+constexpr int QR = 128;                         // query rows a CTA
+constexpr int THREADS = 256;                    // two warpgroups of 64 rows
+constexpr int STAGES = 4;
+constexpr int Q_BYTES = QR * PANEL_ROW_BYTES;   // one 128-byte-swizzled panel
+constexpr int KV_BYTES = 64 * PANEL_ROW_BYTES;
+constexpr int STAGE_BYTES = 2 * KV_BYTES;       // K tile, then V tile
+constexpr float LOG2E = 1.4426950408889634f;
 
-using opus_mma::mma16816;
-using opus_mma::pack_bf16;
-using opus_mma::pack_raw;
+// What a stage carries besides its tiles: the key tile's first key (-1:
+// the sweep is over), whether every key of it is valid, and its key word.
+struct Meta {
+  int k0;
+  int full;
+  uint64_t word;
+};
 
-// key codes in shared memory: 0 attend, 1 masked (logit -> -1e30 as the TPU
-// kernel does), 2 past the end of the sequence (dropped entirely)
-__global__ void __launch_bounds__(ATT_THREADS)
-encoder_attention_kernel(const bf16* __restrict__ qkv,
-                         const uint8_t* __restrict__ mask,
-                         bf16* __restrict__ out, int B, int H, int S) {
-  __shared__ __align__(16) bf16 Qs[AQ * KV_LD];
-  __shared__ __align__(16) bf16 Ks[AKV * KV_LD];
-  __shared__ __align__(16) bf16 Vs[AKV * KV_LD];
-  __shared__ int kcode[AKV];
+constexpr int META_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+constexpr int BAR_OFF = META_OFF + STAGES * (int)sizeof(Meta);
+constexpr int SMEM_BYTES = 1024 + BAR_OFF + (1 + 2 * STAGES) * 8;
 
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t head = (size_t)S * HD;
-  const size_t plane = (size_t)B * H * head;
-  const bf16* Q = qkv + ((size_t)b * H + h) * head;
-  const bf16* K = Q + plane;
-  const bf16* V = K + plane;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+// The (B, S) key mask as one 64-bit word per (batch row, 64-key tile): bit
+// j of word (b, t) = mask[b, 64 t + j] (0 past S). One warp per word.
+__global__ void __launch_bounds__(256)
+pack_key_words(const uint8_t* __restrict__ mask, uint64_t* __restrict__ words,
+               int B, int S) {
+  const int nt = (S + 63) / 64;
+  const int w = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (w >= B * nt) return;
+  const int b = w / nt, j = 64 * (w % nt) + lane;
+  const uint8_t* row = mask + (size_t)b * S;
+  const uint32_t lo = __ballot_sync(0xffffffffu, j < S && row[j] != 0);
+  const uint32_t hi =
+      __ballot_sync(0xffffffffu, j + 32 < S && row[j + 32] != 0);
+  if (lane == 0) words[w] = (uint64_t)lo | ((uint64_t)hi << 32);
+}
 
-  for (int c = tid; c < AQ * HD / 8; c += ATT_THREADS) {
-    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (q0 + r < S)
-      v = *reinterpret_cast<const uint4*>(Q + (size_t)(q0 + r) * HD + col);
-    *reinterpret_cast<uint4*>(Qs + r * KV_LD + col) = v;
+// Thread 0 of the CTA fills the K / V ring: it puts the next key tile that
+// has a valid key (from tile *t on) into stage u % STAGES once every warp
+// has released that stage, with its word, or, past the last one, the end
+// marker (k0 = -1). Returns true once the marker is in.
+__device__ __forceinline__ bool put_tile(int u, int* t, int nt, int S, int h,
+                                         int b, const uint64_t* words,
+                                         const CUtensorMap* k_map,
+                                         const CUtensorMap* v_map,
+                                         uint8_t* stages, Meta* meta,
+                                         uint64_t* full, uint64_t* empty) {
+  const int s = u % STAGES;
+  mbar_wait(&empty[s], ((u / STAGES) & 1) ^ 1);
+  for (; *t < nt; ++*t) {
+    const uint64_t w = words != nullptr ? words[(size_t)b * nt + *t]
+                                        : bit_range(0, S - 64 * *t);
+    if (w == 0) continue;                      // padding only: skipped
+    meta[s].k0 = 64 * *t;
+    meta[s].full = w == ~0ull;
+    meta[s].word = w;
+    uint8_t* st = stages + s * STAGE_BYTES;
+    opus_hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+    tma_load_4d(st, k_map, &full[s], 0, h, 64 * *t, b);
+    tma_load_4d(st + KV_BYTES, v_map, &full[s], 0, h, 64 * *t, b);
+    ++*t;
+    return false;
+  }
+  meta[s].k0 = -1;
+  mbar_arrive(&full[s]);
+  return true;
+}
+
+// One CTA per (128 query rows, head, batch row); the notes at the top of the
+// file give the design.
+__global__ void __launch_bounds__(THREADS, 2)
+encoder_attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const uint64_t* __restrict__ words,
+                          bf16* __restrict__ out, int H, int S) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* stages = smem + Q_BYTES;
+  Meta* meta = reinterpret_cast<Meta*>(smem + META_OFF);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int q0 = blockIdx.x * QR, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = (S + 63) / 64;
+  int next = 0;                 // thread 0: the next key tile to look at
+  bool ended = false;           // thread 0: the end marker is in the ring
+  if (threadIdx.x == 0) {
+    opus_hopper::mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      opus_hopper::mbar_init(&full[s], 1);
+      opus_hopper::mbar_init(&empty[s], THREADS / 32);
+    }
+    opus_hopper::fence_barrier_init();
+    opus_hopper::prefetch_map(&q_map);
+    opus_hopper::prefetch_map(&k_map);
+    opus_hopper::prefetch_map(&v_map);
+    opus_hopper::mbar_arrive_expect_tx(qfull, Q_BYTES);
+    tma_load_4d(qs, &q_map, qfull, 0, h, q0, b);
+    for (int u = 0; u < STAGES && !ended; ++u)
+      ended = put_tile(u, &next, nt, S, h, b, words, &k_map, &v_map, stages,
+                       meta, full, empty);
   }
   __syncthreads();
 
-  uint32_t qf[4][4];
-  const bf16* qbase = Qs + warp * 16 * KV_LD;
+  // ---- consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63 ----
+  const int wg = warp >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // rows r0, r0 + 8
+  const float c = 0.125f * LOG2E;                           // base-2 logits
+  float o[HD / 2];
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const bf16* q = qbase + ks * 16 + t * 2;
-    qf[ks][0] = *reinterpret_cast<const uint32_t*>(q + g * KV_LD);
-    qf[ks][1] = *reinterpret_cast<const uint32_t*>(q + (g + 8) * KV_LD);
-    qf[ks][2] = *reinterpret_cast<const uint32_t*>(q + g * KV_LD + 8);
-    qf[ks][3] = *reinterpret_cast<const uint32_t*>(q + (g + 8) * KV_LD + 8);
-  }
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-1e30f, -1e30f}, l_run[2] = {0.f, 0.f};
 
-  float o[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  float m_run[2] = {-1e30f, -1e30f};   // rows g and g + 8
-  float l_run[2] = {0.f, 0.f};         // this thread's partial row sums
+  mbar_wait(qfull, 0);
+  for (int u = 0;; ++u) {
+    const int s = u % STAGES;
+    mbar_wait(&full[s], (u / STAGES) & 1);
+    if (meta[s].k0 < 0) break;
+    const uint8_t* ks = stages + s * STAGE_BYTES;
+    const uint8_t* vs = ks + KV_BYTES;
 
-  for (int k0 = 0; k0 < S; k0 += AKV) {
-    __syncthreads();   // the previous block's K/V are no longer read
-    for (int c = tid; c < AKV * HD / 8; c += ATT_THREADS) {
-      const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(K + (size_t)(k0 + r) * HD + col);
-        vv = *reinterpret_cast<const uint4*>(V + (size_t)(k0 + r) * HD + col);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * KV_LD + col) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * KV_LD + col) = vv;
-    }
-    if (tid < AKV) {
-      const int j = k0 + tid;
-      kcode[tid] = j >= S ? 2 : (mask == nullptr || mask[(size_t)b * S + j]) ? 0 : 1;
-    }
-    __syncthreads();
+    // S = Q K^T (64 rows x 64 keys), both operands in shared memory
+    float sacc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(sacc, desc_k(qs + wg * 8192) + 2 * kk,
+                   desc_k(ks) + 2 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc, 32);
 
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const bf16* kb = Ks + (nt * 8 + g) * KV_LD + ks * 16 + t * 2;
-        mma16816(s[nt], qf[ks], *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
-      }
-    }
-
+    // online softmax (base 2); an invalid key: -inf, p = 0 exactly
+    const bool all_true = meta[s].full;
+    const uint64_t word = meta[s].word;
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int code = kcode[nt * 8 + t * 2 + (e & 1)];
-        float v = s[nt][e] * 0.125f;
-        v = code == 0 ? v : (code == 1 ? -1e30f : __int_as_float(0xff800000));
-        s[nt][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * t + (i & 1);
+      float x = sacc[i] * c;
+      if (!all_true && !((word >> col) & 1)) x = -INFINITY;
+      sacc[i] = x;
+      mx[r] = fmaxf(mx[r], x);
     }
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      alpha[r] = __expf(m_run[r] - mx[r]);
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2_approx(m_run[r] - mx[r]);
       m_run[r] = mx[r];
       l_run[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = __expf(s[nt][e] - mx[e >> 1]);
-        s[nt][e] = pv;
-        l_run[e >> 1] += pv;
-        o[nt][e] *= alpha[e >> 1];
-      }
-
-    // O += P V: P's accumulator layout is the A-fragment layout of the
-    // next product, so it stays in registers (rounded to bf16)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* vb = Vs + (kk * 16 + t * 2) * KV_LD + nt * 8 + g;
-        mma16816(o[nt], a, pack_raw(vb[0], vb[KV_LD]),
-                 pack_raw(vb[8 * KV_LD], vb[9 * KV_LD]));
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = exp2_approx(sacc[i] - mx[r]);
+      sacc[i] = p;
+      l_run[r] += p;
     }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: P (rounded to bf16) from registers, V N-major
+    uint32_t pa[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(sacc, kk, pa + 4 * kk);
+    const uint64_t vd = desc_mn(vs, KV_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)               // 16 keys: 2048 B of rows
+      wgmma_rs_n64_mn(o, pa + 4 * kk, vd + kk * (2048 >> 4), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o, HD / 2);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    // refill the stage just released (thread 0 waits for every warp)
+    if (threadIdx.x == 0 && !ended)
+      ended = put_tile(u + STAGES, &next, nt, S, h, b, words, &k_map, &v_map,
+                       stages, meta, full, empty);
   }
 
 #pragma unroll
@@ -452,21 +544,22 @@ encoder_attention_kernel(const bf16* __restrict__ qkv,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const float inv0 = 1.f / fmaxf(l_run[0], 1e-30f);
-  const float inv1 = 1.f / fmaxf(l_run[1], 1e-30f);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const size_t ld = (size_t)H * HD;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int d = h * HD + nt * 8 + t * 2;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * S + row0) * ld + d) =
-          __floats2bfloat162_rn(o[nt][0] * inv0, o[nt][1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * S + row1) * ld + d) =
-          __floats2bfloat162_rn(o[nt][2] * inv1, o[nt][3] * inv1);
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + 8 * r;
+    if (qi >= S) continue;
+    // no valid key in the row: l = 0 and o = 0, so out 0
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    bf16* dst = out + (((size_t)b * S + qi) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                o[4 * j + 2 * r + 1] * inv);
   }
 }
+
+}  // namespace enc
 
 }  // namespace
 
@@ -502,19 +595,49 @@ int opus_ln_qkv_rope(const void* x, const void* w, const void* b,
   p.beta = static_cast<const bf16*>(ln) + E;
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);
-  p.S = S; p.E = E; p.H = E / HD;
+  p.S = S; p.E = E; p.H = E / enc::HD;
   p.out = static_cast<bf16*>(out);
   return (int)launch_gemm<true, EPI_QKV_ROPE>(p, st);
 }
 
-// qkv (3, B, H, S, 64); mask (B, S) bool key rows or NULL -> out (B, S, H*64)
-int opus_encoder_attention(const void* qkv, const void* mask, void* out,
-                           int B, int H, int S, void* stream) {
-  dim3 grid((S + AQ - 1) / AQ, H, B);
-  encoder_attention_kernel<<<grid, ATT_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(out), B, H, S);
+// qkv (3, B, H, S, 64); mask (B, S) bool key rows or NULL, with `words`,
+// scratch for its packed words ((B, ceil(S / 64)) 64-bit: packed here,
+// then the kernel launched) -> out (B, S, H*64).
+int opus_encoder_attention(const void* qkv, const void* mask, void* words,
+                           void* out, int B, int H, int S, void* stream) {
+  if (B < 1 || H < 1 || S < 1 || (mask != nullptr && words == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long head = (long long)S * enc::HD, plane = (long long)B * H * head;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  CUtensorMap qm, km, vm;
+  // each plane as (B, S, H, 64) through its head-major strides
+  int rc = opus_attn::make_map_bshd(&qm, q, B, S, H, enc::HD, H * head,
+                                    enc::HD, head, 1, enc::QR);
+  if (rc) return rc;
+  rc = opus_attn::make_map_bshd(&km, q + plane, B, S, H, enc::HD, H * head,
+                                enc::HD, head, 1, 64);
+  if (rc) return rc;
+  rc = opus_attn::make_map_bshd(&vm, q + 2 * plane, B, S, H, enc::HD,
+                                H * head, enc::HD, head, 1, 64);
+  if (rc) return rc;
+  if (mask != nullptr) {
+    const int n = B * ((S + 63) / 64);
+    enc::pack_key_words<<<(n + 7) / 8, 256, 0, st>>>(
+        static_cast<const uint8_t*>(mask), static_cast<uint64_t*>(words), B,
+        S);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      enc::encoder_attn_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, enc::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((S + enc::QR - 1) / enc::QR, H, B);
+  enc::encoder_attn_wgmma_kernel<<<grid, enc::THREADS, enc::SMEM_BYTES, st>>>(
+      qm, km, vm, mask != nullptr ? static_cast<const uint64_t*>(words)
+                                  : nullptr,
+      static_cast<bf16*>(out), H, S);
   return (int)cudaGetLastError();
 }
 

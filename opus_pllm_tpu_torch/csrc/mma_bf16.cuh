@@ -1,5 +1,6 @@
 // Warp-level bf16 tensor-core helpers of the mma.sync kernels
-// (fused_encoder.cu, and int4_matmul_v1.cu's kernel kept for unaligned N).
+// (int4_matmul.cu's tensor-core kernel, and int4_matmul_v1.cu's kernel kept
+// for unaligned N).
 //
 // mma16816: one m16n8k16 product, bf16 inputs, fp32 accumulators in place.
 // With lane = 4 * g + t, the A fragment holds rows g and g + 8 at columns

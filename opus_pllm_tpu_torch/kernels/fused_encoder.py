@@ -36,13 +36,21 @@ ln_qkv_rope
 encoder_attention
   Replaces: `flash_attention_pairs` / `_flash_pairs_kernel` (pallas_call
   at :228).
-  Bound: ~11 GFLOP against ~42 MB of q/k/v/out at S=512: between the two
-  roofs; the (B, H, S, S) logits would be 168 MB in fp32 if materialised.
-  Design: one CTA per (batch, head, 64-query block), a loop over 64-key
-  blocks in place of the TPU's sequential grid axis, mma.sync m16n8k16 with
-  the online softmax in registers, so logits never leave the SM. The mask
-  is the (B, S) key-validity rows, read per key block; no (B, S, S) mask
-  is built. A ragged last block is masked in the kernel.
+  Bound: at S=512 and the annotate path's padding, ~7 GFLOP over the
+  valid (query, key) pairs against ~35 MB of q, out and the valid keys'
+  k and v: the bytes, slightly ahead of the tensor cores; the (B, H, S, S)
+  logits would be 168 MB in fp32 if materialised.
+  Design (TMA + wgmma on the pieces of csrc/hopper_attention.cuh): the
+  (B, S) key mask packed into one 64-bit word per (batch row, 64-key tile)
+  inside the call (`pack_key_words` models it); one CTA per (128 query
+  rows, head, batch row), two consumer warpgroups, thread 0 filling a ring
+  of K and V tiles by TMA from head-major tensor maps; a key tile of
+  padding only is neither loaded nor computed (`key_tiles`), a full one is
+  not masked; both products on wgmma, the online softmax on the fp32
+  accumulators, logits never leave the SM. A masked key weighs 0 exactly:
+  a batch row with no valid key gets out 0 (the TPU kernel averages v
+  there; no ESM2 row lacks CLS and EOS), and `encoder_attention_plain`
+  models that rule.
 out_proj
   Replaces: `fused_out_proj` / `_out_proj_kernel` (pallas_call at :380).
   Bound: ~13 GFLOP against ~35 MB: tensor-core bound.
@@ -66,6 +74,7 @@ import torch
 from . import build
 
 HEAD_DIM = 64
+KEY_TILE = 64        # keys a word of the packed mask covers
 
 launches = {"ln_qkv_rope": 0, "encoder_attention": 0, "out_proj": 0,
             "ffn": 0}
@@ -108,7 +117,9 @@ def ln_qkv_rope_plain(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
 
 def encoder_attention_plain(qkv, mask=None):
     """qkv (3, B, H, S, 64); mask (B, S) bool key rows or None ->
-    (B, S, H*64). Non-causal, scale 1/8, masked logits -1e30."""
+    (B, S, H*64). Non-causal, scale 1/8; a masked key gets the weight 0
+    exactly (its logit -1e30), and a batch row with no valid key gets out
+    0, as the kernel gives it (the TPU kernel averages v there)."""
     _, b, h, s, d = qkv.shape
     q, k, v = qkv.float().unbind(0)
     logits = torch.einsum("bhqd,bhkd->bhqk", q * 0.125, k)
@@ -116,6 +127,8 @@ def encoder_attention_plain(qkv, mask=None):
         logits = torch.where(mask[:, None, None, :], logits,
                              torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        w = w * mask.any(-1)[:, None, None, None]
     o = torch.einsum("bhqk,bhkd->bhqd", w.to(qkv.dtype).float(), v)
     return o.permute(0, 2, 1, 3).reshape(b, s, h * d).to(qkv.dtype)
 
@@ -200,6 +213,32 @@ def ln_qkv_rope(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
     return out
 
 
+def key_word_shape(b, s):
+    """The packed key mask of `encoder_attention`: one 64-bit word per
+    (batch row, 64-key tile)."""
+    return (b, -(-s // KEY_TILE))
+
+
+def pack_key_words(mask):
+    """The kernel's packing pass in PyTorch: (B, S) bool -> (B, ceil(S /
+    64)) int64, bit j of word (b, t) = mask[b, 64 t + j] (0 past S)."""
+    b, s = mask.shape
+    nt = key_word_shape(b, s)[1]
+    bits = torch.zeros((b, nt * KEY_TILE), dtype=torch.int64,
+                       device=mask.device)
+    bits[:, :s] = mask.to(torch.int64)
+    shifts = torch.arange(KEY_TILE, device=mask.device, dtype=torch.int64)
+    return (bits.reshape(b, nt, KEY_TILE) << shifts).sum(-1)
+
+
+def key_tiles(words):
+    """Per (batch row, key tile) of the packed mask: 0 if no key is valid
+    (the kernel loads and computes nothing), 2 if all 64 are (no
+    per-element mask), else 1 (a ragged last tile is never 2: the keys
+    past S are masked)."""
+    return torch.where(words == 0, 0, torch.where(words == -1, 2, 1))
+
+
 def encoder_attention(qkv, mask=None):
     """Non-causal flash attention at d=64 over (B, S) key rows."""
     _frozen("encoder_attention", qkv)
@@ -216,8 +255,10 @@ def encoder_attention(qkv, mask=None):
                          "(B, S) key rows on the same device")
     lib = build.library("fused_encoder")
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
+    words = (torch.empty(key_word_shape(b, s), dtype=torch.int64,
+                         device=qkv.device) if mask is not None else None)
     _launch("encoder_attention", qkv.device, lib.opus_encoder_attention,
-            _ptr(qkv), _ptr(mask), _ptr(out), b, h, s)
+            _ptr(qkv), _ptr(mask), _ptr(words), _ptr(out), b, h, s)
     return out
 
 

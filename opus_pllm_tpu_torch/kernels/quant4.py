@@ -34,19 +34,25 @@ int4_matmul (v2)
   (The TPU kernel folds the +136 bias out with sum(x) per group; here the
   bias is subtracted from the weight pair exactly, so no correction term
   is needed.)
-  Bound (H100, M = 8): per weight element one 4-bit read from HBM and M
-  fp32 FMAs. Llama-3-8B's projections plus head stream ~3.75 GB of words per
-  decode step (1.1 ms at 3.35 TB/s) and need ~60 G FMA (1.8 ms at the
-  67 TFLOP/s fp32 rate): fp32 CUDA-core bound at M = 8.
-  Design (csrc/int4_matmul.cu): a CTA takes 64 columns (two per lane) and a
-  range of superblocks; its 8 warps split each superblock's 64 word rows.
-  x is staged in shared memory one superblock (8 rows x 512 fp32 = 16 KB)
-  at a time, so K = 14336 never needs the whole of x on chip. Unpack: one
-  shift + lop3 + one bf16x2 subtract of 136 per word and group gives two
-  exact weights. Narrow outputs (o_proj N = 4096: 64 column tiles) split K
-  across CTAs so that about 264 CTAs fill the 132 SMs; the split partials
-  go to an fp32 workspace and a second launch sums them in a fixed order
-  (deterministic, no atomics).
+  Bound (H100, M = 8): the bytes. Llama-3-8B's projections plus head
+  stream ~4.0 GB of words and scales per decode step (1.2 ms at 3.35
+  TB/s) for ~64 GFLOP (0.07 ms on the tensor cores).
+  Design (csrc/int4_matmul.cu): the products on the tensor cores with the
+  operands swapped: each v2 word, through the bit trick above, is one
+  bf16x2 A-fragment register of mma.sync m16n8k16 (two K rows of one
+  group, one weight column), x^T the B operand; the K order inside a
+  16-wide chunk and the column order inside an A tile are chosen so that
+  the words need no shuffle and a lane reads 16 bytes of words a row. One
+  accumulator set per scale group, scaled in fp32 at the superblock's end.
+  A producer warp keeps an 8-stage TMA ring (64 KB) of word tiles in
+  flight a CTA of 64 columns; a column tile's K is split over a thread-
+  block cluster of up to 8 CTAs (`v2_plan`), whose partials are reduced
+  through distributed shared memory in a fixed order: one launch, no
+  workspace, deterministic. A tensor map needs N % 4 == 0
+  (`v2_kernel_variant`; every Llama-3-8B shape); other even N take the
+  earlier kernel, kept as `int4_matmul_unaligned` with its own launch
+  count (fp32 FMAs on the CUDA cores, x staged in shared memory, a K split
+  summed by a second launch from an fp32 workspace).
 int4_matmul_v1
   Replaces: quant4.py `_int4_matmul_impl` / `_kernel` (pallas_call at :359).
   Bound (H100): the tensor cores at the training shape: M = 16 x 519 =
@@ -101,17 +107,21 @@ GROUP = 128   # K rows per scale group
 BK = 256      # K rows per v1 block: a K that is not a multiple stays bf16
 SUPER = 512   # K rows per v2 superblock (four scale groups)
 KERNEL_MAX_M = 64       # larger M takes the dequantize + matmul route
-KERNEL_COLS = 64        # output columns per CTA (csrc/int4_matmul.cu)
-KERNEL_MT = 8           # rows of x per CTA
+V2_COLS = 64            # weight columns a CTA (csrc/int4_matmul.cu)
+V2_MAX_CLUSTER = 8      # CTAs a cluster splitting K (the portable limit)
+V2_N_MULTIPLE = 4       # a word row's 4N bytes: a 16-byte stride
+KERNEL_COLS = 64        # the unaligned kernel's columns per CTA
+KERNEL_MT = 8           # and rows of x per CTA
 TARGET_CTAS = 264       # two CTAs for each of the H100's 132 SMs
+SMS = 132
 
 _QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                   "up_proj", "down_proj")    # quant.py:187, unfused llama
 
 TMA_N_MULTIPLE = 16     # the nibble rows' N bytes: a 16-byte stride
 
-launches = {"int4_matmul": 0, "int4_matmul_v1": 0,
-            "int4_matmul_v1_unaligned": 0}
+launches = {"int4_matmul": 0, "int4_matmul_unaligned": 0,
+            "int4_matmul_v1": 0, "int4_matmul_v1_unaligned": 0}
 
 
 def reset_launches() -> None:
@@ -303,9 +313,33 @@ def dequant_matmul(x, packed, gscale):
 # Wrapper: shape rule, then CPU -> plain version, CUDA -> the kernel
 # ---------------------------------------------------------------------------
 
+def v2_kernel_variant(n: int) -> str:
+    """The CUDA kernel for a v2 product with N columns: the tensor-core one
+    where a tensor map can describe the words (16-byte row strides: N % 4),
+    else the one kept for other even N."""
+    if n % V2_N_MULTIPLE == 0:
+        return "int4_matmul"
+    return "int4_matmul_unaligned"
+
+
+def v2_plan(m: int, n: int, k: int):
+    """The tensor-core kernel's launch: (8-row tiles of x a CTA, CTAs a
+    cluster, superblocks a CTA). With fewer tiles than SMs, a column
+    tile's K is split over a cluster of up to 8 CTAs, whole superblocks
+    each, none empty, until the grid has about TARGET_CTAS CTAs; with as
+    many, it is not split (at 4096->14336 the split measured slower)."""
+    mt = 1 if m <= 8 else 2
+    n_sb = k // SUPER
+    tiles = -(-n // V2_COLS) * -(-m // (8 * mt))
+    want = 1 if tiles >= SMS else min(n_sb, V2_MAX_CLUSTER,
+                                      -(-TARGET_CTAS // tiles))
+    per = -(-n_sb // want)
+    return mt, -(-n_sb // per), per
+
+
 def _splits(n_sb: int, ctas: int) -> int:
-    """Split-K factor: enough CTAs to fill the card, whole superblocks per
-    split, no empty split."""
+    """The unaligned kernel's split-K factor: enough CTAs to fill the card,
+    whole superblocks per split, no empty split."""
     want = min(n_sb, max(1, -(-TARGET_CTAS // ctas)))
     per = -(-n_sb // want)
     return -(-n_sb // per)
@@ -319,31 +353,39 @@ def _kernel(x, packed, gscale):
         raise TypeError(f"int4_matmul: gscale of dtype {gscale.dtype}")
     if n % 2:
         raise ValueError(f"int4_matmul: N={n} must be even")
+    name = v2_kernel_variant(n)
+    align = 16 if name == "int4_matmul" else 8        # TMA reads the words
     xb = x.to(torch.bfloat16).contiguous()
-    for name, t, align in (("x", xb, 16), ("kernel_p", packed, 8),
-                           ("gscale", gscale, 8)):
+    for arg, t, a in (("x", xb, 16), ("kernel_p", packed, align),
+                      ("gscale", gscale, align)):
         if t.device != x.device:
-            raise ValueError(f"int4_matmul: {name} on {t.device}, x on "
+            raise ValueError(f"int4_matmul: {arg} on {t.device}, x on "
                              f"{x.device}")
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"int4_matmul: {name} must be contiguous and "
-                             f"{align}-byte aligned")
-    n_sb = k // SUPER
-    tiles = -(-n // KERNEL_COLS) * -(-m // KERNEL_MT)
-    splits = _splits(n_sb, tiles)
-    sb_per = -(-n_sb // splits)
+        if not t.is_contiguous() or t.data_ptr() % a:
+            raise ValueError(f"int4_matmul: {arg} must be contiguous and "
+                             f"{a}-byte aligned")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    out_bf16 = int(x.dtype == torch.bfloat16)
     lib = build.library("int4_matmul")
     with torch.cuda.device(x.device):
-        rc = lib.opus_int4_matmul(
-            xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
-            ws.data_ptr() if ws is not None else None, out.data_ptr(), m, n,
-            k, sb_per, splits, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    launches["int4_matmul"] += 1
-    build.check(rc, "int4_matmul", lib)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if name == "int4_matmul":
+            mt, cs, sb_per = v2_plan(m, n, k)
+            rc = lib.opus_int4_matmul(
+                xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
+                out.data_ptr(), m, n, k, mt, cs, sb_per, out_bf16, stream)
+        else:
+            n_sb = k // SUPER
+            splits = _splits(n_sb, -(-n // KERNEL_COLS) * -(-m // KERNEL_MT))
+            sb_per = -(-n_sb // splits)
+            ws = (torch.empty((splits, m, n), dtype=torch.float32,
+                              device=x.device) if splits > 1 else None)
+            rc = lib.opus_int4_matmul_unaligned(
+                xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
+                ws.data_ptr() if ws is not None else None, out.data_ptr(),
+                m, n, k, sb_per, splits, out_bf16, stream)
+    launches[name] += 1
+    build.check(rc, name, lib)
     return out
 
 

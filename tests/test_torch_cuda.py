@@ -82,17 +82,42 @@ def test_ln_qkv_rope(b, s, e):
             _rnd(g, 3, e, scale=0.1), ln), (cos, sin))
 
 
-@pytest.mark.parametrize("b,h,s,masked", [(2, 4, 1, False), (2, 4, 70, True),
-                                          (1, 20, 129, True),
-                                          (2, 2, 64, False)])
-def test_encoder_attention(b, h, s, masked):
+def _key_mask(g, b, s, kind):
+    """(B, S) key rows: None; ragged lengths with one row of length 1; or
+    a row whose tail tiles are all padding beside an unpadded one."""
+    if kind == "none":
+        return None
+    lengths = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    lengths[0] = 1
+    if kind == "tail" and b > 1:
+        lengths[0], lengths[1] = s, min(s, 3)
+    return torch.arange(s, device="cuda")[None] < lengths[:, None]
+
+
+@pytest.mark.parametrize("s", [1, 70, 129, 200, 512])
+@pytest.mark.parametrize("kind", ["none", "ragged", "tail"])
+def test_encoder_attention(s, kind):
+    """H = 20 (ESM2-650M), B = 3: padded key tiles are skipped, full ones
+    unmasked, ragged edges masked; one launch a call."""
     g = _gen()
-    mask = None
-    if masked:
-        lengths = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
-        mask = torch.arange(s, device="cuda")[None] < lengths[:, None]
+    mask = _key_mask(g, 3, s, kind)
+    fe.reset_launches()
     _check(fe.encoder_attention, fe.encoder_attention_plain,
-           (_rnd(g, 3, b, h, s, 64),), (mask,))
+           (_rnd(g, 3, 3, 20, s, 64),), (mask,))
+    assert fe.launches["encoder_attention"] == 1
+
+
+def test_encoder_attention_row_without_valid_key_is_zero():
+    """The chosen rule: a batch row with no valid key gets out 0, as the
+    plain version gives it; the other rows are unaffected."""
+    g = _gen()
+    qkv = _rnd(g, 3, 2, 20, 200, 64)
+    mask = torch.ones((2, 200), dtype=torch.bool, device="cuda")
+    mask[1] = False
+    out = fe.encoder_attention(qkv, mask)
+    torch.cuda.synchronize()
+    assert bool((out[1] == 0).all())
+    _check(fe.encoder_attention, fe.encoder_attention_plain, (qkv,), (mask,))
 
 
 @pytest.mark.parametrize("m,e", [(1, 256), (130, 256), (257, 1280)])
@@ -138,26 +163,56 @@ def test_esm2_auto_takes_kernels_and_matches_plain():
     assert err <= 2 * (plain_bf - ref).abs().max().item() + ATOL
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 33])
-@pytest.mark.parametrize("k,n", [(512, 256), (4096, 256), (1536, 130)])
-def test_int4_matmul(m, k, n):
-    """One split (K = 512), eight K splits (N = 256: 4 column tiles) and a
-    ragged last column tile with three splits (N = 130, K = 1536)."""
+@pytest.mark.parametrize("k", [512, 4096, 14336])
+@pytest.mark.parametrize("n", [130, 1024, 4096, 14336])
+def test_int4_matmul(k, n):
+    """M in {1, 3, 8, 17, 33, 64} (one or two 8-row tiles a CTA, ragged
+    M), bf16 and fp32 x. N = 130 takes the kernel kept for N % 4 != 0;
+    the others the tensor-core kernel, whose K splits over clusters of 1
+    to 8 CTAs (quant4.v2_plan). One launch a call, of the variant's
+    counter."""
     g = _gen()
-    w = torch.randn((k, n), generator=g, device="cuda")
-    q, s = quant4.quantize_grouped(w)
+    q, s = quant4.quantize_grouped(
+        torch.randn((k, n), generator=g, device="cuda"))
     packed = quant4.pack_int4_v2(q)
-    x = _rnd(g, m, k)
-    quant4.reset_launches()
-    _check(lambda x: quant4.int4_matmul(x, packed, s),
-           lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
-    assert quant4.launches["int4_matmul"] == 1
-    # fp32 x: the output stays fp32 and differs from the plain version by
-    # summation order only
-    out = quant4.int4_matmul(x.float(), packed, s)
-    ref = quant4.int4_matmul_plain(x.float(), packed, s)
-    assert out.dtype == torch.float32
-    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    del q
+    name = quant4.v2_kernel_variant(n)
+    assert name == ("int4_matmul_unaligned" if n == 130 else "int4_matmul")
+    for m in (1, 3, 8, 17, 33, 64):
+        x = _rnd(g, m, k)
+        quant4.reset_launches()
+        _check(lambda x: quant4.int4_matmul(x, packed, s),
+               lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
+        assert quant4.launches == dict(
+            {key: 0 for key in quant4.launches}, **{name: 1})
+        # fp32 x: the output stays fp32 and differs from the plain version
+        # by summation order only
+        out = quant4.int4_matmul(x.float(), packed, s)
+        ref = quant4.int4_matmul_plain(x.float(), packed, s)
+        assert out.dtype == torch.float32
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_int4_matmul_cluster_plans_are_deterministic():
+    """The decode shapes' plans span cluster sizes 1 to 8; each gives the
+    same bits on a repeated call (a fixed reduction order, no atomics) and
+    matches the plain version."""
+    g = _gen()
+    seen = set()
+    for k, n in ((4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096),
+                 (4096, 128256)):
+        seen.add(quant4.v2_plan(8, n, k)[1])
+        q, s = quant4.quantize_grouped(
+            torch.randn((k, n), generator=g, device="cuda"))
+        packed = quant4.pack_int4_v2(q)
+        del q
+        x = _rnd(g, 8, k)
+        out = quant4.int4_matmul(x, packed, s)
+        assert torch.equal(out, quant4.int4_matmul(x, packed, s))
+        _check(lambda x: quant4.int4_matmul(x, packed, s),
+               lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
+        del packed, s
+    assert seen == {1, 4, 5, 8}
 
 
 def _cache(g, b, hkv, cap, d, kind):
@@ -523,7 +578,8 @@ def test_int4_matmul_v1(m, k, n):
            lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
     # N = 130 / 1000 are not 16-byte row strides: the kernel kept for them
     tma = n % 16 == 0
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": int(tma),
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
+                               "int4_matmul_v1": int(tma),
                                "int4_matmul_v1_unaligned": int(not tma)}
     out = quant4.int4_matmul(x.float(), packed, s)
     ref = quant4.int4_matmul_plain(x.float(), packed, s)
@@ -555,7 +611,8 @@ def test_int4_matmul_v1_tma(m, k, n):
     ref = quant4.int4_matmul_plain(x.float(), packed, s)
     assert out.dtype == torch.float32
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 4,
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
+                               "int4_matmul_v1": 4,
                                "int4_matmul_v1_unaligned": 0}
 
 
@@ -689,7 +746,7 @@ def test_train_step_launch_counts(base):
     assert fe.launches == {k: cfg.esm.num_layers for k in fe.launches}
     # the head's N = 260 is not a 16-byte row stride: the kept kernel
     v1 = base == "int4-v1"
-    assert quant4.launches == {"int4_matmul": 0,
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
                                "int4_matmul_v1": 2 * 7 * nl if v1 else 0,
                                "int4_matmul_v1_unaligned": int(v1)}
     assert set(quant.launches.values()) == {0}

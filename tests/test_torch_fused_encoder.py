@@ -137,3 +137,108 @@ def test_supports_requires_cuda_bf16_d64():
     x = torch.zeros((2, 16, 256), dtype=torch.bfloat16)
     assert not tfe.supports(cfg, x)            # CPU tensor
     assert not tfe.supports(ESM2Config(embed_dim=256, num_heads=8), x)
+
+
+# ---------------------------------------------------------------------------
+# encoder_attention's key mask: the kernel's words and its rule for a batch
+# row with no valid key
+# ---------------------------------------------------------------------------
+
+S_RAGGED = 70            # not a multiple of the kernel's 64-key tiles
+
+
+def _ragged_inputs():
+    """B = 4 rows of 70 keys: unpadded, ragged, length 1, no valid key."""
+    rng = np.random.default_rng(1)
+    qkv = rng.standard_normal((3, 4, H, S_RAGGED, 64)).astype(np.float32)
+    mask = np.zeros((4, S_RAGGED), bool)
+    mask[0] = True
+    mask[1, :37] = True
+    mask[2, 0] = True
+    return qkv, mask
+
+
+def test_encoder_attention_plain_matches_pallas_on_rows_with_a_key():
+    """At S = 70 the plain version is the Pallas kernel (interpret mode) on
+    every batch row with a valid key; the row without one gets out 0 (the
+    TPU kernel averages v there)."""
+    qkv, mask = _ragged_inputs()
+    with pltpu.force_tpu_interpret_mode():
+        ref = jfe.flash_attention_pairs(jnp.asarray(_pack_qkv(qkv)),
+                                        jnp.asarray(mask))
+    got = tfe.encoder_attention_plain(_t(qkv), _t(mask)).numpy()
+    ref = _unpack_attn(ref)
+    assert _rel_err(got[:3], ref[:3]) < REL
+    assert not np.any(got[3])
+    assert np.any(ref[3])
+
+
+def test_pack_key_words_matches_the_mask_bits():
+    """Bit j of word (b, t) is mask[b, 64 t + j]; bits past S are 0."""
+    rng = np.random.default_rng(2)
+    for s in (1, 63, 64, 70, 129, 512):
+        mask = rng.random((3, s)) < 0.7
+        mask[1] = True
+        words = tfe.pack_key_words(_t(mask)).numpy().view(np.uint64)
+        assert words.shape == tfe.key_word_shape(3, s) == (3, -(-s // 64))
+        for b in range(3):
+            for t in range(words.shape[1]):
+                bits = [(int(words[b, t]) >> j) & 1 for j in range(64)]
+                want = [int(64 * t + j < s and mask[b, 64 * t + j])
+                        for j in range(64)]
+                assert bits == want
+
+
+def test_key_tiles_skip_padding_and_mask_only_partial_tiles():
+    """0: a tile of padding only (not loaded); 2: all 64 keys valid (no
+    per-element mask); 1: the rest, a ragged last tile included."""
+    mask = np.zeros((3, 130), bool)
+    mask[0] = True
+    mask[1, :70] = True
+    kinds = tfe.key_tiles(tfe.pack_key_words(_t(mask))).tolist()
+    assert kinds == [[2, 2, 1], [2, 1, 0], [0, 0, 0]]
+
+
+def _sweep_like_the_kernel(qkv, mask):
+    """encoder_attention as the CUDA kernel runs it, in fp64: per query
+    row, the 64-key tiles whose word is not 0, in order, an online softmax
+    in base 2 over the valid keys of each (p = 0 exactly elsewhere), out =
+    acc / max(l, 1e-30)."""
+    _, b, h, s, d = qkv.shape
+    words = tfe.pack_key_words(_t(mask))
+    kinds = tfe.key_tiles(words).numpy()
+    q, k, v = (qkv[i].astype(np.float64) for i in range(3))
+    log2e = 1.0 / np.log(2.0)
+    out = np.zeros((b, s, h, d))
+    for bi in range(b):
+        m_run = np.full((h, s), -1e30)
+        l_run = np.zeros((h, s))
+        acc = np.zeros((h, s, d))
+        for t in range(kinds.shape[1]):
+            if kinds[bi, t] == 0:
+                continue
+            keys = slice(64 * t, min(64 * t + 64, s))
+            x = np.einsum("hqd,hkd->hqk", q[bi], k[bi, :, keys]) \
+                * 0.125 * log2e
+            if kinds[bi, t] == 1:
+                x = np.where(mask[bi, keys][None, None], x, -np.inf)
+            m_new = np.maximum(m_run, x.max(-1))
+            alpha = np.exp2(m_run - m_new)
+            p = np.exp2(x - m_new[..., None])
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + np.einsum(
+                "hqk,hkd->hqd", p, v[bi, :, keys])
+            m_run = m_new
+        out[bi] = (acc / np.maximum(l_run, 1e-30)[..., None]).transpose(
+            1, 0, 2)
+    return out.reshape(b, s, h * d)
+
+
+def test_kernel_sweep_matches_the_plain_version_on_every_row():
+    """Skipping padding tiles and unmasked full tiles computes the plain
+    version's function, the no-valid-key row (out 0) included."""
+    qkv, mask = _ragged_inputs()
+    got = _sweep_like_the_kernel(qkv, mask)
+    ref = tfe.encoder_attention_plain(_t(qkv), _t(mask)).numpy()
+    assert _rel_err(got, ref) < REL
+    assert not np.any(got[3])

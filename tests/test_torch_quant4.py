@@ -202,3 +202,62 @@ def test_quantized_head_rounds_logits_to_bf16():
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, got.bfloat16().float(), rtol=0, atol=0)
     assert np.abs(got.numpy() - ref).max() <= 2 ** -7 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core v2 kernel's host side: its launch plan and the word trick
+# its A fragments rest on
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (4096, 128256))
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 16, 17, 33, 64])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES + ((512, 4), (1536, 260),
+                                                 (28672, 1024)))
+def test_v2_plan_splits_k_over_a_cluster_without_empty_ctas(m, k, n):
+    """Whole superblocks a CTA, every K row covered once, no CTA of a
+    cluster without work, at most 8 CTAs a cluster (the portable limit),
+    one or two 8-row x tiles a CTA."""
+    mt, cs, per = quant4.v2_plan(m, n, k)
+    n_sb = k // quant4.SUPER
+    assert mt == (1 if m <= 8 else 2)
+    assert 1 <= cs <= quant4.V2_MAX_CLUSTER and per >= 1
+    assert (cs - 1) * per < n_sb <= cs * per
+    # split far enough to come within half of the CTA target, or as far as
+    # K and the cluster limit allow
+    tiles = -(-n // quant4.V2_COLS) * -(-m // (8 * mt))
+    assert 2 * tiles * cs >= min(quant4.TARGET_CTAS,
+                                 tiles * min(n_sb, quant4.V2_MAX_CLUSTER))
+
+
+def test_v2_plan_at_the_decode_shapes():
+    """M = 8: the narrow outputs split K over a cluster, the wide ones and
+    the vocab head do not; the unaligned kernel takes N % 4 != 0 only."""
+    plans = {(k, n): quant4.v2_plan(8, n, k) for k, n in DECODE_SHAPES}
+    assert plans == {(4096, 4096): (1, 4, 2), (4096, 1024): (1, 8, 1),
+                     (4096, 14336): (1, 1, 8), (14336, 4096): (1, 5, 6),
+                     (4096, 128256): (1, 1, 8)}
+    assert [quant4.v2_kernel_variant(n) for n in (4, 130, 1024, 1026)] == [
+        "int4_matmul", "int4_matmul_unaligned", "int4_matmul",
+        "int4_matmul_unaligned"]
+
+
+def test_v2_word_is_an_a_fragment_register():
+    """((w >> 4g) & 0x000F000F) | 0x43004300, read as two bf16 and minus
+    136, is group g's weights of K rows 2i (low half) and 2i + 1 (high
+    half) for word row i, exactly: the kernel's A operand needs no
+    shuffle."""
+    rng = np.random.default_rng(5)
+    q = rng.integers(-7, 8, size=(1024, 8)).astype(np.int8)
+    words = quant4.pack_int4_v2(_t(q)).numpy().view(np.uint32)   # (128, 8)
+    for g in range(4):
+        bits = ((words >> np.uint32(4 * g)) & np.uint32(0x000F000F)) \
+            | np.uint32(0x43004300)
+        pair = (bits.astype("<u4").view("<u2").reshape(128, 8, 2)
+                .astype(np.uint32) << 16).view(np.float32) - 136.0
+        i = np.arange(128)
+        rows = (i // 64) * 512 + 128 * g + 2 * (i % 64)
+        assert np.array_equal(pair[..., 0], q[rows].astype(np.float32))
+        assert np.array_equal(pair[..., 1], q[rows + 1].astype(np.float32))

@@ -94,7 +94,8 @@ def test_v1_plain_matches_pallas_interpret():
                                         jnp.asarray(s), impl="pallas"))
     quant4.reset_launches()
     got = quant4.int4_matmul(_t(x), _t(packed), _t(s)).numpy()
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 0,
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
+                               "int4_matmul_v1": 0,
                                "int4_matmul_v1_unaligned": 0}
     assert got.dtype == np.float32 and got.shape == (m, n)
     assert np.abs(got - ref).max() <= 2e-5 * np.abs(ref).max()
