@@ -35,8 +35,11 @@ and prints no result:
          4096->128256 (random weights quantized by quant4.quantize_grouped),
          with the kernel's earlier design (kept for N % 4 != 0) beside it;
        - decode_attention_int8 / _int4 at B=8, Hq=32, Hkv=8, D=128 over a
-         391-slot cache (the annotate decode capacity), and at B=32 over
-         2048 slots;
+         391-slot cache (the annotate decode capacity), at B=32 over 2048
+         slots (lengths uniform over cap/2..cap), and with the static
+         decode's mask at B=8 over 391 slots (left padding, then an
+         unwritten tail: the kernel skips the 16-slot slabs false
+         everywhere, and the bound counts the valid slots only);
        - flash_attention at the serving prefill (16 rows of bucket 320, the
          engine's admission mask), the static prefill (8 x 327 queries over
          a 391-slot left-padded cache, whose padding rows have no valid key:
@@ -178,14 +181,21 @@ phase 3 times a kernel) with the card's name and power limit:
     64} on 4096->14336, with the weights cold (the calls rotate over
     copies of the words and scales larger than the 50 MB L2 together, as
     a decode step streams 4 GB of them), each with its bound, then the
-    sum of one decode step's 225 launches at M=8.
+    sum of one decode step's 225 launches at M=8;
+  - decode_attention_int8 / _int4 at phase 3's three shapes with the cache
+    cold (rotated over copies past the L2), each with its bound, SDPA over
+    a bf16 cache dequantized beforehand (marked *: not the same function)
+    and, at B=8, one decode step's 32 launches; then the floor at one
+    (row, KV head) over one 64-slot tile.
 Naming the parent's checkout and this one in turns (parent, change,
 change, parent) compares two designs on one card. It checks nothing and
 prints no result line.
 
     python3 chip_smoke.py --flash-times [TREE ...]
+    python3 chip_smoke.py --decode-times [TREE ...]
 
-the same for the flash-attention kernels only.
+the same for the flash-attention kernels only, or the decode attentions
+only.
 """
 
 import json
@@ -443,30 +453,52 @@ def check_quant_kernels(card):
         del packed, s
         torch.cuda.empty_cache()
     hq, hkv, d = 32, 8, 128
-    for i, (b, cap) in enumerate(ATTN_SHAPES):
-        lengths = torch.randint(cap // 2, cap + 1, (b,), generator=g,
-                                device="cuda")
-        mask4 = (torch.arange(cap, device="cuda")[None] < lengths[:, None]
-                 )[:, None, None, :]
+    for i, (label, b, cap, mask4) in enumerate(attn_cases(g)):
         q = (torch.randn((b, 1, hq, d), generator=g, device="cuda")
              * 0.5).bfloat16()
-        valid = lengths.sum().item()
+        valid = mask4.sum().item()
         for kind, quant, fn in (
                 ("int8", decoder._quantize_kv, da.decode_attention_int8),
                 ("int4", decoder._quantize_kv4, da.decode_attention_int4)):
             kl, vl = ({key: t.contiguous() for key, t in quant(torch.randn(
                 (b, cap, hkv, d), generator=g, device="cuda")).items()}
                 for _ in range(2))
-            # only the valid slots of the cache need reading
-            cache_bytes = nbytes(*kl.values(), *vl.values()) * valid / (
-                b * cap)
             keep(rows, f"decode_attention_{kind}", compare(
-                f"decode_attention_{kind} B={b} cap={cap}",
+                f"decode_attention_{kind} {label}",
                 lambda q: fn(q, kl, vl, mask4),
                 lambda q: da.decode_attention_plain(q, kl, vl, mask4), (q,),
                 card, flops=4 * hq * d * valid,
-                more_bytes=nbytes(mask4) + cache_bytes), i == 0)
+                n_bytes=decode_bytes(q, kl, vl, mask4)), i == 0)
     return rows
+
+
+def attn_cases(g):
+    """The decode attention shapes, masks drawn from `g`: (label, B, cap,
+    mask4). ATTN_SHAPES with lengths uniform over cap/2..cap, then the
+    static decode's mask at B = 8 over 391 slots: prompts of 100-327 tokens
+    left-padded to 327, and 32 of the 64 decode slots written (the rest an
+    unwritten tail)."""
+    import torch
+    cases = []
+    for b, cap in ATTN_SHAPES:
+        lengths = torch.randint(cap // 2, cap + 1, (b,), generator=g,
+                                device="cuda")
+        mask = torch.arange(cap, device="cuda")[None] < lengths[:, None]
+        cases.append((f"B={b} cap={cap}", b, cap, mask[:, None, None, :]))
+    pad = 327 - torch.randint(100, 328, (8,), generator=g, device="cuda")
+    slots = torch.arange(391, device="cuda")[None]
+    mask = (slots >= pad[:, None]) & (slots < 327 + 32)
+    cases.append(("static B=8 cap=391", 8, 391, mask[:, None, None, :]))
+    return cases
+
+
+def decode_bytes(q, kl, vl, mask4):
+    """The bytes decode attention must move: q, out and the mask once, and
+    the K and V rows and scales of the valid slots only."""
+    b, cap = mask4.shape[0], mask4.shape[-1]
+    share = mask4.sum().item() / (b * cap)
+    return 2 * nbytes(q) + nbytes(mask4) + share * nbytes(*kl.values(),
+                                                         *vl.values())
 
 
 def flash_cases(g):
@@ -514,10 +546,14 @@ def kernel_times(flag, trees):
     from opus_pllm_tpu_torch.kernels import build
     card = card_line()
     build.build_all()
+    if flag == "--decode-times":
+        decode_attention_times(tree, card)
+        return
     flash_kernel_times(tree, card)
     if flag == "--kernel-times":
         encoder_attention_times(tree, card)
         int4_times(tree, card)
+        decode_attention_times(tree, card)
 
 
 def flash_kernel_times(tree, card):
@@ -618,6 +654,67 @@ def int4_times(tree, card):
     print(f"{tree}: int4_matmul one decode step at M=8 (225 launches): "
           f"{total:.4f} ms, bound {total_bound:.4f} ms "
           f"({100 * total_bound / total:.1f}% of it) [{card}]", flush=True)
+
+
+def decode_attention_times(tree, card):
+    """Both decode attentions at phase 3's shapes (attn_cases), the cache
+    cold: the calls rotate over copies of the cache that together exceed
+    the L2 (COLD_BYTES), as a decode step streams 32 layers' caches. Beside
+    each: the bound, SDPA over a bf16 cache dequantized beforehand (K/V
+    heads repeated; not the same function: the dequantize is not timed and
+    the cache read is bf16), and, at B = 8, one decode step's 32 launches.
+    Then the floor: one (row, KV head) over one 64-slot tile."""
+    import itertools
+    import torch
+    import torch.nn.functional as tnf
+    from opus_pllm_tpu_torch.kernels import decode_attention as da
+    from opus_pllm_tpu_torch.models import decoder
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    hq, hkv, d = 32, 8, 128
+    kinds = (("int8", decoder._quantize_kv, da.decode_attention_int8),
+             ("int4", decoder._quantize_kv4, da.decode_attention_int4))
+    for label, b, cap, mask4 in attn_cases(g):
+        q = (torch.randn((b, 1, hq, d), generator=g, device="cuda")
+             * 0.5).bfloat16()
+        for kind, quant, fn in kinds:
+            kl, vl = ({key: t.contiguous() for key, t in quant(torch.randn(
+                (b, cap, hkv, d), generator=g, device="cuda")).items()}
+                for _ in range(2))
+            copies = max(1, int(-(-COLD_BYTES // nbytes(*kl.values(),
+                                                       *vl.values()))))
+            caches = [(kl, vl)] + [
+                tuple({key: t.clone() for key, t in leaf.items()}
+                      for leaf in (kl, vl)) for _ in range(copies - 1)]
+            b_ms, b_by = bound_ms(4 * hq * d * mask4.sum().item(),
+                                  decode_bytes(q, kl, vl, mask4))
+            turn = itertools.cycle(caches)
+            ms = time_ms(lambda: fn(q, *next(turn), mask4))
+            hot = time_ms(lambda: fn(q, kl, vl, mask4))
+            kx, vx = (decoder._dequantize_kv(leaf, torch.bfloat16)
+                      .repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                      .contiguous() for leaf in (kl, vl))
+            qx = q.transpose(1, 2)
+            lib = time_ms(lambda: tnf.scaled_dot_product_attention(
+                qx, kx, vx, attn_mask=mask4))
+            step = (f", one decode step (32 launches) {32 * ms:.4f} ms"
+                    if b == 8 else "")
+            print(f"{tree}: decode_attention_{kind} {label}: {ms:.4f} ms "
+                  f"(cache cold, {copies} copies; hot {hot:.4f} ms), "
+                  f"bound {b_ms:.4f} ms "
+                  f"({b_by}; {100 * b_ms / ms:.1f}% of it), SDPA* on a bf16 "
+                  f"cache {lib:.4f} ms{step} [{card}]", flush=True)
+            del caches, turn, kx, vx
+            torch.cuda.empty_cache()
+    q = torch.randn((1, 1, 4, d), generator=g, device="cuda").bfloat16()
+    mask4 = torch.ones((1, 1, 1, 64), dtype=torch.bool, device="cuda")
+    for kind, quant, fn in kinds:
+        kl, vl = ({key: t.contiguous() for key, t in quant(torch.randn(
+            (1, 64, 1, d), generator=g, device="cuda")).items()}
+            for _ in range(2))
+        ms = time_ms(lambda: fn(q, kl, vl, mask4))
+        print(f"{tree}: decode_attention_{kind} floor (B=1, one KV head, "
+              f"one 64-slot tile): {ms:.4f} ms [{card}]", flush=True)
 
 
 def check_serve_kernels(card):
@@ -1567,7 +1664,7 @@ def main():
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
-    for flag in ("--kernel-times", "--flash-times"):
+    for flag in ("--kernel-times", "--flash-times", "--decode-times"):
         if flag in sys.argv[1:]:
             kernel_times(flag, sys.argv[sys.argv.index(flag) + 1:]
                          or [os.path.dirname(os.path.abspath(__file__))])

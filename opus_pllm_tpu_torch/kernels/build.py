@@ -47,8 +47,7 @@ SIGNATURES = {
                                        _I, _I, _P],
     },
     "decode_attention": {
-        "opus_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _P],
+        "opus_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     },
     "int8_matmul": {
         "opus_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -18,21 +18,30 @@ decode_attention_int8 / decode_attention_int4
   Replace: decode_attention.py `decode_attention_int8` / `_kernel`
   (pallas_call at :126) and `decode_attention_int4` / `_kernel4` (:234).
   Compute: q rounded to bf16; logits = (q . k_int) * k_scale / sqrt(D) in
-  fp32; masked slots -1e30; fp32 softmax; weights * v_scale, then . v_int,
-  divided by max(l, 1e-30). The TPU kernel rounds those weights to bf16
-  before its MXU product; here they stay fp32.
-  Bound: reading the cache. Per (row, KV head) the CTA reads S rows of D
-  (int8) or D/2 (int4) bytes for K and V once, plus 8 bytes of scales a
-  row, and does 4 * G * D FLOP per row: 2G FLOP per byte for int8 (8 at
-  G = 4), 4G for int4, below the H100's ~20 fp32 FLOP/byte, so HBM bounds
-  it. At the annotate shapes (B = 8, 391 slots, ~6 MB of int8 K/V per
-  layer) its 64 CTAs leave half the SMs idle and latency bounds it.
-  Design: one CTA per (KV head, row); an online softmax over 256-slot
-  chunks; each K row is read by one thread that forms the logits of all G
-  query heads, each V element by one thread that feeds all G accumulators,
-  so each K/V row is read once for the G heads. Any capacity: the TPU
-  kernel needs a multiple of 256 (a VMEM tiling rule, :65); here the ragged
-  last chunk just has fewer slots.
+  fp32; a masked slot gets the weight 0 exactly; fp32 softmax over the
+  valid slots; weights * v_scale, then . v_int, divided by max(l, 1e-30).
+  A row with no valid slot gets out 0 (the TPU kernel averages v over
+  every slot there); no path has such a row, and the plain version models
+  the rule. The TPU kernel rounds the weights to bf16 before its MXU
+  product; here they keep ~16 bits (a bf16 value plus the bf16 of its
+  remainder), so the product is fp32's up to ~2^-16.
+  Bound: reading the valid slots of the cache once: per (row, KV head)
+  D (int8) or D/2 (int4) bytes of K and of V and 8 bytes of scales a valid
+  slot, and 4 * G * D FLOP a slot: 2G FLOP per byte for int8 (8 at G = 4),
+  4G for int4, far below the tensor cores' ratio, so HBM bounds it. At
+  the annotate shapes (B = 8, 391 slots, a few MB of valid int8 K/V a layer)
+  the work is small, so filling the card and the loads in flight decide.
+  Design (csrc/decode_attention.cu): the 64-slot tiles of a (row, KV head)
+  are dealt in turn to a thread-block cluster of `decode_splits` CTAs (up
+  to 8, about 2 CTAs an SM in all), merged through distributed shared
+  memory in a fixed order (one launch, no workspace, the same bits every
+  call); warp w of a CTA takes 16-slot slab w of each of its tiles, skips
+  the slabs whose mask is false everywhere (a ballot over the mask bytes,
+  no load), streams the rest through a 3-stage cp.async ring and runs both
+  products on mma.sync with the cache widened exactly to bf16 in
+  registers. Any
+  capacity: the TPU kernel needs a multiple of 256 (a VMEM tiling rule,
+  :65); here the ragged last slab is masked.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. Nothing catches a failed build or launch.
@@ -48,6 +57,9 @@ from . import build
 
 HEAD_DIMS = (64, 128)    # the kernel's template instances
 MAX_GROUP = 8            # query heads per KV head
+TILE = 64                # slots per tile, the unit a split takes
+MAX_CLUSTER = 8          # CTAs a cluster (the portable limit)
+TARGET_CTAS = 264        # two CTAs for each of the H100's 132 SMs
 
 launches = {"decode_attention_int8": 0, "decode_attention_int4": 0}
 
@@ -71,14 +83,24 @@ def supports(q, k_leaf, mask4) -> bool:
             and mask4.shape[2] == 1)
 
 
+def decode_splits(b: int, hkv: int, cap: int) -> int:
+    """The kernel's CTAs a cluster: each (row, KV head)'s 64-slot tiles are
+    dealt in turn to up to 8 CTAs, none without a tile, until the grid has
+    about TARGET_CTAS CTAs."""
+    tiles = -(-cap // TILE)
+    return max(1, min(MAX_CLUSTER, tiles, -(-TARGET_CTAS // (b * hkv))))
+
+
 def decode_attention_plain(q, k_leaf, v_leaf, mask4):
     """Plain version of both kernels: dequantize the cache to q's dtype,
-    then grouped attention (`layers.attention_xla`)."""
+    then grouped attention (`layers.attention_xla`); a row with no valid
+    slot gets out 0, as the kernel gives it."""
     # imported here: models.decoder imports this module
     from ..models.decoder import _dequantize_kv
     from ..models.layers import attention_xla
-    return attention_xla(q, _dequantize_kv(k_leaf, q.dtype),
-                         _dequantize_kv(v_leaf, q.dtype), mask4)
+    out = attention_xla(q, _dequantize_kv(k_leaf, q.dtype),
+                        _dequantize_kv(v_leaf, q.dtype), mask4)
+    return out * mask4.any(-1, keepdim=True).to(out.dtype)
 
 
 def _kernel(name, q, k_leaf, v_leaf, mask4, int4):
@@ -98,6 +120,8 @@ def _kernel(name, q, k_leaf, v_leaf, mask4, int4):
     if mask is None or mask.dtype != torch.bool:
         raise ValueError(f"{name}: mask must be bool (B, 1, 1, {cap})")
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:                  # the kernel reads q 8 bytes at once
+        qb = qb.clone()
     planes = (("k", kq, torch.int8, (b, hkv, cap, row), 16),
               ("v", vq, torch.int8, (b, hkv, cap, row), 16),
               ("k scale", k_leaf["s"], torch.float32, (b, hkv, cap, 1), 4),
@@ -116,7 +140,8 @@ def _kernel(name, q, k_leaf, v_leaf, mask4, int4):
             qb.data_ptr(), kq.data_ptr(), k_leaf["s"].data_ptr(),
             vq.data_ptr(), v_leaf["s"].data_ptr(), mask.data_ptr(),
             out.data_ptr(), b, hkv, hq // hkv, cap, d, int(int4),
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
+            int(q.dtype == torch.bfloat16), decode_splits(b, hkv, cap),
+            1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     launches[name] += 1
     build.check(rc, name, lib)

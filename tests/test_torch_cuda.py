@@ -215,24 +215,44 @@ def test_int4_matmul_cluster_plans_are_deterministic():
     assert seen == {1, 4, 5, 8}
 
 
-def _cache(g, b, hkv, cap, d, kind):
+def _decode_mask(g, b, cap, mask):
+    """(B, cap) slot masks: "ragged" right-ragged lengths; "left" the
+    static decode's (left padding, a prompt, then an unwritten tail);
+    "holes" ragged lengths with every third 16-slot slab and every fifth
+    slot cleared, slot 0 kept in every row."""
+    lengths = torch.randint(1, cap + 1, (b,), generator=g, device="cuda")
+    slots = torch.arange(cap, device="cuda")[None]
+    if mask == "left":
+        pad = torch.randint(0, cap, (b,), generator=g, device="cuda")
+        return (slots >= pad[:, None]) & (slots < pad[:, None]
+                                          + lengths[:, None])
+    m = slots < lengths[:, None]
+    if mask == "holes":
+        m &= ((slots // 16) % 3 != 1) & (slots % 5 != 4)
+        m[:, 0] = True
+    return m
+
+
+def _cache(g, b, hkv, cap, d, kind, mask="ragged"):
     quant = decoder._quantize_kv4 if kind == "int4" else decoder._quantize_kv
     kv = [quant(torch.randn((b, cap, hkv, d), generator=g, device="cuda"))
           for _ in range(2)]
-    lengths = torch.randint(1, cap + 1, (b,), generator=g, device="cuda")
-    mask = torch.arange(cap, device="cuda")[None] < lengths[:, None]
+    m = _decode_mask(g, b, cap, mask)
     contig = lambda leaf: {k: v.contiguous() for k, v in leaf.items()}
-    return contig(kv[0]), contig(kv[1]), mask[:, None, None, :]
+    return contig(kv[0]), contig(kv[1]), m[:, None, None, :]
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("group", [1, 4, 8])
-@pytest.mark.parametrize("cap", [1, 255, 391, 2048])
-def test_decode_attention(kind, d, group, cap):
+@pytest.mark.parametrize("cap", [1, 63, 64, 65, 255, 391, 2048, 4097])
+@pytest.mark.parametrize("mask", ["ragged", "left", "holes"])
+def test_decode_attention(kind, d, group, cap, mask):
+    """Every row has a valid slot; slabs false everywhere are skipped,
+    ragged edges masked, the splits merged; one launch a call."""
     g = _gen()
     b, hkv = 3, 2
-    kl, vl, mask4 = _cache(g, b, hkv, cap, d, kind)
+    kl, vl, mask4 = _cache(g, b, hkv, cap, d, kind, mask)
     q = _rnd(g, b, 1, hkv * group, d, scale=0.5)
     fn = da.decode_attention_int4 if kind == "int4" else \
         da.decode_attention_int8
@@ -240,6 +260,41 @@ def test_decode_attention(kind, d, group, cap):
     _check(lambda q: fn(q, kl, vl, mask4),
            lambda q: da.decode_attention_plain(q, kl, vl, mask4), (q,))
     assert da.launches[f"decode_attention_{kind}"] == 1
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_decode_attention_rows_without_a_slot_and_in_one_tile(kind):
+    """A row with no valid slot gets out exactly 0 (as the plain version
+    gives it); a row valid only inside one 64-slot tile of a split range,
+    and the other rows, match the plain version."""
+    g = _gen()
+    b, hkv, cap = 4, 8, 391
+    kl, vl, mask4 = _cache(g, b, hkv, cap, 128, kind)
+    mask4 = mask4.clone()
+    mask4[1] = False
+    mask4[2] = False
+    mask4[2, ..., 130:141] = True
+    q = _rnd(g, b, 1, 4 * hkv, 128, scale=0.5)
+    fn = da.decode_attention_int4 if kind == "int4" else \
+        da.decode_attention_int8
+    out = fn(q, kl, vl, mask4)
+    torch.cuda.synchronize()
+    assert bool((out[1] == 0).all())
+    assert da.decode_splits(b, hkv, cap) > 1
+    _check(lambda q: fn(q, kl, vl, mask4),
+           lambda q: da.decode_attention_plain(q, kl, vl, mask4), (q,))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("b,cap", [(3, 2048), (8, 391), (32, 2048)])
+def test_decode_attention_is_deterministic(kind, b, cap):
+    """The cluster merge runs in a fixed order: two calls, the same bits."""
+    g = _gen()
+    kl, vl, mask4 = _cache(g, b, 8, cap, 128, kind, "left")
+    q = _rnd(g, b, 1, 32, 128, scale=0.5)
+    fn = da.decode_attention_int4 if kind == "int4" else \
+        da.decode_attention_int8
+    assert torch.equal(fn(q, kl, vl, mask4), fn(q, kl, vl, mask4))
 
 
 def test_quantized_wrappers_raise_instead_of_falling_back():
