@@ -29,7 +29,9 @@ and prints no result:
          S in {128, 512}, E=1280, H=20, F=5120, bf16, padded key rows; the
          bound of encoder_attention counts the valid keys only, whose
          64-key tiles the kernel loads). Library for encoder_attention:
-         scaled_dot_product_attention with the same key mask;
+         scaled_dot_product_attention with the same key mask; printed
+         beside ln_qkv_rope and ffn (not in the JSON line): the bf16
+         cuBLAS products they contain at the same (M, K, N), marked *;
        - int4_matmul at M = 8 for each distinct (K, N) of a Llama-3-8B
          decode step: 4096->4096, 4096->1024, 4096->14336, 14336->4096,
          4096->128256 (random weights quantized by quant4.quantize_grouped),
@@ -175,8 +177,11 @@ build/), inputs drawn from the same seed, one device time per line (as
 phase 3 times a kernel) with the card's name and power limit:
   - the flash-attention kernels at phase 3's flash shapes: the forward at
     all four, dq and dk/dv at the training shape and causal 2048;
-  - encoder_attention at B=8, S in {128, 512}, with SDPA on the same
-    inputs and key mask, and the bound;
+  - the four encoder kernels at B=8, S in {128, 512} on phase 3's inputs,
+    each with its bound and share: encoder_attention beside SDPA on the
+    same inputs and key mask, ln_qkv_rope and ffn beside the bf16 cuBLAS
+    products they contain at the same (M, K, N) (marked *: not the same
+    function);
   - int4_matmul (v2) at M=8 on the five decode shapes and at M in {1, 16,
     64} on 4096->14336, with the weights cold (the calls rotate over
     copies of the words and scales larger than the 50 MB L2 together, as
@@ -193,9 +198,10 @@ prints no result line.
 
     python3 chip_smoke.py --flash-times [TREE ...]
     python3 chip_smoke.py --decode-times [TREE ...]
+    python3 chip_smoke.py --encoder-times [TREE ...]
 
-the same for the flash-attention kernels only, or the decode attentions
-only.
+the same for the flash-attention kernels only, the decode attentions
+only, or the four encoder kernels only.
 """
 
 import json
@@ -342,14 +348,16 @@ def bound_ms(flops, n_bytes):
 
 def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
             more_bytes=0, n_bytes=None, library=None, route=None,
-            earlier=None, scaled_atol=False):
+            earlier=None, cublas=None, scaled_atol=False):
     """The kernel vs its plain version on the same inputs (module
     docstring, phase 3); `extra` arguments are passed as they are.
     `flops` and the bytes of the inputs, the output and `more_bytes`
     (operands the calls capture), or `n_bytes` where the data needs fewer
     (keys of padding that are never read), give the bound; `library` is the PyTorch
     yardstick, `route` another path of the port (its time is kept as
-    route_ms), `earlier` the kernel's earlier design, all only timed.
+    route_ms), `earlier` the kernel's earlier design, `cublas` the bare
+    cuBLAS products of a fused kernel (printed, marked *: not the same
+    function), all only timed.
     scaled_atol: ATOL times max(1, max|plain_fp32|) (gradients). Returns
     the kernel's row of the JSON line, device times."""
     import torch
@@ -372,6 +380,7 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
     lib_ms = time_ms(library) if library is not None else None
     route_ms = time_ms(route) if route is not None else None
     earlier_ms = time_ms(earlier) if earlier is not None else None
+    cublas_ms = time_ms(cublas) if cublas is not None else None
     print(f"{name:38s} max_abs_err={err:.3e} (tol {tol:.3e}, plain bf16 "
           f"err {err_plain:.3e}) kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.4f} ms"
@@ -380,6 +389,8 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
              if route_ms is not None else "")
           + (f"  earlier kernel {earlier_ms:.4f} ms"
              if earlier_ms is not None else "")
+          + (f"  cuBLAS* {cublas_ms:.4f} ms" if cublas_ms is not None
+             else "")
           + f"  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
           f"{100 * b_ms / ms:.1f}% of it)  (kernel per call as issued "
           f"{call_ms:.4f} ms)  [{card}]", flush=True)
@@ -528,8 +539,9 @@ def flash_cases(g):
 
 
 def kernel_times(flag, trees):
-    """--kernel-times / --flash-times (module docstring): each tree in a
-    process of its own, or, for one tree, its kernels' device times."""
+    """--kernel-times / --flash-times / --decode-times / --encoder-times
+    (module docstring): each tree in a process of its own, or, for one
+    tree, its kernels' device times."""
     if len(trees) != 1:
         for tree in trees:
             subprocess.run([sys.executable, os.path.abspath(__file__), flag,
@@ -549,9 +561,12 @@ def kernel_times(flag, trees):
     if flag == "--decode-times":
         decode_attention_times(tree, card)
         return
+    if flag == "--encoder-times":
+        encoder_times(tree, card)
+        return
     flash_kernel_times(tree, card)
     if flag == "--kernel-times":
-        encoder_attention_times(tree, card)
+        encoder_times(tree, card)
         int4_times(tree, card)
         decode_attention_times(tree, card)
 
@@ -585,30 +600,30 @@ def flash_kernel_times(tree, card):
                       flush=True)
 
 
-def encoder_attention_times(tree, card):
-    """encoder_attention at B = 8, S in {128, 512} (ragged key rows, one
-    unpadded), with SDPA on the same inputs and mask beside it, and the
-    bound (mask-true pairs, each byte once)."""
+def encoder_times(tree, card):
+    """The four encoder kernels at B = 8, S in {128, 512} on phase 3's
+    inputs (ragged key rows, one unpadded), each with its bound and share,
+    SDPA beside the attention and the bare cuBLAS products beside
+    ln_qkv_rope and ffn (marked *: not the same function)."""
     import torch
-    import torch.nn.functional as tnf
-    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     for s in (128, 512):
-        lengths = torch.randint(s // 4, s + 1, (B,), generator=g,
-                                device="cuda")
-        lengths[0] = s
-        mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
-        qkv = torch.randn((3, B, H, s, 64), generator=g,
-                          device="cuda").bfloat16()
-        b_ms, b_by = bound_ms(4 * H * 64 * s * mask.sum().item(),
-                              attention_bytes(qkv, mask))
-        ms = time_ms(lambda: fe.encoder_attention(qkv, mask))
-        lib = time_ms(lambda: tnf.scaled_dot_product_attention(
-            qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :]))
-        print(f"{tree}: encoder_attention B={B} S={s}: {ms:.4f} ms, SDPA "
-              f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{100 * b_ms / ms:.1f}% of it) [{card}]", flush=True)
+        for (name, kern, _, bf_in, extra, flops, lib, n_bytes,
+             cublas) in kernel_cases(s, g):
+            out = kern(*bf_in, *extra)
+            b_ms, b_by = bound_ms(flops, n_bytes if n_bytes is not None
+                                  else nbytes(*bf_in, *extra, out))
+            del out
+            ms = time_ms(lambda: kern(*bf_in, *extra))
+            yard = ""
+            if lib is not None:
+                yard = f", SDPA {time_ms(lib):.4f} ms"
+            if cublas is not None:
+                yard = f", cuBLAS* {time_ms(cublas):.4f} ms"
+            print(f"{tree}: {name} B={B} S={s}: {ms:.4f} ms{yard}, bound "
+                  f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / ms:.1f}% of it) "
+                  f"[{card}]", flush=True)
 
 
 INT4_TIMES = tuple((8, k, n) for k, n in INT4_SHAPES) + tuple(
@@ -865,7 +880,8 @@ def attention_bytes(qkv, mask):
 
 def kernel_cases(s, g):
     """(name, kernel, plain, bf16 inputs, extra arguments, FLOP, library
-    call or None, bytes or None) at B=8, sequence length s."""
+    call or None, bytes or None, bare cuBLAS products or None) at B=8,
+    sequence length s."""
     import torch
     import torch.nn.functional as tnf
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
@@ -887,22 +903,30 @@ def kernel_cases(s, g):
     qkv = rnd(3, B, H, s, 64)
     # every query against the valid keys of its row
     pairs = s * mask.sum().item()
+    qkv_in = (x, rnd(3, E, E, scale=E ** -0.5), rnd(3, E, scale=0.1), ln)
+    out_in = (rnd(B, s, E, scale=0.5), rnd(E, E, scale=E ** -0.5),
+              rnd(E, scale=0.1), x)
+    ffn_in = (x, rnd(E, F, scale=E ** -0.5), rnd(F, scale=0.1),
+              rnd(F, E, scale=F ** -0.5), rnd(E, scale=0.1), ln)
+    # the bare products at the kernels' (M, K, N): x . W_qkv as one (E, 3E)
+    # matrix; x . W1, then a bf16 (M, F) hidden . W2 (its own generator:
+    # the draws above stay those of the kernels' inputs)
+    x2 = x.reshape(B * s, E)
+    w_cat = qkv_in[1].permute(1, 0, 2).reshape(E, 3 * E)
+    hidden = torch.randn((B * s, F), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED)).to(torch.bfloat16)
     return [
-        ("ln_qkv_rope", fe.ln_qkv_rope, fe.ln_qkv_rope_plain,
-         (x, rnd(3, E, E, scale=E ** -0.5), rnd(3, E, scale=0.1), ln),
-         (cos, sin), 2 * B * s * E * 3 * E, None, None),
+        ("ln_qkv_rope", fe.ln_qkv_rope, fe.ln_qkv_rope_plain, qkv_in,
+         (cos, sin), 2 * B * s * E * 3 * E, None, None, lambda: x2 @ w_cat),
         ("encoder_attention", fe.encoder_attention,
          fe.encoder_attention_plain, (qkv,), (mask,), 4 * H * 64 * pairs,
          lambda: tnf.scaled_dot_product_attention(
              qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :]),
-         attention_bytes(qkv, mask)),
-        ("out_proj", fe.out_proj, fe.out_proj_plain,
-         (rnd(B, s, E, scale=0.5), rnd(E, E, scale=E ** -0.5),
-          rnd(E, scale=0.1), x), (), 2 * B * s * E * E, None, None),
-        ("ffn", fe.ffn, fe.ffn_plain,
-         (x, rnd(E, F, scale=E ** -0.5), rnd(F, scale=0.1),
-          rnd(F, E, scale=F ** -0.5), rnd(E, scale=0.1), ln), (),
-         4 * B * s * E * F, None, None),
+         attention_bytes(qkv, mask), None),
+        ("out_proj", fe.out_proj, fe.out_proj_plain, out_in, (),
+         2 * B * s * E * E, None, None, None),
+        ("ffn", fe.ffn, fe.ffn_plain, ffn_in, (), 4 * B * s * E * F, None,
+         None, lambda: (x2 @ ffn_in[1], hidden @ ffn_in[3])),
     ]
 
 
@@ -913,10 +937,11 @@ def check_kernels(card):
     rows = {}
     for s in (128, 512):
         for (name, kern, plain, bf_in, extra, flops, lib,
-             n_bytes) in kernel_cases(s, g):
+             n_bytes, cublas) in kernel_cases(s, g):
             keep(rows, name, compare(f"{name} S={s}", kern, plain, bf_in,
                                      card, extra, flops=flops,
-                                     n_bytes=n_bytes, library=lib), s == 512)
+                                     n_bytes=n_bytes, library=lib,
+                                     cublas=cublas), s == 512)
     return rows
 
 
@@ -1622,7 +1647,8 @@ def profile_training(card):
                                                       "pack_col_words"),
         "int4_v1_wgmma_kernel": "int4_v1_wgmma_kernel",
         "encoder kernels (fused_encoder.cu)": (
-            "gemm_kernel<", "encoder_attention_kernel", "ln_stats_kernel"),
+            "bf16_gemm_kernel", "gemm_kernel(", "ln_rows_kernel",
+            "encoder_attn_wgmma_kernel", "pack_key_words"),
         "cuBLAS bf16 (nvjet)": "nvjet",
         "cuBLAS fp32 (xmma_gemm_f32: LoRA, fp32 head)": "gemm_f32",
         "casts (direct_copy / bfloat16_copy)": ("direct_copy_kernel",
@@ -1664,7 +1690,8 @@ def main():
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
-    for flag in ("--kernel-times", "--flash-times", "--decode-times"):
+    for flag in ("--kernel-times", "--flash-times", "--decode-times",
+                 "--encoder-times"):
         if flag in sys.argv[1:]:
             kernel_times(flag, sys.argv[sys.argv.index(flag) + 1:]
                          or [os.path.dirname(os.path.abspath(__file__))])

@@ -7,17 +7,37 @@
 //   qkv  : (3, B, H, S, 64) head-major, rope applied to q and k
 //   attn : (B, S, H*64) token-major, read directly by the out projection
 //
-// One tiled bf16 GEMM core (WMMA 16x16x16 on the tensor cores, fp32
-// accumulation, register-staged double buffering) carries three of the
-// kernels through a prologue/epilogue choice:
-//   ln_qkv_rope : LayerNorm applied to A's rows while staging them to shared
-//                 memory (rounded to bf16, as the TPU kernel rounds its LN
-//                 output), bias + half-split rope epilogue
-//   ffn (1/2)   : the same LN prologue, bias + exact-erf gelu epilogue,
-//                 writing a bf16 (M, F) scratch
-//   ffn (2/2), out_proj : bias + residual epilogue, one rounding at the end
-// LayerNorm statistics come from a small row-stats pass (one warp per row,
-// one-pass E[x^2] - mu^2 in fp32) so each GEMM tile does not recompute them.
+// LN + QKV + rope (`fused_ln_qkv_rope`) and the FFN (`fused_ffn`): a
+// LayerNorm pass (one warp per row, the one-pass E[x^2] - mu^2 in fp32)
+// writes r = LN(x) rounded to bf16, as the TPU kernel rounds it, into a
+// (M, E) scratch; then the TMA + wgmma core of hopper_gemm_bf16.cuh reads r
+// as its A operand:
+//   ln_qkv_rope : r . W (W (3, E, E) as a (3 E, E) view: a column tile lies
+//                 inside one of q, k, v), bias + rotate_half rope from the
+//                 registers, stored head-major;
+//   ffn (1/2)   : r . W1, bias + exact-erf gelu, rounded to bf16 into a
+//                 (M, F) scratch (the TPU kernel's rounding before FC2);
+//   ffn (2/2)   : hidden . W2, bias + the residual x, one rounding.
+// Bound at B = 8, S = 512 (M = 4096, E = 1280, F = 5120): 40 GFLOP (QKV)
+// and 107 GFLOP (FFN) against ~52 MB and ~47 MB of inputs and outputs:
+// tensor-core bound (0.041 and 0.109 ms at 989 TFLOP/s). The LN pass moves
+// ~21 MB (~6 us at 3.35 TB/s), the gelu scratch 42 MB each way.
+// Tile plan (`fused_encoder.tile_width` chooses the width and passes it):
+// 128 rows x 256, 160 (FFN only: not whole heads) or 128 columns, whichever
+// needs the fewest rounds of 132 persistent CTAs times the tile's width
+// (ties: the wider, whose weight panels serve more rows). At M = 4096: QKV
+// 480 tiles of 256 (3.6 rounds), FC1 640 of 256 (4.8), FC2 (N = 1280, K =
+// 5120) 256 of 160 (1.9 rounds; 320 of 128 take 2.4, 160 of 256 leave the
+// card half idle in their second round). At M = 1024 (S = 128): QKV 120 of
+// 256, FC1 256 of 160, FC2 80 of 128. A 128 x 256 tile holds 128 fp32
+// accumulators a consumer thread, inside the 168 registers a 384-thread
+// block gives (ptxas: 168 used, no spill). The epilogue is not overlapped
+// with the products (both warpgroups finish a tile together): on an H100
+// it takes about a quarter of ln_qkv_rope's time and a fifth of ffn's
+// (the rope, the exact-erf gelu of 21 M values, the stores).
+// out_proj (`fused_out_proj`) still runs on the first core: tiled WMMA
+// 16x16x16 with fp32 accumulation and register-staged double buffering,
+// 128 x 128 x 32 tiles, bias + residual epilogue with one rounding.
 //
 // The encoder attention (`flash_attention_pairs` / `_flash_pairs_kernel`):
 // non-causal, D = 64, scale 1/8, a (B, S) key-row mask. Per query row over
@@ -65,7 +85,7 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include "hopper_attention.cuh"
+#include "hopper_gemm_bf16.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -73,25 +93,28 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 // ---------------------------------------------------------------------------
-// LayerNorm row statistics: mu and 1/sqrt(max(E[x^2] - mu^2, 0) + eps)
+// LayerNorm rows: r = LN(x) rounded to bf16 (the TPU kernel's rounding
+// point), the A operand of the QKV and FC1 products
 // ---------------------------------------------------------------------------
 
-__global__ void ln_stats_kernel(const bf16* __restrict__ x,
-                                float* __restrict__ mu,
-                                float* __restrict__ rstd, int M, int K,
-                                float eps) {
-  const int warps = blockDim.x / 32;
-  const int row = blockIdx.x * warps + threadIdx.x / 32;
+// One warp per row: mu and 1 / sqrt(max(E[x^2] - mu^2, 0) + eps) in fp32
+// (the one-pass variance both packages keep), then the row again (from L1)
+// normalised, times gamma, plus beta, 16 bytes a lane.
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+               const bf16* __restrict__ beta, bf16* __restrict__ r, int M,
+               int K, float eps) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const bf16* xr = x + (size_t)row * K;
   float s = 0.f, ss = 0.f;
   for (int k = lane * 8; k < K; k += 32 * 8) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
     const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float f = __bfloat162float(e[i]);
+      const float f = __bfloat162float(e[i]);
       s += f;
       ss += f * f;
     }
@@ -101,16 +124,281 @@ __global__ void ln_stats_kernel(const bf16* __restrict__ x,
     s += __shfl_xor_sync(0xffffffffu, s, o);
     ss += __shfl_xor_sync(0xffffffffu, ss, o);
   }
-  if (lane == 0) {
-    float m = s / K;
-    float var = fmaxf(ss / K - m * m, 0.f);
-    mu[row] = m;
-    rstd[row] = 1.f / sqrtf(var + eps);
+  const float mu = s / K;
+  const float rstd = 1.f / sqrtf(fmaxf(ss / K - mu * mu, 0.f) + eps);
+  bf16* rr = r + (size_t)row * K;
+  for (int k = lane * 8; k < K; k += 32 * 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const uint4 g4 = *reinterpret_cast<const uint4*>(gamma + k);
+    const uint4 b4 = *reinterpret_cast<const uint4*>(beta + k);
+    const bf16* xe = reinterpret_cast<const bf16*>(&v);
+    const bf16* ge = reinterpret_cast<const bf16*>(&g4);
+    const bf16* be = reinterpret_cast<const bf16*>(&b4);
+    uint4 o4;
+    bf16* oe = reinterpret_cast<bf16*>(&o4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      oe[i] = __float2bfloat16((__bfloat162float(xe[i]) - mu) * rstd *
+                                   __bfloat162float(ge[i]) +
+                               __bfloat162float(be[i]));
+    *reinterpret_cast<uint4*>(rr + k) = o4;
   }
 }
 
+cudaError_t launch_ln_rows(const bf16* x, const bf16* ln, bf16* r, int M,
+                           int K, float eps, cudaStream_t st) {
+  ln_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, ln, ln + K, r, M, K, eps);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
 // ---------------------------------------------------------------------------
-// GEMM core: out = epilogue(prologue(A) @ W + bias)
+// Epilogues of the TMA + wgmma core (hopper_gemm_bf16.cuh)
+// ---------------------------------------------------------------------------
+
+// Staging rows: 64 bf16 (128 B) or 64 fp32 (256 B), padded by 16 / 32 B so
+// that the fragment writes of a warp (rows g, columns 2 (lane % 4)) fall in
+// 32 different banks.
+constexpr int STG_BF16 = 128 + 16;
+constexpr int STG_F32 = 256 + 32;
+
+// The bias of a chunk of NC columns (n + 8 j + 2 (lane % 4), + 1) added to
+// both rows.
+template <int NC>
+__device__ __forceinline__ void add_bias(float* v, const bf16* bias, int n,
+                                         int t) {
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(bias + n + 8 * j + 2 * t));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      v[4 * j + 2 * r] += b.x;
+      v[4 * j + 2 * r + 1] += b.y;
+    }
+  }
+}
+
+// A chunk's values, rounded to bf16, into the staging rows.
+template <int NC>
+__device__ __forceinline__ void stage_bf16(const float* v, uint8_t* stg,
+                                           int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(
+          stg + (16 * warp + g + 8 * r) * STG_BF16 + (8 * j + 2 * t) * 2) =
+          __floats2bfloat162_rn(v[4 * j + 2 * r], v[4 * j + 2 * r + 1]);
+}
+
+// A staged bf16 chunk to row-major (M, N) rows, 16 bytes a store.
+template <int NC>
+__device__ __forceinline__ void store_rows(const uint8_t* stg, bf16* out,
+                                           int M, int N, int row0, int n,
+                                           int tid) {
+#pragma unroll
+  for (int i = 0; i < NC / 16; ++i) {
+    const int u = tid + 128 * i, row = u / (NC / 8), ch = u % (NC / 8);
+    const int m = row0 + row;
+    if (m >= M) continue;
+    *reinterpret_cast<uint4*>(out + (size_t)m * N + n + 8 * ch) =
+        *reinterpret_cast<const uint4*>(stg + row * STG_BF16 + 16 * ch);
+  }
+}
+
+// LN + QKV: bias, then rotate_half rope on q and k (d < 32 takes -t[d+32],
+// d >= 32 takes t[d-32]); a 64-column chunk is one head, so the partner of
+// fragment j < 4 is fragment j + 4 of the same thread, and a thread's cos
+// and sin values (its rows, its columns d) are the same for every head of
+// the tile: loaded once a tile, 16 at a time. Stored head-major: one
+// 128-byte row piece per (token, head) of the (3, B, H, S, 64) output.
+// Tile widths 128 and 256 only (whole heads).
+struct QkvRopeEpi {
+  static constexpr int STG_ROW = STG_BF16;
+  static constexpr bool WHOLE_HEADS = true;
+  struct Args {
+    const bf16* bias;            // (3 E,)
+    const float* cos;            // (S, 64)
+    const float* sin;
+    bf16* out;
+    int M, S, E, H;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void tile(const Args& a, float* acc,
+                                              int row0, int n0, int warp,
+                                              int lane) {
+    static_assert(BN % 64 == 0, "a QKV tile holds whole heads");
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c)
+      add_bias<64>(acc + 32 * c, a.bias, n0 + 64 * c, t);
+    if (n0 / a.E >= 2) return;               // v: no rope
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = row0 + 16 * warp + g + 8 * r;
+      const int s = (m < a.M ? m : 0) % a.S;
+      const float* cs = a.cos + (size_t)s * 64;
+      const float* sn = a.sin + (size_t)s * 64;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {          // fragments 2h, 2h + 1
+        float2 c0[2], s0[2], c1[2], s1[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int d = 8 * (2 * h + q) + 2 * t;
+          c0[q] = *reinterpret_cast<const float2*>(cs + d);
+          s0[q] = *reinterpret_cast<const float2*>(sn + d);
+          c1[q] = *reinterpret_cast<const float2*>(cs + d + 32);
+          s1[q] = *reinterpret_cast<const float2*>(sn + d + 32);
+        }
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float* lo = acc + 32 * c + 4 * (2 * h + q) + 2 * r;
+            float* hi = lo + 16;             // fragment j + 4
+            const float l0 = lo[0], l1 = lo[1], h0 = hi[0], h1 = hi[1];
+            lo[0] = l0 * c0[q].x - h0 * s0[q].x;
+            lo[1] = l1 * c0[q].y - h1 * s0[q].y;
+            hi[0] = h0 * c1[q].x + l0 * s1[q].x;
+            hi[1] = h1 * c1[q].y + l1 * s1[q].y;
+          }
+      }
+    }
+  }
+  template <int NC>
+  static __device__ __forceinline__ void stage(const Args&, float* v,
+                                               uint8_t* stg, int, int,
+                                               int warp, int lane) {
+    stage_bf16<NC>(v, stg, warp, lane);
+  }
+  template <int NC>
+  static __device__ __forceinline__ void store(const Args& a,
+                                               const uint8_t* stg, int row0,
+                                               int n, int tid) {
+    static_assert(NC == 64, "one head a chunk");
+    const int j = n / a.E, h = (n - j * a.E) / 64, bsz = a.M / a.S;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = tid + 128 * i, row = u >> 3, ch = u & 7;
+      const int m = row0 + row;
+      if (m >= a.M) continue;
+      const int b = m / a.S, s = m - b * a.S;
+      bf16* dst = a.out + ((((size_t)j * bsz + b) * a.H + h) * a.S + s) * 64 +
+                  8 * ch;
+      *reinterpret_cast<uint4*>(dst) =
+          *reinterpret_cast<const uint4*>(stg + row * STG_BF16 + 16 * ch);
+    }
+  }
+};
+
+// FC1: bias, exact-erf gelu, rounded to bf16 into the (M, F) hidden
+// scratch (the TPU kernel's rounding before FC2).
+struct GeluEpi {
+  static constexpr int STG_ROW = STG_BF16;
+  static constexpr bool WHOLE_HEADS = false;
+  struct Args {
+    const bf16* bias;            // (F,)
+    bf16* out;                   // (M, F)
+    int M, N;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void tile(const Args&, float*, int, int,
+                                              int, int) {}
+  template <int NC>
+  static __device__ __forceinline__ void stage(const Args& a, float* v,
+                                               uint8_t* stg, int, int n,
+                                               int warp, int lane) {
+    add_bias<NC>(v, a.bias, n, lane & 3);
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) v[i] = gelu_erf(v[i]);
+    stage_bf16<NC>(v, stg, warp, lane);
+  }
+  template <int NC>
+  static __device__ __forceinline__ void store(const Args& a,
+                                               const uint8_t* stg, int row0,
+                                               int n, int tid) {
+    store_rows<NC>(stg, a.out, a.M, a.N, row0, n, tid);
+  }
+};
+
+// FC2: bias in the registers, staged in fp32; then the residual x (16-byte
+// loads) added and the sum rounded once.
+struct ResidualEpi {
+  static constexpr int STG_ROW = STG_F32;
+  static constexpr bool WHOLE_HEADS = false;
+  struct Args {
+    const bf16* bias;            // (N,)
+    const bf16* res;             // (M, N)
+    bf16* out;                   // (M, N)
+    int M, N;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void tile(const Args&, float*, int, int,
+                                              int, int) {}
+  template <int NC>
+  static __device__ __forceinline__ void stage(const Args& a, float* v,
+                                               uint8_t* stg, int, int n,
+                                               int warp, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    add_bias<NC>(v, a.bias, n, t);
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(
+            stg + (16 * warp + g + 8 * r) * STG_F32 + (8 * j + 2 * t) * 4) =
+            make_float2(v[4 * j + 2 * r], v[4 * j + 2 * r + 1]);
+  }
+  template <int NC>
+  static __device__ __forceinline__ void store(const Args& a,
+                                               const uint8_t* stg, int row0,
+                                               int n, int tid) {
+#pragma unroll
+    for (int i = 0; i < NC / 16; ++i) {
+      const int u = tid + 128 * i, row = u / (NC / 8), ch = u % (NC / 8);
+      const int m = row0 + row;
+      if (m >= a.M) continue;
+      const size_t at = (size_t)m * a.N + n + 8 * ch;
+      const float4 lo =
+          *reinterpret_cast<const float4*>(stg + row * STG_F32 + 32 * ch);
+      const float4 hi = *reinterpret_cast<const float4*>(
+          stg + row * STG_F32 + 32 * ch + 16);
+      const uint4 x4 = *reinterpret_cast<const uint4*>(a.res + at);
+      const bf16* xe = reinterpret_cast<const bf16*>(&x4);
+      const float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      uint4 o4;
+      bf16* oe = reinterpret_cast<bf16*>(&o4);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        oe[e] = __float2bfloat16(f[e] + __bfloat162float(xe[e]));
+      *reinterpret_cast<uint4*>(a.out + at) = o4;
+    }
+  }
+};
+
+// A product of the core at tile width bn: 128 or 256, or 160 where the
+// epilogue is not per head.
+template <class Epi>
+int launch_product(int bn, const void* a, const void* w,
+                   const opus_bf16::GemmShape& g,
+                   const typename Epi::Args& ea, cudaStream_t st) {
+  if (bn == 256)
+    return opus_bf16::launch_bf16_gemm<256, Epi>(a, w, g, ea, st);
+  if (bn == 128)
+    return opus_bf16::launch_bf16_gemm<128, Epi>(a, w, g, ea, st);
+  if constexpr (!Epi::WHOLE_HEADS)
+    if (bn == 160)
+      return opus_bf16::launch_bf16_gemm<160, Epi>(a, w, g, ea, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// out_proj: the WMMA GEMM core (out = x + a @ w + b)
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 128, BN = 128, BK = 32;
@@ -124,59 +412,32 @@ constexpr size_t PIPE_BYTES = 2 * (A_TILE + B_TILE) * sizeof(bf16);
 constexpr size_t EPI_BYTES = (size_t)BM * C_LD * sizeof(float);
 constexpr size_t GEMM_SMEM = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
 
-enum Epi { EPI_QKV_ROPE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
-
 struct GemmArgs {
   const bf16* A;         // (M, K) row-major
-  const bf16* W;         // column groups of (K, w_group_cols), row stride ldw
+  const bf16* W;         // (K, N) row-major
   const bf16* bias;      // (N,)
   int M, N, K;
-  int ldw;               // row stride of W inside one column group
-  int w_group_cols;      // columns per group (N for a plain (K, N) weight)
-  long long w_group_stride;  // elements between groups (0 for plain)
-  // LayerNorm prologue
-  const float* mu;       // (M,)
-  const float* rstd;     // (M,)
-  const bf16* gamma;     // (K,)
-  const bf16* beta;      // (K,)
-  // epilogues
   const bf16* res;       // (M, N) residual
-  const float* cos;      // (S, 64) rope tables
-  const float* sin;
-  int S, E, H;           // qkv output layout (3, M/S, H, S, 64)
   bf16* out;
 };
 
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-template <bool LN, int EPI>
+// p is __grid_constant__: the lambdas below take it by reference, and
+// without the qualifier nvcc copies it out of parameter space (ptxas then
+// used 167 registers instead of 142 and the kernel ran 25% slower on an
+// H100).
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const GemmArgs p) {
+gemm_kernel(const __grid_constant__ GemmArgs p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
   bf16* Bs = As + 2 * A_TILE;
   float* Cs = reinterpret_cast<float*>(smem_raw);   // reused after the loop
-  __shared__ float s_mu[BM], s_rstd[BM];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;  // warp tile: 64 rows x 32 cols
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  if (LN) {
-    for (int r = tid; r < BM; r += GEMM_THREADS) {
-      const int m = m0 + r;
-      s_mu[r] = m < p.M ? p.mu[m] : 0.f;
-      s_rstd[r] = m < p.M ? p.rstd[m] : 0.f;
-    }
-    __syncthreads();
-  }
-
-  const int group = n0 / p.w_group_cols;
-  const bf16* Wt = p.W + group * p.w_group_stride +
-                   (n0 - group * p.w_group_cols);
+  const bf16* Wt = p.W + n0;
 
   // Each thread stages 2 16-byte chunks of A (128 x 32) and of B (32 x 128).
   uint4 ra[2], rb[2];
@@ -191,33 +452,15 @@ gemm_kernel(const GemmArgs p) {
                       : make_uint4(0, 0, 0, 0);
       const int brow = c / (BN / 8), bcol = (c % (BN / 8)) * 8;
       rb[i] = *reinterpret_cast<const uint4*>(
-          Wt + (size_t)(k0 + brow) * p.ldw + bcol);
+          Wt + (size_t)(k0 + brow) * p.N + bcol);
     }
   };
-  auto store_tiles = [&](int buf, int k0) {
+  auto store_tiles = [&](int buf) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int c = tid + i * GEMM_THREADS;
       const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      uint4 va = ra[i];
-      if (LN) {
-        const uint4 g4 = *reinterpret_cast<const uint4*>(p.gamma + k0 + col);
-        const uint4 b4 = *reinterpret_cast<const uint4*>(p.beta + k0 + col);
-        const bf16* xe = reinterpret_cast<const bf16*>(&ra[i]);
-        const bf16* ge = reinterpret_cast<const bf16*>(&g4);
-        const bf16* be = reinterpret_cast<const bf16*>(&b4);
-        bf16* oe = reinterpret_cast<bf16*>(&va);
-        const float mu = s_mu[row], rs = s_rstd[row];
-        const bool live = m0 + row < p.M;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float r = (__bfloat162float(xe[e]) - mu) * rs *
-                              __bfloat162float(ge[e]) +
-                          __bfloat162float(be[e]);
-          oe[e] = __float2bfloat16(live ? r : 0.f);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + buf * A_TILE + row * A_LD + col) = va;
+      *reinterpret_cast<uint4*>(As + buf * A_TILE + row * A_LD + col) = ra[i];
       const int brow = c / (BN / 8), bcol = (c % (BN / 8)) * 8;
       *reinterpret_cast<uint4*>(Bs + buf * B_TILE + brow * B_LD + bcol) = rb[i];
     }
@@ -231,7 +474,7 @@ gemm_kernel(const GemmArgs p) {
 
   const int nk = p.K / BK;
   load_tiles(0);
-  store_tiles(0, 0);
+  store_tiles(0);
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
     const int buf = kt & 1;
@@ -256,7 +499,7 @@ gemm_kernel(const GemmArgs p) {
         for (int j = 0; j < 2; ++j)
           wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
     }
-    if (kt + 1 < nk) store_tiles(buf ^ 1, (kt + 1) * BK);
+    if (kt + 1 < nk) store_tiles(buf ^ 1);
     __syncthreads();
   }
 
@@ -269,7 +512,7 @@ gemm_kernel(const GemmArgs p) {
   __syncthreads();
 
   // Epilogue: each unit is 8 consecutive columns of one row (one 16-byte
-  // store); 8 columns never straddle a 64-wide head.
+  // store): bias, then the residual, added in fp32 and rounded once.
   for (int u = tid; u < BM * BN / 8; u += GEMM_THREADS) {
     const int r = u / (BN / 8), c = (u % (BN / 8)) * 8;
     const int m = m0 + r;
@@ -281,61 +524,24 @@ gemm_kernel(const GemmArgs p) {
       v[e] = Cs[r * C_LD + c + e] + __bfloat162float(p.bias[n + e]);
     uint4 o4;
     bf16* oe = reinterpret_cast<bf16*>(&o4);
-    if (EPI == EPI_QKV_ROPE) {
-      const int j = n / p.E;                 // 0 = q, 1 = k, 2 = v
-      const int ecol = n - j * p.E;
-      const int h = ecol / 64, d0 = ecol % 64;
-      const int b = m / p.S, s = m - b * p.S;
-      if (j < 2) {
-        // rotate_half: d < 32 takes -t[d+32], d >= 32 takes t[d-32]; the
-        // partner column lies in the same tile (heads are 64-aligned)
-        const int pc = d0 < 32 ? c + 32 : c - 32;
-        const int pn = d0 < 32 ? n + 32 : n - 32;
+    const uint4 r4 = *reinterpret_cast<const uint4*>(
+        p.res + (size_t)m * p.N + n);
+    const bf16* re = reinterpret_cast<const bf16*>(&r4);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float t = Cs[r * C_LD + pc + e] +
-                          __bfloat162float(p.bias[pn + e]);
-          const float rot = d0 < 32 ? -t : t;
-          v[e] = v[e] * p.cos[s * 64 + d0 + e] + rot * p.sin[s * 64 + d0 + e];
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) oe[e] = __float2bfloat16(v[e]);
-      const int bsz = p.M / p.S;
-      bf16* dst = p.out + ((((size_t)j * bsz + b) * p.H + h) * p.S + s) * 64 + d0;
-      *reinterpret_cast<uint4*>(dst) = o4;
-    } else {
-      if (EPI == EPI_GELU) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) oe[e] = __float2bfloat16(gelu_erf(v[e]));
-      } else {
-        const uint4 r4 = *reinterpret_cast<const uint4*>(
-            p.res + (size_t)m * p.N + n);
-        const bf16* re = reinterpret_cast<const bf16*>(&r4);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          oe[e] = __float2bfloat16(v[e] + __bfloat162float(re[e]));
-      }
-      *reinterpret_cast<uint4*>(p.out + (size_t)m * p.N + n) = o4;
-    }
+    for (int e = 0; e < 8; ++e)
+      oe[e] = __float2bfloat16(v[e] + __bfloat162float(re[e]));
+    *reinterpret_cast<uint4*>(p.out + (size_t)m * p.N + n) = o4;
   }
 }
 
-template <bool LN, int EPI>
-cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t st) {
+cudaError_t launch_out_proj(const GemmArgs& p, cudaStream_t st) {
   // above 48 KB of dynamic shared memory needs the opt-in (per device)
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<LN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)GEMM_SMEM);
   if (e != cudaSuccess) return e;
   dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<LN, EPI><<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(p);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_ln_stats(const bf16* x, float* stats, int M, int K,
-                            float eps, cudaStream_t st) {
-  ln_stats_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, stats, stats + M, M, K, eps);
+  gemm_kernel<<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -574,30 +780,27 @@ const char* opus_error_string(int e) {
 }
 
 // x (B*S, E) -> qkv (3, B, H, S, 64); w (3, E, E); b (3, E); ln (2, E)
-// [scale; bias]; cos/sin (S, 64) fp32; stats: fp32 scratch of 2 * B * S.
+// [scale; bias]; cos/sin (S, 64) fp32; normed: bf16 scratch (B * S, E) for
+// LN(x); bn: the product's tile width (128 or 256, dividing E).
 int opus_ln_qkv_rope(const void* x, const void* w, const void* b,
                      const void* ln, const void* cos, const void* sin,
-                     void* out, void* stats, int B, int S, int E, float eps,
-                     void* stream) {
+                     void* out, void* normed, int B, int S, int E, float eps,
+                     int bn, void* stream) {
+  if (B < 1 || S < 1 || E % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * S;
-  float* mu = static_cast<float*>(stats);
-  cudaError_t e = launch_ln_stats(static_cast<const bf16*>(x), mu, M, E, eps, st);
+  const cudaError_t e =
+      launch_ln_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(ln),
+                     static_cast<bf16*>(normed), M, E, eps, st);
   if (e != cudaSuccess) return (int)e;
-  GemmArgs p = {};
-  p.A = static_cast<const bf16*>(x);
-  p.W = static_cast<const bf16*>(w);
-  p.bias = static_cast<const bf16*>(b);
-  p.M = M; p.N = 3 * E; p.K = E;
-  p.ldw = E; p.w_group_cols = E; p.w_group_stride = (long long)E * E;
-  p.mu = mu; p.rstd = mu + M;
-  p.gamma = static_cast<const bf16*>(ln);
-  p.beta = static_cast<const bf16*>(ln) + E;
-  p.cos = static_cast<const float*>(cos);
-  p.sin = static_cast<const float*>(sin);
-  p.S = S; p.E = E; p.H = E / enc::HD;
-  p.out = static_cast<bf16*>(out);
-  return (int)launch_gemm<true, EPI_QKV_ROPE>(p, st);
+  QkvRopeEpi::Args a = {};
+  a.bias = static_cast<const bf16*>(b);
+  a.cos = static_cast<const float*>(cos);
+  a.sin = static_cast<const float*>(sin);
+  a.out = static_cast<bf16*>(out);
+  a.M = M; a.S = S; a.E = E; a.H = E / enc::HD;
+  const opus_bf16::GemmShape g = {M, 3 * E, E, E};
+  return launch_product<QkvRopeEpi>(bn, normed, w, g, a, st);
 }
 
 // qkv (3, B, H, S, 64); mask (B, S) bool key rows or NULL, with `words`,
@@ -649,42 +852,38 @@ int opus_out_proj(const void* a, const void* w, const void* b, const void* x,
   p.W = static_cast<const bf16*>(w);
   p.bias = static_cast<const bf16*>(b);
   p.M = M; p.N = E; p.K = E;
-  p.ldw = E; p.w_group_cols = E; p.w_group_stride = 0;
   p.res = static_cast<const bf16*>(x);
   p.out = static_cast<bf16*>(out);
-  return (int)launch_gemm<false, EPI_RESIDUAL>(p, static_cast<cudaStream_t>(stream));
+  return (int)launch_out_proj(p, static_cast<cudaStream_t>(stream));
 }
 
 // out = x + b2 + gelu(LN(x) @ w1 + b1) @ w2; x (M, E); w1 (E, F); w2 (F, E);
-// hidden: bf16 scratch (M, F); stats: fp32 scratch of 2 * M.
+// normed: bf16 scratch (M, E) for LN(x); hidden: bf16 scratch (M, F); bn1,
+// bn2: the two products' tile widths (128, 160 or 256, dividing F and E).
 int opus_ffn(const void* x, const void* w1, const void* b1, const void* w2,
-             const void* b2, const void* ln, void* hidden, void* stats,
-             void* out, int M, int E, int F, float eps, void* stream) {
+             const void* b2, const void* ln, void* hidden, void* normed,
+             void* out, int M, int E, int F, float eps, int bn1, int bn2,
+             void* stream) {
+  if (M < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* mu = static_cast<float*>(stats);
-  cudaError_t e = launch_ln_stats(static_cast<const bf16*>(x), mu, M, E, eps, st);
+  const cudaError_t e =
+      launch_ln_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(ln),
+                     static_cast<bf16*>(normed), M, E, eps, st);
   if (e != cudaSuccess) return (int)e;
-  GemmArgs p = {};
-  p.A = static_cast<const bf16*>(x);
-  p.W = static_cast<const bf16*>(w1);
-  p.bias = static_cast<const bf16*>(b1);
-  p.M = M; p.N = F; p.K = E;
-  p.ldw = F; p.w_group_cols = F; p.w_group_stride = 0;
-  p.mu = mu; p.rstd = mu + M;
-  p.gamma = static_cast<const bf16*>(ln);
-  p.beta = static_cast<const bf16*>(ln) + E;
-  p.out = static_cast<bf16*>(hidden);
-  e = launch_gemm<true, EPI_GELU>(p, st);
-  if (e != cudaSuccess) return (int)e;
-  GemmArgs q = {};
-  q.A = static_cast<const bf16*>(hidden);
-  q.W = static_cast<const bf16*>(w2);
-  q.bias = static_cast<const bf16*>(b2);
-  q.M = M; q.N = E; q.K = F;
-  q.ldw = E; q.w_group_cols = E; q.w_group_stride = 0;
-  q.res = static_cast<const bf16*>(x);
-  q.out = static_cast<bf16*>(out);
-  return (int)launch_gemm<false, EPI_RESIDUAL>(q, st);
+  GeluEpi::Args a1 = {};
+  a1.bias = static_cast<const bf16*>(b1);
+  a1.out = static_cast<bf16*>(hidden);
+  a1.M = M; a1.N = F;
+  const opus_bf16::GemmShape g1 = {M, F, E, F};
+  const int rc = launch_product<GeluEpi>(bn1, normed, w1, g1, a1, st);
+  if (rc) return rc;
+  ResidualEpi::Args a2 = {};
+  a2.bias = static_cast<const bf16*>(b2);
+  a2.res = static_cast<const bf16*>(x);
+  a2.out = static_cast<bf16*>(out);
+  a2.M = M; a2.N = E;
+  const opus_bf16::GemmShape g2 = {M, E, F, E};
+  return launch_product<ResidualEpi>(bn2, hidden, w2, g2, a2, st);
 }
 
 }  // extern "C"

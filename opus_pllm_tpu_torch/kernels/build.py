@@ -35,10 +35,11 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "fused_encoder": {
         "opus_ln_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                             _P],
+                             _I, _P],
         "opus_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
         "opus_out_proj": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "opus_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        "opus_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                     _I, _P],
     },
     "int4_matmul": {
         "opus_int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

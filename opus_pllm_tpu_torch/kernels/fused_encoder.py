@@ -27,12 +27,16 @@ ln_qkv_rope
   (pallas_call at :107).
   Bound: a (B*S, E) x (E, 3E) GEMM, ~40 GFLOP against ~52 MB at S=512,
   about 775 FLOP/byte: tensor-core bound.
-  Design: one bf16 GEMM core with fp32 accumulation; LayerNorm applied to
-  A's rows while they are staged into shared memory (statistics from a
-  row-stats pre-pass, so the 30 column tiles do not each recompute them);
-  bias and half-split rope in the epilogue, where a 128-wide column tile
-  holds two whole heads so rotate_half stays inside the tile; q, k, v are
-  written head-major for the attention kernel.
+  Design: a LayerNorm pass (one warp per row) writes LN(x), rounded to
+  bf16 as the TPU kernel rounds it, into a (B*S, E) scratch; the TMA +
+  wgmma core of csrc/hopper_gemm_bf16.cuh reads it as A (K-major, 128-byte
+  swizzle) and the (3, E, E) weight as an N-major B through one (3E, E)
+  map, a column tile inside one of q, k, v; 384 threads (two consumer
+  warpgroups of 64 rows, a producer thread filling a TMA ring), persistent
+  over the tiles (`tile_width`). Bias and rotate_half rope from the
+  registers (the partner column d +- 32 is the same thread's fragment
+  j +- 4), staged through shared memory and stored head-major in whole
+  128-byte rows for the attention kernel.
 encoder_attention
   Replaces: `flash_attention_pairs` / `_flash_pairs_kernel` (pallas_call
   at :228).
@@ -54,17 +58,21 @@ encoder_attention
 out_proj
   Replaces: `fused_out_proj` / `_out_proj_kernel` (pallas_call at :380).
   Bound: ~13 GFLOP against ~35 MB: tensor-core bound.
-  Design: the GEMM core with a bias + residual epilogue (one rounding),
-  reading the token-major attention output directly (no relayout).
+  Design: the first GEMM core (WMMA 16x16x16, register-staged double
+  buffering) with a bias + residual epilogue (one rounding), reading the
+  token-major attention output directly (no relayout).
 ffn
   Replaces: `fused_ffn` / `_ffn_kernel` (pallas_call at :323).
-  Bound: ~107 GFLOP against ~140 MB including the gelu scratch: tensor-core
+  Bound: ~107 GFLOP against ~47 MB of inputs and outputs: tensor-core
   bound.
   Design: the TPU kernel keeps an (S, E) fp32 accumulator in VMEM across
   the F loop (2.6 MB at S=512), which no CTA's 227 KB of shared memory
-  holds. Here it is two launches of the GEMM core: LN prologue + FC1 + b1 +
-  exact-erf gelu into a bf16 (B*S, F) scratch, then FC2 + b2 + residual.
-  Both launches count as one call of the wrapper.
+  holds. Here: the LayerNorm pass of ln_qkv_rope into a (B*S, E) scratch,
+  then two products of the same TMA + wgmma core: FC1 + b1 + exact-erf
+  gelu, rounded to bf16 (the TPU kernel's rounding) into a (B*S, F)
+  scratch, then FC2 + b2 + the residual x with one rounding. Each
+  product's tile width comes from `tile_width`. The three launches count
+  as one call of the wrapper.
 """
 
 from __future__ import annotations
@@ -75,6 +83,9 @@ from . import build
 
 HEAD_DIM = 64
 KEY_TILE = 64        # keys a word of the packed mask covers
+GEMM_ROWS = 128      # rows of a tile of the TMA + wgmma core
+TILE_WIDTHS = (256, 128)      # the QKV product's: whole heads
+FFN_TILE_WIDTHS = (256, 160, 128)
 
 launches = {"ln_qkv_rope": 0, "encoder_attention": 0, "out_proj": 0,
             "ffn": 0}
@@ -190,6 +201,30 @@ def _launch(name, device, entry, *args):
     build.check(rc, name, build.library("fused_encoder"))
 
 
+def tile_width(m, n, n_group, sms, widths=TILE_WIDTHS):
+    """The column tile of the TMA + wgmma core for an (m, n) product whose
+    columns come in groups of n_group (a tile never straddles one; the
+    QKV product's groups are q, k and v): of `widths`, the one that
+    divides n_group with the fewest rounds of `sms` persistent CTAs times
+    the width, i.e. the least time if a tile takes time in proportion to
+    its width; a tie goes to the wider, whose weight panels serve more
+    rows."""
+    best, best_cost = None, None
+    for bn in widths:
+        if n_group % bn:
+            continue
+        cost = -(-(-(-m // GEMM_ROWS) * (n // bn)) // sms) * bn
+        if best is None or cost < best_cost:
+            best, best_cost = bn, cost
+    if best is None:
+        raise ValueError(f"column group {n_group} is not a multiple of 128")
+    return best
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ln_qkv_rope(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
     """LN -> QKV -> rope; see ln_qkv_rope_plain for shapes."""
     _frozen("ln_qkv_rope", x, w_qkv, b_qkv, ln_sb, cos, sin)
@@ -206,10 +241,11 @@ def ln_qkv_rope(x, w_qkv, b_qkv, ln_sb, cos, sin, *, eps=1e-5):
     lib = build.library("fused_encoder")
     out = torch.empty((3, b, e // HEAD_DIM, s, HEAD_DIM), dtype=x.dtype,
                       device=x.device)
-    stats = torch.empty((2, b * s), dtype=torch.float32, device=x.device)
+    normed = torch.empty((b * s, e), dtype=x.dtype, device=x.device)
+    bn = tile_width(b * s, 3 * e, e, _sms(x.device))
     _launch("ln_qkv_rope", x.device, lib.opus_ln_qkv_rope, _ptr(x),
             _ptr(w_qkv), _ptr(b_qkv), _ptr(ln_sb), _ptr(cos), _ptr(sin),
-            _ptr(out), _ptr(stats), b, s, e, eps)
+            _ptr(out), _ptr(normed), b, s, e, eps, bn)
     return out
 
 
@@ -280,7 +316,8 @@ def out_proj(a, w, b, x):
 
 
 def ffn(x, w1, b1, w2, b2, ln_sb, *, eps=1e-5):
-    """x + FC2(gelu(FC1(LN(x)))): two launches of the GEMM core."""
+    """x + FC2(gelu(FC1(LN(x)))): the LayerNorm pass, then two products
+    of the TMA + wgmma core."""
     _frozen("ffn", x, w1, b1, w2, b2, ln_sb)
     if not x.is_cuda:
         return ffn_plain(x, w1, b1, w2, b2, ln_sb, eps=eps)
@@ -294,21 +331,26 @@ def ffn(x, w1, b1, w2, b2, ln_sb, *, eps=1e-5):
     lib = build.library("fused_encoder")
     m = bsz * s
     hidden = torch.empty((m, f), dtype=x.dtype, device=x.device)
-    stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
+    normed = torch.empty((m, e), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    sms = _sms(x.device)
     _launch("ffn", x.device, lib.opus_ffn, _ptr(x), _ptr(w1), _ptr(b1),
-            _ptr(w2), _ptr(b2), _ptr(ln_sb), _ptr(hidden), _ptr(stats),
-            _ptr(out), m, e, f, eps)
+            _ptr(w2), _ptr(b2), _ptr(ln_sb), _ptr(hidden), _ptr(normed),
+            _ptr(out), m, e, f, eps,
+            tile_width(m, f, f, sms, FFN_TILE_WIDTHS),
+            tile_width(m, e, e, sms, FFN_TILE_WIDTHS))
     return out
 
 
 def supports(cfg, x, mask=None) -> bool:
     """Shapes the CUDA kernels take (the counterpart of the JAX
     `supports` + `esm2._fused_ok`): a CUDA bf16 activation, d=64 heads
-    with E = H*64 a multiple of 128 (a 128-wide GEMM column tile then holds
-    whole heads and never straddles q/k/v), an FFN width that tiles by 128,
-    and padding masks given as (B, S) key rows. Any sequence length: the
-    attention kernel masks its ragged edge."""
+    with E = H*64 a multiple of 128 (a GEMM column tile of 128 or 256 then
+    holds whole heads and never straddles q/k/v), an FFN width that tiles
+    by 128, and padding masks given as (B, S) key rows. Any sequence
+    length: the products' TMA loads zero-fill the rows past B*S, the
+    attention kernel masks its ragged edge. B*S / 128 row tiles at most
+    65535: out_proj's grid (the other products are persistent)."""
     b, s, e = x.shape
     return (x.is_cuda and x.dtype == torch.bfloat16
             and cfg.head_dim == HEAD_DIM and e == cfg.num_heads * HEAD_DIM

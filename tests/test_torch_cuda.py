@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes the main path can also produce: the four fused-encoder
-kernels, the int4 v2 matmul, both quantized decode attentions, flash
+kernels (ln_qkv_rope and ffn at both tile widths of their TMA + wgmma
+core, bit-identical across calls), the int4 v2 matmul, both quantized decode attentions, flash
 attention, the int8 matmul, the two flash-attention backward kernels and
 the int4 v1 matmul (the int8 and the v1 matmul each in its TMA + wgmma
 kernel and in the kernel kept for N that is not a multiple of 16); then
@@ -133,6 +134,62 @@ def test_out_proj_and_ffn(m, e):
     _check(fe.ffn, fe.ffn_plain,
            (x, _rnd(g, e, f, scale=e ** -0.5), _rnd(g, f, scale=0.1),
             _rnd(g, f, e, scale=f ** -0.5), _rnd(g, e, scale=0.1), ln))
+
+
+def _encoder_inputs(g, b, s, e, f):
+    cos, sin = rope_cos_sin(torch.arange(s, device="cuda"), 64)
+    ln = torch.stack([1 + 0.1 * torch.randn(e, generator=g, device="cuda"),
+                      0.1 * torch.randn(e, generator=g, device="cuda")]
+                     ).to(torch.bfloat16)
+    x = _rnd(g, b, s, e)
+    qkv_in = (x, _rnd(g, 3, e, e, scale=e ** -0.5), _rnd(g, 3, e, scale=0.1),
+              ln)
+    ffn_in = (x, _rnd(g, e, f, scale=e ** -0.5), _rnd(g, f, scale=0.1),
+              _rnd(g, f, e, scale=f ** -0.5), _rnd(g, e, scale=0.1), ln)
+    return qkv_in, (cos, sin), ffn_in
+
+
+@pytest.mark.parametrize("s", [1, 70, 128, 512])
+@pytest.mark.parametrize("e,f", [(128, 384), (1280, 5120)])
+def test_ln_qkv_rope_and_ffn_on_the_wgmma_core(s, e, f):
+    """B = 3: B*S ragged at S = 1 and 70 (rows past M zero-filled by TMA,
+    not stored); E = 128 puts a QKV tile boundary at every j * E. One
+    counted launch a call, and the same bits from two calls."""
+    qkv_in, rope, ffn_in = _encoder_inputs(_gen(), 3, s, e, f)
+    fe.reset_launches()
+    _check(fe.ln_qkv_rope, fe.ln_qkv_rope_plain, qkv_in, rope)
+    _check(fe.ffn, fe.ffn_plain, ffn_in)
+    assert fe.launches["ln_qkv_rope"] == 1 and fe.launches["ffn"] == 1
+    assert torch.equal(fe.ln_qkv_rope(*qkv_in, *rope),
+                       fe.ln_qkv_rope(*qkv_in, *rope))
+    assert torch.equal(fe.ffn(*ffn_in), fe.ffn(*ffn_in))
+
+
+@pytest.mark.parametrize("bn", fe.FFN_TILE_WIDTHS)
+@pytest.mark.parametrize("s", [70, 512])
+def test_every_tile_width_matches_plain(monkeypatch, bn, s):
+    """Each product at each tile width the core takes (the plan picks one
+    per shape; 160 only where the epilogue is not per head); at E = 1280 a
+    256-wide QKV tile ends at j * E."""
+    qkv_in, rope, ffn_in = _encoder_inputs(_gen(), 3, s, 1280, 5120)
+    monkeypatch.setattr(fe, "tile_width", lambda *args, **kw: bn)
+    if bn in fe.TILE_WIDTHS:
+        _check(fe.ln_qkv_rope, fe.ln_qkv_rope_plain, qkv_in, rope)
+    _check(fe.ffn, fe.ffn_plain, ffn_in)
+
+
+def test_tile_width_the_core_does_not_take_raises(monkeypatch):
+    """A width the core does not take (64; 160 for the QKV product, whose
+    tiles hold whole heads) is refused by the C entry point and the
+    wrapper raises: nothing falls back."""
+    qkv_in, rope, ffn_in = _encoder_inputs(_gen(), 1, 8, 640, 640)
+    for bn in (64, 160):
+        monkeypatch.setattr(fe, "tile_width", lambda *args, b=bn, **kw: b)
+        with pytest.raises(RuntimeError, match="ln_qkv_rope"):
+            fe.ln_qkv_rope(*qkv_in, *rope)
+    monkeypatch.setattr(fe, "tile_width", lambda *args, **kw: 64)
+    with pytest.raises(RuntimeError, match="ffn"):
+        fe.ffn(*ffn_in)
 
 
 def test_wrappers_raise_instead_of_falling_back():
