@@ -30,8 +30,8 @@ and prints no result:
          bound of encoder_attention counts the valid keys only, whose
          64-key tiles the kernel loads). Library for encoder_attention:
          scaled_dot_product_attention with the same key mask; printed
-         beside ln_qkv_rope and ffn (not in the JSON line): the bf16
-         cuBLAS products they contain at the same (M, K, N), marked *;
+         beside ln_qkv_rope, out_proj and ffn (not in the JSON line): the
+         bf16 cuBLAS products they contain at the same (M, K, N), marked *;
        - int4_matmul at M = 8 for each distinct (K, N) of a Llama-3-8B
          decode step: 4096->4096, 4096->1024, 4096->14336, 14336->4096,
          4096->128256 (random weights quantized by quant4.quantize_grouped),
@@ -84,9 +84,23 @@ and prints no result:
      encoder kernel 33 x batches, flash_attention 32 x batches (each
      prefill layer), no other kernel; that ESM2's pooled embedding through
      the kernels agrees with the plain layer composition on two proteins,
-     and that the decoder's logits are finite; prints entries/s and decode
-     tok/s;
-  5. quantized slice: the same LLM quantized by quant4.quantize_decoder4
+     and that the decoder's logits are finite; that the runner's metrics
+     (Precision, Recall, F1 Score of the keywords task, against synthetic
+     keyword answers) are finite and in [0, 1]; prints entries/s and
+     decode tok/s;
+  5. function metrics: the same params answer 8 synthetic function-task
+     requests (one batch, 64 new tokens) through run_annotation_eval
+     with bert_embed_fn = models.bert.make_embed_fn over a full-width
+     BertConfig() (BioBERT-large: 24 x 1024, 16 heads, vocab 58996; fp32
+     random weights drawn on the card from SEED) and a WordPieceTokenizer
+     over a vocab made in the script (the special tokens, the printable
+     ASCII characters and their ## forms; no file is read). Checks exact
+     launch counts (each encoder kernel 33, flash_attention 32; the BERT's
+     d = 64 fp32 attention takes the plain path, as in the JAX package);
+     that ROUGE, BLEU, METEOR and BERTScore are finite and in [0, 1]; and
+     that a text scored against itself gives BERTScore F1 = 1 within
+     1e-5. Prints the BERT's GiB on the card and its seconds;
+  6. quantized slice: the same LLM quantized by quant4.quantize_decoder4
      (int4 v2 words, fp32 group scales; the bf16 projections are freed)
      answers the same 16 requests with an int4 KV cache, then one batch of
      8 with an int8 cache. Checks exact launch counts, each derived from
@@ -100,7 +114,7 @@ and prints no result:
      stay within 2 * (plain bf16 error) + ATOL of the plain path run in
      fp32, next to the plain path in bf16 (impl="torch"). Prints entries/s,
      decode tok/s, ms per decode step and GiB on the card;
-  6. serving slice: a bf16 Llama-3-8B drawn again from the seed, quantized
+  7. serving slice: a bf16 Llama-3-8B drawn again from the seed, quantized
      to int8 by quant.quantize_decoder (the bf16 weights freed), answers 32
      synthetic requests through evals.runner.run_annotation_eval_engine
      (the continuous-batching engine: 16 slots, 4 steps a tick, T=0.1,
@@ -117,7 +131,7 @@ and prints no result:
      prefill logits (16 rows, bucket 320) through the kernels stay within
      the bound above of the plain path in fp32. Prints entries/s, tokens/s,
      TTFT p50/p99 (the engine's histogram bounds) and GiB on the card;
-  7. training slice (`train-lora`): the earlier phases' LLM freed, a fresh
+  8. training slice (`train-lora`): the earlier phases' LLM freed, a fresh
      Llama-3-8B drawn from the seed inside OpusConfig() (the ESM2, CSTP and
      switch of phase 4, frozen) trains LoRA adapters with train-lora's
      defaults (lr 2e-5, wd 0, batch 16, max-len 512, rank 16 / alpha 32
@@ -152,7 +166,7 @@ The last two lines: a JSON object of the kernels' numbers, then
 
     python3 chip_smoke.py --profile-serving
 
-runs phases 1 and 2, then the serving configuration of phase 6 (bf16
+runs phases 1 and 2, then the serving configuration of phase 7 (bf16
 cache, 32 requests) twice unprofiled, then its first 16 requests (one
 wave: one prefill, 64 decode steps) under torch.profiler, and prints
 where the device time goes: the kernels' summed device time against the
@@ -163,7 +177,7 @@ nothing and prints no result line.
 
     python3 chip_smoke.py --profile-training
 
-runs phases 1 and 2, then phase 7's configuration: two unprofiled steps
+runs phases 1 and 2, then phase 8's configuration: two unprofiled steps
 and one profiled step of train-lora over the bf16 LLM, then the same over
 its v1 quantization, each printed as above with the sums for the
 hand-written kernels, cuBLAS, the elementwise casts / multiplies / adds
@@ -179,9 +193,9 @@ phase 3 times a kernel) with the card's name and power limit:
     all four, dq and dk/dv at the training shape and causal 2048;
   - the four encoder kernels at B=8, S in {128, 512} on phase 3's inputs,
     each with its bound and share: encoder_attention beside SDPA on the
-    same inputs and key mask, ln_qkv_rope and ffn beside the bf16 cuBLAS
-    products they contain at the same (M, K, N) (marked *: not the same
-    function);
+    same inputs and key mask, ln_qkv_rope, out_proj and ffn beside the
+    bf16 cuBLAS products they contain at the same (M, K, N) (marked *: not
+    the same function);
   - int4_matmul (v2) at M=8 on the five decode shapes and at M in {1, 16,
     64} on 4096->14336, with the weights cold (the calls rotate over
     copies of the words and scales larger than the 50 MB L2 together, as
@@ -604,7 +618,7 @@ def encoder_times(tree, card):
     """The four encoder kernels at B = 8, S in {128, 512} on phase 3's
     inputs (ragged key rows, one unpadded), each with its bound and share,
     SDPA beside the attention and the bare cuBLAS products beside
-    ln_qkv_rope and ffn (marked *: not the same function)."""
+    ln_qkv_rope, out_proj and ffn (marked *: not the same function)."""
     import torch
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
@@ -909,9 +923,10 @@ def kernel_cases(s, g):
     ffn_in = (x, rnd(E, F, scale=E ** -0.5), rnd(F, scale=0.1),
               rnd(F, E, scale=F ** -0.5), rnd(E, scale=0.1), ln)
     # the bare products at the kernels' (M, K, N): x . W_qkv as one (E, 3E)
-    # matrix; x . W1, then a bf16 (M, F) hidden . W2 (its own generator:
-    # the draws above stay those of the kernels' inputs)
+    # matrix; a . W_o; x . W1, then a bf16 (M, F) hidden . W2 (its own
+    # generator: the draws above stay those of the kernels' inputs)
     x2 = x.reshape(B * s, E)
+    a2 = out_in[0].reshape(B * s, E)
     w_cat = qkv_in[1].permute(1, 0, 2).reshape(E, 3 * E)
     hidden = torch.randn((B * s, F), device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED)).to(torch.bfloat16)
@@ -924,7 +939,7 @@ def kernel_cases(s, g):
              qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :]),
          attention_bytes(qkv, mask), None),
         ("out_proj", fe.out_proj, fe.out_proj_plain, out_in, (),
-         2 * B * s * E * E, None, None, None),
+         2 * B * s * E * E, None, None, lambda: a2 @ out_in[1]),
         ("ffn", fe.ffn, fe.ffn_plain, ffn_in, (), 4 * B * s * E * F, None,
          None, lambda: (x2 @ ffn_in[1], hidden @ ffn_in[3])),
     ]
@@ -945,15 +960,35 @@ def check_kernels(card):
     return rows
 
 
-def synthetic_examples(n):
+KEYWORDS = ("Hydrolase", "Zinc", "Metal-binding", "Transferase",
+            "ATP-binding", "Membrane", "Kinase")
+FUNCTIONS = ("Catalyzes the hydrolysis of ATP to drive transport across "
+             "membranes.", "Forms a channel that conducts potassium ions "
+             "across the membrane.", "Acts as a chaperone assisting the "
+             "folding of nascent polypeptides.")
+
+
+def synthetic_examples(n, instruction="What are the UniProtKB keywords of "
+                       "this protein?", answers=None):
+    """n requests with proteins of 60-500 residues drawn from SEED; the
+    ground truths cycle through `answers` (default: pairs of KEYWORDS) and
+    draw nothing, so the proteins stay those of the seed."""
     import numpy as np
     from opus_pllm_tpu_torch.evals.datasets import AnnotationExample
     rng = np.random.default_rng(SEED)
     aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    answers = answers or tuple(
+        f"{KEYWORDS[i]}; {KEYWORDS[(i + 3) % len(KEYWORDS)]}"
+        for i in range(len(KEYWORDS)))
     return [AnnotationExample(
-        "What are the UniProtKB keywords of this protein?",
-        "".join(rng.choice(aa, int(rng.integers(60, 501)))), "")
-        for _ in range(n)]
+        instruction, "".join(rng.choice(aa, int(rng.integers(60, 501)))),
+        answers[i % len(answers)]) for i in range(n)]
+
+
+def in_unit_range(values):
+    import math
+    return all(isinstance(v, float) and math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in values)
 
 
 def _to_fp32(tree):
@@ -1002,6 +1037,11 @@ def check_slice(card):
     if len(rep.results) != len(examples) or not all(
             isinstance(r["generated"], str) for r in rep.results):
         fail("the runner did not answer every request")
+    m = rep.metrics
+    if set(m) != {"Precision", "Recall", "F1 Score"} or not in_unit_range(
+            m.values()):
+        fail(f"keywords metrics {m}")
+    print(f"slice metrics: {m}", flush=True)
     tok_s = rep.decode_tokens / rep.decode_seconds
     print(f"slice: {len(rep.results)} entries in {rep.seconds:.2f} s, "
           f"entries/s {rep.entries_per_sec:.3f}; decode {rep.decode_tokens} "
@@ -1044,6 +1084,85 @@ def check_slice(card):
     print(f"decoder prefill logits {tuple(logits.shape)} finite, prompt "
           f"length {sp.embeds.shape[1]}", flush=True)
     return counts, params, cfg, examples, gen
+
+
+def wordpiece_vocab():
+    """A WordPiece vocab made here (no file is read): [PAD] [UNK] [CLS]
+    [SEP], the printable ASCII characters and their ## forms, every id
+    below BertConfig().vocab_size."""
+    chars = [chr(c) for c in range(33, 127)]
+    toks = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + chars + [
+        "##" + c for c in chars]
+    return {t: i for i, t in enumerate(toks)}
+
+
+def check_function_metrics(card, params, cfg, gen):
+    """8 function-task requests, one batch, through the bf16 slice's
+    params, scored with BERTScore over a full-width BioBERT-large shape
+    (random fp32 weights from SEED) on the card (module docstring, phase
+    5)."""
+    import torch
+    from opus_pllm_tpu_torch.core.config import BertConfig
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.evals.metrics import bertscore_from_embeddings
+    from opus_pllm_tpu_torch.evals.textproc import WordPieceTokenizer
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.models import bert
+
+    bcfg = BertConfig()
+    vocab = wordpiece_vocab()
+    if max(vocab.values()) >= bcfg.vocab_size:
+        fail("the WordPiece vocab does not fit BioBERT's embedding")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    before = torch.cuda.memory_allocated()
+    bparams = bert.init(bcfg, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    gib = (torch.cuda.memory_allocated() - before) / 2**30
+    embed = bert.make_embed_fn(bparams, bcfg, WordPieceTokenizer(vocab))
+    spent = []
+
+    def timed_embed(texts):
+        t0 = time.perf_counter()
+        out = embed(texts)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    batch = 8
+    examples = synthetic_examples(
+        batch, "What is the function of this protein?", FUNCTIONS)
+    reset_counts()
+    rep = runner.run_annotation_eval(
+        params, cfg, ByteTokenizer(), "synthetic_function.json", gen=gen,
+        batch_size=batch, examples=examples, bert_embed_fn=timed_embed,
+        log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("function metrics", counts,
+                  flash_attention=cfg.llm.num_layers,
+                  **{n: cfg.esm.num_layers for n in fe.launches})
+    if len(rep.results) != batch:
+        fail("the runner did not answer every function request")
+    m = rep.metrics
+    print(f"function metrics: {m}", flush=True)
+    if set(m) != {"ROUGEScore", "BLEU", "METEOR", "BERTScore"} or \
+            m["BERTScore"] is None or not in_unit_range(
+                [*m["ROUGEScore"].values(), m["BLEU"], m["METEOR"],
+                 *m["BERTScore"].values()]):
+        fail(f"function metrics {m}")
+    emb, mask = embed([ex.output for ex in examples[:3]])
+    same = bertscore_from_embeddings(emb, mask, emb, mask)
+    print(f"BERTScore of a text against itself {same}", flush=True)
+    if abs(same["f1"] - 1.0) > 1e-5:
+        fail(f"BERTScore of a text against itself is {same['f1']}")
+    print(f"BioBERT-large shape ({bcfg.num_layers} x {bcfg.hidden_size}, "
+          f"fp32): {gib:.2f} GiB on the card, {sum(spent):.2f} s to embed "
+          f"{2 * batch} texts in {len(spent)} calls; {len(rep.results)} "
+          f"entries in {rep.seconds:.2f} s [{card}]", flush=True)
+    del bparams, embed
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _clone(tree):
@@ -1244,7 +1363,7 @@ def check_prefill_group(params, cfg, examples):
 
 def check_serve_slice(card, params, cfg, gen):
     """The int8 LLM behind the serving engine: 32 requests with a bf16
-    cache, 8 with an int8 cache (module docstring, phase 6)."""
+    cache, 8 with an int8 cache (module docstring, phase 7)."""
     import dataclasses
     import torch
     from opus_pllm_tpu_torch.evals import runner
@@ -1253,7 +1372,7 @@ def check_serve_slice(card, params, cfg, gen):
     from opus_pllm_tpu_torch.kernels import quant, quant4
     from opus_pllm_tpu_torch.models import decoder
 
-    params["llm"] = None                      # the int4 LLM of phase 5
+    params["llm"] = None                      # the int4 LLM of phase 6
     torch.cuda.empty_cache()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
@@ -1350,7 +1469,7 @@ def _lora_b(trainable):
 
 def run_training(label, card, params, cfg, tcfg, lcfg, batches, want):
     """`fit` over `batches` from fresh LoRA adapters (module docstring,
-    phase 7); checks the launch counts against `want` (per step), a finite
+    phase 8); checks the launch counts against `want` (per step), a finite
     loss every step and every LoRA B leaf moved by step 1. Returns the
     launch counts."""
     import math
@@ -1415,7 +1534,7 @@ def _gate_grads(trainable, frozen, cfg, batch, ls, tcfg, impl):
 
 def gradient_gate(params, cfg, tcfg, lcfg, batch):
     """The LoRA gradients of loss_fn through the kernels vs the plain path
-    in fp32 (module docstring, phase 7), at depth GATE_LAYERS."""
+    in fp32 (module docstring, phase 8), at depth GATE_LAYERS."""
     import dataclasses
     import torch
     from opus_pllm_tpu_torch.lora import lora as lora_mod
@@ -1473,7 +1592,7 @@ def check_train_slice(card, params, cfg):
     from opus_pllm_tpu_torch.kernels import quant4
     from opus_pllm_tpu_torch.models import decoder
 
-    params["llm"] = None                      # the int8 LLM of phase 6
+    params["llm"] = None                      # the int8 LLM of phase 7
     torch.cuda.empty_cache()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
@@ -1647,7 +1766,7 @@ def profile_training(card):
                                                       "pack_col_words"),
         "int4_v1_wgmma_kernel": "int4_v1_wgmma_kernel",
         "encoder kernels (fused_encoder.cu)": (
-            "bf16_gemm_kernel", "gemm_kernel(", "ln_rows_kernel",
+            "bf16_gemm_kernel", "bf16_gemm_io_kernel", "ln_rows_kernel",
             "encoder_attn_wgmma_kernel", "pack_key_words"),
         "cuBLAS bf16 (nvjet)": "nvjet",
         "cuBLAS fp32 (xmma_gemm_f32: LoRA, fp32 head)": "gemm_f32",
@@ -1743,6 +1862,9 @@ def main():
 
     phase("slice")
     counts, params, cfg, examples, gen = check_slice(card)
+
+    phase("function metrics")
+    check_function_metrics(card, params, cfg, gen)
 
     phase("quantized slice")
     qcounts = check_quant_slice(card, params, cfg, examples, gen)

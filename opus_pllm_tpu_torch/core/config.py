@@ -2,7 +2,7 @@
 
 The same dataclasses, fields and presets as the JAX module, for the parts
 of the model the port runs: `ESM2Config`, `CSTPConfig`,
-`SwitchProjectorConfig`, `DecoderConfig`, `OpusConfig`,
+`SwitchProjectorConfig`, `DecoderConfig`, `BertConfig`, `OpusConfig`,
 `GenerationConfig`, `LoRAConfig` and `TrainConfig`. The JAX dtype map
 (config.py:26-27) becomes a torch dtype map; nothing here imports jax.
 """
@@ -112,6 +112,33 @@ class DecoderConfig:
             attention_bias=(family == "qwen2"),
             activation="relu" if family == "opt" else "silu",
         )
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    """BERT encoder (BioBERT-large for BERTScore in the eval harness;
+    config.py:168-190)."""
+
+    vocab_size: int = 58996          # biobert-large-cased-v1.1
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    pad_token_id: int = 0
+    dtype: str = "float32"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @staticmethod
+    def tiny() -> "BertConfig":
+        return BertConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                          num_heads=4, intermediate_size=128,
+                          max_position_embeddings=128)
 
 
 @dataclass(frozen=True)

@@ -24,7 +24,8 @@ Any quantized ESM2 leaf and fused decoder projections are not ported yet
 and raise NotImplementedError. `device=None` puts the parameters on CUDA
 (core.util.resolve_device).
 
-`lora_from_jax` and `trainable_from_jax` carry a JAX LoRA tree
+`bert_from_jax` carries the JAX BERTScore encoder's tree across as it
+is. `lora_from_jax` and `trainable_from_jax` carry a JAX LoRA tree
 ({"layers": [{proj: {"A", "B"}}]}) and a stage-(c)/(d) trainable tree
 ({"switch"?, "lora"?}) across, so both packages can start a step from the
 same numbers; `trainable_to_numpy` brings a port tree back as numpy.
@@ -140,6 +141,16 @@ def from_jax(tree: dict, device=None) -> dict:
     if "cstp" in tree:
         out["cstp"] = _tree(tree["cstp"], device)
     return out
+
+
+def bert_from_jax(tree: dict, device=None) -> dict:
+    """The JAX BERT tree (models/bert.py `init`: word / position /
+    token-type embeddings, `embed_norm`, a `layers` list of q/k/v/o
+    projections, two norms, fc1 and fc2) with numpy leaves -> the port's
+    `models.bert` parameters: the same layout and dtypes (no kernel is
+    transposed), on `device` (None: CUDA)."""
+    _refuse_quantized(tree, "bert")
+    return _tree(tree, resolve_device(device))
 
 
 def lora_from_jax(tree: dict, device=None) -> dict:

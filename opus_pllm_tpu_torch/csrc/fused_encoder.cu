@@ -18,26 +18,33 @@
 //   ffn (1/2)   : r . W1, bias + exact-erf gelu, rounded to bf16 into a
 //                 (M, F) scratch (the TPU kernel's rounding before FC2);
 //   ffn (2/2)   : hidden . W2, bias + the residual x, one rounding.
-// Bound at B = 8, S = 512 (M = 4096, E = 1280, F = 5120): 40 GFLOP (QKV)
-// and 107 GFLOP (FFN) against ~52 MB and ~47 MB of inputs and outputs:
-// tensor-core bound (0.041 and 0.109 ms at 989 TFLOP/s). The LN pass moves
-// ~21 MB (~6 us at 3.35 TB/s), the gelu scratch 42 MB each way.
+// The out projection (`fused_out_proj`) is the same core's product with
+// FC2's arithmetic: A is the token-major attention output (B * S, E) as the
+// attention kernel writes it (no relayout), W_o (E, E) the N-major B,
+// bias + the residual x added to the fp32 sums and rounded once. Its
+// epilogue moves whole tiles by TMA (`OutProjEpi`): the residual tile is
+// loaded while the tile's K loop runs and the output stored while the next
+// one's runs, so only the in-place add holds the tensor cores (the staged
+// epilogue of FC2 left them idle a third of out_proj's time at K = 1280).
+// Bound at B = 8, S = 512 (M = 4096, E = 1280, F = 5120): 40 GFLOP (QKV),
+// 107 GFLOP (FFN) and 13.4 GFLOP (out) against ~52, ~47 and ~35 MB of
+// inputs and outputs: tensor-core bound (0.041, 0.109 and 0.014 ms at 989
+// TFLOP/s). The LN pass moves ~21 MB (~6 us at 3.35 TB/s), the gelu
+// scratch 42 MB each way.
 // Tile plan (`fused_encoder.tile_width` chooses the width and passes it):
-// 128 rows x 256, 160 (FFN only: not whole heads) or 128 columns, whichever
-// needs the fewest rounds of 132 persistent CTAs times the tile's width
-// (ties: the wider, whose weight panels serve more rows). At M = 4096: QKV
-// 480 tiles of 256 (3.6 rounds), FC1 640 of 256 (4.8), FC2 (N = 1280, K =
-// 5120) 256 of 160 (1.9 rounds; 320 of 128 take 2.4, 160 of 256 leave the
-// card half idle in their second round). At M = 1024 (S = 128): QKV 120 of
-// 256, FC1 256 of 160, FC2 80 of 128. A 128 x 256 tile holds 128 fp32
-// accumulators a consumer thread, inside the 168 registers a 384-thread
-// block gives (ptxas: 168 used, no spill). The epilogue is not overlapped
-// with the products (both warpgroups finish a tile together): on an H100
-// it takes about a quarter of ln_qkv_rope's time and a fifth of ffn's
-// (the rope, the exact-erf gelu of 21 M values, the stores).
-// out_proj (`fused_out_proj`) still runs on the first core: tiled WMMA
-// 16x16x16 with fp32 accumulation and register-staged double buffering,
-// 128 x 128 x 32 tiles, bias + residual epilogue with one rounding.
+// 128 rows x 256, 160 (not for QKV: not whole heads) or 128 columns,
+// whichever needs the fewest rounds of 132 persistent CTAs times the
+// tile's width (ties: the wider, whose weight panels serve more rows). At
+// M = 4096: QKV 480 tiles of 256 (3.6 rounds), FC1 640 of 256 (4.8), FC2
+// and the out projection (N = 1280) 256 of 160 (1.9 rounds; 320 of 128
+// take 2.4, 160 of 256 leave the card half idle in their second round). At
+// M = 1024 (S = 128): QKV 120 of 256, FC1 256 of 160, FC2 and out 80 of
+// 128. A 128 x 256 tile holds 128 fp32 accumulators a consumer thread,
+// inside the 168 registers a 384-thread block gives (ptxas: 168 used, no
+// spill). The epilogue is not overlapped with the products (both
+// warpgroups finish a tile together): on an H100 it takes about a quarter
+// of ln_qkv_rope's time and a fifth of ffn's (the rope, the exact-erf gelu
+// of 21 M values, the stores).
 //
 // The encoder attention (`flash_attention_pairs` / `_flash_pairs_kernel`):
 // non-causal, D = 64, scale 1/8, a (B, S) key-row mask. Per query row over
@@ -82,12 +89,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper_gemm_bf16.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -218,7 +223,7 @@ __device__ __forceinline__ void store_rows(const uint8_t* stg, bf16* out,
 // the tile: loaded once a tile, 16 at a time. Stored head-major: one
 // 128-byte row piece per (token, head) of the (3, B, H, S, 64) output.
 // Tile widths 128 and 256 only (whole heads).
-struct QkvRopeEpi {
+struct QkvRopeEpi : opus_bf16::StagedEpi {
   static constexpr int STG_ROW = STG_BF16;
   static constexpr bool WHOLE_HEADS = true;
   struct Args {
@@ -298,7 +303,7 @@ struct QkvRopeEpi {
 
 // FC1: bias, exact-erf gelu, rounded to bf16 into the (M, F) hidden
 // scratch (the TPU kernel's rounding before FC2).
-struct GeluEpi {
+struct GeluEpi : opus_bf16::StagedEpi {
   static constexpr int STG_ROW = STG_BF16;
   static constexpr bool WHOLE_HEADS = false;
   struct Args {
@@ -328,7 +333,7 @@ struct GeluEpi {
 
 // FC2: bias in the registers, staged in fp32; then the residual x (16-byte
 // loads) added and the sum rounded once.
-struct ResidualEpi {
+struct ResidualEpi : opus_bf16::StagedEpi {
   static constexpr int STG_ROW = STG_F32;
   static constexpr bool WHOLE_HEADS = false;
   struct Args {
@@ -381,168 +386,72 @@ struct ResidualEpi {
   }
 };
 
-// A product of the core at tile width bn: 128 or 256, or 160 where the
-// epilogue is not per head.
+// The out projection: out = (acc + bias) + x, rounded once (FC2's
+// arithmetic), as a tile-I/O epilogue: the producer loads the residual
+// tile x into the buffer by TMA while the tile's K loop runs, each thread
+// adds its accumulators and bias (loaded into registers before the K
+// loop) to its residual pairs there and writes the rounded sums back in
+// place, and one thread a warpgroup stores its 64 rows by TMA. Buffer
+// layout: a warpgroup's 64 rows as BN / 32 boxes of 64 rows x 32 columns
+// (4 KB, 64-byte rows), the 16-byte chunk c of row r at c ^ ((r / 2) % 4)
+// (the 64-byte swizzle); a warp's pairs (rows g, columns 8 j + 2 (lane %
+// 4)) then fall in 32 different banks.
+struct OutProjEpi {
+  static constexpr bool WHOLE_HEADS = false;
+  static constexpr bool WIDE = false;          // 128 or 160 (the buffer)
+  static constexpr bool TILE_IO = true;
+  typedef ResidualEpi::Args Args;
+  template <int BN>
+  struct Pre {
+    __nv_bfloat162 bias[BN / 8];
+  };
+  template <int BN>
+  static __device__ __forceinline__ void prefetch(const Args& a, Pre<BN>& p,
+                                                  int, int n0, int,
+                                                  int lane) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      p.bias[j] = *reinterpret_cast<const __nv_bfloat162*>(
+          a.bias + n0 + 8 * j + 2 * (lane & 3));
+  }
+  template <int BN>
+  static __device__ __forceinline__ void tile_io(const Args&, float* acc,
+                                                 const Pre<BN>& p,
+                                                 uint8_t* half, int warp,
+                                                 int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 b = __bfloat1622float2(p.bias[j]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * warp + g + 8 * r;
+        __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(
+            half + (j >> 2) * opus_bf16::IO_BOX_BYTES + row * 64 +
+            (((j & 3) ^ ((row >> 1) & 3)) << 4) + 4 * t);
+        const float2 x = __bfloat1622float2(*at);
+        *at = __floats2bfloat162_rn((acc[4 * j + 2 * r] + b.x) + x.x,
+                                    (acc[4 * j + 2 * r + 1] + b.y) + x.y);
+      }
+    }
+  }
+};
+
+// A product of the core at tile width bn: 128, 256 where the epilogue
+// takes it, 160 where it is not per head.
 template <class Epi>
 int launch_product(int bn, const void* a, const void* w,
                    const opus_bf16::GemmShape& g,
                    const typename Epi::Args& ea, cudaStream_t st) {
-  if (bn == 256)
-    return opus_bf16::launch_bf16_gemm<256, Epi>(a, w, g, ea, st);
+  if constexpr (Epi::WIDE)
+    if (bn == 256)
+      return opus_bf16::launch_bf16_gemm<256, Epi>(a, w, g, ea, st);
   if (bn == 128)
     return opus_bf16::launch_bf16_gemm<128, Epi>(a, w, g, ea, st);
   if constexpr (!Epi::WHOLE_HEADS)
     if (bn == 160)
       return opus_bf16::launch_bf16_gemm<160, Epi>(a, w, g, ea, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
-// out_proj: the WMMA GEMM core (out = x + a @ w + b)
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int GEMM_THREADS = 256;            // 8 warps: 2 (M) x 4 (N)
-constexpr int A_LD = BK + 8;                 // padded smem row strides
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;
-constexpr int A_TILE = BM * A_LD;            // elements per stage
-constexpr int B_TILE = BK * B_LD;
-constexpr size_t PIPE_BYTES = 2 * (A_TILE + B_TILE) * sizeof(bf16);
-constexpr size_t EPI_BYTES = (size_t)BM * C_LD * sizeof(float);
-constexpr size_t GEMM_SMEM = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
-
-struct GemmArgs {
-  const bf16* A;         // (M, K) row-major
-  const bf16* W;         // (K, N) row-major
-  const bf16* bias;      // (N,)
-  int M, N, K;
-  const bf16* res;       // (M, N) residual
-  bf16* out;
-};
-
-// p is __grid_constant__: the lambdas below take it by reference, and
-// without the qualifier nvcc copies it out of parameter space (ptxas then
-// used 167 registers instead of 142 and the kernel ran 25% slower on an
-// H100).
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const __grid_constant__ GemmArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + 2 * A_TILE;
-  float* Cs = reinterpret_cast<float*>(smem_raw);   // reused after the loop
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;  // warp tile: 64 rows x 32 cols
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  const bf16* Wt = p.W + n0;
-
-  // Each thread stages 2 16-byte chunks of A (128 x 32) and of B (32 x 128).
-  uint4 ra[2], rb[2];
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const int m = m0 + row;
-      ra[i] = m < p.M ? *reinterpret_cast<const uint4*>(
-                            p.A + (size_t)m * p.K + k0 + col)
-                      : make_uint4(0, 0, 0, 0);
-      const int brow = c / (BN / 8), bcol = (c % (BN / 8)) * 8;
-      rb[i] = *reinterpret_cast<const uint4*>(
-          Wt + (size_t)(k0 + brow) * p.N + bcol);
-    }
-  };
-  auto store_tiles = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(As + buf * A_TILE + row * A_LD + col) = ra[i];
-      const int brow = c / (BN / 8), bcol = (c % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + buf * B_TILE + brow * B_LD + bcol) = rb[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = p.K / BK;
-  load_tiles(0);
-  store_tiles(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) load_tiles((kt + 1) * BK);
-    const bf16* Ab = As + buf * A_TILE;
-    const bf16* Bb = Bs + buf * B_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], Ab + (wm * 64 + i * 16) * A_LD + kk,
-                               A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bb + kk * B_LD + wn * 32 + j * 16,
-                               B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) store_tiles(buf ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 64 + i * 16) * C_LD + wn * 32 + j * 16,
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-
-  // Epilogue: each unit is 8 consecutive columns of one row (one 16-byte
-  // store): bias, then the residual, added in fp32 and rounded once.
-  for (int u = tid; u < BM * BN / 8; u += GEMM_THREADS) {
-    const int r = u / (BN / 8), c = (u % (BN / 8)) * 8;
-    const int m = m0 + r;
-    if (m >= p.M) continue;
-    const int n = n0 + c;
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = Cs[r * C_LD + c + e] + __bfloat162float(p.bias[n + e]);
-    uint4 o4;
-    bf16* oe = reinterpret_cast<bf16*>(&o4);
-    const uint4 r4 = *reinterpret_cast<const uint4*>(
-        p.res + (size_t)m * p.N + n);
-    const bf16* re = reinterpret_cast<const bf16*>(&r4);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      oe[e] = __float2bfloat16(v[e] + __bfloat162float(re[e]));
-    *reinterpret_cast<uint4*>(p.out + (size_t)m * p.N + n) = o4;
-  }
-}
-
-cudaError_t launch_out_proj(const GemmArgs& p, cudaStream_t st) {
-  // above 48 KB of dynamic shared memory needs the opt-in (per device)
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GEMM_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(p);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -844,17 +753,19 @@ int opus_encoder_attention(const void* qkv, const void* mask, void* words,
   return (int)cudaGetLastError();
 }
 
-// out = x + a @ w + b; a, x (M, E); w (E, E); b (E,)
+// out = x + a @ w + b; a, x (M, E); w (E, E); b (E,); bn: the product's
+// tile width (128 or 160, dividing E).
 int opus_out_proj(const void* a, const void* w, const void* b, const void* x,
-                  void* out, int M, int E, void* stream) {
-  GemmArgs p = {};
-  p.A = static_cast<const bf16*>(a);
-  p.W = static_cast<const bf16*>(w);
-  p.bias = static_cast<const bf16*>(b);
-  p.M = M; p.N = E; p.K = E;
-  p.res = static_cast<const bf16*>(x);
-  p.out = static_cast<bf16*>(out);
-  return (int)launch_out_proj(p, static_cast<cudaStream_t>(stream));
+                  void* out, int M, int E, int bn, void* stream) {
+  if (M < 1) return (int)cudaErrorInvalidValue;
+  ResidualEpi::Args ea = {};
+  ea.bias = static_cast<const bf16*>(b);
+  ea.res = static_cast<const bf16*>(x);
+  ea.out = static_cast<bf16*>(out);
+  ea.M = M; ea.N = E;
+  const opus_bf16::GemmShape g = {M, E, E, E};
+  return launch_product<OutProjEpi>(bn, a, w, g, ea,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // out = x + b2 + gelu(LN(x) @ w1 + b1) @ w2; x (M, E); w1 (E, F); w2 (F, E);

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) bf16 x bf16 GEMM core with both operands in shared
 // memory, on the TMA, mbarrier, descriptor and wgmma helpers of
 // hopper_gemm.cuh and hopper_attention.cuh. It carries the encoder's
-// LN + QKV + rope and both FFN products (fused_encoder.cu); an epilogue
-// class gives what happens to each finished tile.
+// LN + QKV + rope, the out projection and both FFN products
+// (fused_encoder.cu); an epilogue class gives what happens to each
+// finished tile.
 //
 //   out tile (128 x BN) = A (M, K) bf16 . W (K, N) bf16, fp32 accumulation
 //
@@ -31,14 +32,24 @@
 //   multicasting the shared weight tile, which halve a stage's L2 reads,
 //   measured 2-3% slower on the H100: the L2 is not what holds it back.)
 // - Programmatic dependent launch: the CTAs may start while the kernel
-//   before them on the stream (the LayerNorm pass, FC1) drains; the
-//   producer waits for that kernel (griddepcontrol.wait) before its first
-//   load. Nothing else a CTA reads is written by that kernel: the weights,
-//   biases, rope tables and the residual predate it.
-// - Epilogue, per 64-column chunk (the last of a 160-wide tile: 32) and
-//   warpgroup: the epilogue class turns the chunk's accumulators (32 a
-//   thread) into values in a staging buffer of 64 rows (its own rows,
-//   padded against bank conflicts), a named barrier of the warpgroup, then
+//   before them on the stream (the LayerNorm pass, the attention, FC1)
+//   drains; the producer waits for that kernel (griddepcontrol.wait)
+//   before its first load, and the consumers, who store, wait for the
+//   producer. Nothing else a CTA reads is written by that kernel: the
+//   weights, biases, rope tables and the residual predate it.
+// - Epilogue, tile-I/O (the out projection): the producer loads the tile
+//   the epilogue adds (the residual) into a 128 x BN buffer by TMA while
+//   the tile's K loop runs, once the last tile's output has left it; each
+//   consumer thread combines its accumulators with its values there in
+//   place, and one thread a warpgroup stores the warpgroup's 64 rows by
+//   TMA (rows past M are not written). It waits for the TMA to have read
+//   them behind the next tile's first product, then frees the buffer; the
+//   stores drain while that K loop runs.
+//   Staged (the others), per 64-column chunk (the last of a 160-wide
+//   tile: 32) and warpgroup: the epilogue class turns the chunk's
+//   accumulators (32 a thread) into values in a staging buffer of 64 rows
+//   (its own rows, padded against bank conflicts), a named barrier of the
+//   warpgroup, then
 //   16-byte stores of whole 128-byte row pieces (rows >= M are not
 //   stored), and a second barrier before the buffer is reused. In the
 //   m64nNk16 accumulator a thread holds rows g, g + 8 (g = lane / 4) of
@@ -193,17 +204,20 @@ __device__ __forceinline__ void wgmma_ss_n160_mn(float* d, uint64_t da,
 
 // The bytes of the ring at tile width BN for an epilogue whose staging
 // rows are STG_ROW bytes: as many stages (at most 6) as fit beside the
-// staging buffers (2 warpgroups x 64 rows) and the barriers.
-template <int BN, int STG_ROW>
+// staging buffers (2 warpgroups x 64 rows) and the barriers (IO_BARS more
+// for a tile-I/O epilogue's buffer).
+template <int BN, int STG_ROW, int IO_BARS = 0>
 struct Plan {
   static constexpr int PANELS = (BN + 63) / 64;      // 160: 2.5, loaded 3
   static constexpr int STAGE_BYTES = A_BYTES + PANELS * PANEL_BYTES;
   static constexpr int STAGING_BYTES = 2 * 64 * STG_ROW;
-  static constexpr int FREE = SMEM_LIMIT - 1024 - STAGING_BYTES - 2 * 6 * 8;
+  static constexpr int FREE =
+      SMEM_LIMIT - 1024 - STAGING_BYTES - 2 * 6 * 8 - IO_BARS * 8;
   static constexpr int STAGES = FREE / STAGE_BYTES > 6 ? 6
                                                         : FREE / STAGE_BYTES;
-  static constexpr int SMEM_BYTES =
-      1024 + STAGES * STAGE_BYTES + STAGING_BYTES + 2 * STAGES * 8;
+  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES +
+                                    STAGING_BYTES + 2 * STAGES * 8 +
+                                    IO_BARS * 8;
   static_assert(BN == 128 || BN == 160 || BN == 256,
                 "tile width 128, 160 or 256");
   static_assert(STAGES >= 3, "a ring of at least three stages");
@@ -221,6 +235,36 @@ __device__ __forceinline__ void wgmma_ss_mn(float* d, uint64_t da, uint64_t db,
     wgmma_ss_n128_mn(d, da, db, scale_d);
 }
 
+// One 2-D box from shared memory to `map` at (column c0, row c1) (rows
+// past the tensor are not written), in the thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// The thread's bulk stores so far, as one group.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until the thread's committed bulk stores have read their shared
+// memory (the buffer may be written again).
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// This thread's writes to shared memory, made visible to the TMA (the async
+// proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Named barrier `id` (1..15) over `count` threads (whole warps).
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
@@ -229,6 +273,18 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 struct GemmShape {
   int M, N, K;
   int group_cols;     // W's columns per group (N for a plain (K, N) weight)
+};
+
+// The base of an epilogue class that stages each chunk through shared
+// memory (stage / store below): nothing to load before the K loop.
+struct StagedEpi {
+  static constexpr bool TILE_IO = false;
+  static constexpr bool WIDE = true;         // takes 256-wide tiles
+  template <int BN>
+  struct Pre {};
+  template <int BN, class Args>
+  static __device__ __forceinline__ void prefetch(const Args&, Pre<BN>&, int,
+                                                  int, int, int) {}
 };
 
 // Tile t of the grouped order -> its first row and column.
@@ -242,8 +298,34 @@ __device__ __forceinline__ void tile_origin(int t, int tiles_m, int tiles_n,
   *n0 = (in_group / rows_in_group) * bn;
 }
 
+// A tile-I/O epilogue's buffer holds the 128 x BN bf16 tile (2 BN bytes a
+// row) and needs two more barriers.
+template <int BN, class Epi>
+constexpr int staging_row() {
+  if constexpr (Epi::TILE_IO)
+    return 2 * BN;
+  else
+    return Epi::STG_ROW;
+}
+
+template <int BN, class Epi>
+using EpiPlan = Plan<BN, staging_row<BN, Epi>(), Epi::TILE_IO ? 2 : 0>;
+
+constexpr int IO_BOX_BYTES = 64 * 64;      // 64 rows x 32 bf16 columns
+
 // The kernel body (the notes at the top of the file). Epi provides
-// STG_ROW (staging bytes a row of 64 columns), Args, and
+// TILE_IO, Pre<BN> and prefetch<BN>(args, pre, row0, n0, warp, lane),
+// called before a tile's K loop (loads whose values wait in registers
+// while the tensor cores run). A tile-I/O epilogue (TILE_IO = true;
+// STG_ROW = 2 BN: its buffer holds the 128 x BN bf16 tile) gets the tile's
+// input through `in_map` (loaded by the producer while the tile's K loop
+// runs) and writes its output through `out_map`, both in boxes of 64 rows
+// x 32 columns with the 64-byte swizzle, and provides
+//   tile_io<BN>(args, acc, pre, half, warp, lane): the accumulators
+//     combined with the input tile's warpgroup half (64 rows, BN / 32
+//     boxes of 4 KB at `half`) into the output, in place;
+// a staged one (StagedEpi) provides STG_ROW (staging bytes a row of 64
+// columns), Args, and
 //   tile<BN>(args, acc, row0, n0, warp, lane): once a tile, on all of a
 //     thread's accumulators (rows row0 + 16 warp + g (+ 8));
 //   stage<NC>(args, v, stg, row0, n, warp, lane): the accumulators v[NC /
@@ -255,9 +337,11 @@ __device__ __forceinline__ void tile_origin(int t, int tiles_m, int tiles_n,
 template <int BN, class Epi>
 __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
                                           const CUtensorMap& w_map,
+                                          const CUtensorMap* in_map,
+                                          const CUtensorMap* out_map,
                                           const GemmShape& g,
                                           const typename Epi::Args& ea) {
-  using P = Plan<BN, Epi::STG_ROW>;
+  using P = EpiPlan<BN, Epi>;
   constexpr int STAGES = P::STAGES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -265,6 +349,8 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
   uint64_t* full =
       reinterpret_cast<uint64_t*>(staging + P::STAGING_BYTES);
   uint64_t* empty = full + STAGES;
+  uint64_t* io_full = empty + STAGES;      // tile-I/O: the input tile is in
+  uint64_t* io_empty = io_full + 1;        // the output tile has been read
 
   const int tiles_m = (g.M + BM - 1) / BM, tiles_n = g.N / BN;
   const int tiles = tiles_m * tiles_n, nk = g.K / BK;
@@ -272,6 +358,10 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    if constexpr (Epi::TILE_IO) {
+      mbar_init(io_full, 1);
+      mbar_init(io_empty, 2);              // one thread a warpgroup
     }
     opus_hopper::fence_barrier_init();
   }
@@ -286,8 +376,12 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
       // A is the output of the kernel before this one (launched with
       // programmatic stream serialization): wait for it
       asm volatile("griddepcontrol.wait;\n" ::: "memory");
-      int it = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int it = 0, tile_i = 0;
+      // tile-I/O: the input tile goes in once the ring holds the tile's
+      // first stages (by then the consumers are at the tile's first
+      // product, behind which the last tile's output leaves the buffer)
+      const int io_at = (nk < STAGES ? nk : STAGES) - 1;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++tile_i) {
         int m0, n0;
         tile_origin(t, tiles_m, tiles_n, BN, &m0, &n0);
         const int grp = n0 / g.group_cols;
@@ -302,6 +396,17 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
           for (int p = 0; p < P::PANELS; ++p)
             tma_load_2d(st + A_BYTES + p * PANEL_BYTES, &w_map, &full[s],
                         wcol + 64 * p, wrow + k0);
+          if constexpr (Epi::TILE_IO) {
+            if (k0 == io_at * BK) {
+              mbar_wait(io_empty, (tile_i & 1) ^ 1);
+              mbar_arrive_expect_tx(io_full, P::STAGING_BYTES);
+#pragma unroll
+              for (int b = 0; b < 2 * BN / 32; ++b)
+                tma_load_2d(staging + b * IO_BOX_BYTES, in_map, io_full,
+                            n0 + 32 * (b % (BN / 32)),
+                            m0 + 64 * (b / (BN / 32)));
+            }
+          }
         }
       }
     }
@@ -309,17 +414,21 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
     opus_hopper::setmaxnreg_inc<232>();
     const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
-    uint8_t* stg = staging + wg * 64 * Epi::STG_ROW;
+    uint8_t* stg = staging + wg * (P::STAGING_BYTES / 2);
     // stage `it`, once read: one arrival a warp
     auto release = [&](int it) {
       __syncwarp();
       if (lane == 0) opus_attn::mbar_arrive(&empty[it % STAGES]);
     };
     float acc[BN / 2];
-    int it = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int it = 0, tile_i = 0;
+    bool stored = false;     // tile-I/O: this thread has stores to wait for
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++tile_i) {
       int m0, n0;
       tile_origin(t, tiles_m, tiles_n, BN, &m0, &n0);
+      const int row0 = m0 + 64 * wg;
+      typename Epi::template Pre<BN> pre;
+      Epi::template prefetch<BN>(ea, pre, row0, n0, warp, lane);
       for (int ks = 0; ks < nk; ++ks, ++it) {
         const int s = it % STAGES;
         mbar_wait(&full[s], (it / STAGES) & 1);
@@ -335,6 +444,15 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
           wgmma_ss_mn<BN>(acc, da + 2 * kk, db + kk * (2048 >> 4),
                           ks > 0 || kk > 0);
         wgmma_commit();
+        if constexpr (Epi::TILE_IO) {
+          // the last tile's output stores, waited for behind this tile's
+          // first product: then the buffer is free for its input
+          if (stored) {
+            tma_store_wait_read();
+            opus_attn::mbar_arrive(io_empty);
+            stored = false;
+          }
+        }
         fence_regs(acc, BN / 2);
         wgmma_wait<1>();                     // step it - 1 is done
         if (ks > 0) release(it - 1);
@@ -343,27 +461,43 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap& a_map,
       fence_regs(acc, BN / 2);
       release(it - 1);
 
-      const int row0 = m0 + 64 * wg;
-      Epi::template tile<BN>(ea, acc, row0, n0, warp, lane);
+      if constexpr (Epi::TILE_IO) {
+        mbar_wait(io_full, tile_i & 1);
+        Epi::template tile_io<BN>(ea, acc, pre, stg, warp, lane);
+        fence_proxy_async();
+        bar_sync(1 + wg, 128);
+        if ((threadIdx.x & 127) == 0) {
 #pragma unroll
-      for (int c = 0; c < BN / 64; ++c) {
-        Epi::template stage<64>(ea, acc + 32 * c, stg, row0, n0 + 64 * c,
-                                warp, lane);
-        bar_sync(1 + wg, 128);
-        Epi::template store<64>(ea, stg, row0, n0 + 64 * c,
-                                threadIdx.x & 127);
-        bar_sync(1 + wg, 128);
-      }
-      if constexpr (BN % 64 != 0) {        // 160: a last chunk of 32
-        constexpr int c = BN / 64;
-        Epi::template stage<32>(ea, acc + 32 * c, stg, row0, n0 + 64 * c,
-                                warp, lane);
-        bar_sync(1 + wg, 128);
-        Epi::template store<32>(ea, stg, row0, n0 + 64 * c,
-                                threadIdx.x & 127);
-        bar_sync(1 + wg, 128);
+          for (int b = 0; b < BN / 32; ++b)
+            tma_store_2d(out_map, stg + b * IO_BOX_BYTES, n0 + 32 * b,
+                         row0);
+          tma_store_commit();
+          stored = true;
+        }
+      } else {
+        Epi::template tile<BN>(ea, acc, row0, n0, warp, lane);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c) {
+          Epi::template stage<64>(ea, acc + 32 * c, stg, row0, n0 + 64 * c,
+                                  warp, lane);
+          bar_sync(1 + wg, 128);
+          Epi::template store<64>(ea, stg, row0, n0 + 64 * c,
+                                  threadIdx.x & 127);
+          bar_sync(1 + wg, 128);
+        }
+        if constexpr (BN % 64 != 0) {      // 160: a last chunk of 32
+          constexpr int c = BN / 64;
+          Epi::template stage<32>(ea, acc + 32 * c, stg, row0, n0 + 64 * c,
+                                  warp, lane);
+          bar_sync(1 + wg, 128);
+          Epi::template store<32>(ea, stg, row0, n0 + 64 * c,
+                                  threadIdx.x & 127);
+          bar_sync(1 + wg, 128);
+        }
       }
     }
+    if constexpr (Epi::TILE_IO)
+      if (stored) tma_store_wait_read();     // before shared memory goes
   }
 }
 
@@ -372,23 +506,35 @@ __global__ void __launch_bounds__(THREADS, 1)
 bf16_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                  const __grid_constant__ CUtensorMap w_map, const GemmShape g,
                  const typename Epi::Args ea) {
-  gemm_core<BN, Epi>(a_map, w_map, g, ea);
+  gemm_core<BN, Epi>(a_map, w_map, nullptr, nullptr, g, ea);
+}
+
+// The same with a tile-I/O epilogue's two tensor maps.
+template <int BN, class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+bf16_gemm_io_kernel(const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap in_map,
+                    const __grid_constant__ CUtensorMap out_map,
+                    const GemmShape g, const typename Epi::Args ea) {
+  gemm_core<BN, Epi>(a_map, w_map, &in_map, &out_map, g, ea);
 }
 
 // Build the tensor maps and launch min(tiles, SMs) CTAs of the core at
 // tile width BN: a (M, K) bf16, w (N / group_cols groups of (K,
-// group_cols)) bf16, both 16-byte aligned. Needs K % 64 == 0 and
+// group_cols)) bf16, both 16-byte aligned; a tile-I/O epilogue's input
+// `res` and output `out` (M, N) bf16 (N % 8 == 0). Needs K % 64 == 0 and
 // group_cols % BN == 0 (at BN = 160 the last panel's box reads 32 columns
 // past the tile, zero-filled past the weight). Returns a cudaError_t.
 template <int BN, class Epi>
 inline int launch_bf16_gemm(const void* a, const void* w, const GemmShape& g,
                             const typename Epi::Args& ea,
                             cudaStream_t stream) {
-  using P = Plan<BN, Epi::STG_ROW>;
+  using P = EpiPlan<BN, Epi>;
   if (g.M < 1 || g.K < BK || g.K % BK || g.group_cols < BN ||
       g.group_cols % BN || g.N % g.group_cols)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap am, wm;
+  CUtensorMap am, wm, im, om;
   int rc = opus_hopper::make_map_2d(&am, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                                     2, g.M, g.K, BM, BK,
                                     CU_TENSOR_MAP_SWIZZLE_128B);
@@ -398,9 +544,23 @@ inline int launch_bf16_gemm(const void* a, const void* w, const GemmShape& g,
                                 g.group_cols, BK, 64,
                                 CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc) return rc;
+  const void* fn;
+  if constexpr (!Epi::TILE_IO) {
+    fn = reinterpret_cast<const void*>(bf16_gemm_kernel<BN, Epi>);
+  } else {
+    // the epilogue's input (Args::res) and output (Args::out), (M, N)
+    rc = opus_hopper::make_map_2d(&im, ea.res,
+                                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.M,
+                                  g.N, 64, 32, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (rc) return rc;
+    rc = opus_hopper::make_map_2d(&om, ea.out,
+                                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.M,
+                                  g.N, 64, 32, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (rc) return rc;
+    fn = reinterpret_cast<const void*>(bf16_gemm_io_kernel<BN, Epi>);
+  }
   cudaError_t e = cudaFuncSetAttribute(
-      bf16_gemm_kernel<BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::SMEM_BYTES);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
@@ -418,7 +578,11 @@ inline int launch_bf16_gemm(const void* a, const void* w, const GemmShape& g,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, bf16_gemm_kernel<BN, Epi>, am, wm, g, ea);
+  if constexpr (Epi::TILE_IO)
+    e = cudaLaunchKernelEx(&cfg, bf16_gemm_io_kernel<BN, Epi>, am, wm, im,
+                           om, g, ea);
+  else
+    e = cudaLaunchKernelEx(&cfg, bf16_gemm_kernel<BN, Epi>, am, wm, g, ea);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

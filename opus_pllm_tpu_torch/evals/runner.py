@@ -15,10 +15,15 @@ The engine path (CLI `annotate --engine`) splices every request in
 static batches, then drives `serve.engine.ServingEngine` to completion:
 each sequence ends on its own and the next prompt takes its slot.
 
+After the timed window both runners score the results with
+`metrics.compute_metrics` (runner.py:243, :436), BERTScore through
+`bert_embed_fn` (e.g. `models.bert.make_embed_fn`) where one is given,
+and return the scores in `EvalReport.metrics`; entries/s counts only the
+generation, as in the JAX runners.
+
 Not ported yet (ROADMAP.md): beam search, the speculative draft, the
-device meshes, the prefetch thread, multi-host gathering, the engine's
-prefix cache, LoRA bank and engine reuse, and `compute_metrics`:
-`metrics` is returned empty.
+device meshes, the prefetch thread, multi-host gathering, and the engine's
+prefix cache, LoRA bank and engine reuse.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..infer.conversation import VICUNA_V0, annotation_prompt, truncate_at_sep
 from ..infer.tokenization import pad_batch, tokenize_with_seq
 from ..models import decoder, esm2, opus
 from . import datasets as ds
+from .metrics import compute_metrics
 
 
 @dataclass
@@ -122,11 +128,11 @@ def run_annotation_eval(params, cfg: OpusConfig, tokenizer, file_path: str,
                         batch_size: int = 8, prompt_bucket: int = 64,
                         esm_bucket: int = 128, impl: str = "auto",
                         save_path: Optional[str] = None, examples=None,
-                        log_fn=print) -> EvalReport:
+                        bert_embed_fn=None, log_fn=print) -> EvalReport:
     """Batch annotation eval over one benchmark JSON (the reference's
     run_opus_ddp eval_model). `examples` overrides loading `file_path`;
-    the file name still picks the task policy. Runs on the device that
-    holds the parameters."""
+    the file name still picks the task policy and the metrics. Runs on the
+    device that holds the parameters."""
     if examples is None:
         examples = ds.load_annotation_json(file_path)
     gen = gen or GenerationConfig(
@@ -156,12 +162,23 @@ def run_annotation_eval(params, cfg: OpusConfig, tokenizer, file_path: str,
                        for e, t in zip(chunk[:n_real], texts[:n_real]))
     dt = time.perf_counter() - t0
 
+    eps, metrics = _report(results, dt, file_path, save_path,
+                           bert_embed_fn, log_fn)
+    return EvalReport(results, metrics, eps, dt, decode_tokens,
+                      decode_seconds)
+
+
+def _report(results, dt, file_path, save_path, bert_embed_fn, log_fn):
+    """After the timed window (runner.py:236-245): entries/s, the results
+    saved, the metrics computed and logged."""
     eps = len(results) / dt if dt > 0 else 0.0
     log_fn(f"entries/sec: {eps:.3f}, time elapsed: {dt:.1f}s")
     if save_path:
         with open(save_path, "w") as f:
             json.dump(results, f, indent=1)
-    return EvalReport(results, {}, eps, dt, decode_tokens, decode_seconds)
+    metrics = compute_metrics(results, file_path, bert_embed_fn=bert_embed_fn)
+    log_fn(str(metrics))
+    return eps, metrics
 
 
 def _check_engine_gen(gen: GenerationConfig) -> None:
@@ -242,6 +259,7 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
                                adapter_id: Optional[str] = None,
                                engine_cache: Optional[dict] = None,
                                mesh=None, cache_prefix: bool = False,
+                               bert_embed_fn=None,
                                log_fn=print) -> EvalReport:
     """Annotation eval through the continuous-batching serving engine (CLI
     `annotate --engine`, defaults 16 slots and 4 steps a tick). Greedy
@@ -279,10 +297,7 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
                for e, toks in zip(examples, done)]
     dt = time.perf_counter() - t0
 
-    eps = len(results) / dt if dt > 0 else 0.0
-    log_fn(f"entries/sec: {eps:.3f}, time elapsed: {dt:.1f}s")
-    if save_path:
-        with open(save_path, "w") as f:
-            json.dump(results, f, indent=1)
-    return EvalReport(results, {}, eps, dt, stats.get("tokens", 0),
+    eps, metrics = _report(results, dt, file_path, save_path,
+                           bert_embed_fn, log_fn)
+    return EvalReport(results, metrics, eps, dt, stats.get("tokens", 0),
                       stats.get("seconds", 0.0), stats)

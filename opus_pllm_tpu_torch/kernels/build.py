@@ -37,7 +37,7 @@ SIGNATURES = {
         "opus_ln_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                              _I, _P],
         "opus_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "opus_out_proj": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "opus_out_proj": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "opus_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                      _I, _P],
     },

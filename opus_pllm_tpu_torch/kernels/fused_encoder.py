@@ -58,9 +58,15 @@ encoder_attention
 out_proj
   Replaces: `fused_out_proj` / `_out_proj_kernel` (pallas_call at :380).
   Bound: ~13 GFLOP against ~35 MB: tensor-core bound.
-  Design: the first GEMM core (WMMA 16x16x16, register-staged double
-  buffering) with a bias + residual epilogue (one rounding), reading the
-  token-major attention output directly (no relayout).
+  Design: a product of the same TMA + wgmma core: A is the token-major
+  attention output as encoder_attention writes it (no relayout), W_o the
+  N-major B. The epilogue has FC2's arithmetic (bias and the residual
+  added to the fp32 sums, one rounding) but moves its tiles by TMA: the
+  producer loads the residual tile into shared memory while the tile's K
+  loop runs, the consumers add in place, and the output tile leaves by a
+  TMA store while the next tile's K loop runs. The tile width comes from
+  `tile_width` over OUT_TILE_WIDTHS (160 at S=512, 128 at S=128; no 256,
+  whose 64 KB tile buffer would leave the ring three stages).
 ffn
   Replaces: `fused_ffn` / `_ffn_kernel` (pallas_call at :323).
   Bound: ~107 GFLOP against ~47 MB of inputs and outputs: tensor-core
@@ -86,6 +92,7 @@ KEY_TILE = 64        # keys a word of the packed mask covers
 GEMM_ROWS = 128      # rows of a tile of the TMA + wgmma core
 TILE_WIDTHS = (256, 128)      # the QKV product's: whole heads
 FFN_TILE_WIDTHS = (256, 160, 128)
+OUT_TILE_WIDTHS = (160, 128)  # out_proj's (its tile buffer)
 
 launches = {"ln_qkv_rope": 0, "encoder_attention": 0, "out_proj": 0,
             "ffn": 0}
@@ -299,7 +306,8 @@ def encoder_attention(qkv, mask=None):
 
 
 def out_proj(a, w, b, x):
-    """x + a @ w + b with a residual/bias epilogue."""
+    """x + a @ w + b: one product of the TMA + wgmma core with a bias +
+    residual epilogue."""
     _frozen("out_proj", a, w, b, x)
     if not x.is_cuda:
         return out_proj_plain(a, w, b, x)
@@ -310,8 +318,10 @@ def out_proj(a, w, b, x):
         raise ValueError("out_proj: shapes do not match")
     lib = build.library("fused_encoder")
     out = torch.empty_like(x)
+    m = bsz * s
     _launch("out_proj", x.device, lib.opus_out_proj, _ptr(a), _ptr(w),
-            _ptr(b), _ptr(x), _ptr(out), bsz * s, e)
+            _ptr(b), _ptr(x), _ptr(out), m, e,
+            tile_width(m, e, e, _sms(x.device), OUT_TILE_WIDTHS))
     return out
 
 
@@ -349,11 +359,9 @@ def supports(cfg, x, mask=None) -> bool:
     holds whole heads and never straddles q/k/v), an FFN width that tiles
     by 128, and padding masks given as (B, S) key rows. Any sequence
     length: the products' TMA loads zero-fill the rows past B*S, the
-    attention kernel masks its ragged edge. B*S / 128 row tiles at most
-    65535: out_proj's grid (the other products are persistent)."""
+    attention kernel masks its ragged edge."""
     b, s, e = x.shape
     return (x.is_cuda and x.dtype == torch.bfloat16
             and cfg.head_dim == HEAD_DIM and e == cfg.num_heads * HEAD_DIM
             and e % 128 == 0 and cfg.ffn_dim % 128 == 0
-            and (mask is None or mask.dim() == 2)
-            and -(-b * s // 128) <= 65535)
+            and (mask is None or mask.dim() == 2))

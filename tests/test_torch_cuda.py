@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes the main path can also produce: the four fused-encoder
-kernels (ln_qkv_rope and ffn at both tile widths of their TMA + wgmma
-core, bit-identical across calls), the int4 v2 matmul, both quantized decode attentions, flash
+kernels (ln_qkv_rope, out_proj and ffn at every tile width of their TMA +
+wgmma core, bit-identical across calls), the int4 v2 matmul, both quantized decode attentions, flash
 attention, the int8 matmul, the two flash-attention backward kernels and
 the int4 v1 matmul (the int8 and the v1 matmul each in its TMA + wgmma
 kernel and in the kernel kept for N that is not a multiple of 16); then
@@ -178,9 +178,34 @@ def test_every_tile_width_matches_plain(monkeypatch, bn, s):
     _check(fe.ffn, fe.ffn_plain, ffn_in)
 
 
+def _out_proj_inputs(g, b, s, e):
+    return (_rnd(g, b, s, e, scale=0.5), _rnd(g, e, e, scale=e ** -0.5),
+            _rnd(g, e, scale=0.1), _rnd(g, b, s, e))
+
+
+@pytest.mark.parametrize("s", [1, 70, 128, 512])
+@pytest.mark.parametrize("e", [128, 1280])
+def test_out_proj_on_the_wgmma_core(monkeypatch, s, e):
+    """B = 3 (B*S ragged at S = 1 and 70): the planned width, then every
+    width out_proj takes (OUT_TILE_WIDTHS) that divides E; one counted
+    launch a call and the same bits from two calls."""
+    args = _out_proj_inputs(_gen(), 3, s, e)
+    fe.reset_launches()
+    _check(fe.out_proj, fe.out_proj_plain, args)
+    assert fe.launches["out_proj"] == 1
+    assert torch.equal(fe.out_proj(*args), fe.out_proj(*args))
+    for bn in fe.OUT_TILE_WIDTHS:
+        if e % bn:
+            continue
+        monkeypatch.setattr(fe, "tile_width", lambda *a, b=bn, **kw: b)
+        _check(fe.out_proj, fe.out_proj_plain, args)
+        assert torch.equal(fe.out_proj(*args), fe.out_proj(*args))
+
+
 def test_tile_width_the_core_does_not_take_raises(monkeypatch):
     """A width the core does not take (64; 160 for the QKV product, whose
-    tiles hold whole heads) is refused by the C entry point and the
+    tiles hold whole heads; 256 for out_proj, whose tile buffer would
+    leave the ring three stages) is refused by the C entry point and the
     wrapper raises: nothing falls back."""
     qkv_in, rope, ffn_in = _encoder_inputs(_gen(), 1, 8, 640, 640)
     for bn in (64, 160):
@@ -190,6 +215,11 @@ def test_tile_width_the_core_does_not_take_raises(monkeypatch):
     monkeypatch.setattr(fe, "tile_width", lambda *args, **kw: 64)
     with pytest.raises(RuntimeError, match="ffn"):
         fe.ffn(*ffn_in)
+    with pytest.raises(RuntimeError, match="out_proj"):
+        fe.out_proj(*_out_proj_inputs(_gen(), 1, 8, 640))
+    monkeypatch.setattr(fe, "tile_width", lambda *args, **kw: 256)
+    with pytest.raises(RuntimeError, match="out_proj"):
+        fe.out_proj(*_out_proj_inputs(_gen(), 1, 8, 1280))
 
 
 def test_wrappers_raise_instead_of_falling_back():

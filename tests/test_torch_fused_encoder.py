@@ -2,9 +2,9 @@
 (opus_pllm_tpu_torch.kernels.fused_encoder) vs the JAX Pallas kernels in
 interpret mode (opus_pllm_tpu.kernels.fused_encoder); then the CUDA
 kernels' own arithmetic, swept here tile by tile (the encoder attention's
-key tiles; ln_qkv_rope's and ffn's LayerNorm pass, 128-row tiles, 64-deep
-K steps and per-chunk epilogues), against both, and the host-side tile
-plan.
+key tiles; ln_qkv_rope's and ffn's LayerNorm pass, and for them and
+out_proj 128-row tiles, 64-deep K steps and per-chunk epilogues), against
+both, and the host-side tile plan.
 
 ESM2 widths E=256, H=4 (d=64), S=16, B=3 with one padded row, fp32. The
 tolerance is the one tests/test_fused_encoder.py:67 uses, |got - ref| /
@@ -448,6 +448,40 @@ def test_ffn_sweep_at_160_wide_tiles_matches_pallas_and_plain():
     _close(got, tfe.ffn_plain(*(_bf(a) for a in args)).float().numpy())
 
 
+def _out_proj_sweep(a, w, b, x, bn):
+    """The out projection the kernel's way: the token-major (M, E)
+    attention output as A; its epilogue has FC2's arithmetic (b added to
+    the fp32 sums, then the residual x, rounded once)."""
+    bsz, s, e = x.shape
+    xm = x.reshape(bsz * s, e)
+    out = np.zeros_like(xm)
+
+    def epilogue(v, rows, n):
+        cols = slice(n, n + v.shape[1])
+        out[rows, cols] = _bf16((v + b[cols]) + xm[rows, cols])
+
+    _sweep(a.reshape(bsz * s, e), w, bn, e, epilogue)
+    return out.reshape(bsz, s, e)
+
+
+@pytest.mark.parametrize("e,bn", [(256, 128), (640, 128), (640, 160)])
+def test_out_proj_sweep_matches_pallas_and_plain(e, bn):
+    """B = 2, S = 70 (M = 140: a ragged second row tile), K = E in 64-deep
+    steps; at E = 640 the 160-wide tile ends in a chunk of 32 columns."""
+    rng = np.random.default_rng(5)
+    n = lambda *shape, scale=1.0: _bf16(scale * rng.standard_normal(shape))
+    a, w, b, x = (n(B2, S2, e, scale=0.5), n(e, e, scale=e ** -0.5),
+                  n(e, scale=0.1), n(B2, S2, e))
+    got = _out_proj_sweep(a, w, b, x, bn)
+    packed = a.reshape(B2, S2, e // 128, 128).transpose(0, 2, 1, 3)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jfe.fused_out_proj(*(jnp.asarray(t, jnp.bfloat16)
+                                   for t in (packed, w, b, x)))
+    _close(got, np.asarray(ref, np.float32))
+    _close(got, tfe.out_proj_plain(*(_bf(t) for t in (a, w, b, x)))
+           .float().numpy())
+
+
 def test_tile_order_covers_every_tile_once():
     """Ragged M, one to three groups of 8 row tiles."""
     for m, n, bn in ((1, 384, 128), (140, 768, 256), (1024, 3840, 256),
@@ -482,6 +516,18 @@ def test_tile_width_plans_the_rounds_of_132_ctas(m, n, n_group, want):
 ])
 def test_tile_width_plans_the_ffn_products(m, n, want):
     assert tfe.tile_width(m, n, n, 132, tfe.FFN_TILE_WIDTHS) == want
+
+
+@pytest.mark.parametrize("m,e,want", [
+    (4096, 1280, 160),               # S=512: 256 tiles of 160, 2 rounds
+    (1024, 1280, 128),               # S=128: 80 tiles of 128, one round
+    (16 * 512, 1280, 160),           # a train batch: a tie goes wider
+    (140, 256, 128),                 # few tiles: the narrow one
+    (140, 640, 128),                 # 256 does not divide 640
+    (1, 128, 128),
+])
+def test_tile_width_plans_the_out_projection(m, e, want):
+    assert tfe.tile_width(m, e, e, 132, tfe.OUT_TILE_WIDTHS) == want
 
 
 def test_tile_width_never_straddles_a_group():

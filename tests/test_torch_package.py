@@ -1,5 +1,6 @@
 """The port stands alone: importing opus_pllm_tpu_torch and running its
-CPU slice loads neither jax nor the JAX package, and chip_smoke.py refuses
+CPU slice, its scorers and its BERTScore encoder loads neither jax nor the
+JAX package, and chip_smoke.py refuses
 to run without a CUDA device (non-zero exit, no result line). Its entry
 points default to CUDA."""
 
@@ -27,6 +28,9 @@ import opus_pllm_tpu_torch.core.convert, opus_pllm_tpu_torch.kernels.build
 import opus_pllm_tpu_torch.kernels.flash_attention
 import opus_pllm_tpu_torch.kernels.quant
 import opus_pllm_tpu_torch.serve.engine
+from opus_pllm_tpu_torch.core.config import BertConfig
+from opus_pllm_tpu_torch.evals import metrics, textproc, wordnet
+from opus_pllm_tpu_torch.models import bert
 
 cfg = OpusConfig.tiny("llama")
 cfg = dataclasses.replace(cfg, esm=ESM2Config(num_layers=1, embed_dim=128,
@@ -40,6 +44,17 @@ rep = runner.run_annotation_eval(
     prompt_bucket=32, esm_bucket=32, log_fn=lambda *_: None,
     examples=[AnnotationExample("What?", "MKTAYIAKQR", "")] * 3)
 assert len(rep.results) == 3
+assert set(rep.metrics) == {"Precision", "Recall", "F1 Score"}
+vocab = {t: i for i, t in enumerate(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
+                                     "a", "##a"])}
+embed = bert.make_embed_fn(
+    bert.init(BertConfig.tiny(), generator=torch.Generator().manual_seed(0),
+              device="cpu"),
+    BertConfig.tiny(), textproc.WordPieceTokenizer(vocab))
+scores = metrics.compute_metrics(
+    [{"generated": "a aa", "ground_truth": "aaa a"}], "x_function.json",
+    bert_embed_fn=embed)
+assert 0.0 <= scores["BERTScore"]["f1"] <= 1.0
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "opus_pllm_tpu")
        or m.startswith(("jax.", "jaxlib.", "opus_pllm_tpu."))]
 print("LOADED", bad)
