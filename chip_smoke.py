@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's annotation-eval, MCQ-eval and LoRA-training
-paths once on one CUDA GPU.
+"""Drive the PyTorch port's annotation-eval, MCQ-eval, LoRA-training and
+stage-(a) paths once on one CUDA GPU, with the llama, qwen2 and opt
+decoder families.
 
     python3 chip_smoke.py
 
@@ -46,8 +47,12 @@ and prints no result:
          engine's admission mask), the static prefill (8 x 327 queries over
          a 391-slot left-padded cache, whose padding rows have no valid key:
          the kernel gives them out 0, as the plain version does), causal
-         B=1, S=2048 and the training shape (B=16, L=519, the training mask:
-         64 launches a train step run there); Hq=32, Hkv=8, D=128. The
+         B=1, S=2048, the training shape (B=16, L=519, the training mask:
+         64 launches a train step run there) and the text encoder's prefill
+         (B=8, S=1792, causal with right-padded captions, whose padding
+         rows attend the valid keys); Hq=32, Hkv=8, D=128; then the static
+         prefill with Qwen2.5-7B's heads (Hq=28, Hkv=4: G=7) and
+         Galactica-6.7B's (32 / 32: G=1). The
          kernel skips the 64-key tiles whose mask is false everywhere (the
          bound counts mask-true pairs only). Library: torch's
          scaled_dot_product_attention with the same mask (K/V heads
@@ -197,6 +202,44 @@ and prints no result:
      core.convert.lora_to_peft(family="llama") gives 32 x 7 x 2 keys in
      (out, in) orientation that save_torch_state_dict and torch.load
      return unchanged.
+ 10. stage (a): the QLoRA LLM freed, a Llama-3-8B drawn in bf16 from the
+     seed as the text LM beside phase 4's ESM2-650M; 384 synthetic
+     UniProt records (unique proteins of 60-500 residues, captions of
+     200-1792 ByteTokenizer tokens rendered by datasets.uniprot_text)
+     written to a temporary pickle and run through
+     data.precompute.precompute_cstp_pairs at its defaults (batch 8,
+     len_bucket 128, max_text_len 4096, mask_pad=False). Checks exact
+     launch counts (each encoder kernel 33 x ESM2 batches,
+     flash_attention 32 x text batches, every other kernel 0), 384 finite
+     fp32 pairs of 1280 / 4096, and that one text batch's text embeddings
+     and one ESM2 batch's pooled embeddings through the kernels stay
+     within phase 3's bound of the plain path in fp32 (printed beside the
+     plain path in bf16). Then train-cstp's defaults
+     (cli/main.py:1005-1025: lr 0.05, wd 1e-4, batch 128) through
+     train.cstp_trainer.fit with CSTPConfig(protein_dim=1280,
+     text_dim=4096, proj_dim=5120): 256 pairs x 2 epochs = 4 steps, a
+     finite loss and accuracies in [0, 1] every step, evidence_dead
+     printed, `evaluate` on the other 128; 2 more steps with
+     fit(ckpt=CheckpointManager(tmp), save_every=1), restore_state of the
+     last equal to the state in memory bit for bit; 2 with
+     warmup_info_nce_steps=-1, each with a gradient norm > 0; before
+     each of these two, the evidential loss (losses.trust_evidence, fp32)
+     on the step's own similarities agrees with a plain fp64 reading of
+     the same similarities within fp32's rounding bound for that sum
+     (evidential_fp64). Prints the ESM2 and text seconds and rates,
+     pairs/s, ms/step after the first and GiB on the card;
+ 11. families: Qwen2.5-7B (DecoderConfig.qwen25_7b()) and Galactica-6.7B
+     (galactica_6_7b()), each drawn in bf16 from the seed in an
+     OpusConfig whose switch is sized to its hidden size (3584 / 4096),
+     answer 8 keywords requests through run_annotation_eval (one batch,
+     32 new tokens, T=0.1, top_p=0.7) and embed 8 captions through
+     models.text_encoder.text_embeddings. Checks exact launch counts
+     (encoder kernels 33, flash_attention num_layers (28 / 32) for the
+     prefill and again for the captions, every other kernel 0), that
+     every request is answered, and that one prefill's last-position
+     logits and the captions' embeddings through the kernels stay within
+     phase 3's bound of the fp32 plain path. Prints entries/s, decode
+     tok/s and GiB on the card.
 The last two lines: a JSON object of the kernels' numbers, then
 {"ok": true, "device": {...}}.
 
@@ -226,7 +269,8 @@ process of its own, which builds that tree's kernels into its git-ignored
 build/), inputs drawn from the same seed, one device time per line (as
 phase 3 times a kernel) with the card's name and power limit:
   - the flash-attention kernels at phase 3's flash shapes: the forward at
-    all four, dq and dk/dv at the training shape and causal 2048;
+    all seven with SDPA on the same inputs and mask beside it, dq and
+    dk/dv at the training shape and causal 2048;
   - the four encoder kernels at B=8, S in {128, 512} on phase 3's inputs,
     each with its bound and share: encoder_attention beside SDPA on the
     same inputs and key mask, ln_qkv_rope, out_proj and ffn beside the
@@ -313,6 +357,11 @@ TRAIN_LEN = TRAIN_MAX_LEN + 8 - 1
 TRAIN_RECORDS, TRAIN_STEPS_BF16, TRAIN_STEPS_QLORA = 64, 4, 3
 TRAIN_STEPS_CKPT = 2            # the checkpointed steps after the timed ones
 GATE_LAYERS, GATE_ROWS = 4, 4
+# stage (a): precompute-pairs over synthetic UniProt records, then
+# train-cstp's defaults (cli/main.py:1005-1025) on 256 of the pairs
+STAGE_A_RECORDS, STAGE_A_TRAIN, STAGE_A_EPOCHS = 384, 256, 2
+TEXT_LEN = 1792                 # the longest caption's 128-token bucket
+FAMILY_REQUESTS = 8
 
 
 def fail(msg):
@@ -564,9 +613,23 @@ def decode_bytes(q, kl, vl, mask4):
                                                          *vl.values())
 
 
-def flash_cases(g):
-    """phase 3's flash_attention shapes, masks drawn from `g`: (label, B,
-    Sq, Skv, mask, causal)."""
+FIRST_FLASH_CASES = 4
+
+
+def flash_generators():
+    """(g, g_more) for flash_cases, seeded from SEED and SEED + 2."""
+    import torch
+    g, g_more = (torch.Generator(device="cuda") for _ in range(2))
+    g.manual_seed(SEED)
+    g_more.manual_seed(SEED + 2)
+    return g, g_more
+
+
+def flash_cases(g, g_more):
+    """phase 3's flash_attention shapes: (label, B, Sq, Skv, mask, causal,
+    Hq, Hkv). The first FIRST_FLASH_CASES draw their masks from `g`; the
+    cases after them draw from `g_more` (as their q, k, v do), so that
+    adding a case moves none of `g`'s draws."""
     import torch
     from opus_pllm_tpu_torch.serve.engine import admission_inputs
     # serving prefill: 16 admitted prompts of 200-320 spliced tokens
@@ -583,11 +646,26 @@ def flash_cases(g):
     n_train = torch.randint(TRAIN_LEN // 2, TRAIN_LEN + 1, (TRAIN_BATCH,),
                             generator=g, device="cuda")
     n_train[0] = TRAIN_LEN
-    return (("serving prefill B=16 S=320", 16, 320, 320, serve_mask, False),
-            ("static prefill B=8 327x391", 8, 327, 391, static_mask, False),
-            ("causal B=1 S=2048", 1, 2048, 2048, None, True),
+    # the text encoder's prefill: 8 right-padded captions in a 1792 bucket
+    n_text = torch.randint(TEXT_LEN // 8, TEXT_LEN + 1, (8,),
+                           generator=g_more, device="cuda")
+    n_text[0] = TEXT_LEN
+    return (("serving prefill B=16 S=320", 16, 320, 320, serve_mask, False,
+             32, 8),
+            ("static prefill B=8 327x391", 8, 327, 391, static_mask, False,
+             32, 8),
+            ("causal B=1 S=2048", 1, 2048, 2048, None, True, 32, 8),
             (f"training B={TRAIN_BATCH} L={TRAIN_LEN}", TRAIN_BATCH,
-             TRAIN_LEN, TRAIN_LEN, train_mask(n_train, TRAIN_LEN), False))
+             TRAIN_LEN, TRAIN_LEN, train_mask(n_train, TRAIN_LEN), False,
+             32, 8),
+            (f"text encoder B=8 S={TEXT_LEN}", 8, TEXT_LEN, TEXT_LEN,
+             train_mask(n_text, TEXT_LEN), False, 32, 8),
+            # the families' static prefills: Qwen2.5-7B (28 / 4 heads,
+            # G = 7) and Galactica-6.7B (32 / 32, G = 1)
+            ("qwen2 static prefill G=7 327x391", 8, 327, 391, static_mask,
+             False, 28, 4),
+            ("opt static prefill G=1 327x391", 8, 327, 391, static_mask,
+             False, 32, 32))
 
 
 def kernel_times(flag, trees):
@@ -624,21 +702,31 @@ def kernel_times(flag, trees):
 
 
 def flash_kernel_times(tree, card):
-    """The flash kernels at phase 3's flash shapes."""
+    """The flash kernels at phase 3's flash shapes, the forward with SDPA
+    on the same inputs and mask beside it (K/V heads repeated
+    beforehand)."""
     import torch
+    import torch.nn.functional as tnf
     from opus_pllm_tpu_torch.kernels import flash_attention as fa
     from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
-    g = torch.Generator(device="cuda")
-    g.manual_seed(SEED)
-    rnd = lambda *shape: torch.randn(shape, generator=g,
-                                     device="cuda").bfloat16()
-    hq, hkv, d = 32, 8, 128
-    for label, b, sq, skv, mask, causal in flash_cases(g):
+    g, g_more = flash_generators()
+    d = 128
+    for i, (label, b, sq, skv, mask, causal, hq, hkv) in enumerate(
+            flash_cases(g, g_more)):
+        gq = g if i < FIRST_FLASH_CASES else g_more
+        rnd = lambda *shape: torch.randn(shape, generator=gq,
+                                         device="cuda").bfloat16()
         q, k, v = rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, mask,
                                                 causal=causal))
-        print(f"{tree}: flash_attention {label}: {ms:.4f} ms [{card}]",
-              flush=True)
+        kx, vx = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        qx = q.transpose(1, 2)
+        sdpa = time_ms(lambda: tnf.scaled_dot_product_attention(
+            qx, kx, vx, attn_mask=mask, is_causal=causal))
+        print(f"{tree}: flash_attention {label}: {ms:.4f} ms (SDPA "
+              f"{sdpa:.4f} ms) [{card}]", flush=True)
+        del kx, vx, qx
         if label.startswith(("training", "causal")):
             dout = rnd(b, sq, hq, d)
             out, lse = fa.flash_attention(q, k, v, mask, causal=causal,
@@ -791,14 +879,16 @@ def check_serve_kernels(card):
     import torch.nn.functional as tnf
     from opus_pllm_tpu_torch.kernels import flash_attention as fa
     from opus_pllm_tpu_torch.kernels import quant
-    g = torch.Generator(device="cuda")
-    g.manual_seed(SEED)
-    rnd = lambda *shape: torch.randn(shape, generator=g,
-                                     device="cuda").bfloat16()
+    g, g_more = flash_generators()
+    rnd = lambda *shape, gen=g: torch.randn(shape, generator=gen,
+                                            device="cuda").bfloat16()
     rows = {}
-    hq, hkv, d = 32, 8, 128
-    for i, (label, b, sq, skv, mask, causal) in enumerate(flash_cases(g)):
-        q, k, v = rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+    d = 128
+    for i, (label, b, sq, skv, mask, causal, hq, hkv) in enumerate(
+            flash_cases(g, g_more)):
+        gq = g if i < FIRST_FLASH_CASES else g_more
+        q, k, v = (rnd(b, sq, hq, d, gen=gq), rnd(b, skv, hkv, d, gen=gq),
+                   rnd(b, skv, hkv, d, gen=gq))
         pairs = (mask.sum().item() if mask is not None
                  else b * sq * (sq + 1) // 2)
         kx, vx = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
@@ -1382,9 +1472,11 @@ def _clone(tree):
 
 
 def _norms_to_fp32(llm):
-    """The decoder tree with its embedding and norms in fp32; projections
-    (bf16, int8 or int4 leaves) stay as they are."""
-    small = ("embed_tokens", "final_norm", "attn_norm", "ffn_norm")
+    """The decoder tree with its embeddings (OPT's learned positions
+    included) and norms in fp32; projections (bf16, int8 or int4 leaves)
+    stay as they are."""
+    small = ("embed_tokens", "embed_positions", "final_norm", "attn_norm",
+             "ffn_norm")
     if isinstance(llm, list):
         return [_norms_to_fp32(v) for v in llm]
     if not isinstance(llm, dict):
@@ -1972,6 +2064,447 @@ def check_train_slice(card, params, cfg):
     return counts, qcounts
 
 
+def uniprot_records(n):
+    """n synthetic UniProt records drawn from SEED: unique proteins of
+    60-500 residues, and a Similarity field sized so that the caption
+    `uniprot_text` renders is 200-TEXT_LEN ByteTokenizer tokens."""
+    import numpy as np
+    from opus_pllm_tpu_torch.data.datasets import uniprot_text
+    rng = np.random.default_rng(SEED + 1)
+    aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    words = ("belongs", "to", "the", "protein", "kinase", "superfamily",
+             "domain", "binds", "zinc", "transporter", "subunit", "family",
+             "catalytic", "membrane", "ribosomal", "ligase")
+    recs, seen = {}, set()
+    while len(recs) < n:
+        seq = "".join(rng.choice(aa, int(rng.integers(60, 501))))
+        if seq in seen:
+            continue
+        seen.add(seq)
+        acc = f"Q{len(recs):05d}"
+        rec = {"Sequence": seq, "Name": [f"Protein {len(recs)}"],
+               "Accession": [acc], "Similarity": "",
+               "Subcellular_Location": "Cytoplasm"}
+        want = int(rng.integers(200, TEXT_LEN + 1)) - len(uniprot_text(rec))
+        filler = " ".join(rng.choice(words, want // 4 + 1))
+        rec["Similarity"] = filler[:want]
+        recs[acc] = rec
+    return recs
+
+
+def _vs_fp32(label, got, plain, ref):
+    """Kernels (`got`) and the plain path in bf16 (`plain`) against the
+    plain path in fp32 (`ref`), with phase 3's bound."""
+    import torch
+    err = (got.float() - ref).abs().max().item()
+    err_plain = (plain.float() - ref).abs().max().item()
+    bound = 2 * err_plain + ATOL
+    print(f"{label}: kernels vs fp32 plain {err:.3e}, bf16 plain vs fp32 "
+          f"plain {err_plain:.3e} (bound {bound:.3e}); max|ref| "
+          f"{ref.abs().max().item():.3e}", flush=True)
+    if not (torch.isfinite(got).all() and err <= bound):
+        fail(f"{label}: kernels {err:.3e} from the fp32 plain path, above "
+             f"{bound:.3e}")
+
+
+def _caption_batch(tok, texts, bucket=128):
+    """precompute_cstp_pairs' text batch: right-padded to the bucket."""
+    import numpy as np
+    import torch
+    from opus_pllm_tpu_torch.core.util import round_up
+    enc = [tok.encode(t) for t in texts]
+    pad_to = round_up(max(len(e) for e in enc), bucket)
+    ids = np.full((len(enc), pad_to), tok.pad_token_id, np.int32)
+    mask = np.zeros((len(enc), pad_to), bool)
+    for i, e in enumerate(enc):
+        ids[i, :len(e)] = e
+        mask[i, :len(e)] = True
+    return torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+
+
+def check_text_embeddings(label, llm, lcfg, ids, mask):
+    """One text batch's `text_embeddings` (mask_pad=False) through the
+    kernels (impl="auto", bf16) and plain (bf16) against the plain path in
+    fp32 (fp32 activations, embeddings and norms; the same bf16
+    projections)."""
+    import dataclasses
+    import torch
+    from opus_pllm_tpu_torch.models import text_encoder
+    with torch.no_grad():
+        got = text_encoder.text_embeddings(llm, lcfg, ids, mask, impl="auto")
+        plain = text_encoder.text_embeddings(llm, lcfg, ids, mask,
+                                             impl="torch")
+        ref = text_encoder.text_embeddings(
+            _norms_to_fp32(llm), dataclasses.replace(lcfg, dtype="float32"),
+            ids, mask, impl="torch")
+    if got.shape != (ids.shape[0], lcfg.hidden_size):
+        fail(f"{label}: text embeddings of shape {tuple(got.shape)}")
+    _vs_fp32(f"{label} text_embeddings ({ids.shape[0]} x {ids.shape[1]})",
+             got, plain, ref)
+
+
+def check_esm_batch(label, esm, seqs):
+    """One ESM2 batch's pooled embedding through the kernels against the
+    plain layer composition in fp32 (as phase 4)."""
+    import torch
+    from opus_pllm_tpu_torch.core.config import ESM2Config
+    from opus_pllm_tpu_torch.models import esm2
+    toks, _ = esm2.tokenize(seqs)
+    toks = torch.from_numpy(toks).cuda()
+    with torch.no_grad():
+        got = esm2.pooled_embedding(esm, ESM2Config(dtype="bfloat16"), toks,
+                                    impl="auto")
+        plain = esm2.pooled_embedding(esm, ESM2Config(dtype="bfloat16"),
+                                      toks, impl="torch")
+        ref = esm2.pooled_embedding(_to_fp32(esm), ESM2Config(), toks,
+                                    impl="torch")
+    _vs_fp32(f"{label} esm2 pooled ({len(seqs)} proteins)", got, plain, ref)
+
+
+def evidential_fp64(p2t, t2p, cfg):
+    """losses.trust_evidence written out in fp64 on the same (B, B)
+    similarities: (the loss, the bound on its fp32 evaluation's rounding
+    error). The bound is 8 units of fp32 rounding (2^-24: one for each
+    level of a 128-term sum's pairwise reduction and one for the lgamma
+    or digamma itself) times the summed magnitudes of the terms that the
+    evidential CE and the Dirichlet KL add and subtract (the lgamma and
+    digamma terms, and the evidence itself for the rounding of logits /
+    T), meaned over the rows and both directions as the loss is."""
+    import math
+    import torch
+    import torch.nn.functional as tnf
+    coef = (min(cfg.kl_coefficient, (cfg.evidence_global_step
+                                     - cfg.kl_threshold_step + 1)
+                / cfg.kl_annealing_steps)
+            if cfg.evidence_global_step >= cfg.kl_threshold_step else 0.0)
+
+    def direction(logits):
+        x = logits.double() / cfg.temperature
+        c = x.shape[-1]
+        alpha = tnf.elu(x) + 1.0 + 1.0                    # W / c = 1
+        s = alpha.sum(-1)
+        label = torch.eye(c, dtype=torch.float64, device=x.device)
+        a_t = (alpha * label).sum(-1)
+        ce = torch.digamma(s) - torch.digamma(a_t)
+        alp = (alpha - 1.0) * (1.0 - label) + 1.0
+        s2 = alp.sum(-1)
+        lg = torch.lgamma(alp)
+        dg = torch.digamma(alp) - torch.digamma(s2)[:, None]
+        kl = (torch.lgamma(s2) - lg.sum(-1) - math.lgamma(c)
+              + ((alp - 1.0) * dg).sum(-1))
+        mag = (torch.digamma(s).abs() + torch.digamma(a_t).abs()
+               + coef * (torch.lgamma(s2).abs() + lg.abs().sum(-1)
+                         + math.lgamma(c)
+                         + ((alp - 1.0).abs()
+                            * (torch.digamma(alp).abs()
+                               + torch.digamma(s2).abs()[:, None])).sum(-1))
+               + 2.0 * alpha.sum(-1))
+        return float((ce + coef * kl).mean()), float(mag.mean())
+
+    (lp, mp), (lt, mt) = direction(p2t), direction(t2p)
+    return 0.5 * (lp + lt), 8.0 * 2.0 ** -24 * 0.5 * (mp + mt)
+
+
+def evidential_witness(params, cfg, pair, card):
+    """One batch's evidential loss through losses.trust_evidence (fp32)
+    beside evidential_fp64 on the same similarities; fails unless they
+    agree within its bound. Prints the scaled similarities' range and the
+    share of live evidence (elu + 1 >= 1e-3)."""
+    import torch
+    from opus_pllm_tpu_torch.bridge import cstp, losses
+    with torch.no_grad():
+        al = cstp.alignment(*cstp.forward(params, *(
+            torch.as_tensor(a, device="cuda") for a in pair)))
+        p2t, t2p = al["protein2text"], al["text2protein"]
+        got = float(losses.trust_evidence(p2t, t2p, al["targets"], cfg))
+        x = p2t / cfg.temperature
+        live = float((torch.nn.functional.elu(x) + 1.0 >= 1e-3)
+                     .float().mean())
+    ref, bound = evidential_fp64(p2t, t2p, cfg)
+    print(f"  evidential loss on the step's similarities: fp32 {got:.6g}, "
+          f"fp64 {ref:.6g} (|diff| {abs(got - ref):.4g}, fp32 bound "
+          f"{bound:.4g}); logits / T in [{float(x.min()):.4g}, "
+          f"{float(x.max()):.4g}], live evidence {live:.4f} [{card}]",
+          flush=True)
+    if not abs(got - ref) <= bound:
+        fail(f"evidential loss fp32 {got} against fp64 {ref}: outside "
+             f"fp32's rounding bound {bound}")
+
+
+def check_stage_a(card, params):
+    """Phase 10 (module docstring): precompute-pairs over ESM2-650M and a
+    Llama-3-8B text LM, then train-cstp with its checkpoints and the
+    automatic InfoNCE warm-up."""
+    import dataclasses
+    import math
+    import pickle
+    import tempfile
+    import torch
+    from opus_pllm_tpu_torch.bridge import cstp, losses
+    from opus_pllm_tpu_torch.core.checkpoint import CheckpointManager
+    from opus_pllm_tpu_torch.core.config import (CSTPConfig, DecoderConfig,
+                                                 ESM2Config, TrainConfig)
+    from opus_pllm_tpu_torch.data import precompute
+    from opus_pllm_tpu_torch.data.datasets import (UniProtQAVecDataset,
+                                                   batch_iterator,
+                                                   uniprot_text)
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.models import decoder
+    from opus_pllm_tpu_torch.train import cstp_trainer as ct
+
+    t_phase = time.perf_counter()
+    params["llm"] = None                      # the QLoRA LLM of phase 9
+    torch.cuda.empty_cache()
+    lcfg, ecfg = DecoderConfig.llama3_8b(), ESM2Config(dtype="bfloat16")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    llm = decoder.init(lcfg, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    print(f"text LM (Llama-3-8B bf16) drawn: "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    tok = ByteTokenizer()
+    recs = uniprot_records(STAGE_A_RECORDS)
+    lens = [len(tok.encode(uniprot_text(r))) for r in recs.values()]
+    print(f"{len(recs)} records: proteins "
+          f"{min(len(r['Sequence']) for r in recs.values())}-"
+          f"{max(len(r['Sequence']) for r in recs.values())} residues, "
+          f"captions {min(lens)}-{max(lens)} tokens", flush=True)
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        up, out = os.path.join(tmp, "uniprot.pkl"), os.path.join(tmp, "p.pkl")
+        with open(up, "wb") as f:
+            pickle.dump(recs, f)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        n = precompute.precompute_cstp_pairs(params["esm"], ecfg, llm, lcfg,
+                                             tok, up, out, stats=stats)
+        counts = read_counts()
+        se, te = UniProtQAVecDataset(out).arrays()
+    # precompute's batches of 8: the unique sequences, then the records
+    esm_batches = -(-len({r["Sequence"] for r in recs.values()}) // 8)
+    text_batches = -(-len(recs) // 8)
+    expect_counts("stage (a) precompute", counts,
+                  flash_attention=lcfg.num_layers * text_batches,
+                  **{k: ecfg.num_layers * esm_batches for k in fe.launches})
+    dims = (ecfg.embed_dim, lcfg.hidden_size)
+    if (n, se.shape, te.shape) != (STAGE_A_RECORDS, (n, dims[0]),
+                                   (n, dims[1])) \
+            or se.dtype != te.dtype or se.dtype.name != "float32" or not (
+            math.isfinite(float(se.sum())) and math.isfinite(float(te.sum()))):
+        fail(f"precompute wrote {n} pairs of {se.shape} {se.dtype} / "
+             f"{te.shape} {te.dtype}, not {STAGE_A_RECORDS} finite fp32 "
+             f"pairs of {dims[0]} / {dims[1]}")
+    print(f"precompute-pairs: {n} pairs; ESM2 {esm_batches} "
+          f"batches in {stats['esm_seconds']:.2f} s "
+          f"({n / stats['esm_seconds']:.1f} proteins/s), text "
+          f"{text_batches} batches in {stats['text_seconds']:.2f} "
+          f"s ({n / stats['text_seconds']:.2f} captions/s), "
+          f"{n / (stats['esm_seconds'] + stats['text_seconds']):.2f} "
+          f"pairs/s; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB [{card}]", flush=True)
+    # the text half's dense products: 2 FLOP a layer weight a padded token
+    # (precompute's batches of 8 in record order, 128-token buckets)
+    padded = sum(8 * -(-max(lens[i:i + 8]) // 128) * 128
+                 for i in range(0, len(lens), 8))
+    layer_w = sum(t.numel() for lp in llm["layers"] for p in lp.values()
+                  for t in p.values())
+    print(f"text LM: {padded} padded tokens ({sum(lens)} valid), dense "
+          f"products {2 * layer_w * padded / stats['text_seconds'] / 1e12:.1f}"
+          f" TFLOP/s over the text half [{card}]", flush=True)
+    items = list(recs.values())
+    ids, mask = _caption_batch(tok, [uniprot_text(r) for r in items[:8]])
+    check_text_embeddings("stage (a)", llm, lcfg, ids, mask)
+    check_esm_batch("stage (a)", params["esm"],
+                    [r["Sequence"] for r in items[:8]])
+    del llm, ids, mask
+    torch.cuda.empty_cache()
+
+    # train-cstp's defaults; the text dim is the text LM's hidden size
+    ccfg = CSTPConfig(protein_dim=dims[0], text_dim=dims[1], proj_dim=5120)
+    tcfg = TrainConfig(learning_rate=0.05, weight_decay=1e-4,
+                       batch_size=128, num_epochs=STAGE_A_EPOCHS)
+    tr_se, tr_te = se[:STAGE_A_TRAIN], te[:STAGE_A_TRAIN]
+    stream = [(tr_se[i], tr_te[i]) for i in batch_iterator(
+        STAGE_A_TRAIN, tcfg.batch_size, seed=SEED,
+        epochs=STAGE_A_EPOCHS + 2)]
+    n_steps = STAGE_A_TRAIN // tcfg.batch_size * STAGE_A_EPOCHS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    state, tx = ct.create_state(ccfg, tcfg, generator=gen, device="cuda")
+    seen, stamps = [], []
+
+    def record(step_no, m):
+        m = {k: float(v) for k, v in m.items()}
+        stamps.append(time.perf_counter())
+        seen.append(m)
+        print(f"  step {step_no}: " + " ".join(
+            f"{k}={v:.4g}" for k, v in m.items()), flush=True)
+        if not (math.isfinite(m["loss"])
+                and 0.0 <= m["acc_seq2text"] <= 1.0
+                and 0.0 <= m["acc_text2seq"] <= 1.0):
+            fail(f"train-cstp step {step_no}: {m}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ct.fit(state, tx, ccfg, tcfg, stream[:n_steps],
+                   log_fn=lambda *_: None, metrics_fn=record)
+    steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+    dead = sum(m["evidence_dead"] for m in seen)
+    val = ct.evaluate(state.params, ccfg, [(se[STAGE_A_TRAIN:],
+                                            te[STAGE_A_TRAIN:])])
+    if not (math.isfinite(val["loss"]) and 0.0 <= val["acc_seq2text"] <= 1.0
+            and 0.0 <= val["acc_text2seq"] <= 1.0):
+        fail(f"evaluate on the held-out {n - STAGE_A_TRAIN}: {val}")
+    print(f"train-cstp: {n_steps} steps of {tcfg.batch_size} pairs, "
+          f"{sum(steps[1:]) / max(len(steps) - 1, 1) * 1e3:.2f} ms/step "
+          f"after the first ({steps[0] * 1e3:.1f} ms); evidence dead on "
+          f"{dead:.0f} of {n_steps} steps; held-out {n - STAGE_A_TRAIN}: "
+          + " ".join(f"{k}={v:.4g}" for k, v in val.items())
+          + f" [{card}]", flush=True)
+
+    # the checkpoint gates: 2 more steps saving every step, then restore
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, max_to_keep=2)
+        state = ct.fit(state, tx, ccfg, tcfg, stream[n_steps:n_steps + 2],
+                       log_fn=lambda *_: None, metrics_fn=record, ckpt=mgr,
+                       save_every=1)
+        fresh, _ = ct.create_state(ccfg, tcfg, generator=gen, device="cuda")
+        back = ct.restore_state(mgr, fresh)
+        kept = mgr.all_steps()
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        ct.leaves(back.params) + _opt_tensors(back),
+        ct.leaves(state.params) + _opt_tensors(state))]
+    if kept != [n_steps + 1, n_steps + 2] or back.step != state.step \
+            or back.opt_state.count != tx.count or not all(same):
+        fail(f"train-cstp checkpoint: kept {kept}, restored step "
+             f"{back.step} of {state.step}, {sum(same)} of {len(same)} "
+             f"tensors equal")
+    print(f"train-cstp checkpoints: steps {kept} kept, restore_state of "
+          f"step {back.step} equal bit for bit ({len(same)} tensors)",
+          flush=True)
+    del back, fresh
+
+    # the automatic InfoNCE warm-up from the same state, a step a call:
+    # before each, the evidential loss on the step's own similarities
+    auto = dataclasses.replace(ccfg, warmup_info_nce_steps=-1)
+    seen.clear()
+    for pair in stream[n_steps + 2:n_steps + 4]:
+        evidential_witness(state.params, auto, pair, card)
+        state = ct.fit(state, tx, auto, tcfg, [pair],
+                       log_fn=lambda *_: None, metrics_fn=record)
+    if len(seen) != 2 or not all(m["grad_norm"] > 0 for m in seen):
+        fail(f"auto warm-up steps with a zero gradient: {seen}")
+    print(f"auto warm-up: {len(seen)} steps, InfoNCE on "
+          f"{sum(m['warmup_active'] for m in seen):.0f}, gradient norms "
+          + ", ".join(f"{m['grad_norm']:.4g}" for m in seen), flush=True)
+    print(f"stage (a) phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def check_families(card, params, cfg):
+    """Phase 11 (module docstring): Qwen2.5-7B and Galactica-6.7B, each
+    drawn in bf16 from SEED, answer keywords requests and give text
+    embeddings through the kernels."""
+    import dataclasses
+    import torch
+    from opus_pllm_tpu_torch.bridge import projector
+    from opus_pllm_tpu_torch.core.config import (DecoderConfig,
+                                                 GenerationConfig)
+    from opus_pllm_tpu_torch.data.datasets import uniprot_text
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.models import decoder, opus, text_encoder
+
+    t_phase = time.perf_counter()
+    tok = ByteTokenizer()
+    examples = synthetic_examples(FAMILY_REQUESTS)
+    gen = GenerationConfig(max_new_tokens=32, temperature=0.1, top_p=0.7,
+                           eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id, seed=SEED)
+    captions = [uniprot_text(r) for r in
+                list(uniprot_records(FAMILY_REQUESTS).values())]
+    for name, lcfg in (("Qwen2.5-7B", DecoderConfig.qwen25_7b()),
+                       ("Galactica-6.7B", DecoderConfig.galactica_6_7b())):
+        params["llm"] = params["switch"] = None
+        torch.cuda.empty_cache()
+        fcfg = dataclasses.replace(cfg, llm=lcfg, switch=dataclasses.replace(
+            cfg.switch, llm_hidden_size=lcfg.hidden_size))
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED)
+        params["llm"] = decoder.init(lcfg, generator=g, device="cuda")
+        params["switch"] = projector.init(fcfg.switch, generator=g,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        gib = torch.cuda.memory_allocated() / 2**30
+        reset_counts()
+        rep = runner.run_annotation_eval(
+            params, fcfg, tok, "synthetic_keywords.json", gen=gen,
+            batch_size=FAMILY_REQUESTS, examples=examples,
+            log_fn=lambda *_: None)
+        counts = read_counts()
+        expect_counts(f"{name} annotate", counts,
+                      flash_attention=lcfg.num_layers,
+                      **{k: cfg.esm.num_layers for k in fe.launches})
+        if len(rep.results) != len(examples) or not all(
+                isinstance(r["generated"], str) for r in rep.results):
+            fail(f"{name}: not every request was answered")
+        ids, mask = _caption_batch(tok, captions)
+        reset_counts()
+        with torch.no_grad():
+            emb = text_encoder.text_embeddings(params["llm"], lcfg, ids,
+                                               mask)
+        torch.cuda.synchronize()
+        tcounts = read_counts()
+        expect_counts(f"{name} text_embeddings", tcounts,
+                      flash_attention=lcfg.num_layers)
+        if emb.shape != (len(captions), lcfg.hidden_size) or not bool(
+                torch.isfinite(emb).all()):
+            fail(f"{name}: text embeddings {tuple(emb.shape)} not finite")
+        tok_s = rep.decode_tokens / rep.decode_seconds
+        print(f"{name}: {len(rep.results)} entries in {rep.seconds:.2f} s, "
+              f"entries/s {rep.entries_per_sec:.3f}; decode "
+              f"{rep.decode_tokens} tokens in {rep.decode_seconds:.2f} s = "
+              f"{tok_s:.1f} tok/s (batch {FAMILY_REQUESTS}); {gib:.1f} GiB "
+              f"on the card; sample {rep.results[0]['generated'][:40]!r} "
+              f"[{card}]", flush=True)
+
+        # one prefill's logits: the same spliced embeddings through the
+        # decoder's kernels, its plain path in bf16, and in fp32
+        pids, pmask, esm_toks = runner._prepare_inputs(
+            tok, [runner.annotation_prompt(runner.ds.instruction_for(
+                e, "synthetic_keywords.json")) for e in examples],
+            [e.sequence for e in examples], prompt_bucket=64,
+            esm_bucket=128, device="cuda")
+        llm = params["llm"]
+        with torch.no_grad():
+            sp = opus.splice_prompt(params, fcfg, pids, pmask, esm_toks,
+                                    left_pad=True)
+            pos = decoder.positions_from_mask(sp.mask)
+            m4 = decoder.layers.causal_mask(sp.mask)
+            lg = {}
+            for impl in ("auto", "torch"):
+                hid, _ = decoder.forward(llm, lcfg, sp.embeds, pos, m4,
+                                         impl=impl, return_hidden=True)
+                lg[impl] = decoder.head_logits(llm, lcfg, hid[:, -1])
+            hid, _ = decoder.forward(
+                _norms_to_fp32(llm), dataclasses.replace(lcfg,
+                                                         dtype="float32"),
+                sp.embeds.float(), pos, m4, impl="torch", return_hidden=True)
+            ref = decoder.head_logits(_norms_to_fp32(llm), dataclasses.replace(
+                lcfg, dtype="float32"), hid[:, -1])
+        _vs_fp32(f"{name} prefill logits ({sp.embeds.shape[0]} x "
+                 f"{sp.embeds.shape[1]})", lg["auto"], lg["torch"], ref)
+        check_text_embeddings(name, llm, lcfg, ids, mask)
+        del sp, hid, lg, ref, llm
+    params["llm"] = params["switch"] = None
+    torch.cuda.empty_cache()
+    print(f"families phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
 def profile_serving(card):
     """The serving slice's device-time breakdown (module docstring)."""
     import torch
@@ -2132,6 +2665,7 @@ def main():
         import torch
     except ImportError:
         fail("PyTorch is not installed")
+    t_start = time.perf_counter()
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -2204,6 +2738,12 @@ def main():
     phase("training slice")
     tcounts, qlora_counts = check_train_slice(card, params, cfg)
 
+    phase("stage (a)")
+    check_stage_a(card, params)
+
+    phase("families")
+    check_families(card, params, cfg)
+
     kernels = [{"name": n, "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNELS[n], "launches": counts[n]}
                for n in TPU_KERNELS]
@@ -2223,6 +2763,8 @@ def main():
                   for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "route_ms")
                   if key in rows[k["name"]]})
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s [{card}]",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

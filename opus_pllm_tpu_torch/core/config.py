@@ -68,8 +68,8 @@ class ESM2Config:
 
 @dataclass(frozen=True)
 class DecoderConfig:
-    """A decoder-only LLM. The port runs family "llama"; "qwen2" and "opt"
-    are accepted by the dataclass and refused by `models/decoder.py`."""
+    """A decoder-only LLM of family "llama", "qwen2" or "opt"
+    (config.py:99-165)."""
 
     family: str = "llama"
     vocab_size: int = 128256
@@ -99,6 +99,24 @@ class DecoderConfig:
             family="llama", vocab_size=128256, hidden_size=4096,
             intermediate_size=14336, num_layers=32, num_heads=32,
             num_kv_heads=8, head_dim=128, rope_theta=500000.0,
+        )
+
+    @staticmethod
+    def qwen25_7b() -> "DecoderConfig":
+        return DecoderConfig(
+            family="qwen2", vocab_size=152064, hidden_size=3584,
+            intermediate_size=18944, num_layers=28, num_heads=28,
+            num_kv_heads=4, head_dim=128, rope_theta=1000000.0,
+            attention_bias=True, rms_norm_eps=1e-6,
+        )
+
+    @staticmethod
+    def galactica_6_7b() -> "DecoderConfig":
+        return DecoderConfig(
+            family="opt", vocab_size=50000, hidden_size=4096,
+            intermediate_size=16384, num_layers=32, num_heads=32,
+            num_kv_heads=32, head_dim=128, max_position_embeddings=2048,
+            activation="gelu",
         )
 
     @staticmethod

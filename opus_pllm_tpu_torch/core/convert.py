@@ -25,10 +25,11 @@ and raise NotImplementedError. `device=None` puts the parameters on CUDA
 (core.util.resolve_device).
 
 `bert_from_jax` carries the JAX BERTScore encoder's tree across as it
-is. `lora_from_jax` and `trainable_from_jax` carry a JAX LoRA tree
-({"layers": [{proj: {"A", "B"}}]}) and a stage-(c)/(d) trainable tree
-({"switch"?, "lora"?}) across, so both packages can start a step from the
-same numbers; `trainable_to_numpy` brings a port tree back as numpy.
+is, `cstp_from_jax` the CSTP adapter's (the stage-(a) trainer's
+parameters: two fp32 linears). `lora_from_jax` and `trainable_from_jax`
+carry a JAX LoRA tree ({"layers": [{proj: {"A", "B"}}]}) and a
+stage-(c)/(d) trainable tree ({"switch"?, "lora"?}) across, so both
+packages can start a step from the same numbers; `trainable_to_numpy` brings a port tree back as numpy.
 
 The reverse converters (convert.py:353-417) write a trained tree in the
 reference's PyTorch formats, as train-lora's --export-reference-format
@@ -147,7 +148,7 @@ def from_jax(tree: dict, device=None) -> dict:
            "switch": _tree(tree["switch"], device),
            "llm": decoder_from_jax(tree["llm"], device)}
     if "cstp" in tree:
-        out["cstp"] = _tree(tree["cstp"], device)
+        out["cstp"] = cstp_from_jax(tree["cstp"], device)
     return out
 
 
@@ -158,6 +159,13 @@ def bert_from_jax(tree: dict, device=None) -> dict:
     `models.bert` parameters: the same layout and dtypes (no kernel is
     transposed), on `device` (None: CUDA)."""
     _refuse_quantized(tree, "bert")
+    return _tree(tree, resolve_device(device))
+
+
+def cstp_from_jax(tree: dict, device=None) -> dict:
+    """The JAX CSTP tree ({"protein_projection", "text_projection"}, fp32;
+    a JAX `CSTPTrainState.params`) with numpy leaves -> the port's, on
+    `device` (None: CUDA)."""
     return _tree(tree, resolve_device(device))
 
 

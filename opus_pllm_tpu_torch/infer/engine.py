@@ -183,9 +183,11 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
     rows = torch.arange(l, device=dev)[None, None, :, None]
     cols = torch.arange(cap, device=dev)[None, None, None, :]
     pre_mask4 = cache["mask"][:, None, None, :] & (cols <= rows)
+    # ntk_ctx: the cache capacity, the dynamic-NTK bound the JAX forward
+    # derives from its cache (engine.py:44-53)
     hid, cache = decoder.forward(params, cfg, input_embeds.to(dt), positions,
                                  pre_mask4, cache, impl=impl,
-                                 return_hidden=True)
+                                 return_hidden=True, ntk_ctx=cap)
     cur_logits = decoder.head_logits(params, cfg, hid[:, -1:],
                                      impl=impl)[:, 0].float()
 
@@ -210,7 +212,7 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
         cache["mask"][:, l + step] = ~done
         step_mask4 = cache["mask"][:, None, None, :]
         lg, cache = decoder.forward(params, cfg, emb, pos, step_mask4, cache,
-                                    impl=impl)
+                                    impl=impl, ntk_ctx=cap)
         cur_logits = lg[:, 0].float()
         done = new_done
         step += 1

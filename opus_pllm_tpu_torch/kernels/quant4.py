@@ -116,7 +116,7 @@ TARGET_CTAS = 264       # two CTAs for each of the H100's 132 SMs
 SMS = 132
 
 _QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
-                  "up_proj", "down_proj")    # quant.py:187, unfused llama
+                  "up_proj", "down_proj", "fc1", "fc2")   # quant.py:187, unfused
 
 TMA_N_MULTIPLE = 16     # the nibble rows' N bytes: a 16-byte stride
 

@@ -1,15 +1,26 @@
-"""Decoder-only LLM, family "llama" (port of `opus_pllm_tpu/models/decoder.py`).
+"""Decoder-only LLMs: Llama-3, Qwen2.5 and OPT/Galactica (port of
+`opus_pllm_tpu/models/decoder.py`).
 
 `init` (decoder.py:37), `init_cache` (:87), the quantized-cache helpers
 `_quantize_kv` (:131), `_quantize_kv4` (:141), `_unpack_kv4` (:155),
 `_dequantize_kv` (:163), `_write_cache` (:171), `_read_cache` (:217),
-`_block` (:278, with LoRA adapters), `_remat_wrap` (:457), `forward`
-(:555, with `lora=`, `lora_scale=` and `remat=`), `positions_and_rope` (:535),
+`_norm` and `_mlp` (:226, :232), `_block` (:278, with LoRA adapters),
+`_remat_wrap` (:457), `forward` (:555, with `lora=`, `lora_scale=`,
+`remat=` and `ntk_ctx=`), `positions_and_rope` (:535), `_head` (:618),
 `head_logits` (:629), `embed_tokens` (:375) and `positions_from_mask`
-(:644). RMSNorm, half-split RoPE, GQA and the SiLU-gated MLP, no biases.
-Projections may be bf16 ("kernel"), int8 ("kernel_q", see
-kernels/quant.py) or int4 v2 ("kernel_p", see kernels/quant4.py). The
-"qwen2" and "opt" families raise NotImplementedError.
+(:644). One forward covers the three families of `DecoderConfig.family`:
+
+  llama : RMSNorm, half-split RoPE, GQA, SiLU-gated MLP, no biases
+  qwen2 : the llama skeleton with q/k/v biases (`attention_bias`)
+  opt   : LayerNorm with bias (eps 1e-5), learned positions at offset 2
+          and no rope, q/k/v/o biases, fc1 -> relu/gelu -> fc2 with
+          biases, MHA, a final LayerNorm when `do_layer_norm_before`
+
+`use_dynamic_ntk` rescales the rope base for contexts past
+`max_position_embeddings` (`layers.ntk_scaled_theta`), from the context
+bound `forward` derives as the JAX function does. Projections may be bf16
+("kernel"), int8 ("kernel_q", see kernels/quant.py) or int4 ("kernel_p",
+see kernels/quant4.py).
 
 KV cache: {"layers": [{"k", "v"}], "index", "mask": (B, cap) bool}. The
 index is an int (every row writes at the same slots) or a (B,) integer
@@ -40,47 +51,56 @@ from ..core.config import DecoderConfig
 from ..core.util import mm_fp32, resolve_device
 from ..kernels import decode_attention as da
 from . import layers
-from .layers import (apply_rope, attention, dense, embed, lora_dense,
-                     rms_norm, rope_cos_sin, silu)
+from .layers import (ACTIVATIONS, apply_rope, attention, dense, embed,
+                     layer_norm, lora_dense, ntk_scaled_theta, rms_norm,
+                     rope_cos_sin)
 
-
-def _check_family(cfg: DecoderConfig) -> None:
-    if cfg.family != "llama" or cfg.attention_bias or cfg.use_dynamic_ntk:
-        raise NotImplementedError(
-            f"decoder family {cfg.family!r} (attention_bias="
-            f"{cfg.attention_bias}, use_dynamic_ntk={cfg.use_dynamic_ntk}) "
-            "is not ported yet; only plain llama runs")
+OPT_POS_OFFSET = 2      # HF OPT learned-position offset (decoder.py:29)
+FAMILIES = ("llama", "qwen2", "opt")
 
 
 def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None):
-    """Random parameters drawn from `generator` (decoder.py:37-80 scheme) on
-    `device` (None: CUDA)."""
-    _check_family(cfg)
+    """Random parameters drawn from `generator` (decoder.py:37-80 scheme:
+    q/k/v biases for qwen2; for opt LayerNorms with bias, the learned
+    position table, q/k/v/o biases and fc1/fc2) on `device` (None: CUDA).
+    An unknown family raises ValueError."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"decoder family {cfg.family!r} is not one of "
+                         f"{FAMILIES}")
     device = resolve_device(device)
     dt = cfg.torch_dtype
     h, d = cfg.hidden_size, cfg.head_dim
+    is_opt = cfg.family == "opt"
+    bias_attn = cfg.attention_bias or is_opt
     kw = dict(generator=generator, device=device, dtype=dt)
-    norm = lambda: layers.norm_init(h, device=device, dtype=dt, bias=False)
+    norm = lambda: layers.norm_init(h, device=device, dtype=dt, bias=is_opt)
     params: Dict[str, Any] = {
         "embed_tokens": layers.embed_init(cfg.vocab_size, h, **kw),
         "final_norm": norm(),
         "layers": [],
     }
+    if is_opt:
+        params["embed_positions"] = layers.embed_init(
+            cfg.max_position_embeddings + OPT_POS_OFFSET, h, **kw)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = layers.dense_init(h, cfg.vocab_size, **kw)
     qdim, kvdim = cfg.num_heads * d, cfg.num_kv_heads * d
+    f = cfg.intermediate_size
     for _ in range(cfg.num_layers):
-        params["layers"].append({
-            "attn_norm": norm(),
-            "q_proj": layers.dense_init(h, qdim, **kw),
-            "k_proj": layers.dense_init(h, kvdim, **kw),
-            "v_proj": layers.dense_init(h, kvdim, **kw),
-            "o_proj": layers.dense_init(qdim, h, **kw),
-            "ffn_norm": norm(),
-            "gate_proj": layers.dense_init(h, cfg.intermediate_size, **kw),
-            "up_proj": layers.dense_init(h, cfg.intermediate_size, **kw),
-            "down_proj": layers.dense_init(cfg.intermediate_size, h, **kw),
-        })
+        lp = {"attn_norm": norm(),
+              "q_proj": layers.dense_init(h, qdim, bias=bias_attn, **kw),
+              "k_proj": layers.dense_init(h, kvdim, bias=bias_attn, **kw),
+              "v_proj": layers.dense_init(h, kvdim, bias=bias_attn, **kw),
+              "o_proj": layers.dense_init(qdim, h, bias=is_opt, **kw),
+              "ffn_norm": norm()}
+        if is_opt:
+            lp["fc1"] = layers.dense_init(h, f, bias=True, **kw)
+            lp["fc2"] = layers.dense_init(f, h, bias=True, **kw)
+        else:
+            lp["gate_proj"] = layers.dense_init(h, f, **kw)
+            lp["up_proj"] = layers.dense_init(h, f, **kw)
+            lp["down_proj"] = layers.dense_init(f, h, **kw)
+        params["layers"].append(lp)
     return params
 
 
@@ -212,20 +232,38 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"impl must be auto|fused|torch, got {impl!r}")
 
 
+def _norm(cfg: DecoderConfig, p, x):
+    """OPT's LayerNorm (eps 1e-5), else RMSNorm (decoder.py:226-229)."""
+    if cfg.family == "opt":
+        return layer_norm(p, x, eps=1e-5)
+    return rms_norm(p, x, eps=cfg.rms_norm_eps)
+
+
+def _mlp(cfg: DecoderConfig, p, x, mm):
+    """fc2(act(fc1 x)) for OPT, else down(silu(gate x) * up x)
+    (decoder.py:232-240); `mm(name, x)` is the layer's projection."""
+    if cfg.family == "opt":
+        return mm("fc2", ACTIVATIONS[cfg.activation](mm("fc1", x)))
+    return mm("down_proj", ACTIVATIONS["silu"](mm("gate_proj", x))
+              * mm("up_proj", x))
+
+
 def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
            impl: str = "auto", la=None, ls: float = 1.0):
     """One decoder layer; `la` this layer's LoRA adapters ({proj: {"A",
-    "B"}} or None) at scaling `ls` (decoder.py:278-327)."""
+    "B"}} or None) at scaling `ls` (decoder.py:278-327). cos/sin None: no
+    rope (OPT)."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     la = la or {}
     mm = lambda name, h: lora_dense(p[name], la.get(name), h, ls, impl=impl)
-    r = rms_norm(p["attn_norm"], x, eps=cfg.rms_norm_eps)
+    r = _norm(cfg, p["attn_norm"], x)
     q = mm("q_proj", r).reshape(b, s, hq, d)
     k = mm("k_proj", r).reshape(b, s, hkv, d)
     v = mm("v_proj", r).reshape(b, s, hkv, d)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     a = None
     if layer_cache is not None:
         _write_cache(layer_cache, k, v, index)
@@ -244,18 +282,38 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
     if a is None:
         a = attention(q, k, v, mask4, impl=impl)
     x = x + mm("o_proj", a.reshape(b, s, hq * d))
-    r = rms_norm(p["ffn_norm"], x, eps=cfg.rms_norm_eps)
-    return x + mm("down_proj", silu(mm("gate_proj", r)) * mm("up_proj", r))
+    return x + _mlp(cfg, p, _norm(cfg, p["ffn_norm"], x), mm)
 
 
 def embed_tokens(params, ids):
     return embed(params["embed_tokens"], ids)
 
 
-def positions_and_rope(params, cfg: DecoderConfig, x, positions):
-    """(x, cos, sin); cos/sin are cast to x's dtype before `apply_rope`,
-    as at decoder.py:552."""
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, theta=cfg.rope_theta)
+def opt_positions(params, positions):
+    """OPT's learned position embeddings at `positions` + OPT_POS_OFFSET.
+    A position past the table (max_position_embeddings + 2 rows) gives a
+    NaN row, as `jnp.take`'s fill mode does in the JAX package, and reads
+    nothing out of bounds."""
+    table = params["embed_positions"]["embedding"]
+    idx = positions.long() + OPT_POS_OFFSET
+    inside = (idx < table.shape[0])[..., None]
+    rows = table[idx.clamp_max(table.shape[0] - 1)]
+    return torch.where(inside, rows, torch.full_like(rows, float("nan")))
+
+
+def positions_and_rope(params, cfg: DecoderConfig, x, positions, *,
+                       ctx: int):
+    """Front half of `forward` (decoder.py:535-552): OPT adds its learned
+    position embeddings and has no rope (cos, sin None); the rope families
+    build (cos, sin) in x's dtype, the base rescaled by dynamic NTK for the
+    context bound `ctx` when `use_dynamic_ntk`."""
+    if cfg.family == "opt":
+        return x + opt_positions(params, positions), None, None
+    theta = cfg.rope_theta
+    if cfg.use_dynamic_ntk:
+        theta = ntk_scaled_theta(theta, cfg.head_dim, ctx,
+                                 cfg.max_position_embeddings)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, theta=theta)
     return x, cos.to(x.dtype), sin.to(x.dtype)
 
 
@@ -297,13 +355,18 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     advances. `lora` {"layers": [...]} adapters (lora/lora.py) at scaling
     `lora_scale`; `remat` rematerializes each layer in the backward
     (`_remat_wrap`, cache-free calls with grad on only). Returns (logits
-    (B, S, V) fp32 or final-normed hidden, cache). `ntk_ctx` pins the
-    dynamic-NTK context (decoder.py:573-579); it changes nothing for the
-    llama family without dynamic NTK, the only one ported.
+    (B, S, V) fp32 or final-normed hidden, cache).
+
+    The dynamic-NTK context bound, as decoder.py:573-581 takes it: the
+    caller's `ntk_ctx` (an engine that prefills into a smaller scratch
+    cache than its decode cache pins one bound for both), else the cache
+    capacity, else this call's key length.
     """
-    _check_family(cfg)
     _check_impl(impl)
-    x, cos, sin = positions_and_rope(params, cfg, input_embeds, positions)
+    ctx = ntk_ctx if ntk_ctx is not None else (
+        cache["mask"].shape[-1] if cache is not None else mask4.shape[-1])
+    x, cos, sin = positions_and_rope(params, cfg, input_embeds, positions,
+                                     ctx=ctx)
     index = cache["index"] if cache is not None else None
     block = _block
     if cache is None and torch.is_grad_enabled():
@@ -315,10 +378,19 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
                   lora_scale)
     if cache is not None:
         cache["index"] = index + input_embeds.shape[1]
-    x = rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
+    x = _final_norm(params, cfg, x)
     if return_hidden:
         return x, cache
     return head_logits(params, cfg, x, impl=impl), cache
+
+
+def _final_norm(params, cfg: DecoderConfig, x):
+    """The norm before the head (decoder.py:618-624): OPT's LayerNorm only
+    when `do_layer_norm_before`, else RMSNorm."""
+    if cfg.family == "opt":
+        return (layer_norm(params["final_norm"], x)
+                if cfg.do_layer_norm_before else x)
+    return rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
 
 
 class _HeadProduct(torch.autograd.Function):

@@ -1,8 +1,9 @@
 """ESM2 protein encoder (port of `opus_pllm_tpu/models/esm2.py`).
 
 `tokenize` (esm2.py:39 `tokenize`, its Python path), `init` (:68), `encode`
-(:191) with the token-dropout rescale and pad zeroing, `pooled_embedding`
-(:236) and `_block` (:114). Parameters are a dict of tensors with the JAX
+(:191) with the token-dropout rescale and pad zeroing,
+`residue_embeddings` (:225), `pooled_embedding` (:236) and `_block`
+(:114). Parameters are a dict of tensors with the JAX
 names, except that each layer's q/k/v projections are held packed as
 "qkv" = {"kernel": (3, E, E), "bias": (3, E)}, the layout the fused
 LN+QKV+rope kernel reads (the JAX `pack_qkv_params` layout).
@@ -140,13 +141,20 @@ def encode(params, cfg: ESM2Config, tokens, *, impl: str = "auto"):
     return layer_norm(params["final_norm"], x)
 
 
-def pooled_embedding(params, cfg: ESM2Config, tokens, *, impl: str = "auto"):
-    """Mean of final-layer reps over residues (cls/eos/pad excluded) ->
-    (B, E) fp32."""
+def residue_embeddings(params, cfg: ESM2Config, tokens, *,
+                       impl: str = "auto"):
+    """Per-residue final-layer embeddings (B, L, E) fp32 and the residue
+    mask (B, L) that drops BOS, EOS and padding."""
     reps = encode(params, cfg, tokens, impl=impl).float()
     lengths = (tokens != cfg.pad_idx).sum(-1)
     pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    residue = (pos >= 1) & (pos < (lengths - 1)[:, None])
+    return reps, (pos >= 1) & (pos < (lengths - 1)[:, None])
+
+
+def pooled_embedding(params, cfg: ESM2Config, tokens, *, impl: str = "auto"):
+    """Mean of final-layer reps over residues (cls/eos/pad excluded) ->
+    (B, E) fp32."""
+    reps, residue = residue_embeddings(params, cfg, tokens, impl=impl)
     num = torch.where(residue[..., None], reps, torch.zeros_like(reps)).sum(1)
     den = residue.sum(-1).clamp_min(1)[:, None]
     return num / den

@@ -133,9 +133,28 @@ def silu(x):
     return F.silu(x)
 
 
+ACTIVATIONS = {                     # layers.py:129-134
+    "silu": silu,
+    "relu": F.relu,
+    "gelu": gelu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings, half-split (GPT-NeoX) convention
 # ---------------------------------------------------------------------------
+
+def ntk_scaled_theta(theta: float, head_dim: int, context_len: int,
+                     max_trained: int, alpha_floor: float = 1.0) -> float:
+    """Dynamic NTK-aware rope base (layers.py:142-156): past the trained
+    window, theta' = theta * s ** (d / (d - 2)), s = context_len /
+    max_trained (at least alpha_floor); a host-side float."""
+    if context_len <= max_trained:
+        return theta
+    scale = max(context_len / max_trained, alpha_floor)
+    return theta * (scale ** (head_dim / (head_dim - 2)))
+
 
 def rope_cos_sin(positions, head_dim: int, theta: float = 10000.0):
     """cos/sin tables (fp32) for integer positions, shape (*pos, head_dim)."""

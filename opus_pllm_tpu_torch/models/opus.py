@@ -1,6 +1,7 @@
 """Opus multimodal model: ESM2 -> CSTP -> switch projector -> LLM (port of
 `opus_pllm_tpu/models/opus.py`: `init` :37, `encode_proteins` :49,
-`splice_prompt` :76, `forward` :123, `next_token_loss` :142 and
+`splice_prompt` :76, `protein_cstp_embeddings` :88,
+`text_cstp_embeddings` :102, `forward` :123, `next_token_loss` :142 and
 `next_token_loss_hidden` :156). Parameters: {"esm", "cstp" (optional),
 "switch", "llm"}.
 
@@ -20,7 +21,7 @@ from ..bridge import projector as switch_mod
 from ..bridge.splice import Spliced, splice
 from ..core.config import IGNORE_INDEX, OpusConfig
 from ..core.util import resolve_device
-from . import decoder, esm2
+from . import decoder, esm2, text_encoder
 from .layers import causal_mask
 
 
@@ -67,6 +68,32 @@ def splice_prompt(params, cfg: OpusConfig, input_ids, attn_mask, esm_tokens,
     text = decoder.embed_tokens(params["llm"], input_ids.long().clamp_min(0))
     return splice(input_ids, attn_mask, text, prot, labels,
                   n_tokens=cfg.switch.n_tokens, left_pad=left_pad)
+
+
+@torch.no_grad()
+def protein_cstp_embeddings(params, cfg: OpusConfig, esm_tokens, *,
+                            impl: str = "auto"):
+    """(B, L) ESM tokens -> (B, P) shared-space embeddings: the pooled
+    ESM2 embedding through the CSTP protein projection (the stage-(a)
+    retrieval representation); without a CSTP adapter, the pooled
+    embedding itself."""
+    emb = esm2.pooled_embedding(params["esm"], cfg.esm, esm_tokens,
+                                impl=impl)
+    if "cstp" in params:
+        emb = cstp_mod.protein_forward(params["cstp"], emb)
+    return emb
+
+
+@torch.no_grad()
+def text_cstp_embeddings(params, cfg: OpusConfig, input_ids, attn_mask, *,
+                         mask_pad: bool = True, impl: str = "auto"):
+    """(B, L) right-padded ids + mask -> (B, P): the LLM's text embedding
+    (`text_encoder.text_embeddings`) through the CSTP text projection.
+    Only valid when the LLM's hidden size equals cstp.text_dim."""
+    emb = text_encoder.text_embeddings(params["llm"], cfg.llm, input_ids,
+                                       attn_mask, mask_pad=mask_pad,
+                                       impl=impl)
+    return cstp_mod.text_forward(params["cstp"], emb)
 
 
 def splice_prompt_left(params, cfg: OpusConfig, input_ids, attn_mask,

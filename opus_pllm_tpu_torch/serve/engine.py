@@ -307,8 +307,11 @@ class ServingEngine:
         pos, mask4 = admission_inputs(n_valid, bucket)
         scratch = decoder.init_cache(cfg, n, bucket, device=dev,
                                      quantize=self._quantized)
+        # ntk_ctx pins the dynamic-NTK base to the decode cache's capacity:
+        # the scratch cache is narrower (serve/engine.py:861-869)
         hid, scratch = decoder.forward(self.params, cfg, embs, pos, mask4,
-                                       scratch, return_hidden=True)
+                                       scratch, return_hidden=True,
+                                       ntk_ctx=self.max_len)
         # the head on each row's last valid position only
         last_h = hid[torch.arange(n, device=dev), (n_valid - 1).clamp_min(0)]
         last = decoder.head_logits(self.params, cfg,
@@ -361,7 +364,8 @@ class ServingEngine:
             self.cache["index"] = torch.where(active, length,
                                               torch.full_like(length, L))
             logits, _ = decoder.forward(params, cfg, emb.to(cfg.torch_dtype),
-                                        length[:, None], mask4, self.cache)
+                                        length[:, None], mask4, self.cache,
+                                        ntk_ctx=L)
             nxt = sample_token_rows(logits[:, -1].float(), self._gen, temp,
                                     top_ps, nucleus=nucleus).long()
             nxt = torch.where(active, nxt, last)

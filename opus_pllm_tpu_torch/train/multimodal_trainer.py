@@ -24,7 +24,7 @@ Not ported yet, and refused with NotImplementedError: the mesh (ROADMAP.md
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -101,11 +101,14 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
                                f"item {item})")
 
 
-def state_tree(state: MMTrainState) -> dict:
-    """The tree a checkpoint holds: {"trainable", "opt_state" (the
-    optimizer's state_dict), "step"}, as the JAX state's `_asdict()`."""
-    return {"trainable": state.trainable,
-            "opt_state": state.opt_state.state_dict(), "step": state.step}
+def state_tree(state) -> dict:
+    """The tree a checkpoint holds: the state's fields with the optimizer
+    as its state_dict() ({"trainable", "opt_state", "step"} here,
+    {"params", "opt_state", "step"} for the CSTP state), as the JAX
+    state's `_asdict()`."""
+    tree = {f.name: getattr(state, f.name) for f in fields(state)}
+    tree["opt_state"] = state.opt_state.state_dict()
+    return tree
 
 
 def maybe_save(ckpt, save_every: int, step_no: int, state) -> None:

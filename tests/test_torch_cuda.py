@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions on the card, at small and
-ragged shapes the main path can also produce: the four fused-encoder
+ragged shapes the main path can also produce (stage (a)'s precompute over
+the llama, qwen2 and opt text LMs included): the four fused-encoder
 kernels (ln_qkv_rope, out_proj and ffn at every tile width of their TMA +
 wgmma core, bit-identical across calls), the int4 v2 matmul, both quantized decode attentions, flash
 attention, the int8 matmul, the two flash-attention backward kernels and
@@ -21,10 +22,11 @@ plain_fp32 runs the plain version on the same values in fp32 (the int4
 matmul rounds x to bf16 in both), plain_bf16 in bf16.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
-
-import dataclasses
 
 from opus_pllm_tpu_torch.core.config import (CSTPConfig, DecoderConfig,
                                              ESM2Config, LoRAConfig,
@@ -458,6 +460,11 @@ def _no_key_rows(mask, causal, b, sq, skv, hq):
     (2, 33, 191, 4, 1, 64, "static", False),        # D = 64, rows no key
     (1, 300, 391, 32, 8, 128, "static", False),     # the static prefill's
     (2, 96, 96, 12, 4, 128, "prefill", False),      # G = 3: one head a CTA
+    # the families' group sizes (one head a CTA) and the text encoder's
+    # causal, right-padded mask
+    (2, 130, 130, 7, 1, 128, "prefill", False),     # G = 7
+    (2, 150, 190, 28, 4, 128, "static", False),     # Qwen2.5's 28 / 4
+    (2, 150, 190, 8, 8, 128, "static", False),      # OPT's MHA, G = 1
 ])
 def test_flash_attention(b, sq, skv, hq, hkv, d, mask_kind, causal):
     g = _gen()
@@ -898,3 +905,79 @@ def test_train_step_launch_counts(base):
     b1 = [ab["B"] for lp in state.trainable["lora"]["layers"]
           for ab in lp.values()]
     assert all(not torch.equal(x, y) for x, y in zip(b0, b1))
+
+
+@pytest.mark.parametrize("family", ["llama", "qwen2", "opt"])
+def test_stage_a_precompute_and_cstp(family, tmp_path):
+    """precompute_cstp_pairs at tiny widths (ESM2 with d = 64 heads, a text
+    LM with D = 128 heads of the family): the launch counts exactly (each
+    encoder kernel once per ESM2 layer and batch, flash once per decoder
+    layer and text batch), one text batch's embeddings through the kernels
+    within the bound of the plain path in fp32, then two CSTP steps with
+    finite losses."""
+    import pickle
+    from opus_pllm_tpu_torch.data import precompute
+    from opus_pllm_tpu_torch.data.datasets import UniProtQAVecDataset
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.models import text_encoder
+    from opus_pllm_tpu_torch.train import cstp_trainer as ct
+
+    ecfg = ESM2Config(num_layers=2, embed_dim=256, num_heads=4,
+                      dtype="bfloat16")
+    lcfg = dataclasses.replace(
+        DecoderConfig.tiny(family), vocab_size=260,   # the byte tokenizer's
+        hidden_size=256, intermediate_size=512,
+        num_heads=4, num_kv_heads=4 if family == "opt" else 2, head_dim=128,
+        dtype="bfloat16")
+    g = _gen()
+    esm = esm2.init(ecfg, generator=g, device="cuda")
+    llm = decoder.init(lcfg, generator=g, device="cuda")
+    rng = torch.Generator().manual_seed(2)
+    aa = "ACDEFGHIKLMNPQRSTVWY"
+    recs = {f"P{i}": {"Sequence": "".join(aa[j] for j in torch.randint(
+        0, 20, (int(torch.randint(20, 90, (1,), generator=rng)),),
+        generator=rng).tolist()), "Name": [f"p{i}"],
+        "Similarity": "x" * (30 * i)} for i in range(6)}
+    up, out = tmp_path / "u.pkl", tmp_path / "p.pkl"
+    up.write_bytes(pickle.dumps(recs))
+    for mod in (fe, fa, fab, quant4, quant, da):
+        mod.reset_launches()
+    stats = {}
+    n = precompute.precompute_cstp_pairs(esm, ecfg, llm, lcfg,
+                                         ByteTokenizer(), str(up), str(out),
+                                         batch_size=4, stats=stats)
+    torch.cuda.synchronize()
+    # batches of 4: the unique sequences for ESM2, the records for text
+    esm_batches = -(-len({r["Sequence"] for r in recs.values()}) // 4)
+    text_batches = -(-len(recs) // 4)
+    assert n == 6 and set(stats) == {"esm_seconds", "text_seconds"}
+    assert fe.launches == {k: ecfg.num_layers * esm_batches
+                           for k in fe.launches}
+    assert fa.launches["flash_attention"] == lcfg.num_layers * text_batches
+    assert sum(fab.launches.values()) + sum(da.launches.values()) == 0
+    assert sum(quant4.launches.values()) + sum(quant.launches.values()) == 0
+    se, te = UniProtQAVecDataset(str(out)).arrays()
+    assert se.shape == (6, 256) and te.shape == (6, 256)
+    assert np.isfinite(se).all() and np.isfinite(te).all()
+
+    ids = torch.randint(4, 260, (3, 128), generator=rng, dtype=torch.int32)
+    mask = torch.arange(128)[None] < torch.tensor([[128], [70], [5]])
+    ids, mask = ids.cuda(), mask.cuda()
+    embed = lambda impl, p, c: text_encoder.text_embeddings(
+        p, c, ids, mask, impl=impl)
+    got, plain = embed("auto", llm, lcfg), embed("torch", llm, lcfg)
+    f32 = {k: (v if k in ("layers", "lm_head") else
+               {kk: vv.float() for kk, vv in v.items()})
+           for k, v in llm.items()}
+    ref = embed("torch", f32, dataclasses.replace(lcfg, dtype="float32"))
+    err = (got - ref).abs().max().item()
+    assert err <= 2 * (plain - ref).abs().max().item() + ATOL, err
+
+    ccfg = CSTPConfig(protein_dim=256, text_dim=256, proj_dim=128,
+                      warmup_info_nce_steps=-1)
+    tcfg = TrainConfig(batch_size=6, log_every=0)
+    state, tx = ct.create_state(ccfg, tcfg, generator=_gen(), device="cuda")
+    seen = []
+    ct.fit(state, tx, ccfg, tcfg, [(se, te)] * 2, device="cuda",
+           metrics_fn=lambda i, m: seen.append(float(m["loss"])))
+    assert len(seen) == 2 and all(np.isfinite(seen))

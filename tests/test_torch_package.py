@@ -1,7 +1,8 @@
 """The port stands alone: importing opus_pllm_tpu_torch and running its
 CPU slice, its scorers, its BERTScore encoder, the MCQ runners, the metric
-library with make_logprob_fn and the checkpoint modules loads neither jax
-nor the JAX package, and chip_smoke.py refuses
+library with make_logprob_fn, the checkpoint modules and stage (a)
+(precompute_cstp_pairs over a qwen2 and an opt text LM, then the CSTP
+trainer) loads neither jax nor the JAX package, and chip_smoke.py refuses
 to run without a CUDA device (non-zero exit, no result line). Its entry
 points default to CUDA."""
 
@@ -74,6 +75,33 @@ ppl = metric_registry.load("perplexity").compute(
     predictions=["ab"], logprob_fn=scoring.make_logprob_fn(
         params["llm"], cfg.llm, ByteTokenizer().encode, bos_token_id=1))
 assert ppl["mean_perplexity"] > 1
+import pickle, tempfile, os
+from opus_pllm_tpu_torch.bridge import adapters, losses
+from opus_pllm_tpu_torch.core.config import (CSTPConfig, DecoderConfig,
+                                             TrainConfig)
+from opus_pllm_tpu_torch.data import datasets, precompute
+from opus_pllm_tpu_torch.models import decoder, text_encoder
+from opus_pllm_tpu_torch.train import cstp_trainer
+with tempfile.TemporaryDirectory() as tmp:
+    up, out = os.path.join(tmp, "u.pkl"), os.path.join(tmp, "p.pkl")
+    with open(up, "wb") as f:
+        pickle.dump({f"P{i}": {"Sequence": "MKTAYIAKQR"[:5 + i], "Name": "x"}
+                     for i in range(4)}, f)
+    for fam in ("qwen2", "opt"):
+        lcfg = DecoderConfig.tiny(fam)
+        llm = decoder.init(lcfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+        assert precompute.precompute_cstp_pairs(
+            params["esm"], cfg.esm, llm, lcfg, ByteTokenizer(), up, out,
+            batch_size=2, len_bucket=16, device="cpu") == 4
+    se, te = datasets.UniProtQAVecDataset(out).arrays()
+    ccfg = CSTPConfig(protein_dim=se.shape[1], text_dim=te.shape[1],
+                      proj_dim=32, warmup_info_nce_steps=-1)
+    tcfg = TrainConfig(batch_size=4, log_every=0)
+    st, tx = cstp_trainer.create_state(
+        ccfg, tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    st = cstp_trainer.fit(st, tx, ccfg, tcfg, [(se, te)] * 2, device="cpu")
+    assert st.step == 2
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "opus_pllm_tpu")
        or m.startswith(("jax.", "jaxlib.", "opus_pllm_tpu."))]
 print("LOADED", bad)
