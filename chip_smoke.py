@@ -52,7 +52,13 @@ and prints no result:
          (B=8, S=1792, causal with right-padded captions, whose padding
          rows attend the valid keys); Hq=32, Hkv=8, D=128; then the static
          prefill with Qwen2.5-7B's heads (Hq=28, Hkv=4: G=7) and
-         Galactica-6.7B's (32 / 32: G=1). The
+         Galactica-6.7B's (32 / 32: G=1); then the serving options'
+         shapes (masks from their own generator): the verify pass (B=17,
+         Sq=4 over 1024 slots, per-row lengths 64-960: cols <= length +
+         j), a chunk (4 rows of 256 queries at offsets 0 / 256 / 512 / 768
+         of 1024 keys) and a prefix merge (8 rows of 128 queries over 64
+         prefix + 128 suffix keys); every mask gives each query row a
+         valid key. The
          kernel skips the 64-key tiles whose mask is false everywhere (the
          bound counts mask-true pairs only). Library: torch's
          scaled_dot_product_attention with the same mask (K/V heads
@@ -159,7 +165,68 @@ and prints no result:
      prefill logits (16 rows, bucket 320) through the kernels stay within
      the bound above of the plain path in fp32. Prints entries/s, tokens/s,
      TTFT p50/p99 (the engine's histogram bounds) and GiB on the card;
-  9. training slice (`train-lora`): the earlier phases' LLM freed, a fresh
+  9. engine options: phase 8's int8 LLM behind the serving engine at
+     run_annotation_eval_engine's defaults (16 slots, 4 steps a tick; 64
+     new tokens, ByteTokenizer prompts spliced by runner.splice_tails):
+     (a) the LoRA bank: three random rank-16 adapters on the seven
+     projections (B drawn non-zero, folded by lora.fold_scaling) and one
+     spare row; 24 requests spread over the three adapters and the base
+     (T=0.1, top_p=0.7), every one answered; a fourth adapter installed
+     at runtime answers a request, and remove_adapter is refused while
+     that request runs; one admission group's first-token logits (one
+     row per adapter and the base) through the per-row gather and the
+     kernels within phase 3's bound of each request through the 2-d
+     lora_dense path in fp32; prints tok/s, the bank's and the peak GiB;
+     (b) speculative ticks: draft_layers=8, spec_k=4, spec_adaptive=False,
+     8 greedy and 8 sampled requests (T=0.1, top_p=0.7), every one
+     answered; every row active at a tick's start consumes 1..4 tokens an
+     iteration until it finishes, then 0; one verify pass (17 rows, K=4
+     over the engine's cache, per-row lengths) through the kernels within
+     the bound of the fp32 plain path; then, with layers 8-31 made the
+     identity (a copy of their o_proj / down_proj with zeros in it), 8
+     greedy requests, at least 2 tokens an iteration. Prints the mean
+     tokens an iteration, tok/s and the plain engine's tok/s on the same
+     requests, and how many greedy requests equal the plain ones;
+     (c) the prefix cache: run_annotation_eval_engine(cache_prefix=True)
+     on 16 keywords requests twice through one engine_cache (one engine;
+     the reseeded engine repeats its sampled output bit for bit), then
+     without the prefix; one group's first-token logits through the
+     pinned prefix and the kernels within the bound of the whole prompt
+     through the fp32 plain path; prints the prefill tokens saved and
+     both TTFTs;
+     (d) chunked prefill: chunk_prefill=256 over a 1024-slot cache, 4
+     prompts of 700-960 tokens beside 12 keywords prompts, every one
+     answered, then the same requests with one monolithic bucket; each
+     long prompt's first-token logits through its chunks and the kernels
+     within the bound of one monolithic prefill through the fp32 plain
+     path; prints the short requests' TTFT (from their first streamed
+     token) both ways.
+     Exact launch counts: flash_attention = 32 x (prefills, chunks
+     included), and with speculation 32 x (prefills + iterations) (each
+     verify pass has Sq = 4; the one-token draft steps take the plain
+     attention over the bf16 cache), + 32 for a pinned prefix;
+     int8_matmul = 224 x (prefills and chunks of n x bucket >= 256 rows,
+     and a pinned prefix of >= 256 tokens) (decode M = 17 and verify
+     M = 68 take the dequantize route); encoder kernels 33 x splice
+     batches; every other kernel 0. The LoRA products are plain bmm;
+ 10. server: serve.server.OpusServer over phase 4's ESM2, switch and a
+     bf16 Llama-3-8B drawn again from the seed, with a CSTP whose text
+     side takes 4096 (train-cstp's CSTPConfig(text_dim=4096)), at serve's
+     defaults (cli/main.py:944-1000: 16 slots, max_len 1024, 8 steps a
+     tick) plus prefill buckets up to 384 (the byte tokenizer's professor
+     prompt is ~270 tokens), cache_system_prefix=True and a two-adapter
+     bank with one spare row, on 127.0.0.1 at an ephemeral port: 16
+     concurrent POST /v1/annotate (T=0.1, top_p=0.7, 64 new tokens, 4 on
+     each adapter), /v1/chat/completions blocking and SSE (a protein part;
+     greedy: the streamed text must equal the blocking text),
+     /v1/completions routed to an adapter by `model`, /v1/embeddings (a
+     protein and a text: finite, the CSTP dimension), GET /v1/models,
+     /v1/adapters, /health and /metrics (the Prometheus completions
+     counter and TTFT count equal the requests answered), then drain.
+     Exact launch counts: flash_attention = 32 x (engine prefills + the
+     text embedding), encoder kernels 33 x (protein requests + the
+     protein embedding). Prints TTFT p50 / p99 and tok/s;
+ 11. training slice (`train-lora`): the earlier phases' LLM freed, a fresh
      Llama-3-8B drawn from the seed inside OpusConfig() (the ESM2, CSTP and
      switch of phase 4, frozen) trains LoRA adapters with train-lora's
      defaults (lr 2e-5, wd 0, batch 16, max-len 512, rank 16 / alpha 32
@@ -202,7 +269,7 @@ and prints no result:
      core.convert.lora_to_peft(family="llama") gives 32 x 7 x 2 keys in
      (out, in) orientation that save_torch_state_dict and torch.load
      return unchanged.
- 10. stage (a): the QLoRA LLM freed, a Llama-3-8B drawn in bf16 from the
+ 12. stage (a): the QLoRA LLM freed, a Llama-3-8B drawn in bf16 from the
      seed as the text LM beside phase 4's ESM2-650M; 384 synthetic
      UniProt records (unique proteins of 60-500 residues, captions of
      200-1792 ByteTokenizer tokens rendered by datasets.uniprot_text)
@@ -228,7 +295,7 @@ and prints no result:
      the same similarities within fp32's rounding bound for that sum
      (evidential_fp64). Prints the ESM2 and text seconds and rates,
      pairs/s, ms/step after the first and GiB on the card;
- 11. families: Qwen2.5-7B (DecoderConfig.qwen25_7b()) and Galactica-6.7B
+ 13. families: Qwen2.5-7B (DecoderConfig.qwen25_7b()) and Galactica-6.7B
      (galactica_6_7b()), each drawn in bf16 from the seed in an
      OpusConfig whose switch is sized to its hidden size (3584 / 4096),
      answer 8 keywords requests through run_annotation_eval (one batch,
@@ -256,7 +323,7 @@ nothing and prints no result line.
 
     python3 chip_smoke.py --profile-training
 
-runs phases 1 and 2, then phase 9's configuration: two unprofiled steps
+runs phases 1 and 2, then phase 11's configuration: two unprofiled steps
 and one profiled step of train-lora over the bf16 LLM, then the same over
 its v1 quantization, each printed as above with the sums for the
 hand-written kernels, cuBLAS, the elementwise casts / multiplies / adds
@@ -362,6 +429,12 @@ GATE_LAYERS, GATE_ROWS = 4, 4
 STAGE_A_RECORDS, STAGE_A_TRAIN, STAGE_A_EPOCHS = 384, 256, 2
 TEXT_LEN = 1792                 # the longest caption's 128-token bucket
 FAMILY_REQUESTS = 8
+# the engine options (phase 9) and the server (phase 10)
+SPEC_DRAFT, SPEC_K = 8, 4       # draft_layers, spec_k
+BANK_REQUESTS = 24
+CHUNK, CHUNK_CAP = 256, 1024    # chunk_prefill, the chunked engine's max_len
+# serve's defaults (cli/main.py:944-1000): 16 slots, max_len 1024, 8 steps
+SERVER_SLOTS, SERVER_LEN, SERVER_STEPS = 16, 1024, 8
 
 
 def fail(msg):
@@ -369,7 +442,15 @@ def fail(msg):
     sys.exit(1)
 
 
+_PHASE = [None, 0.0]      # the phase running and its start
+
+
 def phase(msg):
+    """Start a phase; print the wall of the one before it."""
+    now = time.perf_counter()
+    if _PHASE[0] is not None:
+        print(f"   ({_PHASE[0]}: wall {now - _PHASE[1]:.1f} s)", flush=True)
+    _PHASE[:] = [msg, now]
     print(f"== {msg}", flush=True)
 
 
@@ -903,6 +984,25 @@ def check_serve_kernels(card):
             more_bytes=nbytes(mask),
             library=lambda: tnf.scaled_dot_product_attention(
                 qx, kx, vx, attn_mask=mask, is_causal=causal)), i == 0)
+        del q, k, v, kx, vx, qx
+    g3, cases = option_flash_cases()
+    for label, b, sq, skv, mask in cases:
+        q, k, v = (rnd(b, sq, 32, d, gen=g3), rnd(b, skv, 8, d, gen=g3),
+                   rnd(b, skv, 8, d, gen=g3))
+        kx, vx = (t.repeat_interleave(4, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        qx = q.transpose(1, 2)
+        # the data's bytes: q and out, the mask, and the K / V rows some
+        # query of the row may attend (the kernel skips the others' tiles)
+        share = mask.any(2).float().mean().item()
+        keep(rows, "flash_attention", compare(
+            f"flash_attention {label}",
+            lambda q, k, v: fa.flash_attention(q, k, v, mask),
+            lambda q, k, v: fa.flash_attention_plain(q, k, v, mask),
+            (q, k, v), card, flops=4 * 32 * d * mask.sum().item(),
+            n_bytes=2 * nbytes(q) + nbytes(mask) + share * nbytes(k, v),
+            library=lambda: tnf.scaled_dot_product_attention(
+                qx, kx, vx, attn_mask=mask)), False)
         del q, k, v, kx, vx, qx
     for m in (5120, 2616):
         for k, n in INT8_SHAPES:
@@ -1769,7 +1869,7 @@ def _lora_b(trainable):
 
 def run_training(label, card, params, cfg, tcfg, lcfg, batches, want):
     """`fit` over `batches` from fresh LoRA adapters (module docstring,
-    phase 9); checks the launch counts against `want` (per step), a finite
+    phase 11); checks the launch counts against `want` (per step), a finite
     loss every step and every LoRA B leaf moved by step 1. Returns the
     launch counts, the state and its optimizer."""
     import math
@@ -1833,7 +1933,7 @@ def _opt_tensors(state):
 def check_checkpoints(card, params, cfg, tcfg, lcfg, state, tx, batches,
                       want):
     """The checkpoint, resume and export gates after the bf16 run (module
-    docstring, phase 9): `state` continues over `batches` (the next two of
+    docstring, phase 11): `state` continues over `batches` (the next two of
     the stream) saving every step, then is restored and exported."""
     import tempfile
     import torch
@@ -1947,7 +2047,7 @@ def _gate_grads(trainable, frozen, cfg, batch, ls, tcfg, impl):
 
 def gradient_gate(params, cfg, tcfg, lcfg, batch):
     """The LoRA gradients of loss_fn through the kernels vs the plain path
-    in fp32 (module docstring, phase 9), at depth GATE_LAYERS."""
+    in fp32 (module docstring, phase 11), at depth GATE_LAYERS."""
     import dataclasses
     import torch
     from opus_pllm_tpu_torch.lora import lora as lora_mod
@@ -1991,7 +2091,7 @@ def gradient_gate(params, cfg, tcfg, lcfg, batch):
 
 
 def check_train_slice(card, params, cfg):
-    """Phase 9 (module docstring): `train-lora` over the bf16 LLM, the
+    """Phase 11 (module docstring): `train-lora` over the bf16 LLM, the
     gradient gate, then QLoRA over its v1 quantization."""
     import itertools
     import json as _json
@@ -2232,7 +2332,7 @@ def evidential_witness(params, cfg, pair, card):
 
 
 def check_stage_a(card, params):
-    """Phase 10 (module docstring): precompute-pairs over ESM2-650M and a
+    """Phase 12 (module docstring): precompute-pairs over ESM2-650M and a
     Llama-3-8B text LM, then train-cstp with its checkpoints and the
     automatic InfoNCE warm-up."""
     import dataclasses
@@ -2254,7 +2354,7 @@ def check_stage_a(card, params):
     from opus_pllm_tpu_torch.train import cstp_trainer as ct
 
     t_phase = time.perf_counter()
-    params["llm"] = None                      # the QLoRA LLM of phase 9
+    params["llm"] = None                      # the QLoRA LLM of phase 11
     torch.cuda.empty_cache()
     lcfg, ecfg = DecoderConfig.llama3_8b(), ESM2Config(dtype="bfloat16")
     g = torch.Generator(device="cuda")
@@ -2404,7 +2504,7 @@ def check_stage_a(card, params):
 
 
 def check_families(card, params, cfg):
-    """Phase 11 (module docstring): Qwen2.5-7B and Galactica-6.7B, each
+    """Phase 13 (module docstring): Qwen2.5-7B and Galactica-6.7B, each
     drawn in bf16 from SEED, answer keywords requests and give text
     embeddings through the kernels."""
     import dataclasses
@@ -2503,6 +2603,724 @@ def check_families(card, params, cfg):
     torch.cuda.empty_cache()
     print(f"families phase wall {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]", flush=True)
+
+
+def option_flash_cases():
+    """phase 3's flash shapes on the serving options' paths, masks drawn
+    from their own generator (SEED + 3): (generator, ((label, B, Sq, Skv,
+    mask), ...)). Each mask gives every query row a valid key."""
+    import torch
+    from opus_pllm_tpu_torch.serve.engine import (admission_inputs,
+                                                  chunk_inputs, verify_mask)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    # the verify pass: 17 rows (16 slots and the spare), K = 4 chunk rows
+    # over a 1024-slot cache, lengths spread over 64-960
+    lengths = torch.randint(64, 961, (SERVER_SLOTS + 1,), generator=g,
+                            device="cuda")
+    verify = verify_mask(lengths, SPEC_K, CHUNK_CAP)
+    # a chunk step: 4 rows at offsets 0 / 256 / 512 / 768, full chunks
+    off = torch.arange(4, device="cuda") * CHUNK
+    _, chunk = chunk_inputs(torch.full((4,), CHUNK, device="cuda"), off,
+                            CHUNK, CHUNK_CAP)
+    # a prefix merge: 8 suffixes of 64-128 tokens after a 64-token prefix
+    n_sfx = torch.randint(64, 129, (8,), generator=g, device="cuda")
+    _, merge = admission_inputs(n_sfx, 128, 64)
+    cases = ((f"verify B={SERVER_SLOTS + 1} Sq={SPEC_K} Skv={CHUNK_CAP}",
+              SERVER_SLOTS + 1, SPEC_K, CHUNK_CAP, verify),
+             (f"chunk B=4 Sq={CHUNK} Skv={CHUNK_CAP} offsets 0-768", 4,
+              CHUNK, CHUNK_CAP, chunk),
+             ("prefix merge B=8 Sq=128 Skv=64+128", 8, 128, 192, merge))
+    for label, *_, mask in cases:
+        if not bool(mask.any(-1).all()):
+            fail(f"flash {label}: a query row has no valid key")
+    return g, cases
+
+
+def random_adapter(lcfg, g):
+    """A rank-16 adapter on the seven projections (LoRAConfig's defaults:
+    alpha 32), B drawn from N(0, 0.02) so that it acts, folded by
+    fold_scaling for a bank at lora_scale 1."""
+    from opus_pllm_tpu_torch.core.config import LoRAConfig
+    from opus_pllm_tpu_torch.lora import lora
+    lc = LoRAConfig()
+    t = lora.init(lcfg, lc, generator=g, device="cuda")
+    for lp in t["layers"]:
+        for ab in lp.values():
+            ab["B"].normal_(0.0, 0.02, generator=g)
+    return lora.fold_scaling(t, lora.scaling(lc))
+
+
+def keyword_tails(params, cfg, tok, examples, plen=0):
+    """The engine runner's prompts for keywords requests, spliced (each
+    row's valid tail on the card), the first `plen` tokens cut off."""
+    from opus_pllm_tpu_torch.evals import runner
+    ids = [runner.tokenize_with_seq(
+        runner.annotation_prompt(runner.ds.instruction_for(
+            e, "synthetic_keywords.json")), tok.encode,
+        tok.bos_token_id)[plen:] for e in examples]
+    return runner.splice_tails(params, cfg, tok, ids,
+                               [e.sequence for e in examples],
+                               splice_batch=8, prompt_bucket=64,
+                               esm_bucket=128), ids
+
+
+def group_embs(tails, bucket):
+    """Valid tails -> (embs (n, bucket, H) zero-padded, n_valid (n,))."""
+    import torch
+    n_valid = torch.tensor([t.shape[0] for t in tails], device="cuda")
+    embs = torch.zeros((len(tails), bucket, tails[0].shape[1]),
+                       dtype=tails[0].dtype, device="cuda")
+    for r, t in enumerate(tails):
+        embs[r, :t.shape[0]] = t
+    return embs, n_valid
+
+
+def gate(label, got, plain, ref):
+    """Outputs through the kernels against the fp32 plain path, within 2 x
+    the plain bf16 path's error + ATOL (phase 3's bound)."""
+    import torch
+    err = (got - ref).abs().max().item()
+    err_plain = (plain - ref).abs().max().item()
+    tol = 2 * err_plain + ATOL
+    print(f"{label}: vs fp32 plain: kernels {err:.3e}, bf16 plain "
+          f"{err_plain:.3e} (tol {tol:.3e}); max|ref| "
+          f"{ref.abs().max().item():.3e}", flush=True)
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        fail(f"{label}: {err:.3e} from the fp32 plain path, above {tol:.3e}")
+    return tol
+
+
+def teacher_forced(label, llm, lcfg, tails, outs, cap, tol):
+    """Each request's prompt and emitted tokens through one causal
+    prefill through the kernels: every emitted greedy token must be the
+    argmax there, or within `tol` of it (two bf16 paths, each within the
+    logit bound of the fp32 one, may order a near-tie apart). Prints the
+    argmax hits and the largest gap."""
+    import torch
+    from opus_pllm_tpu_torch.models import decoder
+    hits = total = 0
+    worst = 0.0
+    with torch.no_grad():
+        for t, toks in zip(tails, outs):
+            ids = torch.tensor(toks, device="cuda")
+            x = torch.cat([t, decoder.embed_tokens(llm, ids[:-1]).to(
+                t.dtype)])[None]
+            ar = torch.arange(x.shape[1], device="cuda")
+            hid, _ = decoder.forward(
+                llm, lcfg, x, ar[None],
+                ar[None, None, None, :] <= ar[None, None, :, None],
+                return_hidden=True, ntk_ctx=cap)
+            p = t.shape[0]
+            lg = decoder.head_logits(llm, lcfg, hid[:, p - 1:p - 1 + len(
+                toks)])[0].float()
+            gaps = lg.max(-1).values - lg[torch.arange(len(toks),
+                                                       device="cuda"), ids]
+            hits += int((gaps == 0).sum())
+            total += len(toks)
+            worst = max(worst, gaps.max().item())
+    print(f"{label}: {hits}/{total} emitted tokens are the argmax of a "
+          f"teacher-forced prefill, the largest gap {worst:.3e} (allowed "
+          f"{tol:.3e})", flush=True)
+    if worst > tol:
+        fail(f"{label}: an emitted greedy token {worst:.3e} below the "
+             "argmax of a teacher-forced prefill")
+
+
+def fp32_llm(llm, lcfg):
+    import dataclasses
+    return _norms_to_fp32(llm), dataclasses.replace(lcfg, dtype="float32")
+
+
+def check_bank(card, params, cfg, tok, examples):
+    """The LoRA bank (module docstring, phase 9)."""
+    import torch
+    from opus_pllm_tpu_torch.core.util import round_up
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.serve.engine import (ServeRequest, ServingEngine,
+                                                  prefill_group)
+    llm, lcfg = params["llm"], cfg.llm
+    layers = lcfg.num_layers
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+    adapters = {n: random_adapter(lcfg, g) for n in ("loc", "go", "ec")}
+    late = random_adapter(lcfg, g)
+    reset_counts()
+    tails, _ = keyword_tails(params, cfg, tok, examples[:BANK_REQUESTS])
+    if min(t.shape[0] for t in tails) <= 256:
+        fail("bank: a prompt of 256 tokens or fewer (every group must be "
+             "n x bucket >= 256 rows for the int8 kernel)")
+    bucket = round_up(max(t.shape[0] for t in tails), 64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(llm, lcfg, max_slots=SERVE_SLOTS,
+                        max_len=bucket + 64, prefill_buckets=(bucket,),
+                        steps_per_tick=SERVE_STEPS, seed=SEED,
+                        lora_bank=adapters, adapter_capacity=4)
+    names = ("loc", "go", "ec", None)
+    t0 = time.perf_counter()
+    done = eng.run([ServeRequest(i, embeds=e, max_new_tokens=64,
+                                 temperature=0.1, top_p=0.7,
+                                 eos_token_id=tok.eos_token_id,
+                                 adapter_id=names[i % 4])
+                    for i, e in enumerate(tails)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pre = eng.counters["prefills"]
+    expect_counts("bank", read_counts(), flash_attention=layers * pre,
+                  int8_matmul=7 * layers * pre,
+                  **{n: cfg.esm.num_layers * -(-BANK_REQUESTS // 8)
+                     for n in fe.launches})
+    if len(done) != BANK_REQUESTS or eng.counters["completions"] != \
+            BANK_REQUESTS:
+        fail("bank: not every request was answered")
+    bank_gib = sum(nbytes(*ab.values())
+                   for ab in eng._lora_bank.values()) / 2**30
+    print(f"bank: 3 adapters + base, {BANK_REQUESTS} requests in {dt:.2f} s, "
+          f"{eng.counters['tokens'] / dt:.1f} tok/s, {pre} prefills, "
+          f"{eng._tick} ticks; bank {bank_gib:.2f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on the card "
+          f"[{card}]", flush=True)
+    # an adapter installed at runtime serves, and cannot be removed while
+    # a request uses it
+    eng.add_adapter("late", late)
+    eng.submit(ServeRequest("late", embeds=tails[0], max_new_tokens=16,
+                            eos_token_id=tok.eos_token_id,
+                            adapter_id="late"))
+    got = {c.request_id: c for c in eng.step()}
+    try:
+        eng.remove_adapter("late")
+        fail("bank: remove_adapter of an adapter in use was not refused")
+    except ValueError as e:
+        print(f"bank: remove_adapter refused while in use ({e})", flush=True)
+    got.update(eng.run([]))
+    if "late" not in got or got["late"].finish_reason == "cancelled":
+        fail("bank: the runtime adapter's request was not answered")
+    eng.remove_adapter("late")
+    # one admission group's first-token logits: the per-row gather
+    # against each request through the 2-d lora_dense path in fp32
+    embs, n_valid = group_embs(tails[:4], bucket)
+    la = eng._gather_lora(torch.tensor(
+        [eng._adapter_index.get(n, eng._zero_adapter) for n in names],
+        device="cuda"))
+    kw = dict(max_len=eng.max_len, lora=la)
+    got = prefill_group(llm, lcfg, embs, n_valid, bucket, **kw)[0]
+    plain = prefill_group(llm, lcfg, embs, n_valid, bucket, impl="torch",
+                          **kw)[0]
+    l32, c32 = fp32_llm(llm, lcfg)
+    ref = torch.cat([prefill_group(
+        l32, c32, embs[r:r + 1].float(), n_valid[r:r + 1], bucket,
+        max_len=eng.max_len, lora=adapters.get(n), impl="torch")[0]
+        for r, n in enumerate(names)])
+    gate("bank: first-token logits, per-row gather vs 2-d lora_dense", got,
+         plain, ref)
+    del eng, la, adapters
+    torch.cuda.empty_cache()
+    return tails, bucket
+
+
+def spec_run(llm, lcfg, tails, bucket, tok, temps, **kw):
+    """One engine run of the requests `tails` at temperatures `temps`
+    (top_p 0.7 where sampled): (completions, engine, seconds, per-tick
+    records (tick-start active rows, consumed (S, rows)))."""
+    import torch
+    from opus_pllm_tpu_torch.serve.engine import ServeRequest, ServingEngine
+    eng = ServingEngine(llm, lcfg, max_slots=SERVE_SLOTS,
+                        max_len=bucket + 64, prefill_buckets=(bucket,),
+                        steps_per_tick=SERVE_STEPS, seed=SEED, **kw)
+    records = []
+    if eng.draft_layers:
+        tick = eng._spec_tick
+
+        def recorded(packed):
+            out = tick(packed)
+            records.append((packed[0] > 0, out[1][1]))
+            return out
+        eng._spec_tick = recorded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run([ServeRequest(i, embeds=e, max_new_tokens=64,
+                                 temperature=t, top_p=0.7 if t else 1.0,
+                                 eos_token_id=tok.eos_token_id)
+                    for i, (e, t) in enumerate(zip(tails, temps))])
+    torch.cuda.synchronize()
+    return done, eng, time.perf_counter() - t0, records
+
+
+def acceptance(label, records):
+    """Every row active at a tick's start consumes 1..K tokens in each
+    iteration until it finishes, then 0; rows inactive consume 0. Returns
+    the mean tokens an active iteration."""
+    total = iters = 0
+    for active, cons in records:
+        cons = cons.cpu()
+        act = active.cpu()
+        if int(cons.min()) < 0 or int(cons.max()) > SPEC_K:
+            fail(f"{label}: an iteration consumed outside 0..{SPEC_K}")
+        if bool((cons[:, ~act] != 0).any()) or bool(
+                (cons[0, act] < 1).any()):
+            fail(f"{label}: an active row consumed no token, or an "
+                 "inactive one did")
+        stopped = (cons == 0).int().cummax(0).values.bool()
+        if bool((cons[stopped] != 0).any()):
+            fail(f"{label}: a row resumed after it finished")
+        total += int(cons.sum())
+        iters += int((cons > 0).sum())
+    return total / max(iters, 1)
+
+
+def check_spec(card, params, cfg, tok, tails, bucket):
+    """Self-speculative ticks (module docstring, phase 9)."""
+    import torch
+    from opus_pllm_tpu_torch.models import decoder
+    from opus_pllm_tpu_torch.serve.engine import verify_mask
+    llm, lcfg = params["llm"], cfg.llm
+    layers = lcfg.num_layers
+    tails = tails[:16]
+    temps = [0.0] * 8 + [0.1] * 8
+    spec_kw = dict(draft_layers=SPEC_DRAFT, spec_k=SPEC_K,
+                   spec_adaptive=False)
+    plain, peng, pdt, _ = spec_run(llm, lcfg, tails, bucket, tok, temps)
+    reset_counts()
+    done, eng, dt, records = spec_run(llm, lcfg, tails, bucket, tok, temps,
+                                      **spec_kw)
+    pre, iters = eng.counters["prefills"], eng._tick * eng.steps_per_tick
+    expect_counts("speculative ticks", read_counts(),
+                  flash_attention=layers * (pre + iters),
+                  int8_matmul=7 * layers * pre)
+    if len(done) != 16 or eng.counters["completions"] != 16:
+        fail("speculative ticks: not every request was answered")
+    mean = acceptance("speculative ticks", records)
+    same = sum(done[i].tokens == plain[i].tokens for i in range(8))
+    print(f"speculative ticks (draft {SPEC_DRAFT} layers, K {SPEC_K}), 8 "
+          f"greedy + 8 sampled: {mean:.3f} tokens an iteration, "
+          f"{eng.counters['tokens'] / dt:.1f} tok/s ({dt:.2f} s, "
+          f"{eng._tick} ticks) vs plain ticks "
+          f"{peng.counters['tokens'] / pdt:.1f} tok/s ({pdt:.2f} s, "
+          f"{peng._tick} ticks); greedy requests equal to plain: {same}/8 "
+          f"[{card}]", flush=True)
+    # the verify pass through the kernels against the fp32 plain path,
+    # over the engine's cache as the run left it
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    cap, b = eng.max_len, eng.max_slots + 1
+    lengths = torch.randint(1, cap - SPEC_K, (b,), generator=g,
+                            device="cuda")
+    chunk = torch.randint(0, lcfg.vocab_size, (b, SPEC_K), generator=g,
+                          device="cuda")
+    mask = verify_mask(lengths, SPEC_K, cap)
+    pos = lengths[:, None] + torch.arange(SPEC_K, device="cuda")[None]
+
+    def verify(tree, c, dtype, impl):
+        cache = {"layers": [{n: lc[n].to(dtype, copy=True)
+                             for n in ("k", "v")}
+                            for lc in eng.cache["layers"]],
+                 "index": lengths.clone(), "mask": eng.cache["mask"]}
+        with torch.no_grad():
+            emb = decoder.embed_tokens(tree, chunk).to(dtype)
+            lg, _ = decoder.forward(tree, c, emb, pos, mask, cache,
+                                    impl=impl, ntk_ctx=cap)
+        return lg.float()
+
+    l32, c32 = fp32_llm(llm, lcfg)
+    tol = 2 * gate(f"verify pass ({b} rows, K {SPEC_K}, cap {cap}) logits",
+                   verify(llm, lcfg, torch.bfloat16, "auto"),
+                   verify(llm, lcfg, torch.bfloat16, "torch"),
+                   verify(l32, c32, torch.float32, "torch"))
+    del peng, l32
+    torch.cuda.empty_cache()
+    teacher_forced("speculative ticks, greedy", llm, lcfg, tails[:8],
+                   [done[i].tokens for i in range(8)], cap, tol)
+    del eng
+    # full acceptance: layers past the draft made the identity by a copy
+    # of their o_proj / down_proj with zeros in it
+    ident = dict(llm, layers=list(llm["layers"]))
+    for i in range(SPEC_DRAFT, layers):
+        lyr = dict(llm["layers"][i])
+        for name in ("o_proj", "down_proj"):
+            lyr[name] = dict(lyr[name], kernel_q=torch.zeros_like(
+                lyr[name]["kernel_q"]))
+        ident["layers"][i] = lyr
+    greedy = [0.0] * 8
+    plain, peng, pdt, _ = spec_run(ident, lcfg, tails[:8], bucket, tok,
+                                   greedy)
+    done, eng, dt, records = spec_run(ident, lcfg, tails[:8], bucket, tok,
+                                      greedy, **spec_kw)
+    mean = acceptance("full acceptance", records)
+    same = sum(done[i].tokens == plain[i].tokens for i in range(8))
+    for name, out in (("plain", plain), ("speculative", done)):
+        teacher_forced(f"full acceptance, {name} ticks", ident, lcfg,
+                       tails[:8], [out[i].tokens for i in range(8)],
+                       eng.max_len, tol)
+    print(f"full acceptance (layers {SPEC_DRAFT}-{layers - 1} the "
+          f"identity), 8 greedy: {mean:.3f} tokens an iteration, "
+          f"{eng.counters['tokens'] / dt:.1f} tok/s ({eng._tick} ticks) vs "
+          f"plain {peng.counters['tokens'] / pdt:.1f} tok/s ({peng._tick} "
+          f"ticks); equal to plain: {same}/8 [{card}]", flush=True)
+    if mean < 2.0:
+        fail(f"full acceptance: {mean:.3f} tokens an iteration")
+    del ident, eng, peng
+    torch.cuda.empty_cache()
+
+
+def check_prefix(card, params, cfg, tok, examples, gen):
+    """The prefix cache and engine reuse (module docstring, phase 9)."""
+    import torch
+    from opus_pllm_tpu_torch.core.util import round_up
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.serve import engine as serve
+    llm, lcfg = params["llm"], cfg.llm
+    layers = lcfg.num_layers
+    shapes = []
+    prefill = serve.ServingEngine._run_prefill
+
+    def recorded(self, bucket, embs, meta, n_real, prefix_id=None):
+        shapes.append(embs.shape[0] * bucket)
+        return prefill(self, bucket, embs, meta, n_real, prefix_id)
+    serve.ServingEngine._run_prefill = recorded
+    kw = dict(gen=gen, max_slots=SERVE_SLOTS, steps_per_tick=SERVE_STEPS,
+              examples=examples, log_fn=lambda *_: None)
+    reps, cache = [], {}
+    try:
+        for i in range(2):
+            reset_counts()
+            shapes.clear()
+            reps.append(runner.run_annotation_eval_engine(
+                params, cfg, tok, "synthetic_keywords.json",
+                cache_prefix=True, engine_cache=cache, **kw))
+            plen = reps[-1].engine["prefix_tokens"]
+            pinned = i == 0          # the reused engine pins it no more
+            big = sum(m >= 256 for m in shapes) + (pinned and plen >= 256)
+            expect_counts(f"prefix cache, call {i + 1}", read_counts(),
+                          flash_attention=layers * (len(shapes) + pinned),
+                          int8_matmul=7 * layers * big,
+                          **{n: cfg.esm.num_layers * -(-len(examples) // 8)
+                             for n in fe.launches})
+        shapes.clear()
+        base = runner.run_annotation_eval_engine(
+            params, cfg, tok, "synthetic_keywords.json", **kw)
+    finally:
+        serve.ServingEngine._run_prefill = prefill
+    if plen < 16 or len(cache) != 1:
+        fail(f"prefix cache: {plen}-token prefix, {len(cache)} engines")
+    if [r["generated"] for r in reps[0].results] != \
+            [r["generated"] for r in reps[1].results]:
+        fail("engine reuse: the reseeded engine did not repeat its "
+             "sampled output")
+    for rep in (*reps, base):
+        if rep.engine["completions"] != len(examples):
+            fail("prefix cache: not every request was answered")
+    print(f"prefix cache: {plen}-token header pinned once, "
+          f"{plen * len(examples)} prefill tokens saved over "
+          f"{len(examples)} requests; TTFT p50 / p99 <= "
+          f"{reps[0].engine['ttft_p50']} / {reps[0].engine['ttft_p99']} s "
+          f"(mean {reps[0].engine['ttft_mean']:.3f}) vs no prefix "
+          f"{base.engine['ttft_p50']} / {base.engine['ttft_p99']} s (mean "
+          f"{base.engine['ttft_mean']:.3f}); engine tok/s "
+          f"{reps[0].decode_tokens / reps[0].decode_seconds:.1f} / "
+          f"{base.decode_tokens / base.decode_seconds:.1f}; engine reuse: "
+          f"1 engine for 2 calls, sampled output repeated bit for bit "
+          f"[{card}]", flush=True)
+    # first-token logits: prefix + suffix through the kernels against the
+    # whole prompt through the fp32 plain path
+    ex = examples[:8]
+    full, ids = keyword_tails(params, cfg, tok, ex)
+    sfx, _ = keyword_tails(params, cfg, tok, ex, plen)
+    header = torch.tensor(ids[0][:plen], device="cuda")
+    b_sfx = round_up(max(t.shape[0] for t in sfx), 64)
+    b_full = round_up(max(t.shape[0] for t in full), 64)
+    s_embs, s_valid = group_embs(sfx, b_sfx)
+    f_embs, f_valid = group_embs(full, b_full)
+    cap = plen + b_sfx + 64
+    with torch.no_grad():
+        pemb = llm["embed_tokens"]["embedding"][header]
+
+        def via_prefix(impl):
+            pref = serve.pin_prefix(llm, lcfg, pemb, max_len=cap, impl=impl)
+            return serve.prefill_group(llm, lcfg, s_embs, s_valid, b_sfx,
+                                       max_len=cap, prefix=pref,
+                                       impl=impl)[0]
+        l32, c32 = fp32_llm(llm, lcfg)
+        ref = serve.prefill_group(l32, c32, f_embs.float(), f_valid, b_full,
+                                  max_len=cap, impl="torch")[0]
+        gate(f"prefix cache: first-token logits ({plen} + suffix vs the "
+             "whole prompt)", via_prefix("auto"), via_prefix("torch"), ref)
+
+
+def long_examples(n, lo=700, hi=960):
+    """n keywords examples whose instructions make spliced prompts of
+    lo..hi tokens (ByteTokenizer: one token a byte)."""
+    import numpy as np
+    from opus_pllm_tpu_torch.evals.datasets import AnnotationExample
+    rng = np.random.default_rng(SEED + 6)
+    words = ("binds", "zinc", "membrane", "kinase", "domain", "protein",
+             "residue", "catalytic", "helix", "sheet", "transport")
+    out = []
+    for e in synthetic_examples(n):
+        want = int(rng.integers(lo, hi + 1)) - 300
+        text = ""
+        while len(text) < want:
+            text += " " + words[int(rng.integers(len(words)))]
+        out.append(AnnotationExample(
+            "List the keywords of this protein, which" + text[:want] + "?",
+            e.sequence, e.output))
+    return out
+
+
+def check_chunked(card, params, cfg, tok, examples):
+    """Chunked prefill (module docstring, phase 9)."""
+    import torch
+    from opus_pllm_tpu_torch.core.util import round_up
+    from opus_pllm_tpu_torch.models import decoder
+    from opus_pllm_tpu_torch.serve import engine as serve
+    llm, lcfg = params["llm"], cfg.llm
+    layers = lcfg.num_layers
+    longs, _ = keyword_tails(params, cfg, tok, long_examples(4))
+    shorts, _ = keyword_tails(params, cfg, tok, examples[:12])
+    lens = [t.shape[0] for t in longs]
+    short_b = round_up(max(t.shape[0] for t in shorts), 64)
+    if not (min(lens) > short_b and max(lens) + 64 <= CHUNK_CAP):
+        fail(f"chunked prefill: long prompts of {lens} tokens")
+    reqs = [(f"long{i}", t) for i, t in enumerate(longs)] + \
+        [(f"short{i}", t) for i, t in enumerate(shorts)]
+
+    def run(**kw):
+        eng = serve.ServingEngine(llm, lcfg, max_slots=SERVE_SLOTS,
+                                  max_len=CHUNK_CAP,
+                                  steps_per_tick=SERVE_STEPS, seed=SEED,
+                                  **kw)
+        first = {}
+        t0 = time.perf_counter()
+        done = eng.run([serve.ServeRequest(
+            rid, embeds=t, max_new_tokens=64, eos_token_id=tok.eos_token_id,
+            temperature=0.1, top_p=0.7,
+            on_tokens=lambda d, rid=rid: first.setdefault(
+                rid, time.perf_counter() - t0)) for rid, t in reqs])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if len(done) != len(reqs) or eng.counters["completions"] != \
+                len(reqs):
+            fail("chunked prefill: not every request was answered")
+        ttft = sorted(first[f"short{i}"] for i in range(len(shorts)))
+        return eng, dt, ttft
+
+    reset_counts()
+    eng, dt, ttft = run(prefill_buckets=(short_b,), chunk_prefill=CHUNK)
+    pre = eng.counters["prefills"]
+    expect_counts("chunked prefill", read_counts(),
+                  flash_attention=layers * pre,
+                  int8_matmul=7 * layers * pre)
+    _, mdt, mttft = run(prefill_buckets=(short_b, round_up(max(lens), 64)))
+    print(f"chunked prefill ({CHUNK}-token chunks): 4 prompts of {lens} "
+          f"tokens beside 12 of <= {short_b}: {pre} prefills (chunks "
+          f"included), {eng.counters['tokens'] / dt:.1f} tok/s; the short "
+          f"requests' TTFT median / max {ttft[len(ttft) // 2]:.3f} / "
+          f"{ttft[-1]:.3f} s, vs one monolithic prefill bucket "
+          f"{mttft[len(mttft) // 2]:.3f} / {mttft[-1]:.3f} s "
+          f"({eng.counters['tokens'] / mdt:.1f} tok/s) [{card}]", flush=True)
+    # each long prompt's first-token logits: its chunks through the
+    # kernels against one monolithic prefill of it through the fp32 plain
+    # path
+    embs, n_valid = group_embs(longs, round_up(max(lens), CHUNK))
+
+    def chunked(tree, c, x, impl):
+        cache = decoder.init_cache(c, 4, CHUNK_CAP, device="cuda")
+        out = [None] * 4
+        for off in range(0, max(lens), CHUNK):
+            rows = [r for r in range(4) if lens[r] > off]
+            rt = torch.tensor(rows, device="cuda")
+            nv = (n_valid[rt] - off).clamp_max(CHUNK)
+            lg = serve.chunk_logits(
+                tree, c, cache, x[rt, off:off + CHUNK], nv,
+                torch.full_like(rt, off), rt, max_len=CHUNK_CAP, impl=impl)
+            for i, r in enumerate(rows):
+                if lens[r] <= off + CHUNK:
+                    out[r] = lg[i]
+        return torch.stack(out)
+
+    l32, c32 = fp32_llm(llm, lcfg)
+    with torch.no_grad():
+        ref = []
+        for r in range(4):
+            n = lens[r]
+            ar = torch.arange(n, device="cuda")
+            hid, _ = decoder.forward(
+                l32, c32, embs[r:r + 1, :n].float(), ar[None],
+                (ar[None, None, None, :] <= ar[None, None, :, None]),
+                impl="torch", return_hidden=True, ntk_ctx=CHUNK_CAP)
+            ref.append(decoder.head_logits(l32, c32, hid[:, -1:],
+                                           impl="torch")[0, 0].float())
+        gate("chunked prefill: first-token logits vs one monolithic prefill",
+             chunked(llm, lcfg, embs, "auto"),
+             chunked(llm, lcfg, embs, "torch"), torch.stack(ref))
+
+
+def check_engine_options(card, params, cfg, gen):
+    """Phase 9 (module docstring): the int8 LLM of phase 8 behind the
+    engine's LoRA bank, speculative ticks, prefix cache with engine reuse,
+    and chunked prefill."""
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    tok = ByteTokenizer()
+    examples = synthetic_examples(BANK_REQUESTS)
+    walls = {}
+    for name, fn in (
+            ("bank", lambda: check_bank(card, params, cfg, tok, examples)),
+            ("speculative ticks", lambda: check_spec(card, params, cfg, tok,
+                                                     *bank_out)),
+            ("prefix cache", lambda: check_prefix(card, params, cfg, tok,
+                                                  examples[:16], gen)),
+            ("chunked prefill", lambda: check_chunked(card, params, cfg, tok,
+                                                      examples))):
+        t0 = time.perf_counter()
+        out = fn()
+        if name == "bank":
+            bank_out = out
+        walls[name] = time.perf_counter() - t0
+    print("engine options walls: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+
+
+def http_call(port, path, body=None, method=None):
+    """One HTTP request to the server on 127.0.0.1: JSON in, JSON (or the
+    SSE events' data, or the text) out."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        kind = r.headers["Content-Type"]
+        raw = r.read()
+    if kind == "text/event-stream":
+        return [line[len(b"data: "):].decode() for line in raw.split(b"\n\n")
+                if line.startswith(b"data: ")]
+    return json.loads(raw) if kind == "application/json" else raw.decode()
+
+
+def check_server(card, params, cfg):
+    """Phase 10 (module docstring): OpusServer over HTTP."""
+    import dataclasses
+    import threading
+    import torch
+    from opus_pllm_tpu_torch.bridge import cstp
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.models import decoder
+    from opus_pllm_tpu_torch.serve.server import OpusServer
+    params["llm"] = None                      # the int8 LLM of phase 8
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    params["llm"] = decoder.init(cfg.llm, generator=g, device="cuda")
+    # text embeddings need a CSTP whose text side takes the served LLM's
+    # hidden size (train-cstp's CSTPConfig(text_dim=4096))
+    scfg = dataclasses.replace(cfg, cstp=dataclasses.replace(
+        cfg.cstp, text_dim=cfg.llm.hidden_size))
+    sparams = dict(params, cstp=cstp.init(scfg.cstp, generator=g,
+                                          device="cuda"))
+    bank = {n: random_adapter(cfg.llm, g) for n in ("loc", "go")}
+    srv = OpusServer(sparams, scfg, ByteTokenizer(), max_slots=SERVER_SLOTS,
+                     max_len=SERVER_LEN, steps_per_tick=SERVER_STEPS,
+                     prefill_buckets=(64, 128, 256, 384),
+                     cache_system_prefix=True, lora_bank=bank,
+                     adapter_capacity=3, default_max_new=64)
+    httpd = srv.make_http_server("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    layers = cfg.llm.num_layers
+    try:
+        reset_counts()
+        pre0 = srv.engine.counters["prefills"]
+        examples = synthetic_examples(SERVER_SLOTS)
+        outs = [None] * SERVER_SLOTS
+
+        def annotate(i):
+            outs[i] = http_call(port, "/v1/annotate", {
+                "instruction": examples[i].instruction,
+                "sequence": examples[i].sequence, "max_new_tokens": 64,
+                "temperature": 0.1, "top_p": 0.7,
+                "adapter": (None, None, "loc", "go")[i % 4]})
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=annotate, args=(i,))
+              for i in range(SERVER_SLOTS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        dt = time.perf_counter() - t0
+        if not all(o and o["tokens"] > 0 for o in outs):
+            fail("server: not every /v1/annotate was answered")
+        n_tok = sum(o["tokens"] for o in outs)
+        ttft = srv.engine.latency["ttft"]
+        print(f"server: {SERVER_SLOTS} concurrent /v1/annotate (4 on "
+              f"'loc', 4 on 'go') in {dt:.2f} s, {n_tok / dt:.1f} tok/s; "
+              f"TTFT p50 / p99 <= {ttft.percentile(0.5)} / "
+              f"{ttft.percentile(0.99)} s (mean {ttft.mean:.3f}) [{card}]",
+              flush=True)
+        chat = {"messages": [{"role": "user", "content": [
+                    {"type": "text", "text": "Which keywords fit?"},
+                    {"type": "protein", "sequence": examples[0].sequence}]}],
+                "max_tokens": 32}
+        text = http_call(port, "/v1/chat/completions", chat)[
+            "choices"][0]["message"]["content"]
+        events = http_call(port, "/v1/chat/completions",
+                           dict(chat, stream=True))
+        streamed = "".join(json.loads(e)["choices"][0]["delta"].get(
+            "content", "") for e in events[:-1])
+        if events[-1] != "[DONE]" or streamed != text:
+            fail("server: the streamed chat text differs from the "
+                 "blocking one")
+        comp = http_call(port, "/v1/completions", {
+            "prompt": "The protein binds", "max_tokens": 16,
+            "model": "loc"})
+        if comp["model"] != "loc" or not comp["usage"]["completion_tokens"]:
+            fail("server: /v1/completions on adapter 'loc' not answered")
+        emb = http_call(port, "/v1/embeddings", {"input": [
+            {"type": "protein", "sequence": examples[1].sequence},
+            "A zinc-binding membrane kinase."]})
+        vecs = [torch.tensor(d["embedding"]) for d in emb["data"]]
+        if [tuple(v.shape) for v in vecs] != [(scfg.cstp.proj_dim,)] * 2 \
+                or not all(bool(torch.isfinite(v).all()) for v in vecs):
+            fail("server: /v1/embeddings shapes or values")
+        models = http_call(port, "/v1/models")
+        if [m["id"] for m in models["data"]] != \
+                [srv.model_id, "loc", "go"]:
+            fail(f"server: /v1/models lists {models}")
+        if http_call(port, "/v1/adapters")["free"] != 1 or \
+                http_call(port, "/health")["status"] != "ok":
+            fail("server: /v1/adapters or /health")
+        answered = SERVER_SLOTS + 3
+        metrics = http_call(port, "/metrics")
+        vals = {ln.split()[0]: float(ln.split()[1])
+                for ln in metrics.splitlines()
+                if ln and not ln.startswith("#")}
+        if vals["opus_serve_completions_total"] != answered or \
+                srv.engine.counters["completions"] != answered or \
+                vals["opus_serve_ttft_seconds_count"] != answered:
+            fail(f"server: /metrics counts "
+                 f"{vals['opus_serve_completions_total']} completions, "
+                 f"{answered} answered")
+        pre = srv.engine.counters["prefills"] - pre0
+        # each protein request is one ESM2 splice, and the protein
+        # embedding one more ESM2 call; the text embedding one causal
+        # prefill of the LLM
+        expect_counts("server", read_counts(),
+                      flash_attention=layers * (pre + 1),
+                      **{n: cfg.esm.num_layers * (SERVER_SLOTS + 2 + 1)
+                         for n in fe.launches})
+        if not srv.drain(timeout=120):
+            fail("server: drain did not finish")
+        print(f"server: chat (blocking = SSE), completions on an adapter, "
+              f"embeddings ({scfg.cstp.proj_dim}), models, adapters, "
+              f"health, /metrics ({answered} completions), drain: ok; "
+              f"{pre} prefills", flush=True)
+    finally:
+        httpd.shutdown()
+        srv.close()
+        params["llm"] = None
+        torch.cuda.empty_cache()
 
 
 def profile_serving(card):
@@ -2735,6 +3553,12 @@ def main():
     phase("serving slice")
     scounts = check_serve_slice(card, params, cfg, gen)
 
+    phase("engine options")
+    check_engine_options(card, params, cfg, gen)
+
+    phase("server")
+    check_server(card, params, cfg)
+
     phase("training slice")
     tcounts, qlora_counts = check_train_slice(card, params, cfg)
 
@@ -2763,6 +3587,7 @@ def main():
                   for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "route_ms")
                   if key in rows[k["name"]]})
+    phase("result")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s [{card}]",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

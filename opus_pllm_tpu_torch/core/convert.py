@@ -98,7 +98,8 @@ def _refuse_quantized(tree, where: str, *, decoder: bool = False) -> None:
             if dt is not None and not ok:
                 raise NotImplementedError(
                     f"quantized weights ({where}.{k}, dtype "
-                    f"{np.asarray(v).dtype}) are not ported yet")
+                    f"{np.asarray(v).dtype}) are not ported yet (ROADMAP.md "
+                    "§1 item 8)")
             _refuse_quantized(v, f"{where}.{k}", decoder=decoder)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
@@ -136,7 +137,8 @@ def decoder_from_jax(tree: dict, device=None) -> dict:
         if "qkv_proj" in lp or "gateup_proj" in lp:
             raise NotImplementedError(
                 "fused decoder projections (decoder.fuse_projections) are "
-                "not ported yet; convert the unfused tree")
+                "not ported yet (ROADMAP.md §1 item 8); convert the "
+                "unfused tree")
     return t
 
 

@@ -2,7 +2,9 @@
 the static path `run_annotation_eval` :193, `_prepare_from_ids` :51,
 `_prepare_inputs` :65, `_generate_spliced` :130, `_pad_chunk` :464; the
 serving-engine path `run_annotation_eval_engine` :372, `_engine_generate`
-:275, `_check_engine_gen` :249; and the MCQ runners `run_mcq_eval` :476,
+:275 (with the LoRA bank, the prefix cache and engine reuse),
+`_common_token_prefix` :254, `_check_engine_gen` :249; and the MCQ
+runners `run_mcq_eval` :476,
 `_mcq_next_logits` :544, `_letter_token_candidates` :554,
 `run_mcq_eval_scored` :567, `_logsumexp` / `_logsumexp_ids` :632-644 and
 `run_mcq_eval_engine` :646).
@@ -31,10 +33,11 @@ and return the scores in `EvalReport.metrics`; entries/s counts only the
 generation, as in the JAX runners.
 
 Single process: the JAX runners' `local_slice` and `_allgather_results`
-are the identity here. Not ported yet (ROADMAP.md §1), and refused: beam
-search and the speculative draft (item 7), the device meshes (item 9),
-the engine's prefix cache, LoRA bank and engine reuse (item 4); the
-prefetch thread (item 8) is not ported, the batches are prepared inline.
+are the identity here. Not ported yet (ROADMAP.md §1), and refused: the
+static path's beam search and speculative draft (item 7; the engine
+runners take `draft_layers` as speculative ticks) and the device meshes
+(item 9); the prefetch thread (item 8) is not ported, the batches are
+prepared inline.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.config import GenerationConfig, OpusConfig
+from ..core.config import SEQ_TOKEN_INDEX, GenerationConfig, OpusConfig
 from ..core.util import round_up
 from ..infer import engine
 from ..infer.conversation import (VICUNA_V0, VICUNA_V3, annotation_prompt,
@@ -133,7 +136,9 @@ def _pad_chunk(chunk, batch_size: int):
 def _check_gen(gen: GenerationConfig) -> None:
     if gen.num_beams > 1 or gen.draft_layers > 0:
         raise NotImplementedError(
-            "beam search and speculative drafts are not ported yet")
+            "beam search and the static speculative draft are not ported "
+            "yet (ROADMAP.md §1 item 7); the engine runners take "
+            "draft_layers as speculative ticks")
 
 
 @torch.no_grad()
@@ -215,42 +220,44 @@ def _report(results, dt, file_path, save_path, bert_embed_fn, log_fn):
 def _check_engine_gen(gen: GenerationConfig) -> None:
     if gen.num_beams > 1:
         raise ValueError("beam search needs the static path (drop --engine)")
-    if gen.draft_layers > 0:
-        from ..serve.engine import not_ported
-        raise not_ported("draft_layers (speculative ticks)")
 
 
-def _refuse_engine_options(lora_bank, adapter_id, engine_cache, mesh,
-                           cache_prefix) -> None:
+def _refuse_mesh(mesh) -> None:
     from ..serve.engine import not_ported
-    for what, asked in (
-            ("lora_bank / adapter_id (the LoRA bank)",
-             lora_bank is not None or adapter_id is not None),
-            ("engine_cache (engine reuse)", engine_cache is not None),
-            ("mesh", mesh is not None),
-            ("cache_prefix (the prefix cache)", cache_prefix)):
-        if asked:
-            raise not_ported(what)
+    if mesh is not None:
+        raise not_ported("mesh", 9)
 
 
-def _engine_generate(params, cfg: OpusConfig, tokenizer, prompts, sequences,
-                     gen: GenerationConfig, *, max_slots: int,
-                     steps_per_tick: int, splice_batch: int,
-                     prompt_bucket: int, esm_bucket: int
-                     ) -> Tuple[List[List[int]], dict]:
-    """Splice every (prompt, protein) pair in batches of `splice_batch`,
-    drive the serving engine to completion, return the token lists in input
-    order and the engine's numbers (runner.py:275-369 without the prefix
-    cache, LoRA bank, mesh and engine reuse)."""
-    from ..serve.engine import ServeRequest, ServingEngine
+def _common_token_prefix(tok_ids: List[list]) -> int:
+    """Longest common leading id run across all prompts, cut before a
+    splice sentinel (the pinned prefix is computed from plain token
+    embeddings) and short enough to leave every prompt at least one
+    suffix token (runner.py:254)."""
+    first = tok_ids[0]
+    common = len(first)
+    for ids_l in tok_ids[1:]:
+        m = min(common, len(ids_l))
+        i = 0
+        while i < m and ids_l[i] == first[i]:
+            i += 1
+        common = i
+        if common == 0:
+            return 0
+    head = first[:common]
+    if SEQ_TOKEN_INDEX in head:
+        common = head.index(SEQ_TOKEN_INDEX)
+    return min(common, min(len(t) for t in tok_ids) - 1)
 
-    if not prompts:
-        return [], {}
+
+@torch.no_grad()
+def splice_tails(params, cfg: OpusConfig, tokenizer, tok_ids, sequences, *,
+                 splice_batch: int, prompt_bucket: int, esm_bucket: int
+                 ) -> List[torch.Tensor]:
+    """The engine path's splice (runner.py:316-329): the tokenized prompts
+    (one `<seq>` sentinel each) and their proteins in static batches of
+    `splice_batch` (the last one padded), each row's valid left-padded
+    tail kept on the device as that request's prompt (P, H)."""
     device = params["llm"]["embed_tokens"]["embedding"].device
-    bos = getattr(tokenizer, "bos_token_id", None)
-    tok_ids = [tokenize_with_seq(p, tokenizer.encode, bos) for p in prompts]
-    # 1) splice in static batches; each row's valid (left-padded) tail
-    #    stays on the device as that request's prompt
     embeds = []
     for s in range(0, len(tok_ids), splice_batch):
         pch, n_real = _pad_chunk(tok_ids[s:s + splice_batch], splice_batch)
@@ -262,32 +269,94 @@ def _engine_generate(params, cfg: OpusConfig, tokenizer, prompts, sequences,
         valid = sp.mask.cpu()
         embeds.extend(sp.embeds[r, valid[r].nonzero()[:, 0].to(device)]
                       for r in range(n_real))
+    return embeds
+
+
+def _engine_generate(params, cfg: OpusConfig, tokenizer, prompts, sequences,
+                     gen: GenerationConfig, *, max_slots: int,
+                     steps_per_tick: int, splice_batch: int,
+                     prompt_bucket: int, esm_bucket: int, lora_bank=None,
+                     adapter_id=None, engine_cache=None,
+                     cache_prefix: bool = False
+                     ) -> Tuple[List[List[int]], dict]:
+    """Splice every (prompt, protein) pair in batches of `splice_batch`,
+    drive the serving engine to completion, return the token lists in input
+    order and the engine's numbers (runner.py:275-369).
+
+    lora_bank / adapter_id: every request under one named bank adapter.
+    engine_cache (a caller's dict): one engine is reused, reseeded with
+    gen.seed, whenever the workload's shape recurs (its key holds what
+    shapes the engine; the caller keeps params and bank constant).
+    cache_prefix: the prompts' common token prefix (16 tokens or more) is
+    prefilled once (`register_prefix`) and every request admits with its
+    suffix only; not under an adapter (the pinned prefix holds base-weight
+    state). gen.draft_layers / gen.n_draft: speculative ticks."""
+    from ..serve.engine import ServeRequest, ServingEngine
+
+    if not prompts:
+        return [], {}
+    device = params["llm"]["embed_tokens"]["embedding"].device
+    bos = getattr(tokenizer, "bos_token_id", None)
+    tok_ids = [tokenize_with_seq(p, tokenizer.encode, bos) for p in prompts]
+    prefix_id, plen, header = None, 0, None
+    if cache_prefix and adapter_id is None:
+        common = _common_token_prefix(tok_ids)
+        if common >= 16:
+            plen = common
+            header = tuple(tok_ids[0][:plen])
+            # keyed by content: a reused engine registers a new header only
+            prefix_id = ("evalpfx",) + header
+            tok_ids = [t[plen:] for t in tok_ids]
+    # 1) splice in static batches
+    embeds = splice_tails(params, cfg, tokenizer, tok_ids, sequences,
+                          splice_batch=splice_batch,
+                          prompt_bucket=prompt_bucket, esm_bucket=esm_bucket)
 
     # 2) size the engine to the workload: buckets up to the longest
-    #    prompt, capacity = largest bucket + budget
+    #    (suffix) prompt, capacity = prefix + largest bucket + budget
     longest = max(e.shape[0] for e in embeds)
     buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048)
                     if b < longest) + (round_up(longest, 64),)
-    eng = ServingEngine(params["llm"], cfg.llm, max_slots=max_slots,
-                        max_len=buckets[-1] + gen.max_new_tokens,
-                        prefill_buckets=buckets,
-                        steps_per_tick=steps_per_tick,
-                        quantize_cache=gen.quantize_cache, seed=gen.seed)
+    max_len = plen + buckets[-1] + gen.max_new_tokens
+    ck = (buckets, max_len, max_slots, steps_per_tick, gen.quantize_cache,
+          gen.draft_layers, gen.n_draft)
+    eng = engine_cache.get(ck) if engine_cache is not None else None
+    if eng is None:
+        eng = ServingEngine(params["llm"], cfg.llm, max_slots=max_slots,
+                            max_len=max_len, prefill_buckets=buckets,
+                            steps_per_tick=steps_per_tick,
+                            quantize_cache=gen.quantize_cache, seed=gen.seed,
+                            lora_bank=lora_bank,
+                            draft_layers=gen.draft_layers or None,
+                            spec_k=gen.n_draft)
+        if engine_cache is not None:
+            engine_cache[ck] = eng
+    else:
+        eng.reseed(gen.seed)
+    if prefix_id is not None and prefix_id not in eng._prefixes:
+        eng.register_prefix(prefix_id,
+                            token_ids=np.asarray(header, np.int64))
+    counters0, tick0 = dict(eng.counters), eng._tick
     engine._sync(device)
     t0 = time.perf_counter()
     done = eng.run([ServeRequest(i, embeds=e,
                                  max_new_tokens=gen.max_new_tokens,
                                  temperature=gen.temperature,
                                  top_p=gen.top_p if gen.do_sample else 1.0,
-                                 eos_token_id=gen.eos_token_id)
+                                 eos_token_id=gen.eos_token_id,
+                                 adapter_id=adapter_id,
+                                 prefix_id=prefix_id)
                     for i, e in enumerate(embeds)])
     engine._sync(device)
     ttft = eng.latency["ttft"]
-    stats = dict(eng.counters, seconds=time.perf_counter() - t0,
-                 ticks=eng._tick,
-                 decode_steps=eng._tick * eng.steps_per_tick,
-                 ttft_p50=ttft.percentile(0.5), ttft_p99=ttft.percentile(0.99),
-                 ttft_mean=ttft.mean)
+    ticks = eng._tick - tick0
+    # this call's counts (a reused engine carries earlier calls' too)
+    stats = {k: v - counters0[k] for k, v in eng.counters.items()}
+    stats.update(seconds=time.perf_counter() - t0, ticks=ticks,
+                 decode_steps=ticks * eng.steps_per_tick,
+                 prefix_tokens=plen,
+                 ttft_p50=ttft.percentile(0.5),
+                 ttft_p99=ttft.percentile(0.99), ttft_mean=ttft.mean)
     return [done[i].tokens for i in range(len(embeds))], stats
 
 
@@ -310,9 +379,11 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
     output is token-identical to `run_annotation_eval`; T > 0 samples with
     per-request temperature and top_p. Runs on the device that holds the
     parameters. `decode_tokens` / `decode_seconds` are the engine's tokens
-    and wall time, `engine` its counters and TTFT percentiles."""
-    _refuse_engine_options(lora_bank, adapter_id, engine_cache, mesh,
-                           cache_prefix)
+    and wall time, `engine` its counters and TTFT percentiles. `lora_bank`
+    ({name: folded adapter tree}) with `adapter_id` runs the set under one
+    bank adapter; `engine_cache`, `cache_prefix` and gen.draft_layers as
+    in `_engine_generate`."""
+    _refuse_mesh(mesh)
     if examples is None:
         examples = ds.load_annotation_json(file_path)
     gen = gen or GenerationConfig(
@@ -328,7 +399,8 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
         params, cfg, tokenizer, prompts, [e.sequence for e in examples], gen,
         max_slots=max_slots, steps_per_tick=steps_per_tick,
         splice_batch=splice_batch, prompt_bucket=prompt_bucket,
-        esm_bucket=esm_bucket)
+        esm_bucket=esm_bucket, lora_bank=lora_bank, adapter_id=adapter_id,
+        engine_cache=engine_cache, cache_prefix=cache_prefix)
     results = [{"ground_truth": e.output,
                 "generated": truncate_at_sep(tokenizer.decode(toks))}
                for e, toks in zip(examples, done)]
@@ -508,9 +580,9 @@ def run_mcq_eval_engine(params, cfg: OpusConfig, tokenizer, file_path: str,
     --engine`): the static runner's prompts and scoring, each question
     finishing on its own. Greedy output is token-identical to
     `run_mcq_eval`. `decode_tokens` / `decode_seconds` are the engine's
-    tokens and wall time, `engine` its counters and TTFT percentiles."""
-    _refuse_engine_options(lora_bank, adapter_id, engine_cache, mesh,
-                           cache_prefix)
+    tokens and wall time, `engine` its counters and TTFT percentiles. The
+    engine options as in `run_annotation_eval_engine`."""
+    _refuse_mesh(mesh)
     if examples is None:
         examples = ds.load_mcq_json(file_path)
     gen = _mcq_gen(tokenizer, gen)
@@ -524,7 +596,8 @@ def run_mcq_eval_engine(params, cfg: OpusConfig, tokenizer, file_path: str,
         params, cfg, tokenizer, prompts, [e.sequence for e in examples], gen,
         max_slots=max_slots, steps_per_tick=steps_per_tick,
         splice_batch=splice_batch, prompt_bucket=prompt_bucket,
-        esm_bucket=esm_bucket)
+        esm_bucket=esm_bucket, lora_bank=lora_bank, adapter_id=adapter_id,
+        engine_cache=engine_cache, cache_prefix=cache_prefix)
     results = [{"ground_truth": e.answer,
                 "generated": tokenizer.decode(toks)}
                for e, toks in zip(examples, done)]

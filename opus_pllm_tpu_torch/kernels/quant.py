@@ -121,7 +121,8 @@ def quantize_decoder(params: Dict) -> Dict:
         if any(t in lp for t in _FUSED):
             raise NotImplementedError(
                 "fused decoder projections (decoder.fuse_projections) are "
-                "not ported yet; quantize the unfused tree")
+                "not ported yet (ROADMAP.md §1 item 8); quantize the "
+                "unfused tree")
         nlp = dict(lp)
         for t in _QUANT_TARGETS:
             if t in lp and "kernel" in lp[t]:

@@ -173,9 +173,10 @@ def _dequantize_kv(leaf, dtype):
     return (q.float() * leaf["s"]).to(dtype).transpose(1, 2)
 
 
-def _write_rows(buf, new, index, slot_dim: int):
+def _write_rows(buf, new, index, slot_dim: int, rows=None):
     """Row b of `new` (S tokens along `slot_dim`) goes to slots
-    [index[b], index[b] + S) of row b of `buf`, in place; slots at or past
+    [index[b], index[b] + S) of row b of `buf` (row rows[b] when `rows`, a
+    (B,) tensor of distinct rows, is given), in place; slots at or past
     the capacity write nothing (mode="drop"). The drop stays on the device:
     a dropped position writes back the value it reads, at its slot taken
     modulo the capacity. Those slots lie below the row's first real write,
@@ -186,7 +187,8 @@ def _write_rows(buf, new, index, slot_dim: int):
     cols = index[:, None].long() + torch.arange(s, device=buf.device)
     keep = cols < cap
     cols = cols % cap
-    rows = torch.arange(b, device=buf.device)[:, None]
+    rows = (torch.arange(b, device=buf.device) if rows is None
+            else rows.long())[:, None]
     if slot_dim == 1:                                   # (B, cap, H, D)
         idx = (rows, cols)
         keep = keep[:, :, None, None]
@@ -197,11 +199,13 @@ def _write_rows(buf, new, index, slot_dim: int):
     buf[idx] = torch.where(keep, new.to(buf.dtype), buf[idx])
 
 
-def _write_cache(layer_cache, k_new, v_new, index):
+def _write_cache(layer_cache, k_new, v_new, index, rows=None):
     """Write S new keys/values into the cache in place; quantized leaves
     quantize them first (decoder.py:171-214). An int index writes slots
     [index, index + S) of every row; a (B,) tensor index writes each row at
-    its own slots, dropping those past the capacity."""
+    its own slots, dropping those past the capacity, into the cache rows
+    `rows` (B,) when given (the engine's chunked prefill: a group of slots
+    of the pool, written in place)."""
     s = k_new.shape[1]
     per_row = isinstance(index, torch.Tensor) and index.dim() == 1
     for name, new in (("k", k_new), ("v", v_new)):
@@ -210,18 +214,24 @@ def _write_cache(layer_cache, k_new, v_new, index):
             qn = _quantize_kv4(new) if "q4" in buf else _quantize_kv(new)
             for key, val in qn.items():
                 if per_row:
-                    _write_rows(buf[key], val, index, 2)
+                    _write_rows(buf[key], val, index, 2, rows)
                 else:
                     buf[key][:, :, index:index + s] = val
         elif per_row:
-            _write_rows(buf, new, index, 1)
+            _write_rows(buf, new, index, 1, rows)
         else:
             buf[:, index:index + s] = new
     return layer_cache
 
 
-def _read_cache(layer_cache, dtype):
+def _read_cache(layer_cache, dtype, rows=None):
+    """The layer's keys and values in the attention layout, the rows
+    `rows` only when given (a gathered copy)."""
     k, v = layer_cache["k"], layer_cache["v"]
+    if rows is not None:
+        take = lambda t: ({n: x[rows] for n, x in t.items()}
+                          if isinstance(t, dict) else t[rows])
+        k, v = take(k), take(v)
     if isinstance(k, dict):
         return _dequantize_kv(k, dtype), _dequantize_kv(v, dtype)
     return k, v
@@ -249,10 +259,10 @@ def _mlp(cfg: DecoderConfig, p, x, mm):
 
 
 def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
-           impl: str = "auto", la=None, ls: float = 1.0):
+           impl: str = "auto", la=None, ls: float = 1.0, rows=None):
     """One decoder layer; `la` this layer's LoRA adapters ({proj: {"A",
     "B"}} or None) at scaling `ls` (decoder.py:278-327). cos/sin None: no
-    rope (OPT)."""
+    rope (OPT). `rows`: the cache rows x's rows use (None: the same)."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     la = la or {}
@@ -266,9 +276,9 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
         k = apply_rope(k, cos, sin)
     a = None
     if layer_cache is not None:
-        _write_cache(layer_cache, k, v, index)
+        _write_cache(layer_cache, k, v, index, rows)
         lk, lv = layer_cache["k"], layer_cache["v"]
-        if (isinstance(lk, dict) and impl != "torch"
+        if (rows is None and isinstance(lk, dict) and impl != "torch"
                 and da.supports(q, lk, mask4)):
             # one-token attention straight over the quantized cache; the
             # dequantized K/V never exist (decoder.py:305-319)
@@ -278,7 +288,7 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
         else:
             # attend over the cache: a quantized one DEQUANTIZED, as
             # decoder.py:320-323 does (prefill, and impl="torch")
-            k, v = _read_cache(layer_cache, x.dtype)
+            k, v = _read_cache(layer_cache, x.dtype, rows)
     if a is None:
         a = attention(q, k, v, mask4, impl=impl)
     x = x + mm("o_proj", a.reshape(b, s, hq * d))
@@ -355,7 +365,9 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     advances. `lora` {"layers": [...]} adapters (lora/lora.py) at scaling
     `lora_scale`; `remat` rematerializes each layer in the backward
     (`_remat_wrap`, cache-free calls with grad on only). Returns (logits
-    (B, S, V) fp32 or final-normed hidden, cache).
+    (B, S, V) fp32 or final-normed hidden, cache). A cache may carry
+    "rows" (B,): the cache rows the B input rows write and read, with a
+    (B,) index (the serving engine's chunked prefill).
 
     The dynamic-NTK context bound, as decoder.py:573-581 takes it: the
     caller's `ntk_ctx` (an engine that prefills into a smaller scratch
@@ -368,6 +380,7 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     x, cos, sin = positions_and_rope(params, cfg, input_embeds, positions,
                                      ctx=ctx)
     index = cache["index"] if cache is not None else None
+    rows = cache.get("rows") if cache is not None else None
     block = _block
     if cache is None and torch.is_grad_enabled():
         block = _remat_wrap(_block, remat)
@@ -375,7 +388,7 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
         lc = cache["layers"][i] if cache is not None else None
         la = lora["layers"][i] if lora is not None else None
         x = block(cfg, p, x, mask4, cos, sin, lc, index, impl, la,
-                  lora_scale)
+                  lora_scale, rows)
     if cache is not None:
         cache["index"] = index + input_embeds.shape[1]
     x = _final_norm(params, cfg, x)

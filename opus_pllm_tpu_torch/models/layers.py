@@ -85,10 +85,13 @@ def lora_delta(lora, x, scaling: float = 1.0):
     """The fp32 LoRA delta scaling * (x A) B (layers.py:83-99), with the
     JAX dtype chain: A rounded to x's dtype and multiplied with fp32
     accumulation into an fp32 (M, r); B rounded to x's dtype and that
-    product taken in fp32 (JAX promotes fp32 x bf16 to fp32). The per-row
-    (3-d) adapters of the serving bank come with the engine's LoRA bank."""
-    a = x.float() @ lora["A"].to(x.dtype).float()
-    return scaling * (a @ lora["B"].to(x.dtype).float())
+    product taken in fp32 (JAX promotes fp32 x bf16 to fp32). A 3-d A
+    (B, in, r) and B (B, r, out) carry one adapter per row of x (B, L, in):
+    the serving bank, each slot with the adapter gathered for it."""
+    a_w, b_w = lora["A"].to(x.dtype).float(), lora["B"].to(x.dtype).float()
+    if a_w.dim() == 3:
+        return scaling * torch.bmm(torch.bmm(x.float(), a_w), b_w)
+    return scaling * ((x.float() @ a_w) @ b_w)
 
 
 def lora_dense(params, lora, x, scaling: float = 1.0, *,

@@ -7,7 +7,8 @@ attention, the int8 matmul, the two flash-attention backward kernels and
 the int4 v1 matmul (the int8 and the v1 matmul each in its TMA + wgmma
 kernel and in the kernel kept for N that is not a multiple of 16); then
 the gradients through the autograd Functions and the launch counts of one
-tiny train step (a CUDA kernel has no CPU mode:
+tiny train step; flash at the serving engine's option masks and a tiny
+engine with every option (a CUDA kernel has no CPU mode:
 these skip where torch sees no GPU). Run on a GPU machine with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -487,6 +488,67 @@ def test_flash_attention(b, sq, skv, hq, hkv, d, mask_kind, causal):
     out = fa.flash_attention(q, k, v, mask, causal=causal)
     assert torch.all(out[empty] == 0)
     assert torch.all(lse.transpose(1, 2)[empty] == -1e30)
+
+
+@pytest.mark.parametrize("kind", ["verify", "chunk", "prefix_merge"])
+def test_flash_attention_at_the_serving_options_shapes(kind):
+    """The engine options' masks (serve.engine): a speculative verify pass
+    (Sq = 4 per-row lengths over 1024 slots), a chunk (queries at offsets
+    inside the keys) and a prefix merge (Sq != Skv)."""
+    from opus_pllm_tpu_torch.serve.engine import (admission_inputs,
+                                                  chunk_inputs, verify_mask)
+    g = _gen()
+    if kind == "verify":
+        lengths = torch.randint(64, 961, (17,), generator=g, device="cuda")
+        b, sq, skv, mask = 17, 4, 1024, verify_mask(lengths, 4, 1024)
+    elif kind == "chunk":
+        off = torch.tensor([0, 256, 512, 700], device="cuda")
+        n_valid = torch.tensor([256, 256, 100, 200], device="cuda")
+        b, sq, skv = 4, 256, 1024
+        mask = chunk_inputs(n_valid, off, sq, skv)[1]
+    else:
+        n_valid = torch.randint(1, 129, (8,), generator=g, device="cuda")
+        b, sq, skv, mask = 8, 128, 192, admission_inputs(n_valid, 128, 64)[1]
+    assert bool(mask.any(-1).all())
+    q, k, v = (_rnd(g, b, sq, 32, 128), _rnd(g, b, skv, 8, 128),
+               _rnd(g, b, skv, 8, 128))
+    _check(lambda q, k, v: fa.flash_attention(q, k, v, mask),
+           lambda q, k, v: fa.flash_attention_plain(q, k, v, mask),
+           (q, k, v))
+
+
+def test_engine_options_on_the_card():
+    """A tiny bf16 decoder (D = 128, so flash takes every prefill, chunk
+    and verify pass) behind the engine with a bank, speculative ticks,
+    a pinned prefix and chunked prefill: every request is answered and
+    the launch counts are exact."""
+    from opus_pllm_tpu_torch.core.config import DecoderConfig, LoRAConfig
+    from opus_pllm_tpu_torch.lora import lora
+    from opus_pllm_tpu_torch.serve.engine import ServeRequest, ServingEngine
+    cfg = DecoderConfig(family="llama", vocab_size=256, hidden_size=256,
+                        intermediate_size=512, num_layers=3, num_heads=4,
+                        num_kv_heads=2, head_dim=128, dtype="bfloat16")
+    g = _gen()
+    params = decoder.init(cfg, generator=g, device="cuda")
+    lc = LoRAConfig(rank=4, alpha=8.0)
+    bank = {"a": lora.fold_scaling(lora.init(cfg, lc, generator=g),
+                                   lora.scaling(lc))}
+    eng = ServingEngine(params, cfg, max_slots=4, max_len=128,
+                        prefill_buckets=(16,), chunk_prefill=16,
+                        draft_layers=1, spec_k=3, spec_adaptive=False,
+                        lora_bank=bank, steps_per_tick=2)
+    eng.register_prefix("p", token_ids=np.arange(5, 12))
+    fa.reset_launches()
+    emb = lambda n: _rnd(g, n, 256, scale=0.3)
+    done = eng.run([ServeRequest(0, embeds=emb(9), max_new_tokens=7,
+                                 adapter_id="a"),
+                    ServeRequest(1, embeds=emb(40), max_new_tokens=5),
+                    ServeRequest(2, embeds=emb(4), max_new_tokens=6,
+                                 prefix_id="p")])
+    assert [len(done[i].tokens) for i in range(3)] == [7, 5, 6]
+    iters = eng._tick * eng.steps_per_tick
+    assert fa.launches["flash_attention"] == 3 * (
+        eng.counters["prefills"] + iters)
 
 
 def test_flash_attention_strided_kv_and_layer_dispatch():

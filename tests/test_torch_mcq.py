@@ -326,26 +326,59 @@ def test_engine_matches_static_runner(models):
     assert eng.engine["completions"] == 5 and eng.decode_tokens > 0
 
 
-@pytest.mark.parametrize("which, kw, err", [
-    ("static", dict(mesh=object()), NotImplementedError),
-    ("static", dict(seq_mesh=object()), NotImplementedError),
-    ("static", dict(gen=config.GenerationConfig(num_beams=2)),
-     NotImplementedError),
-    ("static", dict(gen=config.GenerationConfig(draft_layers=2)),
-     NotImplementedError),
-    ("engine", dict(lora_bank={}), NotImplementedError),
-    ("engine", dict(adapter_id="x"), NotImplementedError),
-    ("engine", dict(engine_cache={}), NotImplementedError),
-    ("engine", dict(cache_prefix=True), NotImplementedError),
-    ("engine", dict(mesh=object()), NotImplementedError),
-    ("engine", dict(gen=config.GenerationConfig(num_beams=2)), ValueError),
-    ("engine", dict(gen=config.GenerationConfig(draft_layers=2)),
-     NotImplementedError),
+# The engine runner's options run now, as the JAX runner takes them; the
+# case ids keep the names they had when every option here was refused.
+# "runs": greedy letters equal to the runner's without the option (which
+# test_engine_matches_static_runner holds to the static runner, and the
+# static runner tests to the JAX one).
+@pytest.mark.parametrize("which, kw, expect", [
+    pytest.param("static", dict(mesh=object()), NotImplementedError,
+                 id="static-kw0-NotImplementedError"),
+    pytest.param("static", dict(seq_mesh=object()), NotImplementedError,
+                 id="static-kw1-NotImplementedError"),
+    pytest.param("static", dict(gen=config.GenerationConfig(num_beams=2)),
+                 NotImplementedError, id="static-kw2-NotImplementedError"),
+    pytest.param("static",
+                 dict(gen=config.GenerationConfig(draft_layers=2)),
+                 NotImplementedError, id="static-kw3-NotImplementedError"),
+    # an empty bank is no bank (`if lora_bank:`, serve/engine.py:220)
+    pytest.param("engine", dict(lora_bank={}), "runs",
+                 id="engine-kw4-NotImplementedError"),
+    # an adapter the (absent) bank does not hold (serve/engine.py:1103)
+    pytest.param("engine", dict(adapter_id="x"), ValueError,
+                 id="engine-kw5-NotImplementedError"),
+    pytest.param("engine", dict(engine_cache={}), "runs",
+                 id="engine-kw6-NotImplementedError"),
+    pytest.param("engine", dict(cache_prefix=True), "runs",
+                 id="engine-kw7-NotImplementedError"),
+    pytest.param("engine", dict(mesh=object()), NotImplementedError,
+                 id="engine-kw8-NotImplementedError"),
+    pytest.param("engine", dict(gen=config.GenerationConfig(num_beams=2)),
+                 ValueError, id="engine-kw9-ValueError"),
+    # the 2-layer decoder has no 2-layer draft (serve/engine.py:316-320)
+    pytest.param("engine",
+                 dict(gen=config.GenerationConfig(draft_layers=2)),
+                 ValueError, id="engine-kw10-NotImplementedError"),
 ])
-def test_unported_options_are_refused(models, which, kw, err):
+def test_unported_options_are_refused(models, which, kw, expect):
     _, tp = models
     fn = runner.run_mcq_eval if which == "static" else \
         runner.run_mcq_eval_engine
-    with pytest.raises(err, match="not ported|beam search"):
-        fn(tp, _cfg(config), ByteTokenizer(), FILE, examples=_examples(),
-           log_fn=lambda *_: None, **kw)
+    call = dict(examples=_examples(), log_fn=lambda *_: None, **kw)
+    if expect == "runs":
+        small = dict(gen=config.GenerationConfig(**GEN), max_slots=2,
+                     steps_per_tick=2, splice_batch=2, prompt_bucket=32,
+                     esm_bucket=32, examples=_examples(),
+                     log_fn=lambda *_: None)
+        rep = fn(tp, _cfg(config), ByteTokenizer(), FILE, **small, **kw)
+        base = fn(tp, _cfg(config), ByteTokenizer(), FILE, **small)
+        assert [r["generated"] for r in rep.results] == \
+            [r["generated"] for r in base.results]
+        assert rep.engine["completions"] == 5
+        if "cache_prefix" in kw:
+            assert rep.engine["prefix_tokens"] >= 16
+        return
+    match = {NotImplementedError: "not ported", ValueError:
+             "beam search|unknown adapter|draft_layers must be"}[expect]
+    with pytest.raises(expect, match=match):
+        fn(tp, _cfg(config), ByteTokenizer(), FILE, **call)

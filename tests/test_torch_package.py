@@ -1,8 +1,10 @@
 """The port stands alone: importing opus_pllm_tpu_torch and running its
 CPU slice, its scorers, its BERTScore encoder, the MCQ runners, the metric
-library with make_logprob_fn, the checkpoint modules and stage (a)
+library with make_logprob_fn, the checkpoint modules, stage (a)
 (precompute_cstp_pairs over a qwen2 and an opt text LM, then the CSTP
-trainer) loads neither jax nor the JAX package, and chip_smoke.py refuses
+trainer), the HTTP server's front with its OpenAI API, the engine with
+speculative ticks, a prefix and chunked prefill, and the observability
+module loads neither jax nor the JAX package, and chip_smoke.py refuses
 to run without a CUDA device (non-zero exit, no result line). Its entry
 points default to CUDA."""
 
@@ -102,6 +104,30 @@ with tempfile.TemporaryDirectory() as tmp:
         ccfg, tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
     st = cstp_trainer.fit(st, tx, ccfg, tcfg, [(se, te)] * 2, device="cpu")
     assert st.step == 2
+from opus_pllm_tpu_torch.infer import speculative
+from opus_pllm_tpu_torch.serve import openai_api
+from opus_pllm_tpu_torch.serve.engine import ServeRequest, ServingEngine
+from opus_pllm_tpu_torch.serve.server import OpusServer
+from opus_pllm_tpu_torch.utils import observability
+srv = OpusServer(params, cfg, ByteTokenizer(), max_slots=2, max_len=96,
+                 prefill_buckets=(32, 64), default_max_new=3)
+try:
+    assert srv.handle_generate({"prompt": "Hi"})["tokens"] == 3
+    assert openai_api.list_models(srv)["data"][0]["object"] == "model"
+    assert "opus_serve_completions_total 1" in srv.metrics_text()
+finally:
+    srv.close()
+eng = ServingEngine(params["llm"], cfg.llm, max_slots=2, max_len=64,
+                    prefill_buckets=(16,), draft_layers=1, spec_k=2,
+                    chunk_prefill=16)
+eng.register_prefix("p", token_ids=[5, 6, 7])
+done = eng.run([ServeRequest(0, token_ids=[1, 2, 3], max_new_tokens=3,
+                             prefix_id="p"),
+                ServeRequest(1, token_ids=list(range(3, 30)),
+                             max_new_tokens=3)])
+assert [len(done[i].tokens) for i in (0, 1)] == [3, 3]
+with observability.profile_trace(None), observability.annotate("x"):
+    observability.Throughput().report()
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "opus_pllm_tpu")
        or m.startswith(("jax.", "jaxlib.", "opus_pllm_tpu."))]
 print("LOADED", bad)

@@ -191,7 +191,12 @@ def test_token_ids_and_tensor_embeds(tiny):
 
 
 def test_submit_validates_and_refuses_unported(tiny):
-    _, tcfg, _, tp = tiny
+    """Submit's checks, and the constructor options as the JAX engine
+    takes them: an unregistered prefix and an adapter without a bank are
+    ValueErrors, chunk_prefill and draft_layers build, a bank entry that is
+    no adapter tree fails in both packages alike, and only the mesh is
+    still refused."""
+    jcfg, tcfg, jp, tp = tiny
     eng = ServingEngine(tp, tcfg, max_slots=2, max_len=32,
                         prefill_buckets=(16,))
     with pytest.raises(ValueError, match="largest prefill bucket"):
@@ -201,15 +206,25 @@ def test_submit_validates_and_refuses_unported(tiny):
                                 max_new_tokens=20))
     with pytest.raises(ValueError, match="embeds or token_ids"):
         eng.submit(ServeRequest("none"))
-    with pytest.raises(NotImplementedError, match="prefix cache"):
+    with pytest.raises(ValueError, match="unknown prefix_id"):
         eng.submit(ServeRequest("p", embeds=_emb(0, 4), prefix_id="sys"))
-    with pytest.raises(NotImplementedError, match="LoRA bank"):
-        eng.submit(ServeRequest("l", embeds=_emb(0, 4), adapter_id="x"))
-    for kw in (dict(lora_bank={"a": {}}), dict(mesh=object()),
-               dict(chunk_prefill=8), dict(draft_layers=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(tp, tcfg, max_slots=2, max_len=32,
-                          prefill_buckets=(16,), **kw)
+    with pytest.raises(ValueError, match="unknown adapter"):
+        eng.submit(ServeRequest("l", embeds=_emb(0, 4), max_new_tokens=4,
+                                adapter_id="x"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+        ServingEngine(tp, tcfg, max_slots=2, max_len=32,
+                      prefill_buckets=(16,), mesh=object())
+    with pytest.raises(KeyError):
+        jserve.ServingEngine(jp, jcfg, max_slots=2, max_len=32,
+                             prefill_buckets=(16,), lora_bank={"a": {}})
+    with pytest.raises(KeyError):
+        ServingEngine(tp, tcfg, max_slots=2, max_len=32,
+                      prefill_buckets=(16,), lora_bank={"a": {}})
+    for kw in (dict(chunk_prefill=8), dict(draft_layers=1)):
+        opt = ServingEngine(tp, tcfg, max_slots=2, max_len=32,
+                            prefill_buckets=(16,), **kw)
+        assert (opt.chunk, opt.draft_layers) == (kw.get("chunk_prefill", 0),
+                                                 kw.get("draft_layers", 0))
     ok = _emb(1, 8)
     done = eng.run([ServeRequest("ok", embeds=ok, max_new_tokens=4)])
     assert done["ok"].tokens == _ref_tokens(tp, tcfg, ok, 4)

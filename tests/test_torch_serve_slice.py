@@ -16,12 +16,14 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from opus_pllm_tpu.core import config as jconfig
 from opus_pllm_tpu.evals import datasets as jds
 from opus_pllm_tpu.evals import runner as jrunner
 from opus_pllm_tpu.infer.tokenization import ByteTokenizer as JByteTokenizer
 from opus_pllm_tpu.kernels import quant as jq
+from opus_pllm_tpu.lora import lora as jlora
 from opus_pllm_tpu.models import opus as jopus
 from opus_pllm_tpu_torch.core import config, convert
 from opus_pllm_tpu_torch.evals import datasets as ds
@@ -122,15 +124,19 @@ def test_sampled_engine_eval_answers_every_request(models):
 
 
 def test_engine_eval_refuses_unported_options(models):
+    """Only the mesh is still refused. A bank entry that is no adapter
+    tree fails in make_bank, as in the JAX package; beam search needs the
+    static path; an empty set returns no results."""
     _, tp = models
     exs = [ds.AnnotationExample(*e) for e in _examples(1)]
-    for kw in (dict(lora_bank={"a": {}}, adapter_id="a"),
-               dict(engine_cache={}), dict(mesh=object()),
-               dict(cache_prefix=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runner.run_annotation_eval_engine(
-                tp, _cfg(config), ByteTokenizer(), FILE, examples=exs,
-                log_fn=lambda *_: None, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+        runner.run_annotation_eval_engine(
+            tp, _cfg(config), ByteTokenizer(), FILE, examples=exs,
+            log_fn=lambda *_: None, mesh=object())
+    with pytest.raises(KeyError):
+        runner.run_annotation_eval_engine(
+            tp, _cfg(config), ByteTokenizer(), FILE, examples=exs,
+            log_fn=lambda *_: None, lora_bank={"a": {}}, adapter_id="a")
     with pytest.raises(ValueError, match="beam"):
         runner.run_annotation_eval_engine(
             tp, _cfg(config), ByteTokenizer(), FILE,
@@ -139,3 +145,52 @@ def test_engine_eval_refuses_unported_options(models):
     assert runner.run_annotation_eval_engine(
         tp, _cfg(config), ByteTokenizer(), FILE, examples=[],
         log_fn=lambda *_: None).results == []
+
+
+def test_engine_options_match_jax(models):
+    """The runner's engine options against the JAX runner's, greedy:
+    cache_prefix (the common professor header prefilled once) through an
+    engine_cache that a second call reuses (one engine, counts per call),
+    and a bank adapter on the int8 base (adapter_id; the prefix is skipped
+    under an adapter, as in the JAX runner)."""
+    jp, tp = models
+    gen_kw = dict(max_new_tokens=6, temperature=0.0, eos_token_id=2,
+                  pad_token_id=0)
+    exs = _examples(4)
+    jlc = jconfig.LoRAConfig(rank=4, alpha=4.0)
+    tree = jax.tree.map(
+        lambda x: x if x.shape[-1] == 4 else
+        0.5 * jax.random.normal(jax.random.PRNGKey(3), x.shape),
+        jlora.init(jax.random.PRNGKey(2), _cfg(jconfig).llm, jlc))
+    ttree = jax.tree.map(lambda x: torch.from_numpy(np.array(x)), tree)
+    cache, reports = {}, []
+    for opts, topts in ((dict(cache_prefix=True),
+                         dict(cache_prefix=True, engine_cache=cache)),
+                        (dict(lora_bank={"kw": tree}, adapter_id="kw",
+                              cache_prefix=True),
+                         dict(lora_bank={"kw": ttree}, adapter_id="kw",
+                              cache_prefix=True))):
+        ref = jrunner.run_annotation_eval_engine(
+            jp, _cfg(jconfig), JByteTokenizer(), FILE,
+            gen=jconfig.GenerationConfig(**gen_kw),
+            examples=[jds.AnnotationExample(*e) for e in exs], **KW, **opts)
+        got = runner.run_annotation_eval_engine(
+            tp, _cfg(config), ByteTokenizer(), FILE,
+            gen=config.GenerationConfig(**gen_kw),
+            examples=[ds.AnnotationExample(*e) for e in exs], **KW, **topts)
+        assert [r["generated"] for r in got.results] == \
+            [r["generated"] for r in ref.results]
+        assert got.engine["completions"] == 4
+        assert (got.engine["prefix_tokens"] >= 16) == ("adapter_id" not in
+                                                       topts)
+        reports.append(got)
+    again = runner.run_annotation_eval_engine(
+        tp, _cfg(config), ByteTokenizer(), FILE,
+        gen=config.GenerationConfig(**gen_kw),
+        examples=[ds.AnnotationExample(*e) for e in exs], **KW,
+        cache_prefix=True, engine_cache=cache)
+    assert len(cache) == 1
+    assert [r["generated"] for r in again.results] == \
+        [r["generated"] for r in reports[0].results]
+    assert again.engine["completions"] == 4
+    assert again.engine["prefills"] == reports[0].engine["prefills"]
