@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's annotation-eval, MCQ-eval, LoRA-training and
 stage-(a) paths once on one CUDA GPU, with the llama, qwen2 and opt
-decoder families.
+decoder families, then its command line (beam search, the static draft)
+and its checkpoint loaders.
 
     python3 chip_smoke.py
 
@@ -306,7 +307,60 @@ and prints no result:
      every request is answered, and that one prefill's last-position
      logits and the captions' embeddings through the kernels stay within
      phase 3's bound of the fp32 plain path. Prints entries/s, decode
-     tok/s and GiB on the card.
+     tok/s and GiB on the card;
+ 14. cli: the port's command line in this process,
+     opus_pllm_tpu_torch.cli.main.main(["annotate", ...]) with
+     --model-base <tmp>/Meta-Llama-3-8B (no such directory: the
+     llama3_8b() preset, drawn at random on the card, with ESM2-650M in
+     bf16, CSTP and the switch at their published widths) on 8 synthetic
+     keywords requests, 16 new tokens, one batch; the card has no
+     transformers, so cli.main.load_tokenizer returns ByteTokenizer() (a
+     printed line says so) and nothing else of _build changes. Three
+     runs: --num-beams 4 --temperature 0; --draft-layers 8 --n-draft 4
+     --temperature 0; --load-int4 --quantize-cache int4 --num-beams 4.
+     The CLI decodes on fused projections (4 products a layer).
+     Gates: every request answered in --save-path; exact launch counts
+     (encoder kernels 33, flash 32 for the prefill; the draft run 32 + 8
+     + 32 a verify pass; the int4 run int4_matmul 1 + 129 a beam step
+     and decode_attention_int4 32 a step); on each beam run's batch
+     num_beams = 1 gives greedy's tokens, and every token of every
+     returned hypothesis ranks within the top 2K of a teacher-forced pass
+     on the fp32 plain path, up to twice the prefill's logit bound (a
+     token that 2K others of its parent beat cannot be a candidate); the
+     draft run's verify pass (B 8, Sq 4, cap l + 16 + 4) through the
+     kernels within phase 3's bound of the fp32 plain path, and every
+     emitted token within twice that bound of a teacher-forced prefill's
+     argmax; one reorder_cache of 32 rows of a bf16, int8 and int4 cache
+     equal to index_select on every leaf and the mask; the kernels at
+     the new shapes each held against its plain version on the same
+     inputs within phase 3's bound (int4 v2 at M = 32 on the five fused
+     Llama-3-8B (K, N), int8 at the fused widths, both decode attentions
+     over 32 reordered rows, flash at the static verify mask), timed
+     beside their bound. Prints each run's beam or speculative tokens/s
+     and ms a step, then the median and range of 5 reruns of the
+     captured generation call on the same batch, tokens a verify pass,
+     and the reorder's device time a step beside its bytes;
+ 15. loaders: files written here at full width, 2 layers: a HF
+     Llama-3-8B-width directory (config.json, two .safetensors shards by
+     this script's own writer), a fair-esm .pt (1280 wide), the
+     reference weights directory (CSTP Lightning ckpt, a linear switch
+     .bin, lora_adapter/ rank 16 on the seven projections with
+     adapter_config.json), and a bitsandbytes NF4 double-quant state dict
+     of one layer's projections quantized here. Gates: load_pretrained's
+     tensors equal the written ones after the documented casts; the
+     merged LoRA equals W + (alpha / r) A B in fp32 within one bf16
+     rounding; the NF4 dequantization equals this script's decoding
+     exactly; convert-weights through the CLI, then load_native, bit for
+     bit; POST /v1/adapters with the PEFT directory on a live OpusServer,
+     one greedy request through it equal to the in-memory bank's;
+     fuse_projections of the int8 and int4 trees (an 8 x 64 prefill and
+     a decode step through the kernels within phase 3's bound of the fp32
+     plain path, 4 quantized products a layer instead of 7, the int4
+     step's device and as-issued time unfused and fused); train-lora
+     through the CLI for 2 steps with --save-every 1
+     --export-reference-format, then --resume for a third, then 2 steps
+     with --load-int4 (the v1 kernel): exact launch counts and a finite
+     loss. Each phase prints its wall, then chip_smoke prints its total.
 The last two lines: a JSON object of the kernels' numbers, then
 {"ok": true, "device": {...}}.
 
@@ -3411,6 +3465,7 @@ def profile_training(card):
     from torch.profiler import ProfilerActivity, profile
     from opus_pllm_tpu_torch.core.config import (ESM2Config, LoRAConfig,
                                                  OpusConfig, TrainConfig)
+    from opus_pllm_tpu_torch.core.util import to_device
     from opus_pllm_tpu_torch.data.collate import instruction_batches
     from opus_pllm_tpu_torch.data.datasets import InstructionDataset
     from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
@@ -3464,7 +3519,7 @@ def profile_training(card):
                                      device="cuda")
         step = mmt.make_train_step(cfg, tx, lora_cfg=lcfg,
                                    remat=tcfg.remat_mode)
-        placed = [mmt.place(b, "cuda") for b in batches]
+        placed = [to_device(b, "cuda") for b in batches]
         for b in placed[:2]:
             step(state, params, b)
         torch.cuda.synchronize()
@@ -3476,6 +3531,963 @@ def profile_training(card):
             wall = 1e3 * (time.perf_counter() - t0)
         print(f"training step, {label}:", flush=True)
         print_profile(prof, wall, card, groups)
+
+
+# --- phases 14 and 15: the port's CLI and the checkpoint loaders -----------
+
+CLI_EXAMPLES, CLI_NEW, CLI_BEAMS = 8, 16, 4
+CLI_DRAFT, CLI_NDRAFT, CLI_RERUNS = 8, 4, 5
+
+
+class Calls:
+    """Wraps module attributes so that each call's positional and keyword
+    arguments and result are kept (what a CLI run computed, for the gates
+    and reruns after it);
+    `restore` puts the originals back."""
+
+    def __init__(self):
+        self.calls, self._saved = {}, []
+
+    def wrap(self, mod, name):
+        orig = getattr(mod, name)
+        self._saved.append((mod, name, orig))
+        store = self.calls.setdefault(name, [])
+
+        def wrapped(*a, **k):
+            out = orig(*a, **k)
+            store.append((a, k, out))
+            return out
+        setattr(mod, name, wrapped)
+
+    def restore(self):
+        for mod, name, orig in reversed(self._saved):
+            setattr(mod, name, orig)
+        self._saved = []
+
+
+def run_cli(argv):
+    """opus_pllm_tpu_torch.cli.main.main(argv) in this process -> (its
+    printed lines, seconds); the lines are echoed."""
+    import contextlib
+    import io
+    from opus_pllm_tpu_torch.cli import main as cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    import torch
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print("   | " + line[:200], flush=True)
+    return lines, dt
+
+
+def saved_answers(label, path, n):
+    with open(path) as f:
+        res = json.load(f)
+    if len(res) != n or not all(isinstance(r.get("generated"), str)
+                                for r in res):
+        fail(f"{label}: {len(res)} answers saved, {n} expected")
+
+
+def tails_of(embeds, mask):
+    """Each left-padded row's valid prompt embeddings (P, H)."""
+    return [embeds[r][mask[r]] for r in range(embeds.shape[0])]
+
+
+def prefill_logits(llm, lcfg, embeds, mask, impl):
+    import torch
+    from opus_pllm_tpu_torch.models import decoder
+    with torch.no_grad():
+        hid, _ = decoder.forward(llm, lcfg, embeds, decoder.positions_from_mask(
+            mask), decoder.layers.causal_mask(mask), impl=impl,
+            return_hidden=True)
+        return decoder.head_logits(llm, lcfg, hid[:, -1]).float()
+
+
+def beam_rank_gate(label, llm, lcfg, embeds, mask, out, k, margin):
+    """Each token of each returned hypothesis is within the top 2K of a
+    teacher-forced pass on the fp32 plain path at its position, up to
+    `margin` (the logit bound of the kernel path, twice): beam search
+    takes a token only among the 2K best continuations, so at most 2K - 1
+    of its parent's tokens score higher. Prints the largest count of
+    tokens above a returned one."""
+    import torch
+    from opus_pllm_tpu_torch.models import decoder
+    l32, c32 = fp32_llm(llm, lcfg)
+    worst = 0
+    with torch.no_grad():
+        for t, toks, n in zip(tails_of(embeds, mask), out.tokens,
+                              out.lengths.tolist()):
+            ids = toks[:n].long()
+            x = torch.cat([t.float(), decoder.embed_tokens(
+                l32, ids[:-1]).float()])[None]
+            ar = torch.arange(x.shape[1], device="cuda")
+            hid, _ = decoder.forward(
+                l32, c32, x, ar[None],
+                ar[None, None, None, :] <= ar[None, None, :, None],
+                impl="torch", return_hidden=True)
+            p = t.shape[0]
+            lg = decoder.head_logits(l32, c32, hid[0, p - 1:p - 1 + n])
+            picked = lg[torch.arange(n, device="cuda"), ids]
+            above = (lg > picked[:, None] + margin).sum(-1)
+            worst = max(worst, int(above.max()))
+    print(f"{label}: the most fp32 teacher-forced logits above a returned "
+          f"token (+{margin:.3e}) {worst}, allowed < {2 * k}", flush=True)
+    if worst >= 2 * k:
+        fail(f"{label}: a returned token ranks below the top {2 * k}")
+
+
+def cache_like(lcfg, b, cap, quantize, g):
+    """A cache of b rows filled with random values (every leaf)."""
+    import torch
+    from opus_pllm_tpu_torch.models import decoder
+    cache = decoder.init_cache(lcfg, b, cap, device="cuda",
+                               quantize=quantize)
+    for lc in cache["layers"]:
+        for t in lc.values():
+            for x in (t.values() if isinstance(t, dict) else [t]):
+                if x.dtype == torch.int8:
+                    x.copy_(torch.randint(-128, 128, x.shape, generator=g,
+                                          device="cuda", dtype=torch.int8))
+                else:
+                    x.copy_(torch.rand(x.shape, generator=g, device="cuda"))
+    cache["mask"].copy_(torch.rand(cache["mask"].shape, generator=g,
+                                   device="cuda") > 0.3)
+    return cache
+
+
+def reorder_gate(label, lcfg, b, cap, quantize, card):
+    """One `reorder_cache` equals index_select on every leaf (scales "s"
+    included) and on the mask, bit for bit; then its device time beside
+    the bytes it must move (each leaf read and written once)."""
+    import torch
+    from opus_pllm_tpu_torch.models import decoder
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 14)
+    cache = cache_like(lcfg, b, cap, quantize, g)
+    rows = torch.randint(0, b, (b,), generator=g, device="cuda")
+    moved = decoder.reorder_cache(cache, rows)
+    leaves = lambda c: [x for lc in c["layers"] for t in lc.values()
+                        for x in (t.values() if isinstance(t, dict)
+                                  else [t])] + [c["mask"]]
+    for a, x in zip(leaves(moved), leaves(cache)):
+        if not torch.equal(a, x.index_select(0, rows)):
+            fail(f"{label}: reorder_cache moved a leaf off its row")
+    n = 2 * nbytes(*leaves(cache))
+    ms = time_ms(lambda: decoder.reorder_cache(cache, rows), iters=5)
+    print(f"{label}: reorder_cache of {b} rows x {cap} slots x "
+          f"{lcfg.num_layers} layers equals index_select on every leaf; "
+          f"{ms:.3f} ms a step, bound {1e3 * n / PEAK_HBM_BYTES:.3f} ms "
+          f"({n / 1e9:.2f} GB read + written) [{card}]", flush=True)
+    return ms
+
+
+def new_shape_times(card, prompt_mask, cap_beam, cap_spec):
+    """The kernels at the shapes this slice adds, each held against its
+    plain version on the same inputs within phase 3's bound (`compare`),
+    timed beside its bound: int4 v2 at M = B * K = 32 on the fused
+    Llama-3-8B (K, N) the CLI decodes on, int8 at the fused widths (an
+    8 x 256 prefill), both decode attentions over 32 reordered rows, flash
+    at the static verify pass."""
+    import torch
+    import torch.nn.functional as tnf
+    from opus_pllm_tpu_torch.infer.speculative import _decode_mask
+    from opus_pllm_tpu_torch.kernels import decode_attention as da
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import quant, quant4
+    from opus_pllm_tpu_torch.models import decoder
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 15)
+    m = CLI_EXAMPLES * CLI_BEAMS
+    for k, n in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                 (4096, 128256)):
+        q, s = quant4.quantize_grouped(torch.randn((k, n), generator=g,
+                                                   device="cuda"))
+        p = quant4.pack_int4_v2(q)
+        del q
+        x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+        compare(f"int4_matmul M={m} K={k} N={n}",
+                lambda x: quant4.int4_matmul(x, p, s),
+                lambda x: quant4.int4_matmul_plain(x, p, s), (x,), card,
+                flops=2 * m * k * n, more_bytes=nbytes(p, s))
+        del p, s
+        torch.cuda.empty_cache()
+    for n in (6144, 28672):
+        wq, s = quant.quantize_per_channel(torch.randn((4096, n), generator=g,
+                                                       device="cuda"))
+        x = torch.randn((2048, 4096), generator=g, device="cuda").bfloat16()
+        compare(f"int8_matmul M=2048 K=4096 N={n}",
+                lambda x: quant.int8_matmul(x, wq, s),
+                lambda x: quant.int8_matmul_plain(x, wq, s), (x,), card,
+                flops=2 * 2048 * 4096 * n, more_bytes=nbytes(wq, s))
+        del wq, s
+        torch.cuda.empty_cache()
+    from opus_pllm_tpu_torch.core.config import DecoderConfig
+    lcfg = DecoderConfig(num_layers=1)
+    l = prompt_mask.shape[1]
+    qd = (torch.randn((m, 1, 32, 128), generator=g, device="cuda")
+          * 0.5).bfloat16()
+    for kind, quantize, fn in (
+            ("int4", decoder._quantize_kv4, da.decode_attention_int4),
+            ("int8", decoder._quantize_kv, da.decode_attention_int8)):
+        # K / V quantized from normal values, as phase 3's are, then the
+        # rows permuted as a beam step permutes them
+        cache = decoder.init_cache(lcfg, m, cap_beam, device="cuda",
+                                   quantize=kind)
+        for name in ("k", "v"):
+            for key, t in quantize(torch.randn(
+                    (m, cap_beam, 8, 128), generator=g,
+                    device="cuda")).items():
+                cache["layers"][0][name][key].copy_(t)
+        cache["mask"][:, :l] = prompt_mask.repeat_interleave(CLI_BEAMS, 0)
+        cache["mask"][:, l:] = True
+        cache = decoder.reorder_cache(cache, torch.randint(
+            0, m, (m,), generator=g, device="cuda"))
+        kl, vl = cache["layers"][0]["k"], cache["layers"][0]["v"]
+        m4 = cache["mask"][:, None, None, :]
+        compare(f"decode_attention_{kind} B={m} reordered cap={cap_beam}",
+                lambda q: fn(q, kl, vl, m4),
+                lambda q: da.decode_attention_plain(q, kl, vl, m4), (qd,),
+                card, flops=4 * 32 * 128 * int(m4.sum()),
+                n_bytes=decode_bytes(qd, kl, vl, m4))
+        del cache, kl, vl
+    cols = torch.arange(cap_spec, device="cuda")[None, None, None, :]
+    mask = _decode_mask(prompt_mask, cap_spec, l + CLI_NDRAFT) & (
+        cols <= l + torch.arange(CLI_NDRAFT, device="cuda")[
+            None, None, :, None])
+    qf = torch.randn((CLI_EXAMPLES, CLI_NDRAFT, 32, 128), generator=g,
+                     device="cuda").bfloat16()
+    kf, vf = (torch.randn((CLI_EXAMPLES, cap_spec, 8, 128), generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    kx, vx = (t.repeat_interleave(4, dim=2).transpose(1, 2)
+              for t in (kf, vf))
+    qx = qf.transpose(1, 2)
+    # the data's bytes: q and out, the mask, and the K / V rows some query
+    # of the row may attend (left padding and the slots past l + n_draft
+    # are never read), as phase 3's verify case counts them
+    share = mask.any(2).float().mean().item()
+    compare(f"flash_attention static verify B={CLI_EXAMPLES} "
+            f"Sq={CLI_NDRAFT} Skv={cap_spec}",
+            lambda q, k, v: fa.flash_attention(q, k, v, mask),
+            lambda q, k, v: fa.flash_attention_plain(q, k, v, mask),
+            (qf, kf, vf), card, flops=4 * 32 * 128 * int(mask.sum()),
+            n_bytes=2 * nbytes(qf) + nbytes(mask) + share * nbytes(kf, vf),
+            library=lambda: tnf.scaled_dot_product_attention(
+                qx, kx, vx, attn_mask=mask))
+
+
+def check_cli(card):
+    """Phase 14 (module docstring): three `annotate` runs of the port's CLI
+    at full width, random weights, the byte tokenizer in the HF
+    tokenizer's place."""
+    import tempfile
+    import torch
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.core.config import DecoderConfig
+    from opus_pllm_tpu_torch.infer import engine, speculative
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+
+    t_phase = time.perf_counter()
+    print("cli: the card has no transformers, so cli.main.load_tokenizer "
+          "returns ByteTokenizer(); nothing else of _build is changed",
+          flush=True)
+    cli.load_tokenizer = lambda path, family: ByteTokenizer()
+    tok = ByteTokenizer()
+    layers = DecoderConfig.llama3_8b().num_layers
+    enc = {n: 33 for n in fe.launches}        # ESM2-650M, one batch of 8
+    with tempfile.TemporaryDirectory() as tmp:
+        test_json = os.path.join(tmp, "cli_keywords.json")
+        with open(test_json, "w") as f:
+            json.dump([{"instruction": e.instruction, "input": e.sequence,
+                        "output": e.output}
+                       for e in synthetic_examples(CLI_EXAMPLES)], f)
+        base = ["annotate", "--model-base",
+                os.path.join(tmp, "Meta-Llama-3-8B"), "--test-json",
+                test_json, "--max-new-tokens", str(CLI_NEW),
+                "--batch-size", str(CLI_EXAMPLES)]
+        runs = (("beams", ["--num-beams", str(CLI_BEAMS),
+                           "--temperature", "0"]),
+                ("draft", ["--draft-layers", str(CLI_DRAFT), "--n-draft",
+                           str(CLI_NDRAFT), "--temperature", "0"]),
+                ("int4 beams", ["--load-int4", "--quantize-cache", "int4",
+                                "--num-beams", str(CLI_BEAMS)]))
+        for label, extra in runs:
+            rec = Calls()
+            rec.wrap(engine, "beam_generate")
+            rec.wrap(speculative, "_speculative")
+            save = os.path.join(tmp, label.replace(" ", "_") + ".json")
+            torch.cuda.empty_cache()
+            reset_counts()
+            try:
+                _, dt = run_cli(base + extra + ["--save-path", save])
+            finally:
+                rec.restore()
+            counts = read_counts()
+            saved_answers(f"cli {label}", save, CLI_EXAMPLES)
+            print(f"cli {label}: {' '.join(extra)}: {dt:.1f} s end to end "
+                  f"(weights drawn on the card included) [{card}]",
+                  flush=True)
+            if label == "draft":
+                (a, k, out), = rec.calls["_speculative"]
+                it = out.iterations
+                expect_counts(f"cli {label}", counts, **enc,
+                              flash_attention=layers + CLI_DRAFT
+                              + layers * it)
+                check_cli_draft(card, a, out)
+                rerun_rates(f"cli {label}", out,
+                            lambda: speculative._speculative(*a, **k), card)
+            else:
+                (a, k, out), = rec.calls["beam_generate"]
+                want = dict(enc, flash_attention=layers)
+                if label == "int4 beams":
+                    # the CLI decodes on fused projections: [q|k|v], o,
+                    # [gate|up] and down a layer, and the head
+                    want.update(int4_matmul=1 + out.steps * (4 * layers + 1),
+                                decode_attention_int4=layers * out.steps)
+                expect_counts(f"cli {label}", counts, **want)
+                check_cli_beams(card, label, a, out)
+                rerun_rates(f"cli {label}", out,
+                            lambda: engine.beam_generate(*a, **k), card)
+            del rec, a, k, out
+    torch.cuda.empty_cache()
+    print(f"cli phase wall {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+
+def rerun_rates(label, out, run, card):
+    """The captured generation call run CLI_RERUNS more times on the same
+    batch and weights: the CLI run's tokens a second and ms a step (beam
+    steps, or verify passes), then the reruns' median and range. The loop
+    is host-bound, so one run's rate is not a measurement."""
+    import statistics
+    rates, steps = [], []
+    for o in [out] + [run() for _ in range(CLI_RERUNS)]:
+        n = o.steps if hasattr(o, "steps") else o.iterations
+        rates.append(int(o.lengths.sum()) / o.decode_seconds)
+        steps.append(1e3 * o.decode_seconds / n)
+    fmt = lambda v: (f"{statistics.median(v[1:]):.1f} (range {min(v[1:]):.1f}"
+                     f" .. {max(v[1:]):.1f})")
+    print(f"{label}: CLI run {rates[0]:.1f} tok/s, {steps[0]:.2f} ms a step;"
+          f" {CLI_RERUNS} reruns on its batch: {fmt(rates)} tok/s, "
+          f"{fmt(steps)} ms a step [{card}]", flush=True)
+
+
+def check_cli_beams(card, label, a, out):
+    """The gates on a CLI beam run's batch (its captured llm and spliced
+    prompt): throughput, K = 1 equal to greedy, the top-2K ranks, the
+    reorder's bit-exactness and time; after the int4 run, the kernel
+    times at this slice's shapes."""
+    import torch
+    from opus_pllm_tpu_torch.infer import engine
+    llm, lcfg, embeds, mask, pos = a[:5]
+    n_tok = int(out.lengths.sum())
+    print(f"cli {label}: {out.steps} beam steps, {n_tok} tokens in the 8 "
+          f"best hypotheses (B*K = {CLI_EXAMPLES * CLI_BEAMS} rows)",
+          flush=True)
+    quantized = "kernel_p" in llm["layers"][0]["qkv_proj"]
+    kw = dict(max_new_tokens=CLI_NEW, eos_token_id=2, pad_token_id=0)
+    one = engine.beam_generate(llm, lcfg, embeds, mask, pos, num_beams=1,
+                               **kw)
+    greedy = engine.generate(llm, lcfg, embeds, mask, pos,
+                             torch.Generator(device="cuda"),
+                             temperature=0.0, **kw)
+    if not (torch.equal(one.tokens, greedy.tokens)
+            and torch.equal(one.lengths, greedy.lengths)):
+        fail(f"cli {label}: num_beams = 1 differs from greedy")
+    print(f"cli {label}: num_beams = 1 gives greedy's tokens", flush=True)
+    tol = gate(f"cli {label} prefill logits ({embeds.shape[0]} x "
+               f"{embeds.shape[1]})",
+               prefill_logits(llm, lcfg, embeds, mask, "auto"),
+               prefill_logits(llm, lcfg, embeds, mask, "torch"),
+               prefill_logits(*fp32_llm(llm, lcfg), embeds.float(), mask,
+                              "torch"))
+    beam_rank_gate(f"cli {label}", llm, lcfg, embeds, mask, out, CLI_BEAMS,
+                   2 * tol)
+    cap = engine.cache_capacity(lcfg, embeds.shape[1], CLI_NEW)
+    b = CLI_EXAMPLES * CLI_BEAMS
+    if quantized:
+        reorder_gate(f"cli {label} int4 cache", lcfg, b, cap, "int4", card)
+        reorder_gate(f"cli {label} int8 cache", lcfg, b, cap, "int8", card)
+        new_shape_times(card, mask, cap,
+                        embeds.shape[1] + CLI_NEW + CLI_NDRAFT)
+    else:
+        reorder_gate(f"cli {label} bf16 cache", lcfg, b, cap, False, card)
+
+
+def check_cli_draft(card, a, out):
+    """The gates on the CLI draft run: tokens a second and per verify pass,
+    the verify pass's logits through the kernels within the fp32 plain
+    path's bound at its real shape, each emitted token within twice that
+    bound of a teacher-forced prefill's argmax."""
+    import torch
+    from opus_pllm_tpu_torch.infer.speculative import _decode_mask
+    from opus_pllm_tpu_torch.models import decoder
+    _, llm, _, lcfg, embeds, _, mask, pos = a[:8]
+    n_tok = int(out.lengths.sum())
+    print(f"cli draft: {out.iterations} verify passes, {out.positions} "
+          f"positions ({out.positions / out.iterations:.2f} a pass), "
+          f"{n_tok} tokens", flush=True)
+    b, l, _ = embeds.shape
+    cap = l + CLI_NEW + CLI_NDRAFT
+    chunk = out.tokens[:, :CLI_NDRAFT].long()
+
+    def verify(tree, c, dtype, impl):
+        cache = decoder.init_cache(c, b, cap, dtype=dtype, device="cuda")
+        cache["mask"][:, :l] = mask
+        ar = torch.arange(cap, device="cuda")
+        with torch.no_grad():
+            decoder.forward(tree, c, embeds.to(dtype), pos,
+                            cache["mask"][:, None, None, :]
+                            & (ar[None, None, None, :]
+                               <= torch.arange(l, device="cuda")[
+                                   None, None, :, None]),
+                            cache, impl=impl, return_hidden=True)
+            m4 = _decode_mask(mask, cap, l + CLI_NDRAFT) & (
+                ar[None, None, None, :] <= l + torch.arange(
+                    CLI_NDRAFT, device="cuda")[None, None, :, None])
+            cpos = pos[:, -1:] + 1 + torch.arange(CLI_NDRAFT, device="cuda")
+            hid, _ = decoder.forward(
+                tree, c, decoder.embed_tokens(tree, chunk).to(dtype), cpos,
+                m4, cache, impl=impl, return_hidden=True)
+            return decoder.head_logits(tree, c, hid).float()
+
+    tol = gate(f"cli draft verify pass logits (B {b}, Sq {CLI_NDRAFT}, "
+               f"cap {cap})", verify(llm, lcfg, torch.bfloat16, "auto"),
+               verify(llm, lcfg, torch.bfloat16, "torch"),
+               verify(*fp32_llm(llm, lcfg), torch.float32, "torch"))
+    teacher_forced("cli draft, greedy", llm, lcfg, tails_of(embeds, mask),
+                   [out.tokens[r, :n].tolist()
+                    for r, n in enumerate(out.lengths.tolist())], cap,
+                   2 * tol)
+
+
+LOAD_LAYERS, LOAD_RANK = 2, 16
+SAFE_DTYPES = {"torch.bfloat16": "BF16", "torch.float16": "F16",
+               "torch.float32": "F32", "torch.int8": "I8",
+               "torch.uint8": "U8", "torch.int32": "I32",
+               "torch.int64": "I64"}
+
+
+def write_safetensors(path, tensors):
+    """A `.safetensors` file written here: the 8-byte little-endian header
+    length, the JSON header (padded to 8 bytes), the raw tensors."""
+    import struct
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFE_DTYPES[str(t.dtype)],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(-1).view(__import__(
+                "torch").uint8).numpy().data)
+
+
+def nf4_entry(w, key, g):
+    """bitsandbytes NF4 with double quant of fp32 `w` (blocks of 64, the
+    absmax stored 8-bit in blocks of 256 against a 256-entry map, offset
+    by its mean), quantized here on the card -> (state-dict entries, the
+    fp32 weights they decode to by bnb's rule, computed here)."""
+    import numpy as np
+    import torch
+    from opus_pllm_tpu_torch.core.convert import NF4_CODE
+    code = torch.from_numpy(NF4_CODE).cuda()
+    nested = torch.linspace(-1.0, 1.0, 256, device="cuda")
+    flat = w.reshape(-1, 64)
+    absmax = flat.abs().amax(1)
+    idx = torch.bucketize(flat / absmax[:, None],
+                          (code[1:] + code[:-1]) / 2).to(torch.uint8)
+    idx = idx.reshape(-1)
+    offset = float(absmax.mean())
+    cen = (absmax - offset).reshape(-1, 256)
+    nmax = cen.abs().amax(1)
+    q8 = torch.bucketize(cen / nmax[:, None],
+                         (nested[1:] + nested[:-1]) / 2).to(torch.uint8)
+    absmax_q = (nested[q8.long()] * nmax[:, None]).reshape(-1) + offset
+    ref = (code[idx.long()].reshape(-1, 64) * absmax_q[:, None]).reshape(
+        w.shape)
+    meta = {"blocksize": 64, "shape": list(w.shape), "quant_type": "nf4",
+            "nested_blocksize": 256, "nested_offset": offset,
+            "dtype": "bfloat16"}
+    cpu = lambda t: t.cpu().numpy()
+    sd = {key: cpu((idx[0::2] << 4) | idx[1::2])[:, None],
+          f"{key}.absmax": cpu(q8.reshape(-1)),
+          f"{key}.nested_absmax": cpu(nmax),
+          f"{key}.nested_quant_map": cpu(nested),
+          f"{key}.quant_map": NF4_CODE.copy(),
+          f"{key}.quant_state.bitsandbytes__nf4": np.frombuffer(
+              json.dumps(meta).encode(), np.uint8).copy()}
+    return sd, ref
+
+
+def write_loader_files(tmp, g):
+    """The files phase 15 reads, written here -> (paths, the written
+    tensors on the card)."""
+    import torch
+    from opus_pllm_tpu_torch.core.config import DecoderConfig
+    c = DecoderConfig.llama3_8b()
+    h, f, kv = c.hidden_size, c.intermediate_size, c.num_kv_heads * 128
+    rnd = lambda *s, scale=0.02, dt=torch.bfloat16: (torch.randn(
+        s, generator=g, device="cuda") * scale).to(dt)
+    w = {"model.embed_tokens.weight": rnd(c.vocab_size, h),
+         "lm_head.weight": rnd(c.vocab_size, h),
+         "model.norm.weight": 1 + rnd(h)}
+    for i in range(LOAD_LAYERS):
+        lp = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (h, h)),
+                            ("self_attn.k_proj", (kv, h)),
+                            ("self_attn.v_proj", (kv, h)),
+                            ("self_attn.o_proj", (h, h)),
+                            ("mlp.gate_proj", (f, h)),
+                            ("mlp.up_proj", (f, h)),
+                            ("mlp.down_proj", (h, f))):
+            w[lp + name + ".weight"] = rnd(*shape)
+        w[lp + "input_layernorm.weight"] = 1 + rnd(h)
+        w[lp + "post_attention_layernorm.weight"] = 1 + rnd(h)
+    llm = os.path.join(tmp, "Meta-Llama-3-8B-2-layers")
+    os.makedirs(llm)
+    with open(os.path.join(llm, "config.json"), "w") as fh:
+        json.dump({"vocab_size": c.vocab_size, "hidden_size": h,
+                   "intermediate_size": f, "num_hidden_layers": LOAD_LAYERS,
+                   "num_attention_heads": c.num_heads,
+                   "num_key_value_heads": c.num_kv_heads,
+                   "rope_theta": c.rope_theta, "rms_norm_eps": 1e-5,
+                   "max_position_embeddings": 8192,
+                   "tie_word_embeddings": False}, fh)
+    names = sorted(w)
+    for s in range(2):
+        write_safetensors(os.path.join(llm, f"model-{s + 1:05d}-of-00002"
+                                       ".safetensors"),
+                          {k: w[k].cpu() for k in names[s::2]})
+    # fair-esm ESM2 at 1280 wide, 2 layers, fp32, nested under "model"
+    e = 1280
+    esm = {"embed_tokens.weight": rnd(33, e, dt=torch.float32),
+           "emb_layer_norm_after.weight": 1 + rnd(e, dt=torch.float32),
+           "emb_layer_norm_after.bias": rnd(e, dt=torch.float32)}
+    for i in range(LOAD_LAYERS):
+        lp = f"layers.{i}."
+        for n, shape in (("self_attn.q_proj", (e, e)),
+                         ("self_attn.k_proj", (e, e)),
+                         ("self_attn.v_proj", (e, e)),
+                         ("self_attn.out_proj", (e, e)),
+                         ("fc1", (4 * e, e)), ("fc2", (e, 4 * e))):
+            esm[lp + n + ".weight"] = rnd(*shape, dt=torch.float32)
+            esm[lp + n + ".bias"] = rnd(shape[0], dt=torch.float32)
+        for n in ("self_attn_layer_norm", "final_layer_norm"):
+            esm[lp + n + ".weight"] = 1 + rnd(e, dt=torch.float32)
+            esm[lp + n + ".bias"] = rnd(e, dt=torch.float32)
+    esm_pt = os.path.join(tmp, "esm2_t2_1280.pt")
+    torch.save({"model": {"encoder.sentence_encoder." + k: v.cpu()
+                          for k, v in esm.items()},
+                "args": {"encoder_layers": LOAD_LAYERS,
+                         "encoder_embed_dim": e,
+                         "encoder_attention_heads": 20}}, esm_pt)
+    # the reference's weights directory
+    wd = os.path.join(tmp, "opus-weights")
+    for d in ("modality_encoder", "modality_refinement_projector",
+              "lora_adapter"):
+        os.makedirs(os.path.join(wd, d))
+    cstp = {"protein_projection.linear.weight": rnd(5120, e,
+                                                    dt=torch.float32),
+            "protein_projection.linear.bias": rnd(5120, dt=torch.float32),
+            "text_projection.linear.weight": rnd(5120, 5120,
+                                                 dt=torch.float32),
+            "text_projection.linear.bias": rnd(5120, dt=torch.float32)}
+    torch.save({"state_dict": {k: v.cpu() for k, v in cstp.items()},
+                "hyper_parameters": {"protein_projection_input_dim": e,
+                                     "protein_projection_output_dim": 5120,
+                                     "text_projection_input_dim": 5120,
+                                     "text_projection_output_dim": 5120}},
+               os.path.join(wd, "modality_encoder",
+                            "modality_encoding_adapter.ckpt"))
+    switch = {"switch_projector.0.weight": rnd(h * 8, 5120),
+              "switch_projector.0.bias": rnd(h * 8)}
+    torch.save({k: v.cpu() for k, v in switch.items()},
+               os.path.join(wd, "modality_refinement_projector",
+                            "modality_refinement_projection.bin"))
+    lora = {}
+    for i in range(LOAD_LAYERS):
+        for key in [k for k in names if k.startswith(f"model.layers.{i}.")
+                    and k.endswith("_proj.weight")]:
+            stem = "base_model.model." + key[:-len(".weight")]
+            out_d, in_d = w[key].shape
+            lora[stem + ".lora_A.weight"] = rnd(LOAD_RANK, in_d,
+                                                dt=torch.float32)
+            lora[stem + ".lora_B.weight"] = rnd(out_d, LOAD_RANK,
+                                                dt=torch.float32)
+    write_safetensors(os.path.join(wd, "lora_adapter",
+                                   "adapter_model.safetensors"),
+                      {k: v.cpu() for k, v in lora.items()})
+    with open(os.path.join(wd, "lora_adapter", "adapter_config.json"),
+              "w") as fh:
+        json.dump({"r": LOAD_RANK, "lora_alpha": 32, "peft_type": "LORA",
+                   "task_type": "CAUSAL_LM", "target_modules": [
+                       "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                       "up_proj", "down_proj"]}, fh)
+    return (llm, esm_pt, wd), (w, esm, cstp, switch, lora)
+
+
+def exact(label, got, want):
+    import torch
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        fail(f"{label}: loaded {got.dtype} {tuple(got.shape)} differs from "
+             f"the written {want.dtype} {tuple(want.shape)}")
+
+
+def check_loaded(params, unmerged, written):
+    """Every loaded tensor equals the written one after the documented
+    casts: torch (out, in) weights to (in, out) kernels, the LLM in bf16
+    as written, ESM2 fp32 -> bf16 with q/k/v packed (3, E, E), CSTP fp32,
+    the switch bf16 -> fp32, LoRA A / B fp32 as (in, r) / (r, out)."""
+    import torch
+    w, esm, cstp, switch, lora = written
+    llm = params["llm"]
+    exact("embed", llm["embed_tokens"]["embedding"],
+          w["model.embed_tokens.weight"])
+    exact("lm_head", llm["lm_head"]["kernel"], w["lm_head.weight"].t())
+    exact("final norm", llm["final_norm"]["scale"], w["model.norm.weight"])
+    names = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+             "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+             "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+             "down_proj": "mlp.down_proj"}
+    for i, lp in enumerate(llm["layers"]):
+        for ours, hf in names.items():
+            key = f"model.layers.{i}.{hf}.weight"
+            exact(key, lp[ours]["kernel"], w[key].t())
+            stem = "base_model.model." + key[:-len(".weight")]
+            exact(stem + " A", unmerged["layers"][i][ours]["A"],
+                  lora[stem + ".lora_A.weight"].t())
+            exact(stem + " B", unmerged["layers"][i][ours]["B"],
+                  lora[stem + ".lora_B.weight"].t())
+        exact(f"layer {i} norms", torch.stack([lp["attn_norm"]["scale"],
+                                               lp["ffn_norm"]["scale"]]),
+              torch.stack([w[f"model.layers.{i}.input_layernorm.weight"],
+                           w[f"model.layers.{i}.post_attention_layernorm"
+                             ".weight"]]))
+    bf = lambda t: t.to(torch.bfloat16)
+    exact("esm embed", params["esm"]["embed_tokens"]["embedding"],
+          bf(esm["embed_tokens.weight"]))
+    for i, lp in enumerate(params["esm"]["layers"]):
+        pre = f"layers.{i}.self_attn."
+        exact(f"esm {i} qkv", lp["qkv"]["kernel"], torch.stack(
+            [bf(esm[pre + n + ".weight"]).t() for n in ("q_proj", "k_proj",
+                                                      "v_proj")]))
+        exact(f"esm {i} fc1", lp["fc1"]["kernel"],
+              bf(esm[f"layers.{i}.fc1.weight"]).t())
+    exact("cstp", params["cstp"]["protein_projection"]["kernel"],
+          cstp["protein_projection.linear.weight"].t())
+    exact("switch", params["switch"]["layers"][0]["kernel"],
+          switch["switch_projector.0.weight"].float().t())
+
+
+def check_loaders(card):
+    """Phase 15 (module docstring): checkpoint files at Llama-3-8B / ESM2
+    width, written here, through the readers, the CLI's train-lora and
+    convert-weights, the server's adapter route and fused projections."""
+    import tempfile
+    import torch
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.core import builder
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    cli.load_tokenizer = lambda path, family: ByteTokenizer()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 16)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (llm_dir, esm_pt, wd), written = write_loader_files(tmp, g)
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(tmp) for f in fs)
+        print(f"loaders: wrote {size / 1e9:.2f} GB (two .safetensors "
+              f"shards, a fair-esm .pt, the CSTP ckpt, the switch .bin, a "
+              f"PEFT adapter) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        common = ["--model-base", llm_dir, "--esm", esm_pt, "--weights", wd,
+                  "--switch-projector-type", "linear"]
+        args = cli.build_parser().parse_args(["convert-weights", *common,
+                                              "--out", tmp])
+        cfg = cli._opus_config(args, builder.decoder_config_for(llm_dir))
+        t0 = time.perf_counter()
+        params, unmerged = builder.load_pretrained(
+            llm_dir, wd, cfg, esm_path=esm_pt, merge_lora=False)
+        torch.cuda.synchronize()
+        print(f"loaders: load_pretrained (unmerged) "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check_loaded(params, unmerged, written)
+        merged, _ = builder.load_pretrained(llm_dir, wd, cfg,
+                                            esm_path=esm_pt)
+        lora = written[4]
+        worst = 0.0
+        for i, lp in enumerate(merged["llm"]["layers"]):
+            for key in [k for k in written[0] if k.startswith(
+                    f"model.layers.{i}.") and k.endswith("_proj.weight")]:
+                stem = "base_model.model." + key[:-len(".weight")]
+                ref = written[0][key].t().float() + 2.0 * (
+                    lora[stem + ".lora_A.weight"].t()
+                    @ lora[stem + ".lora_B.weight"].t())
+                got = lp[key.split(".")[-2]]["kernel"].float()
+                worst = max(worst, ((got - ref).abs()
+                                    - 2.0 ** -8 * ref.abs()).max().item())
+        print(f"loaders: merged LoRA vs W + (alpha / r) A B in fp32: the "
+              f"error past one bf16 rounding (2^-8 |ref|) at most "
+              f"{worst:.3e} (allowed 1e-6)", flush=True)
+        if worst > 1e-6:
+            fail(f"loaders: the merged LoRA is off by {worst:.3e}")
+        print("loaders: every loaded tensor equals the written one",
+              flush=True)
+        check_nf4(written[0], g)
+        check_convert(card, common, tmp, merged)
+        del merged
+        check_server_adapter(card, params, cfg, unmerged, wd)
+        check_fused(card, params["llm"], cfg.llm)
+        del params, unmerged
+        torch.cuda.empty_cache()
+        check_train_cli(card, common, tmp)
+    print(f"loaders phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def check_nf4(w, g):
+    """One layer's seven projections as bitsandbytes NF4 with double
+    quant: convert's dequantization equals this script's decoding
+    exactly."""
+    import torch
+    from opus_pllm_tpu_torch.core import convert
+    sd, refs = {}, {}
+    t0 = time.perf_counter()
+    for key in [k for k in w if k.startswith("model.layers.0.")
+                and k.endswith("_proj.weight")]:
+        entry, refs[key] = nf4_entry(w[key].float(), key, g)
+        sd.update(entry)
+    t1 = time.perf_counter()
+    if not convert.has_bnb_4bit(sd):
+        fail("nf4: the state dict is not recognized as bitsandbytes 4-bit")
+    got = convert.dequantize_bnb_state_dict(sd)
+    n = 0
+    for key, ref in refs.items():
+        out = torch.from_numpy(got[key]).cuda()
+        if not torch.equal(out, ref):
+            fail(f"nf4: {key} dequantizes {(out - ref).abs().max():.3e} "
+                 "away from the reference")
+        n += ref.numel()
+    print(f"loaders: NF4 double-quant of one layer ({n / 1e6:.0f} M "
+          f"weights, quantized in {t1 - t0:.1f} s) dequantizes exactly, in "
+          f"{time.perf_counter() - t1:.1f} s on the host", flush=True)
+
+
+def check_convert(card, common, tmp, merged):
+    """convert-weights through the CLI, then load_native: bit for bit the
+    tree load_pretrained assembles."""
+    import torch
+    from opus_pllm_tpu_torch.core import builder
+    out = os.path.join(tmp, "native")
+    _, dt = run_cli(["convert-weights", *common, "--out", out])
+    t0 = time.perf_counter()
+    back = builder.load_native(out)
+    torch.cuda.synchronize()
+    dl = time.perf_counter() - t0
+
+    def leaves(t, pre=""):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], f"{pre}.{k}")
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                yield from leaves(v, f"{pre}[{i}]")
+        else:
+            yield pre, t
+
+    a, b = list(leaves(back)), list(leaves(merged))
+    if [k for k, _ in a] != [k for k, _ in b]:
+        fail("convert-weights: load_native gives another tree")
+    for (k, x), (_, y) in zip(a, b):
+        exact(f"native {k}", x, y)
+    print(f"loaders: convert-weights {dt:.1f} s, load_native {dl:.1f} s: "
+          f"{len(a)} leaves bit for bit [{card}]", flush=True)
+
+
+def check_server_adapter(card, params, cfg, unmerged, wd):
+    """POST /v1/adapters with the PEFT directory fills a free bank row; a
+    greedy request through it equals the same adapter installed in memory
+    (the bank path)."""
+    import threading
+    import urllib.request
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.lora import lora
+    from opus_pllm_tpu_torch.serve.server import OpusServer
+    srv = OpusServer(params, cfg, ByteTokenizer(),
+                     lora_bank={"mem": lora.fold_scaling(unmerged, 2.0)},
+                     adapter_capacity=2, max_slots=2, max_len=1024,
+                     prefill_buckets=(512,), default_max_new=16)
+    httpd = srv.make_http_server("127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+
+    def post(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        t0 = time.perf_counter()
+        info = post("/v1/adapters", {"name": "disk", "path": os.path.join(
+            wd, "lora_adapter")})
+        dt = time.perf_counter() - t0
+        if info != {"adapters": ["disk", "mem"], "capacity": 2, "free": 0}:
+            fail(f"POST /v1/adapters: {info}")
+        ask = {"instruction": "What are the UniProtKB keywords of this "
+               "protein?", "sequence": synthetic_examples(1)[0].sequence,
+               "max_new_tokens": 16, "temperature": 0.0}
+        disk = post("/v1/annotate", {**ask, "adapter": "disk"})
+        mem = post("/v1/annotate", {**ask, "adapter": "mem"})
+        if (disk["text"], disk["tokens"]) != (mem["text"], mem["tokens"]):
+            fail(f"an adapter loaded from disk answers {disk} where the "
+                 f"bank's answers {mem}")
+        print(f"loaders: POST /v1/adapters loaded the PEFT directory in "
+              f"{dt:.2f} s; a request through it equals the in-memory "
+              f"bank's ({disk['tokens']} tokens) [{card}]", flush=True)
+    finally:
+        httpd.shutdown()
+        srv.close()
+
+
+def check_fused(card, llm, lcfg):
+    """fuse_projections on the full-width int8 and int4 trees: an int8
+    prefill of 8 x 64 rows and an int4 decode step through the kernels
+    stay within phase 3's bound of the fp32 plain path, unfused and fused,
+    with 4 quantized products a layer instead of 7."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import quant, quant4
+    from opus_pllm_tpu_torch.models import decoder
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 17)
+    b, s = 8, 64
+    x = (torch.randn((b, s + 1, lcfg.hidden_size), generator=g,
+                     device="cuda") * 0.5).bfloat16()
+    pos = torch.arange(s + 1, device="cuda")[None].expand(b, s + 1)
+    ar = torch.arange(s, device="cuda")
+    causal = (ar[None, None, None, :] <= ar[None, None, :, None]).expand(
+        b, 1, s, s)
+    layers = lcfg.num_layers
+
+    def int8_prefill(tree, c, dtype, impl):
+        with torch.no_grad():
+            return decoder.forward(tree, c, x[:, :s].to(dtype), pos[:, :s],
+                                   causal, impl=impl,
+                                   return_hidden=True)[0].float()
+
+    def int4_step(tree, c, dtype, impl, times=None):
+        cache = decoder.init_cache(c, b, s + 1, dtype=dtype, device="cuda")
+        cache["mask"][:] = True
+        with torch.no_grad():
+            m4 = (torch.arange(s + 1, device="cuda")[None, None, None, :]
+                  <= ar[None, None, :, None]).expand(b, 1, s, s + 1)
+            # the prompt through the plain path (no launch), then the step
+            decoder.forward(tree, c, x[:, :s].to(dtype), pos[:, :s], m4,
+                            cache, impl="torch", return_hidden=True)
+
+            def step():
+                cache["index"] = s
+                return decoder.forward(
+                    tree, c, x[:, s:].to(dtype), pos[:, s:],
+                    cache["mask"][:, None, None, :], cache, impl=impl,
+                    return_hidden=True)[0]
+            out = step().float()
+            if times is not None:       # device time, then as issued
+                times += [time_ms(step), time_ms(step, hold=False)]
+            return out
+
+    for label, quantize, run, kernel in (
+            ("int8 prefill 8 x 64", quant.quantize_decoder, int8_prefill,
+             "int8_matmul"),
+            ("int4 decode step B=8", quant4.quantize_decoder4, int4_step,
+             "int4_matmul")):
+        tree = quantize(llm)
+        fused = decoder.fuse_projections(tree, lcfg)
+        t32, c32 = fp32_llm(tree, lcfg)
+        ref = run(t32, c32, torch.float32, "torch")
+        plain = run(tree, lcfg, torch.bfloat16, "torch")
+        n = {}
+        for name, t in (("unfused", tree), ("fused", fused)):
+            reset_counts()
+            got = run(t, lcfg, torch.bfloat16, "auto")
+            n[name] = read_counts()[kernel]
+            gate(f"fused projections, {label}, {name}", got, plain, ref)
+        print(f"fused projections, {label}: {kernel} launches {n['unfused']}"
+              f" unfused, {n['fused']} fused ({layers} layers) [{card}]",
+              flush=True)
+        if n != {"unfused": 7 * layers, "fused": 4 * layers}:
+            fail(f"fused projections, {label}: launches {n}, expected "
+                 f"{7 * layers} and {4 * layers}")
+        if run is int4_step:
+            ms = {}
+            for name, t in (("unfused", tree), ("fused", fused)):
+                ms[name] = []
+                run(t, lcfg, torch.bfloat16, "auto", ms[name])
+            print("fused projections, int4 decode step B=8 "
+                  f"({layers} layers and the head): device "
+                  f"{ms['unfused'][0]:.4f} ms unfused, {ms['fused'][0]:.4f} "
+                  f"ms fused; as issued {ms['unfused'][1]:.4f} ms unfused, "
+                  f"{ms['fused'][1]:.4f} ms fused [{card}]", flush=True)
+        del tree, fused, t32
+        torch.cuda.empty_cache()
+
+
+def check_train_cli(card, common, tmp):
+    """train-lora through the CLI on the 2-layer model: 2 steps with
+    --save-every 1 --export-reference-format, then --resume for a third;
+    the same 2 steps with --load-int4 (QLoRA, the v1 kernel). Exact launch
+    counts, a finite loss."""
+    import math
+    import torch
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    train = os.path.join(tmp, "train.json")
+    with open(train, "w") as f:
+        json.dump(train_records(3 * TRAIN_BATCH, ByteTokenizer()), f)
+    base = {"flash_attention": 2 * LOAD_LAYERS,
+            "flash_attention_bwd_dq": LOAD_LAYERS,
+            "flash_attention_bwd_dkv": LOAD_LAYERS,
+            **{n: LOAD_LAYERS for n in fe.launches}}
+    for label, extra, steps, want in (
+            ("train-lora", ["--max-steps", "2", "--save-every", "1",
+                            "--export-reference-format"], 2, base),
+            ("train-lora --resume", ["--max-steps", "3", "--resume"], 1,
+             base),
+            ("train-lora --load-int4", ["--max-steps", "2", "--load-int4"],
+             2, dict(base, int4_matmul_v1=2 * 7 * LOAD_LAYERS + 1))):
+        out = os.path.join(tmp, "lora-int4" if "int4" in label else "lora")
+        torch.cuda.empty_cache()
+        reset_counts()
+        lines, dt = run_cli(["train-lora", *common, "--train-json", train,
+                             "--out", out, *extra])
+        expect_counts(f"cli {label}", read_counts(),
+                      **{k: steps * v for k, v in want.items()})
+        losses = [float(x.split("loss=")[1]) for x in lines
+                  if "loss=" in x]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            fail(f"cli {label}: losses {losses}")
+        final = int(extra[1])
+        if f"saved trainable tree at step {final} -> {out}" not in lines:
+            fail(f"cli {label}: no final save at step {final}")
+        print(f"cli {label}: {steps} steps in {dt:.1f} s end to end, "
+              f"loss {losses} [{card}]", flush=True)
+    exported = os.path.join(tmp, "lora", "lora_adapter")
+    if sorted(os.listdir(exported)) != ["adapter_config.json",
+                                        "adapter_model.bin"]:
+        fail(f"train-lora exported {os.listdir(exported)}")
 
 
 def main():
@@ -3567,6 +4579,16 @@ def main():
 
     phase("families")
     check_families(card, params, cfg)
+    del params
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("cli")
+    check_cli(card)
+
+    phase("loaders")
+    check_loaders(card)
 
     kernels = [{"name": n, "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNELS[n], "launches": counts[n]}

@@ -231,8 +231,10 @@ class OpusConfig:
 @dataclass(frozen=True)
 class GenerationConfig:
     """Mirrors the reference generate() call sites (run_opus_ddp.py:120-132).
-    The port's runner refuses `num_beams > 1` and `draft_layers > 0` (not
-    ported yet, ROADMAP.md)."""
+    `num_beams > 1` takes beam search (infer.engine.beam_generate),
+    `draft_layers > 0` the self-speculative draft (static path:
+    infer.speculative.speculative_generate; engine runners: speculative
+    ticks)."""
 
     max_new_tokens: int = 256
     temperature: float = 0.1

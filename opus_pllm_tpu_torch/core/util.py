@@ -25,3 +25,36 @@ def resolve_device(device=None) -> torch.device:
     fallback: without a GPU, torch raises where the tensors are made. CPU
     callers (the tests) pass device="cpu"."""
     return torch.device("cuda" if device is None else device)
+
+
+def to_tensor(a) -> torch.Tensor:
+    """An array (numpy, ml_dtypes bfloat16, anything `np.asarray` takes)
+    -> a CPU tensor of the same dtype; a read-only array is copied."""
+    import numpy as np
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def to_device(tree, device=None):
+    """A nested dict / list / tuple with every tensor and array leaf as a
+    tensor on `device` (None: CUDA); other leaves (strings, numbers, None)
+    as they are. The one tree walker of the port's placements: the
+    converters' JAX trees, the loaders' trees and the trainers' batches."""
+    device = resolve_device(device)
+
+    def place(x):
+        if isinstance(x, dict):
+            return {k: place(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(place(v) for v in x)
+        if not isinstance(x, torch.Tensor):
+            if not hasattr(x, "__array__"):
+                return x
+            x = to_tensor(x)
+        return x.to(device)
+
+    return place(tree)

@@ -1,6 +1,8 @@
 """Batch annotation and MCQ eval (port of `opus_pllm_tpu/evals/runner.py`:
 the static path `run_annotation_eval` :193, `_prepare_from_ids` :51,
-`_prepare_inputs` :65, `_generate_spliced` :130, `_pad_chunk` :464; the
+`_prepare_inputs` :65, `_generate_spliced` :130 (greedy / sampled, beam search and the
+self-speculative draft), `make_draft` :90, `_prefetched_batches` :440,
+`_pad_chunk` :464; the
 serving-engine path `run_annotation_eval_engine` :372, `_engine_generate`
 :275 (with the LoRA bank, the prefix cache and engine reuse),
 `_common_token_prefix` :254, `_check_engine_gen` :249; and the MCQ
@@ -32,12 +34,17 @@ After the timed window the annotation runners score the results with
 and return the scores in `EvalReport.metrics`; entries/s counts only the
 generation, as in the JAX runners.
 
+The static runners prepare each batch (prompts, tokenization, bucket
+padding, the copy to the device) on a prefetch thread
+(`utils.prefetch`), so batch i + 1 is prepared while batch i generates.
+`gen.num_beams > 1` takes `engine.beam_generate`, `gen.draft_layers > 0`
+`speculative.speculative_generate` with the layer-skip draft built once a
+run (`make_draft`); the engine runners take `draft_layers` as speculative
+ticks and refuse beams.
+
 Single process: the JAX runners' `local_slice` and `_allgather_results`
-are the identity here. Not ported yet (ROADMAP.md §1), and refused: the
-static path's beam search and speculative draft (item 7; the engine
-runners take `draft_layers` as speculative ticks) and the device meshes
-(item 9); the prefetch thread (item 8) is not ported, the batches are
-prepared inline.
+are the identity here. Not ported yet, and refused: the device meshes
+(ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -99,22 +106,54 @@ def _prepare_inputs(tokenizer, prompts, sequences, *, prompt_bucket: int,
                              esm_bucket=esm_bucket, device=device)
 
 
+def make_draft(params, cfg: OpusConfig, gen: GenerationConfig):
+    """The self-speculative layer-skip draft, built once a run: None when
+    gen.draft_layers == 0; beam search with a draft is refused
+    (runner.py:90-102)."""
+    if gen.draft_layers <= 0:
+        return None
+    if gen.num_beams > 1:
+        raise ValueError("--draft-layers with beam search is unsupported")
+    from ..infer import speculative
+    return speculative.draft_from_target(params["llm"], cfg.llm,
+                                         gen.draft_layers)
+
+
 def _generate_spliced(params, cfg: OpusConfig, tokenizer, ids, mask,
                       esm_toks, gen: GenerationConfig, *, impl: str,
-                      batch_index: int):
+                      batch_index: int, draft=None):
     """Splice -> generate -> decode texts. The sampling generator is seeded
-    from (gen.seed, batch_index) so batches draw independent noise."""
+    from (gen.seed, batch_index) so batches draw independent noise.
+    gen.num_beams > 1: beam search; `draft` (make_draft): speculative
+    decoding, the same spliced embeddings feeding target and draft
+    (runner.py:130-165)."""
     sp = opus.splice_prompt(params, cfg, ids, mask, esm_toks, left_pad=True,
                             impl=impl)
     pos = decoder.positions_from_mask(sp.mask)
     g = torch.Generator(device=ids.device)
     g.manual_seed(gen.seed * 1_000_003 + batch_index)
-    out = engine.generate(
-        params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
-        max_new_tokens=gen.max_new_tokens, temperature=gen.temperature,
-        top_p=gen.top_p, eos_token_id=gen.eos_token_id,
-        pad_token_id=gen.pad_token_id, quantize_cache=gen.quantize_cache,
-        impl=impl)
+    common = dict(max_new_tokens=gen.max_new_tokens,
+                  eos_token_id=gen.eos_token_id,
+                  pad_token_id=gen.pad_token_id,
+                  quantize_cache=gen.quantize_cache, impl=impl)
+    if gen.num_beams > 1:
+        out = engine.beam_generate(
+            params["llm"], cfg.llm, sp.embeds, sp.mask, pos,
+            num_beams=gen.num_beams, length_penalty=gen.length_penalty,
+            **common)
+    elif draft is not None:
+        from ..infer import speculative
+        dparams, dcfg = draft
+        out = speculative.speculative_generate(
+            dparams, params["llm"], dcfg, cfg.llm, sp.embeds, sp.embeds,
+            sp.mask, pos, n_draft=gen.n_draft,
+            temperature=gen.temperature if gen.do_sample else 0.0,
+            top_p=gen.top_p if gen.do_sample else 1.0, generator=g,
+            **common)
+    else:
+        out = engine.generate(
+            params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
+            temperature=gen.temperature, top_p=gen.top_p, **common)
     toks = out.tokens.cpu().numpy()
     lens = out.lengths.cpu().numpy()
     texts = []
@@ -124,6 +163,26 @@ def _generate_spliced(params, cfg: OpusConfig, tokenizer, ids, mask,
     return texts, out
 
 
+def _prefetched_batches(examples, batch_size: int, prompt_of: Callable,
+                        tokenizer, *, prompt_bucket: int, esm_bucket: int,
+                        device):
+    """(chunk, n_real, batch index, (ids, mask, esm tokens) on `device`)
+    for each batch, prepared on the prefetch thread up to two batches
+    ahead (runner.py:440-461)."""
+    from ..utils.prefetch import prefetch_to_device
+
+    def produce():
+        for bi, s in enumerate(range(0, len(examples), batch_size)):
+            chunk, n_real = _pad_chunk(examples[s:s + batch_size],
+                                       batch_size)
+            yield chunk, n_real, bi, _prepare_inputs(
+                tokenizer, [prompt_of(e) for e in chunk],
+                [e.sequence for e in chunk], prompt_bucket=prompt_bucket,
+                esm_bucket=esm_bucket, device=device)
+
+    return prefetch_to_device(produce(), size=2, place=lambda b: b)
+
+
 def _pad_chunk(chunk, batch_size: int):
     """Pad the last partial batch to `batch_size` by repeating its last
     example (every batch keeps one shape); padded rows are dropped."""
@@ -131,14 +190,6 @@ def _pad_chunk(chunk, batch_size: int):
     if 0 < n_real < batch_size:
         chunk = list(chunk) + [chunk[-1]] * (batch_size - n_real)
     return chunk, n_real
-
-
-def _check_gen(gen: GenerationConfig) -> None:
-    if gen.num_beams > 1 or gen.draft_layers > 0:
-        raise NotImplementedError(
-            "beam search and the static speculative draft are not ported "
-            "yet (ROADMAP.md §1 item 7); the engine runners take "
-            "draft_layers as speculative ticks")
 
 
 @torch.no_grad()
@@ -158,7 +209,6 @@ def run_annotation_eval(params, cfg: OpusConfig, tokenizer, file_path: str,
         max_new_tokens=ds.max_new_tokens_for(file_path),
         eos_token_id=getattr(tokenizer, "eos_token_id", -1),
         pad_token_id=getattr(tokenizer, "pad_token_id", 0))
-    _check_gen(gen)
 
     t0 = time.perf_counter()
     texts, decode_tokens, decode_seconds = _static_generate(
@@ -182,22 +232,21 @@ def _static_generate(params, cfg: OpusConfig, tokenizer, examples,
                      batch_size: int, prompt_bucket: int, esm_bucket: int,
                      impl: str) -> Tuple[List[str], int, float]:
     """The static runners' loop (runner.py:212-226, :513-530): batches of
-    `batch_size` (the last one padded), each prompted by `prompt_of`,
-    prepared, spliced and generated on the device that holds the
-    parameters -> (one text per example, decode steps x batch rows, the
-    decode loops' seconds)."""
+    `batch_size` (the last one padded), each prompted by `prompt_of` and
+    prepared on the prefetch thread (`_prefetched_batches`), spliced and
+    generated on the device that holds the parameters -> (one text per
+    example, decode steps x batch rows, the decode loops' seconds)."""
     device = params["llm"]["embed_tokens"]["embedding"].device
+    draft = make_draft(params, cfg, gen)
     texts = []
     decode_tokens, decode_seconds = 0, 0.0
-    for bi, s in enumerate(range(0, len(examples), batch_size)):
-        chunk, n_real = _pad_chunk(examples[s:s + batch_size], batch_size)
-        ids, mask, esm_toks = _prepare_inputs(
-            tokenizer, [prompt_of(e) for e in chunk],
-            [e.sequence for e in chunk], prompt_bucket=prompt_bucket,
-            esm_bucket=esm_bucket, device=device)
+    for chunk, n_real, bi, (ids, mask, esm_toks) in _prefetched_batches(
+            examples, batch_size, prompt_of, tokenizer,
+            prompt_bucket=prompt_bucket, esm_bucket=esm_bucket,
+            device=device):
         out_texts, out = _generate_spliced(params, cfg, tokenizer, ids, mask,
                                            esm_toks, gen, impl=impl,
-                                           batch_index=bi)
+                                           batch_index=bi, draft=draft)
         decode_tokens += out.steps * len(chunk)
         decode_seconds += out.decode_seconds
         texts.extend(out_texts[:n_real])
@@ -467,7 +516,6 @@ def run_mcq_eval(params, cfg: OpusConfig, tokenizer, file_path: str, *,
     if examples is None:
         examples = ds.load_mcq_json(file_path)
     gen = _mcq_gen(tokenizer, gen)
-    _check_gen(gen)
     render = _mcq_renderer(tokenizer, render_prompt)
 
     t0 = time.perf_counter()

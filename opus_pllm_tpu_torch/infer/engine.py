@@ -3,7 +3,7 @@
 `cache_capacity` (engine.py:44), `advance_sampling` (:63), `nucleus_kth`
 (:90), `sample_token` (:133), the serving engine's per-row sampler
 (`warp_logits_rows` :150, `warp_probs_rows` :179, `sample_token_rows`
-:188) and `generate` (:207). Left-padded prompt
+:188), `generate` (:207) and `beam_generate` (:287). Left-padded prompt
 embeddings in, greedy or temperature + nucleus sampling out; the reference's
 quirk `do_sample iff temperature > 0` is kept. The JAX `lax.while_loop`
 becomes a Python loop with the same early exit once every row is done;
@@ -218,3 +218,138 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
         step += 1
     _sync(dev)
     return GenerateOutput(out, nwritten, step, time.perf_counter() - t0)
+
+
+NEG_INF = -1.0e9   # HF beam search's masking constant (engine.py:284)
+
+
+def _top(x, k: int):
+    """The k largest of fp32 `x` along the last dim, ties to the lower
+    index (`jax.lax.top_k`'s order, and `argmax`'s: a quantized head's
+    logits are bf16 values, which tie): (values, int64 indices). One
+    `topk` over int64 keys: the float's bits mapped to an order-keeping
+    integer, above the index's complement."""
+    i = x.contiguous().view(torch.int32).long()
+    ordered = torch.where(i >= 0, i, -(i + 2 ** 31) - 1)
+    n = x.shape[-1]
+    pos = torch.arange(n, device=x.device, dtype=torch.int64)
+    key, _ = torch.topk(ordered * 2 ** 32 + (2 ** 32 - 1 - pos), k, dim=-1)
+    idx = 2 ** 32 - 1 - (key & (2 ** 32 - 1))
+    return torch.gather(x, -1, idx), idx
+
+
+@torch.no_grad()
+def beam_generate(params, cfg: DecoderConfig, input_embeds, attn_mask,
+                  positions, *, num_beams: int, max_new_tokens: int,
+                  eos_token_id: int = -1, pad_token_id: int = 0,
+                  length_penalty: float = 1.0, quantize_cache=False,
+                  impl: str = "auto") -> GenerateOutput:
+    """Beam search over left-padded prompt embeddings (the reference's
+    --num_beams, run_opus_ddp.py:156-158), with transformers' static beam
+    rules as engine.py:287-418 has them (do_sample off, early_stopping
+    off): 2K candidates a step, only the top K ranks may finish, scores
+    the summed logprobs over generated length ** length_penalty, and the
+    stop once no running beam can beat the worst finished hypothesis.
+
+    The prefill runs once on the B rows; its cache is tiled to B * K rows
+    (`decoder.tile_cache`) and every step hands each surviving beam its
+    parent's rows (`decoder.reorder_cache`). The loop reads one boolean a
+    step on the host (the JAX while_loop's condition). Returns the best
+    finished hypothesis per row: tokens with the terminal EOS, padded with
+    pad_token_id; lengths count the EOS; steps the beam steps run."""
+    k, k2 = num_beams, 2 * num_beams
+    b, l, _ = input_embeds.shape
+    v = cfg.vocab_size
+    dev = input_embeds.device
+    dt = cfg.torch_dtype
+    cap = cache_capacity(cfg, l, max_new_tokens)
+    cache = decoder.init_cache(cfg, b, cap, dtype=dt, device=dev,
+                               quantize=quantize_cache)
+    cache["mask"][:, :l] = attn_mask
+    rows = torch.arange(l, device=dev)[None, None, :, None]
+    cols = torch.arange(cap, device=dev)[None, None, None, :]
+    pre_mask4 = cache["mask"][:, None, None, :] & (cols <= rows)
+    hid, cache = decoder.forward(params, cfg, input_embeds.to(dt), positions,
+                                 pre_mask4, cache, impl=impl,
+                                 return_hidden=True, ntk_ctx=cap)
+    cur_logits = decoder.head_logits(params, cfg, hid[:, -1:],
+                                     impl=impl)[:, 0].float()
+    cache = decoder.tile_cache(cache, k)
+    cur_logits = cur_logits.repeat_interleave(k, dim=0)
+    last_pos = positions[:, -1].repeat_interleave(k, dim=0)      # (B*K,)
+
+    top_mask = torch.arange(k2, device=dev) < k                  # (2K,)
+    batch_off = torch.arange(b, device=dev)[:, None] * k         # (B, 1)
+    gather = lambda x, idx: torch.gather(
+        x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(
+            idx.shape + x.shape[2:]))
+    run_seq = torch.full((b, k, max_new_tokens), pad_token_id,
+                         dtype=torch.int32, device=dev)
+    run_sc = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    run_sc[:, 0] = 0.0
+    fin_seq = run_seq.clone()
+    fin_sc = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    fin_done = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    fin_len = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    improve_ok = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    gen_i = 0
+    while gen_i < max_new_tokens:
+        logp = torch.log_softmax(cur_logits, dim=-1)             # (B*K, V)
+        cand = (logp.reshape(b, k, v) + run_sc[:, :, None]).reshape(b, k * v)
+        topv, topi = _top(cand, k2)                              # (B, 2K)
+        tok = (topi % v).int()
+        parent = topi // v
+        topk_seq = gather(run_seq, parent)                       # (B, 2K, T)
+        topk_seq[:, :, gen_i] = tok
+        hits = (tok == eos_token_id) | (gen_i + 1 >= max_new_tokens)
+
+        # the running beams: the best K continuations that did not finish
+        run_cand = topv + hits.float() * NEG_INF
+        new_run_sc, idx2 = _top(run_cand, k)
+        new_run_seq = gather(topk_seq, idx2)
+        parent_sel = torch.gather(parent, 1, idx2)
+
+        # the finished hypotheses (only the top K ranks may finish)
+        norm = torch.tensor(float(gen_i + 1), device=dev) ** length_penalty
+        fin_gate = hits & top_mask[None, :] & improve_ok
+        fin_cand = torch.where(fin_gate, topv / norm,
+                               torch.full_like(topv, NEG_INF))
+        m_sc = torch.cat([fin_sc, fin_cand], dim=1)              # (B, 3K)
+        m_seq = torch.cat([fin_seq, topk_seq], dim=1)
+        m_done = torch.cat([fin_done, fin_gate], dim=1)
+        m_len = torch.cat([fin_len, torch.full((b, k2), gen_i + 1,
+                                               dtype=torch.int32,
+                                               device=dev)], dim=1)
+        fin_sc, idx3 = _top(m_sc, k)
+        fin_seq = gather(m_seq, idx3)
+        fin_done = torch.gather(m_done, 1, idx3)
+        fin_len = torch.gather(m_len, 1, idx3)
+
+        # each surviving beam takes its parent's cache rows
+        cache = decoder.reorder_cache(
+            cache, (parent_sel + batch_off).reshape(-1))
+        nxt = new_run_seq[:, :, gen_i].reshape(-1)               # (B*K,)
+        emb = decoder.embed_tokens(params, nxt.long())[:, None].to(dt)
+        pos = (last_pos + 1 + gen_i)[:, None]
+        cache["mask"][:, l + gen_i] = True
+        lg, cache = decoder.forward(params, cfg, emb, pos,
+                                    cache["mask"][:, None, None, :], cache,
+                                    impl=impl, ntk_ctx=cap)
+        cur_logits = lg[:, 0].float()
+        run_seq, run_sc = new_run_seq, new_run_sc
+
+        # can a running beam still beat the worst finished hypothesis?
+        best_possible = new_run_sc[:, :1] / norm
+        worst_fin = torch.where(fin_done,
+                                fin_sc.amin(dim=1, keepdim=True),
+                                torch.full_like(fin_sc, NEG_INF))
+        improve_ok = improve_ok & (best_possible > worst_fin).any(
+            dim=-1, keepdim=True)
+        gen_i += 1
+        if not bool((improve_ok.any() & ~hits.all()).item()):
+            break
+    _sync(dev)
+    return GenerateOutput(fin_seq[:, 0], fin_len[:, 0], gen_i,
+                          time.perf_counter() - t0)

@@ -63,10 +63,11 @@ KERNEL_MIN_M = 256     # the JAX auto-dispatch's M >= 256 (quant.py:128-130)
 KERNEL_K_MULTIPLE = 16
 TMA_N_MULTIPLE = 16    # the int8 rows' N bytes must be a 16-byte stride
 
-# unfused projections (quant.py:187); the vocab head is quantized apart
-_QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
-                  "up_proj", "down_proj", "fc1", "fc2")
-_FUSED = ("qkv_proj", "gateup_proj")
+# the projections quant.py:187-189 quantizes, the fused ones of
+# decoder.fuse_projections included; the vocab head is quantized apart
+QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                 "up_proj", "down_proj", "fc1", "fc2", "qkv_proj",
+                 "gateup_proj")
 
 launches = {"int8_matmul": 0, "int8_matmul_unaligned": 0}
 
@@ -110,21 +111,16 @@ def quantize_linear(p: Dict) -> Dict:
 
 
 def quantize_decoder(params: Dict) -> Dict:
-    """Int8-quantize the vocab head and every projection of a decoder tree
-    (embeddings and norms stay as they are), as the JAX function does.
-    Fused projections (decoder.fuse_projections) are not ported."""
+    """Int8-quantize the vocab head and every projection of a decoder tree,
+    fused ones included (embeddings and norms stay as they are), as the
+    JAX function does."""
     out = dict(params)
     if "lm_head" in params:
         out["lm_head"] = quantize_linear(params["lm_head"])
     out["layers"] = []
     for lp in params["layers"]:
-        if any(t in lp for t in _FUSED):
-            raise NotImplementedError(
-                "fused decoder projections (decoder.fuse_projections) are "
-                "not ported yet (ROADMAP.md §1 item 8); quantize the "
-                "unfused tree")
         nlp = dict(lp)
-        for t in _QUANT_TARGETS:
+        for t in QUANT_TARGETS:
             if t in lp and "kernel" in lp[t]:
                 nlp[t] = quantize_linear(lp[t])
         out["layers"].append(nlp)

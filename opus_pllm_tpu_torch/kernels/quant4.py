@@ -102,6 +102,7 @@ import torch
 
 from ..core.util import mm_fp32
 from . import build
+from .quant import QUANT_TARGETS
 
 GROUP = 128   # K rows per scale group
 BK = 256      # K rows per v1 block: a K that is not a multiple stays bf16
@@ -115,8 +116,6 @@ KERNEL_MT = 8           # and rows of x per CTA
 TARGET_CTAS = 264       # two CTAs for each of the H100's 132 SMs
 SMS = 132
 
-_QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
-                  "up_proj", "down_proj", "fc1", "fc2")   # quant.py:187, unfused
 
 TMA_N_MULTIPLE = 16     # the nibble rows' N bytes: a 16-byte stride
 
@@ -220,8 +219,9 @@ def quantize_linear4(p: Dict, layout: str = "auto"):
 
 
 def quantize_decoder4(params: Dict, layout: str = "auto") -> Dict:
-    """Int4-quantize the vocab head and every projection of a decoder tree
-    (embeddings and norms stay as they are), as the JAX function does."""
+    """Int4-quantize the vocab head and every projection of a decoder tree,
+    fused ones included (embeddings and norms stay as they are), as the
+    JAX function does."""
     out = dict(params)
     if "lm_head" in params:
         q = quantize_linear4(params["lm_head"], layout)
@@ -230,7 +230,7 @@ def quantize_decoder4(params: Dict, layout: str = "auto") -> Dict:
     out["layers"] = []
     for lp in params["layers"]:
         nlp = dict(lp)
-        for t in _QUANT_TARGETS:
+        for t in QUANT_TARGETS:
             if t in lp and "kernel" in lp[t]:
                 q = quantize_linear4(lp[t], layout)
                 if q is not None:

@@ -7,8 +7,11 @@
 `_norm` and `_mlp` (:226, :232), `_block` (:278, with LoRA adapters),
 `_remat_wrap` (:457), `forward` (:555, with `lora=`, `lora_scale=`,
 `remat=` and `ntk_ctx=`), `positions_and_rope` (:535), `_head` (:618),
-`head_logits` (:629), `embed_tokens` (:375) and `positions_from_mask`
-(:644). One forward covers the three families of `DecoderConfig.family`:
+`head_logits` (:629), `embed_tokens` (:375), `positions_from_mask`
+(:644), the beam-search cache rows `tile_cache` (:379) and
+`reorder_cache` (:392), and `fuse_projections` (:330) with the fused
+branch of the block (`_fused_qkv` :243, `_fused_gateup` :263). One forward
+covers the three families of `DecoderConfig.family`:
 
   llama : RMSNorm, half-split RoPE, GQA, SiLU-gated MLP, no biases
   qwen2 : the llama skeleton with q/k/v biases (`attention_bias`)
@@ -20,7 +23,8 @@
 `max_position_embeddings` (`layers.ntk_scaled_theta`), from the context
 bound `forward` derives as the JAX function does. Projections may be bf16
 ("kernel"), int8 ("kernel_q", see kernels/quant.py) or int4 ("kernel_p",
-see kernels/quant4.py).
+see kernels/quant4.py), each on its own or fused by `fuse_projections`
+into one [q|k|v] and one [gate|up] product.
 
 KV cache: {"layers": [{"k", "v"}], "index", "mask": (B, cap) bool}. The
 index is an int (every row writes at the same slots) or a (B,) integer
@@ -52,8 +56,8 @@ from ..core.util import mm_fp32, resolve_device
 from ..kernels import decode_attention as da
 from . import layers
 from .layers import (ACTIVATIONS, apply_rope, attention, dense, embed,
-                     layer_norm, lora_dense, ntk_scaled_theta, rms_norm,
-                     rope_cos_sin)
+                     layer_norm, lora_delta, lora_dense, ntk_scaled_theta,
+                     rms_norm, rope_cos_sin)
 
 OPT_POS_OFFSET = 2      # HF OPT learned-position offset (decoder.py:29)
 FAMILIES = ("llama", "qwen2", "opt")
@@ -249,13 +253,34 @@ def _norm(cfg: DecoderConfig, p, x):
     return rms_norm(p, x, eps=cfg.rms_norm_eps)
 
 
-def _mlp(cfg: DecoderConfig, p, x, mm):
+def _mlp(cfg: DecoderConfig, p, x, mm, fused):
     """fc2(act(fc1 x)) for OPT, else down(silu(gate x) * up x)
-    (decoder.py:232-240); `mm(name, x)` is the layer's projection."""
+    (decoder.py:232-240); `mm(name, x)` is the layer's projection,
+    `fused(name, x, parts)` the sliced product of a fused one."""
     if cfg.family == "opt":
         return mm("fc2", ACTIVATIONS[cfg.activation](mm("fc1", x)))
-    return mm("down_proj", ACTIVATIONS["silu"](mm("gate_proj", x))
-              * mm("up_proj", x))
+    if "gateup_proj" in p:
+        i = cfg.intermediate_size
+        gate, up = fused("gateup_proj", x, (("gate_proj", i), ("up_proj", i)))
+    else:
+        gate, up = mm("gate_proj", x), mm("up_proj", x)
+    return mm("down_proj", ACTIVATIONS["silu"](gate) * up)
+
+
+def _fused_product(p, x, parts, la, ls, impl):
+    """One product over a fused projection (`fuse_projections`), split
+    into `parts` ((name, width), ...) along the output; a slice whose
+    projection has an unmerged LoRA adapter gets its delta in fp32, the sum
+    rounded once to x's dtype (decoder.py:243-275)."""
+    y = dense(p, x, impl=impl)
+    out, lo = [], 0
+    for name, width in parts:
+        part = y[..., lo:lo + width]
+        if name in la:
+            part = (part.float() + lora_delta(la[name], x, ls)).to(x.dtype)
+        out.append(part)
+        lo += width
+    return out
 
 
 def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
@@ -267,10 +292,18 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     la = la or {}
     mm = lambda name, h: lora_dense(p[name], la.get(name), h, ls, impl=impl)
+    fused = lambda name, h, parts: _fused_product(p[name], h, parts, la, ls,
+                                                  impl)
     r = _norm(cfg, p["attn_norm"], x)
-    q = mm("q_proj", r).reshape(b, s, hq, d)
-    k = mm("k_proj", r).reshape(b, s, hkv, d)
-    v = mm("v_proj", r).reshape(b, s, hkv, d)
+    if "qkv_proj" in p:
+        q, k, v = fused("qkv_proj", r, (("q_proj", hq * d),
+                                        ("k_proj", hkv * d),
+                                        ("v_proj", hkv * d)))
+    else:
+        q, k, v = mm("q_proj", r), mm("k_proj", r), mm("v_proj", r)
+    q = q.reshape(b, s, hq, d)
+    k = k.reshape(b, s, hkv, d)
+    v = v.reshape(b, s, hkv, d)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -292,11 +325,69 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
     if a is None:
         a = attention(q, k, v, mask4, impl=impl)
     x = x + mm("o_proj", a.reshape(b, s, hq * d))
-    return x + _mlp(cfg, p, _norm(cfg, p["ffn_norm"], x), mm)
+    return x + _mlp(cfg, p, _norm(cfg, p["ffn_norm"], x), mm, fused)
+
+
+def fuse_layer(lp: Dict) -> Dict:
+    """One layer with q/k/v concatenated into "qkv_proj" and gate/up into
+    "gateup_proj" (decoder.py:330-376): 7 projection products become 4,
+    each of the remaining ones wider. bf16 ("kernel"), int8 ("kernel_q" +
+    per-column "scale") and int4 ("kernel_p" + group "gscale") projections
+    all concatenate exactly along the output: kernels and gscale on axis
+    1, scale and biases on axis 0. The input layer is not changed; the
+    fused projections' leaves are new tensors, the others shared."""
+    def cat(ps):
+        leaf = next(k for k in ("kernel", "kernel_q", "kernel_p")
+                    if k in ps[0])
+        out = {leaf: torch.cat([p[leaf] for p in ps], dim=1)}
+        for key, dim in (("scale", 0), ("gscale", 1), ("bias", 0)):
+            if key in ps[0]:
+                out[key] = torch.cat([p[key] for p in ps], dim=dim)
+        return out
+
+    nlp = dict(lp)
+    for fused, names in (("qkv_proj", ("q_proj", "k_proj", "v_proj")),
+                         ("gateup_proj", ("gate_proj", "up_proj"))):
+        if all(n in lp for n in names):
+            nlp[fused] = cat([lp[n] for n in names])
+            for n in names:
+                del nlp[n]
+    return nlp
+
+
+def fuse_projections(params: Dict, cfg: DecoderConfig) -> Dict:
+    """`fuse_layer` on every layer, as a new tree (the input is not
+    changed). Unmerged LoRA adapters keep their per-projection names and
+    land on the fused output's slices (`_fused_product`)."""
+    return dict(params, layers=[fuse_layer(lp) for lp in params["layers"]])
 
 
 def embed_tokens(params, ids):
     return embed(params["embed_tokens"], ids)
+
+
+def _map_rows(cache, fn):
+    """A new cache whose every layer leaf, scales "s" included, and whose
+    mask are fn(tensor) along the batch rows (dim 0 of every leaf: the bf16
+    (B, cap, H, D) and the head-major quantized (B, H, cap, X) alike)."""
+    leaf = lambda t: ({k: fn(x) for k, x in t.items()}
+                      if isinstance(t, dict) else fn(t))
+    return {"layers": [{name: leaf(t) for name, t in lc.items()}
+                       for lc in cache["layers"]],
+            "index": cache["index"], "mask": fn(cache["mask"])}
+
+
+def tile_cache(cache, k: int):
+    """Repeat each batch row k times (row b * k + beam): a B-row prefill
+    cache becomes the B * k rows of beam search (decoder.py:379-389)."""
+    return _map_rows(cache, lambda x: x.repeat_interleave(k, dim=0))
+
+
+def reorder_cache(cache, row_idx):
+    """The cache rows `row_idx` (B * k,), as a new cache: each surviving
+    beam inherits its parent's keys, values, scales and mask
+    (decoder.py:392-402, HF reorder_cache's role)."""
+    return _map_rows(cache, lambda x: x.index_select(0, row_idx))
 
 
 def opt_positions(params, positions):

@@ -16,9 +16,9 @@ Endpoints (JSON):
   GET  /v1/models                                -> OpenAI-compatible
                                                     (serve/openai_api.py)
   GET  /v1/adapters, DELETE /v1/adapters/NAME    -> the adapter bank
-  POST /v1/adapters {"name", "path"}             -> refused: loading a PEFT
-                                                    adapter from disk is
-                                                    ROADMAP.md §1 item 8
+  POST /v1/adapters {"name", "path"}             -> load a PEFT adapter
+                                                    directory into a free
+                                                    bank row
   GET  /health                                   -> engine counters +
                                                     latency means
   GET  /metrics                                  -> Prometheus exposition
@@ -506,10 +506,13 @@ class OpusServer:
         return box.get("out")
 
     def _load_adapter_tree(self, path: str) -> dict:
-        raise NotImplementedError(
-            "loading a PEFT adapter from disk is not ported yet (ROADMAP.md "
-            "§1 item 8, the PEFT reader); install an in-memory tree with "
-            "run_on_engine(lambda: srv.engine.add_adapter(name, tree))")
+        """A PEFT adapter directory -> its folded tree, read into CPU
+        tensors on the calling thread (no CUDA call off the engine
+        thread; `engine.add_adapter` copies it into the bank)."""
+        from ..core import builder
+        from ..lora.lora import fold_scaling
+        tree, scale = builder.load_peft_adapter(path, self.cfg.llm.num_layers)
+        return fold_scaling(tree, scale)
 
     def add_adapter(self, name: str, path: str) -> dict:
         """Load a PEFT adapter from disk and install it into a free bank

@@ -17,9 +17,10 @@ state object is returned (the JAX step returns a new state).
 
 `fit(ckpt=, save_every=)` saves the full state ({"params", "opt_state",
 "step"}) through a `core.checkpoint.CheckpointManager`; `restore_state`
-loads one into a freshly built state. Not ported yet, and refused with
-NotImplementedError: the mesh (ROADMAP.md §1 item 9) and the prefetch
-thread (§1 item 8).
+loads one into a freshly built state. `fit(prefetch=N)` places the next
+N batches on a background thread (`utils.prefetch`, the JAX default 2).
+Not ported yet, and refused with NotImplementedError: the mesh
+(ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch
 from ..bridge import cstp, losses
 from ..core import checkpoint
 from ..core.config import CSTPConfig, TrainConfig
-from ..core.util import resolve_device
+from ..core.util import resolve_device, to_device
+from ..utils.prefetch import prefetch_to_device
 from .multimodal_trainer import (_not_ported, _trainable_copy, finish_saves,
                                  leaves, maybe_save)
 from .optim import AdamW, adamw
@@ -128,10 +130,6 @@ def make_eval_step(cfg: CSTPConfig):
     return eval_step
 
 
-def _place(pair, device):
-    return tuple(torch.as_tensor(np.asarray(a), device=device) for a in pair)
-
-
 def evaluate(params, cfg: CSTPConfig, batches, *, device=None) -> dict:
     """Mean loss and both retrieval accuracies over (seq_emb, text_emb)
     batches (the validation / test epoch summaries), on `device` (None:
@@ -141,7 +139,7 @@ def evaluate(params, cfg: CSTPConfig, batches, *, device=None) -> dict:
     sums: dict = {}
     n = 0
     for pair in batches:
-        m = ev(params, *_place(pair, device))
+        m = ev(params, *to_device(tuple(pair), device))
         for k, v in m.items():
             sums[k] = sums.get(k, 0.0) + float(v)
         n += 1
@@ -150,7 +148,7 @@ def evaluate(params, cfg: CSTPConfig, batches, *, device=None) -> dict:
 
 def fit(state: CSTPTrainState, tx: AdamW, cfg: CSTPConfig, tcfg: TrainConfig,
         batches: Iterator[Tuple[np.ndarray, np.ndarray]],
-        val_batches_fn=None, mesh=None, log_fn=print, prefetch: int = 0,
+        val_batches_fn=None, mesh=None, log_fn=print, prefetch: int = 2,
         ckpt=None, save_every: int = 0, device=None,
         metrics_fn=None) -> CSTPTrainState:
     """Epoch loop over batches of (seq_emb, text_emb) numpy arrays of one
@@ -168,13 +166,15 @@ def fit(state: CSTPTrainState, tx: AdamW, cfg: CSTPConfig, tcfg: TrainConfig,
     fresh_state) and skip `state.step` batches to resume."""
     if mesh is not None:
         raise _not_ported("training on a mesh", 9)
-    if prefetch:
-        raise _not_ported("the prefetch thread", 8)
     device = resolve_device(device)
+    stage = lambda pair: to_device(tuple(pair), device)
+    if prefetch:
+        batches = prefetch_to_device(batches, size=prefetch, device=device)
+        stage = lambda pair: pair    # already placed by the producer
     step_fn = make_train_step(cfg, tx)
     start = state.step
     for i, pair in enumerate(batches):
-        state, metrics = step_fn(state, *_place(pair, device))
+        state, metrics = step_fn(state, *stage(pair))
         step_no = start + i + 1
         if metrics_fn is not None:
             metrics_fn(step_no, metrics)

@@ -18,8 +18,9 @@ the optimizer's moments and schedule count, the step) through a
 freshly built state, from which `fit` over the batches after its step
 continues exactly (tests/test_torch_checkpoint.py).
 
-Not ported yet, and refused with NotImplementedError: the mesh (ROADMAP.md
-§1 item 9) and the prefetch thread (§1 item 8).
+`fit(prefetch=N)` prepares and places the next N batches on a background
+thread (`utils.prefetch`, the JAX default 2). Not ported yet, and refused
+with NotImplementedError: the mesh (ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -31,9 +32,10 @@ import torch
 
 from ..core import checkpoint
 from ..core.config import IGNORE_INDEX, LoRAConfig, OpusConfig, TrainConfig
-from ..core.util import resolve_device
+from ..core.util import resolve_device, to_device
 from ..lora import lora as lora_mod
 from ..models import opus
+from ..utils.prefetch import prefetch_to_device
 from .optim import AdamW, adamw
 
 
@@ -244,14 +246,9 @@ def make_eval_step(cfg: OpusConfig, *, lora_cfg: Optional[LoRAConfig] = None,
     return eval_step
 
 
-def place(batch, device) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch -> tensors on `device`."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-
-
 def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
         frozen, batches, *, lora_cfg: Optional[LoRAConfig] = None, mesh=None,
-        log_fn=print, prefetch: int = 0, ckpt=None, save_every: int = 0,
+        log_fn=print, prefetch: int = 2, ckpt=None, save_every: int = 0,
         val_batches_fn=None, val_every: int = 0, device=None,
         impl: str = "auto"):
     """Train loop over collated batches (numpy, as `instruction_batches`
@@ -267,9 +264,11 @@ def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
     resume a killed run exactly."""
     if mesh is not None:
         raise _not_ported("training on a mesh", 9)
-    if prefetch:
-        raise _not_ported("the prefetch thread", 8)
     device = resolve_device(device)
+    stage = lambda b: to_device(b, device)
+    if prefetch:
+        batches = prefetch_to_device(batches, size=prefetch, device=device)
+        stage = lambda b: b    # already placed by the producer
     step_fn = make_train_step(cfg, tx, lora_cfg=lora_cfg,
                               ce_chunk=tcfg.ce_chunk,
                               grad_accum=tcfg.grad_accum,
@@ -282,7 +281,7 @@ def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
     def run_val(step_no: int) -> float:
         tot = n = 0.0
         for vb in val_batches_fn():
-            m = eval_fn(state.trainable, frozen, place(vb, device))
+            m = eval_fn(state.trainable, frozen, to_device(vb, device))
             w = float(m["valid"])
             tot += float(m["loss"]) * w
             n += w
@@ -293,7 +292,7 @@ def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
 
     step_no = start = state.step
     for i, batch in enumerate(batches):
-        state, metrics = step_fn(state, frozen, place(batch, device))
+        state, metrics = step_fn(state, frozen, stage(batch))
         step_no = start + i + 1
         if tcfg.log_every and i % tcfg.log_every == 0:
             log_fn(f"step {step_no}: loss={float(metrics['loss']):.4f}")

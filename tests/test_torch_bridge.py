@@ -18,13 +18,13 @@ from opus_pllm_tpu.core.config import CSTPConfig as JCSTPConfig
 from opus_pllm_tpu.core.config import (SEQ_TOKEN_INDEX,
                                        SwitchProjectorConfig as JSwitch)
 from opus_pllm_tpu_torch.bridge import cstp, projector, splice
-from opus_pllm_tpu_torch.core import convert
 from opus_pllm_tpu_torch.core.config import (CSTPConfig,
                                              SwitchProjectorConfig)
+from opus_pllm_tpu_torch.core.util import to_device
 
 
 def _np_tree(tree):
-    return convert._tree(jax.tree.map(np.asarray, tree), None)
+    return to_device(jax.tree.map(np.asarray, tree), "cpu")
 
 
 def test_cstp_protein_forward():

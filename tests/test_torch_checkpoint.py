@@ -25,6 +25,7 @@ from opus_pllm_tpu_torch.core import checkpoint, convert
 from opus_pllm_tpu_torch.core.config import (IGNORE_INDEX, LoRAConfig,
                                              OpusConfig, SEQ_TOKEN_INDEX,
                                              TrainConfig)
+from opus_pllm_tpu_torch.core.util import to_device
 from opus_pllm_tpu_torch.models import opus
 from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
 
@@ -224,7 +225,7 @@ def test_async_save_records_the_step_it_was_called_at(setup, tmp_path):
     step_fn = mmt.make_train_step(cfg, tx, lora_cfg=LCFG)
     copies = {}
     for i, b in enumerate(batches, 1):
-        state, _ = step_fn(state, frozen, mmt.place(b, "cpu"))
+        state, _ = step_fn(state, frozen, to_device(b, "cpu"))
         copies[i] = checkpoint.snapshot(mmt.state_tree(state))
         mmt.maybe_save(mgr, 2, i, state)
     mmt.finish_saves(mgr, 2)

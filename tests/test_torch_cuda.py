@@ -1043,3 +1043,131 @@ def test_stage_a_precompute_and_cstp(family, tmp_path):
     ct.fit(state, tx, ccfg, tcfg, [(se, te)] * 2, device="cuda",
            metrics_fn=lambda i, m: seen.append(float(m["loss"])))
     assert len(seen) == 2 and all(np.isfinite(seen))
+
+
+# --- beam search, the static draft and fused projections -------------------
+
+@pytest.mark.parametrize("n", [1024, 6144, 28672])
+def test_int4_matmul_at_beam_rows_and_fused_widths(n):
+    """int4 v2 at M = B * K = 32 (batch 8, 4 beams: the two-row-tile plan)
+    and at the fused widths N = 6144 ([q|k|v] of Llama-3-8B) and 28672
+    ([gate|up]); one launch a call."""
+    g = _gen()
+    q, s = quant4.quantize_grouped(
+        torch.randn((4096, n), generator=g, device="cuda"))
+    packed = quant4.pack_int4_v2(q)
+    del q
+    for m in (8, 32):
+        quant4.reset_launches()
+        _check(lambda x: quant4.int4_matmul(x, packed, s),
+               lambda x: quant4.int4_matmul_plain(x, packed, s),
+               (_rnd(g, m, 4096),))
+        assert quant4.launches["int4_matmul"] == 1
+
+
+@pytest.mark.parametrize("n", [6144, 28672])
+def test_int8_matmul_at_the_fused_widths(n):
+    g = _gen()
+    wq, s = quant.quantize_per_channel(torch.randn((4096, n), generator=g,
+                                                   device="cuda"))
+    quant.reset_launches()
+    _check(lambda x: quant.int8_matmul(x, wq, s),
+           lambda x: quant.int8_matmul_plain(x, wq, s), (_rnd(g, 320, 4096),))
+    assert quant.launches == {"int8_matmul": 1, "int8_matmul_unaligned": 0}
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_decode_attention_after_reorder_cache(kind):
+    """Beam search's cache: 8 rows tiled to 32 and permuted by
+    `reorder_cache`; each scale row moves with its K/V row, so the kernel
+    over the reordered cache equals the plain version over it and, row by
+    row, the kernel over the parent rows."""
+    g = _gen()
+    cfg = DecoderConfig(num_layers=1)
+    cache = decoder.init_cache(cfg, 8, 391, device="cuda", quantize=kind)
+    kv = [torch.randn((8, 391, 8, 128), generator=g, device="cuda")
+          for _ in range(2)]
+    decoder._write_cache(cache["layers"][0], *kv, 0)
+    cache["mask"][:] = _decode_mask(g, 8, 391, "left")
+    tiled = decoder.tile_cache(cache, 4)
+    rows = torch.randint(0, 32, (32,), generator=g, device="cuda")
+    moved = decoder.reorder_cache(tiled, rows)
+    lk, lv = moved["layers"][0]["k"], moved["layers"][0]["v"]
+    mask4 = moved["mask"][:, None, None, :]
+    q = _rnd(g, 32, 1, 32, 128, scale=0.5)
+    fn = da.decode_attention_int4 if kind == "int4" else \
+        da.decode_attention_int8
+    _check(lambda q: fn(q, lk, lv, mask4),
+           lambda q: da.decode_attention_plain(q, lk, lv, mask4), (q,))
+    parent = (rows // 4).long()
+    base = {n: {k: v[parent] for k, v in cache["layers"][0][n].items()}
+            for n in ("k", "v")}
+    assert torch.equal(fn(q, lk, lv, mask4),
+                       fn(q, base["k"], base["v"],
+                          cache["mask"][parent][:, None, None, :]))
+
+
+def test_flash_attention_at_the_static_verify_mask():
+    """The static speculative verify pass: Sq = n_draft = 4 queries over
+    cap = l + max_new + K slots under `_decode_mask`'s batch-uniform
+    index with the causal term of speculative.py:253-254, GQA 4."""
+    from opus_pllm_tpu_torch.infer.speculative import _decode_mask as dm
+    g = _gen()
+    b, l, k = 8, 327, 4
+    cap = l + 16 + k
+    prompt = _decode_mask(g, b, l, "left")
+    prompt[:, -1] = True
+    idx = l + 5
+    cols = torch.arange(cap, device="cuda")[None, None, None, :]
+    mask = dm(prompt, cap, idx + k) & (
+        cols <= idx + torch.arange(k, device="cuda")[None, None, :, None])
+    q, kk, v = (_rnd(g, b, k, 32, 128), _rnd(g, b, cap, 8, 128),
+                _rnd(g, b, cap, 8, 128))
+    fa.reset_launches()
+    _check(lambda q, kk, v: fa.flash_attention(q, kk, v, mask),
+           lambda q, kk, v: fa.flash_attention_plain(q, kk, v, mask),
+           (q, kk, v))
+    assert fa.launches["flash_attention"] == 1
+
+
+def test_beam_and_speculative_decode_on_the_card():
+    """A 2-layer, 4096-wide llama, int4 and fused: beam search (K = 4,
+    int4 cache) and the static draft (int8 cache) run through the kernels;
+    K = 1 is greedy's tokens, and each speculative token is within 2% of
+    the largest logit of a teacher-forced pass over the emitted sequence
+    (the verify pass and the one-token steps take different kernels, so
+    a near-tie may break either way in bf16)."""
+    from opus_pllm_tpu_torch.infer import engine, speculative
+    from opus_pllm_tpu_torch.kernels import quant4 as q4
+    cfg = dataclasses.replace(DecoderConfig(num_layers=2), vocab_size=4096)
+    llm = decoder.init(cfg, generator=_gen(), device="cuda")
+    llm = decoder.fuse_projections(q4.quantize_decoder4(llm), cfg)
+    g = _gen()
+    x = _rnd(g, 8, 64, 4096, scale=0.5)
+    am = torch.ones((8, 64), dtype=torch.bool, device="cuda")
+    am[:3, :10] = False
+    pos = decoder.positions_from_mask(am)
+    kw = dict(max_new_tokens=8, eos_token_id=-1)
+    greedy = engine.generate(llm, cfg, x, am, pos, g, temperature=0.0, **kw)
+    q4.reset_launches()
+    da.reset_launches()
+    one = engine.beam_generate(llm, cfg, x, am, pos, num_beams=1, **kw)
+    assert torch.equal(one.tokens, greedy.tokens)
+    four = engine.beam_generate(llm, cfg, x, am, pos, num_beams=4,
+                                quantize_cache="int4", **kw)
+    assert four.tokens.shape == (8, 8) and q4.launches["int4_matmul"] > 0
+    assert da.launches["decode_attention_int4"] > 0
+    dp, dc = speculative.draft_from_target(llm, cfg, 1)
+    spec = speculative.speculative_generate(dp, llm, dc, cfg, x, x, am, pos,
+                                            quantize_cache="int8", **kw)
+    assert spec.tokens.shape == (8, 8)
+    full = torch.cat([x, decoder.embed_tokens(llm, spec.tokens.long())],
+                     dim=1)
+    fam = torch.cat([am, torch.ones((8, 8), dtype=torch.bool,
+                                    device="cuda")], dim=1)
+    lg, _ = decoder.forward(llm, cfg, full, decoder.positions_from_mask(fam),
+                            layers.causal_mask(fam))
+    lg = lg[:, 63:71].float()
+    picked = torch.gather(lg, 2, spec.tokens.long()[..., None])[..., 0]
+    gap = (lg.amax(-1) - picked).max().item()
+    assert gap <= 0.02 * lg.abs().max().item(), gap

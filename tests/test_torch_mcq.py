@@ -326,21 +326,25 @@ def test_engine_matches_static_runner(models):
     assert eng.engine["completions"] == 5 and eng.decode_tokens > 0
 
 
-# The engine runner's options run now, as the JAX runner takes them; the
-# case ids keep the names they had when every option here was refused.
+# The engine runner's options run now, as the JAX runner takes them, and
+# so do the static runner's beams and draft; the case ids keep the names
+# they had when every option here was refused.
 # "runs": greedy letters equal to the runner's without the option (which
 # test_engine_matches_static_runner holds to the static runner, and the
-# static runner tests to the JAX one).
+# static runner tests to the JAX one). "scored": the run answers every
+# question (tests/test_torch_beam_spec.py holds beam search to JAX).
 @pytest.mark.parametrize("which, kw, expect", [
     pytest.param("static", dict(mesh=object()), NotImplementedError,
                  id="static-kw0-NotImplementedError"),
     pytest.param("static", dict(seq_mesh=object()), NotImplementedError,
                  id="static-kw1-NotImplementedError"),
-    pytest.param("static", dict(gen=config.GenerationConfig(num_beams=2)),
-                 NotImplementedError, id="static-kw2-NotImplementedError"),
+    pytest.param("static", dict(gen=config.GenerationConfig(**GEN,
+                                                           num_beams=2)),
+                 "scored", id="static-kw2-NotImplementedError"),
+    # the 2-layer decoder has no 2-layer draft (speculative.py:166-169)
     pytest.param("static",
                  dict(gen=config.GenerationConfig(draft_layers=2)),
-                 NotImplementedError, id="static-kw3-NotImplementedError"),
+                 ValueError, id="static-kw3-NotImplementedError"),
     # an empty bank is no bank (`if lora_bank:`, serve/engine.py:220)
     pytest.param("engine", dict(lora_bank={}), "runs",
                  id="engine-kw4-NotImplementedError"),
@@ -365,6 +369,11 @@ def test_unported_options_are_refused(models, which, kw, expect):
     fn = runner.run_mcq_eval if which == "static" else \
         runner.run_mcq_eval_engine
     call = dict(examples=_examples(), log_fn=lambda *_: None, **kw)
+    if expect == "scored":
+        rep = fn(tp, _cfg(config), ByteTokenizer(), FILE, **KW, **call)
+        assert len(rep.results) == len(_examples())
+        assert sum(rep.metrics["OptionCounts"].values()) == len(_examples())
+        return
     if expect == "runs":
         small = dict(gen=config.GenerationConfig(**GEN), max_slots=2,
                      steps_per_tick=2, splice_batch=2, prompt_bucket=32,

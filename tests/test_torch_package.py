@@ -3,8 +3,10 @@ CPU slice, its scorers, its BERTScore encoder, the MCQ runners, the metric
 library with make_logprob_fn, the checkpoint modules, stage (a)
 (precompute_cstp_pairs over a qwen2 and an opt text LM, then the CSTP
 trainer), the HTTP server's front with its OpenAI API, the engine with
-speculative ticks, a prefix and chunked prefill, and the observability
-module loads neither jax nor the JAX package, and chip_smoke.py refuses
+speculative ticks, a prefix and chunked prefill, the observability
+module, the CLI, the checkpoint builder, the HF tokenizer wrapper, the
+prefetch thread, beam search and static speculative decoding loads
+neither jax nor the JAX package, and chip_smoke.py refuses
 to run without a CUDA device (non-zero exit, no result line). Its entry
 points default to CUDA."""
 
@@ -128,6 +130,24 @@ done = eng.run([ServeRequest(0, token_ids=[1, 2, 3], max_new_tokens=3,
 assert [len(done[i].tokens) for i in (0, 1)] == [3, 3]
 with observability.profile_trace(None), observability.annotate("x"):
     observability.Throughput().report()
+from opus_pllm_tpu_torch.cli import main as cli_main
+from opus_pllm_tpu_torch.core import builder
+from opus_pllm_tpu_torch.infer import hf_tokenizer
+from opus_pllm_tpu_torch.utils.prefetch import prefetch_to_device
+assert cli_main.build_parser().parse_args(["bench"]).cmd == "bench"
+assert builder.family_from_path("/m/Meta-Llama-3-8B") == "llama"
+assert list(prefetch_to_device([1, 2], place=lambda b: b)) == [1, 2]
+from opus_pllm_tpu_torch.infer import engine as engine_mod
+dp, dc = speculative.draft_from_target(params["llm"], cfg.llm, 1)
+x = torch.zeros((1, 4, cfg.llm.hidden_size))
+m = torch.ones((1, 4), dtype=torch.bool)
+p4 = torch.arange(4)[None]
+assert engine_mod.beam_generate(params["llm"], cfg.llm, x, m, p4,
+                                num_beams=2, max_new_tokens=2,
+                                ).tokens.shape == (1, 2)
+assert speculative.speculative_generate(dp, params["llm"], dc, cfg.llm, x,
+                                        x, m, p4, max_new_tokens=2,
+                                        n_draft=2).tokens.shape == (1, 2)
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "opus_pllm_tpu")
        or m.startswith(("jax.", "jaxlib.", "opus_pllm_tpu."))]
 print("LOADED", bad)

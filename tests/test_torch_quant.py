@@ -164,13 +164,19 @@ def test_quantize_decoder_tree_and_from_jax(int8_model):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     assert t8["layers"][0]["q_proj"]["kernel_q"].dtype == torch.int8
+    # fused projections (decoder.fuse_projections) cross over as they are,
+    # and the port quantizes them as the JAX package does
     fused = jdec.fuse_projections(jp, jcfg)
-    with pytest.raises(NotImplementedError):
-        convert.decoder_from_jax(jax.tree.map(
-            np.asarray, jq.quantize_decoder(fused)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        quant.quantize_decoder(
-            {"layers": [{"qkv_proj": {"kernel": torch.zeros((4, 12))}}]})
+    jf8 = jax.tree.map(np.asarray, jq.quantize_decoder(fused))
+    tf8 = convert.decoder_from_jax(jf8, device="cpu")
+    ours = quant.quantize_decoder(convert.decoder_from_jax(
+        jax.tree.map(np.asarray, fused), device="cpu"))
+    for name in ("qkv_proj", "gateup_proj"):
+        for leaf in ("kernel_q", "scale"):
+            np.testing.assert_array_equal(tf8["layers"][0][name][leaf],
+                                          jf8["layers"][0][name][leaf])
+            np.testing.assert_array_equal(ours["layers"][0][name][leaf],
+                                          jf8["layers"][0][name][leaf])
 
 
 def test_decoder_forward_with_int8_weights_matches_jax(int8_model):

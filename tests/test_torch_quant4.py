@@ -173,17 +173,20 @@ def test_quantize_decoder4_matches_jax_and_converts():
     assert quant4.quant_layout_of(t1) == "int4-v1"
     np.testing.assert_array_equal(t1["layers"][0]["q_proj"]["kernel_p"],
                                   j1["layers"][0]["q_proj"]["kernel_p"])
-    # int8 trees cross over as they are (kernels/quant.py); fused
-    # projections stay refused
+    # int8 trees cross over as they are (kernels/quant.py), fused
+    # projections too
     from opus_pllm_tpu.kernels.quant import quantize_decoder
     j8 = jax.tree.map(np.asarray, quantize_decoder(jp))
     t8 = convert.decoder_from_jax(j8, device="cpu")
     assert quant4.quant_layout_of(t8) == "int8"
     np.testing.assert_array_equal(t8["layers"][0]["q_proj"]["kernel_q"],
                                   j8["layers"][0]["q_proj"]["kernel_q"])
-    with pytest.raises(NotImplementedError):
-        convert.decoder_from_jax(jax.tree.map(np.asarray, quantize_decoder(
-            jdec.fuse_projections(jp, jcfg))), device="cpu")
+    jf = jax.tree.map(np.asarray, jq.quantize_decoder4(
+        jdec.fuse_projections(jp, jcfg)))
+    tf = convert.decoder_from_jax(jf, device="cpu")
+    for leaf in ("kernel_p", "gscale"):
+        np.testing.assert_array_equal(tf["layers"][0]["qkv_proj"][leaf],
+                                      jf["layers"][0]["qkv_proj"][leaf])
 
 
 def test_quantized_head_rounds_logits_to_bf16():

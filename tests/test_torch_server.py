@@ -192,9 +192,12 @@ def test_http_endpoints_round_trip(served):
                                                      "go"]
         assert _get(port, "/v1/adapters") == {"adapters": ["go", "loc"],
                                               "capacity": 3, "free": 1}
+        # loading from disk is ported (tests/test_torch_loaders.py); a
+        # path that does not exist fails on the reader, the bank unchanged
         code, err = _error(lambda: _post(port, "/v1/adapters", {
             "name": "x", "path": "/nowhere"}))
-        assert code == 500 and "item 8" in err["error"]
+        assert code == 500 and "FileNotFoundError" in err["error"]
+        assert _get(port, "/v1/adapters")["adapters"] == ["go", "loc"]
         health = _get(port, "/health")
         assert health["status"] == "ok" and health["slots"] == 4
         metrics = _get(port, "/metrics")

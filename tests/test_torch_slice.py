@@ -117,10 +117,19 @@ def test_sampled_eval_runs_and_refuses_unported_options(models):
         batch_size=2, prompt_bucket=32, esm_bucket=32, examples=exs,
         log_fn=lambda *_: None)
     assert len(rep.results) == 3
-    with pytest.raises(NotImplementedError):
+    # beam search is ported (tests/test_torch_beam_spec.py); a draft as
+    # deep as the 2-layer target is refused
+    beams = runner.run_annotation_eval(
+        tp, _cfg(config), ByteTokenizer(), FILE,
+        gen=config.GenerationConfig(max_new_tokens=5, eos_token_id=2,
+                                    num_beams=2),
+        batch_size=2, prompt_bucket=32, esm_bucket=32, examples=exs,
+        log_fn=lambda *_: None)
+    assert len(beams.results) == 3
+    with pytest.raises(ValueError, match="draft_layers must be"):
         runner.run_annotation_eval(
             tp, _cfg(config), ByteTokenizer(), FILE,
-            gen=config.GenerationConfig(num_beams=2), examples=exs,
+            gen=config.GenerationConfig(draft_layers=2), examples=exs,
             log_fn=lambda *_: None)
 
 
