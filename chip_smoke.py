@@ -360,7 +360,29 @@ and prints no result:
      through the CLI for 2 steps with --save-every 1
      --export-reference-format, then --resume for a third, then 2 steps
      with --load-int4 (the v1 kernel): exact launch counts and a finite
-     loss. Each phase prints its wall, then chip_smoke prints its total.
+     loss;
+ 16. parallel (serving): 4 ranks spawned on this one card (gloo: NCCL
+     refuses two ranks on one device; the run prints the backend and
+     that the ranks share the card), each running `annotate` through
+     the port's CLI at full width (Llama-3-8B, ESM2-650M in bf16, random
+     weights drawn per rank from the single process's seeds, the byte
+     tokenizer): (a) --mesh 1,4 in bf16, 8 requests; (b) --mesh 2,2
+     --load-int4 --quantize-cache int4; (c) --engine --mesh 1,4
+     --load-int8 --quantize-cache int8; (d) --seq-shards 4 --load-int8
+     on two ~4k-token prompts, with a bf16 and with an int8 cache. Gates,
+     against one process on this card drawing the same LLM: the first
+     step's logits (or the engine's first prefill group's) within phase
+     3's bound of the fp32 plain path, every greedy token within twice
+     that bound of a teacher-forced prefill's argmax, the tokens equal
+     across the ranks that generate together, every request answered,
+     exact launch counts a step per rank, each rank's LLM share 1/M of
+     the projections and head, its peak within its share, its cache and
+     4 GiB of working set (printed per rank); then every kernel of the
+     runs at its shard shapes against its plain version (`compare`),
+     with the variant it takes. A rank that raises or hangs fails the
+     phase. The collectives' host-clock times and the runs' walls
+     measure this rehearsal on one card, not tensor-parallel speed.
+     Each phase prints its wall, then chip_smoke prints its total.
 The last two lines: a JSON object of the kernels' numbers, then
 {"ok": true, "device": {...}}.
 
@@ -4490,6 +4512,538 @@ def check_train_cli(card, common, tmp):
         fail(f"train-lora exported {os.listdir(exported)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the parallel axes of serving
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 4
+PAR_EXAMPLES, PAR_NEW = 8, 12
+SEQ_EXAMPLES, SEQ_NEW, SEQ_CHARS = 2, 8, 3900     # ~4k-token prompts
+PAR_TIMEOUT = 900                                 # the phase's whole run
+ACT_ALLOWANCE = 4 << 30                           # the run's working set
+# (label, CLI flags, test file, examples, kind): kind "static", "engine"
+# or "seq" says which generation call the run's gates capture
+PAR_RUNS = (
+    ("a mesh 1,4 bf16", ["--mesh", "1,4", "--batch-size", "8"], "short",
+     PAR_EXAMPLES, "static"),
+    ("b mesh 2,2 int4", ["--mesh", "2,2", "--load-int4", "--quantize-cache",
+                         "int4", "--batch-size", "4"], "short", PAR_EXAMPLES,
+     "static"),
+    ("c engine mesh 1,4 int8", ["--engine", "--mesh", "1,4", "--load-int8",
+                                "--quantize-cache", "int8", "--batch-size",
+                                "8"], "short", PAR_EXAMPLES, "engine"),
+    ("d seq-shards 4 bf16 cache", ["--seq-shards", "4", "--load-int8",
+                                   "--batch-size", "2"], "long",
+     SEQ_EXAMPLES, "seq"),
+    ("d seq-shards 4 int8 cache", ["--seq-shards", "4", "--load-int8",
+                                   "--quantize-cache", "int8",
+                                   "--batch-size", "2"], "long",
+     SEQ_EXAMPLES, "seq"),
+)
+
+
+def _tree_bytes(tree):
+    import torch
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(
+        tree, torch.Tensor) else 0
+
+
+def par_one_run(rank, tmp, i):
+    """Run i of PAR_RUNS on this rank through the port's CLI; what the
+    gates need is saved to `tmp` (module docstring, phase 16)."""
+    import contextlib
+    import io
+    import torch
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.core import mesh as mesh_mod
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.infer import engine, sp_engine
+    from opus_pllm_tpu_torch.serve import engine as serve_engine
+    label, flags, which, n, kind = PAR_RUNS[i]
+    rec = Calls()
+    rec.wrap(engine, "generate")
+    rec.wrap(sp_engine, "generate_seq_sharded")
+    rec.wrap(serve_engine, "prefill_group")
+    rec.wrap(runner, "splice_tails")
+    rec.wrap(runner, "_engine_generate")
+    for name in ("run_annotation_eval", "run_annotation_eval_engine"):
+        orig = getattr(runner, name)
+
+        def entry(*a, _orig=orig, **k):
+            # the share is loaded: the peak from here is the run's
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec.calls.setdefault("params", []).append(
+                (_tree_bytes(a[0]), _tree_bytes(a[0]["llm"])))
+            return _orig(*a, **k)
+        rec._saved.append((runner, name, orig))
+        setattr(runner, name, entry)
+    save = os.path.join(tmp, f"answers{i}.json")
+    argv = (["annotate", "--model-base",
+             os.path.join(tmp, "Meta-Llama-3-8B"), "--test-json",
+             os.path.join(tmp, f"par_{which}_keywords.json"),
+             "--max-new-tokens",
+             str(SEQ_NEW if kind == "seq" else PAR_NEW),
+             "--temperature", "0", "--save-path", save] + flags)
+    torch.cuda.empty_cache()
+    reset_counts()
+    mesh_mod.reset_host_staged()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    finally:
+        rec.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"counts": read_counts(), "wall": wall,
+           "peak": torch.cuda.max_memory_allocated(),
+           "params": rec.calls["params"][0][0],
+           "llm_bytes": rec.calls["params"][0][1],
+           "host_staged": dict(mesh_mod.host_staged),
+           "layout": par_layout(),
+           "printed": buf.getvalue()}
+    if kind == "static" or kind == "seq":
+        fn = "generate" if kind == "static" else \
+            "generate_seq_sharded"
+        (a, k, out), = rec.calls[fn]
+        llm, lcfg, embeds, mask, pos = a[:5]
+        res.update(tokens=out.tokens.cpu(), lengths=out.lengths.cpu(),
+                   steps=out.steps, decode_seconds=out.decode_seconds,
+                   embeds=embeds.cpu(), mask=mask.cpu())
+        if kind == "static":
+            logits = prefill_logits(llm, lcfg, embeds, mask, "auto")
+        else:
+            logits = par_ring_logits(llm, lcfg, embeds, mask, pos,
+                                     k["mesh"], SEQ_NEW)
+        res["logits"] = None if logits is None else logits.cpu()
+        if kind == "seq":
+            slots = -(-embeds.shape[1] // k["mesh"].size) + SEQ_NEW
+        else:
+            slots = engine.cache_capacity(lcfg, embeds.shape[1],
+                                          PAR_NEW)
+        res["cache_bytes"] = par_cache_bytes(
+            lcfg, embeds.shape[0], slots,
+            k.get("quantize_cache", False))
+    else:
+        (a, k, (lg, _)), = rec.calls["prefill_group"][:1]
+        (_, _, (toks, stats)), = rec.calls["_engine_generate"]
+        (_, _, tails), = rec.calls["splice_tails"]
+        res.update(tokens=toks, tails=[t.cpu() for t in tails],
+                   logits=lg.cpu(), group_embs=a[2].cpu(),
+                   n_valid=a[3].cpu(), bucket=a[4],
+                   max_len=k["max_len"], quantize=k["quantize"],
+                   prefills=stats["prefills"],
+                   decode_steps=stats["decode_steps"],
+                   decode_seconds=stats["seconds"])
+        res["cache_bytes"] = par_cache_bytes(
+            a[1], 17, k["max_len"], k["quantize"])
+    torch.save(res, os.path.join(tmp, f"run{i}_rank{rank}.pt"))
+
+
+def par_rank(rank, tmp, here):
+    """One rank of phase 16: its process group (file rendezvous, the
+    backend core.mesh picks), then every run of PAR_RUNS through the
+    port's CLI, each run's captured prompt, tokens, first-step logits
+    through this rank's share, launch counts and peak memory saved under
+    `tmp` for the main process's gates. Any exception exits non-zero."""
+    import datetime
+    import gc
+    import traceback
+    try:
+        sys.path.insert(0, here)
+        import torch
+        import torch.distributed as dist
+        from opus_pllm_tpu_torch.cli import main as cli
+        from opus_pllm_tpu_torch.core import mesh as mesh_mod
+        from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh_mod.initialize_distributed(
+            "file://" + os.path.join(tmp, "rendezvous"), PAR_RANKS, rank,
+            device_type="cuda", timeout=datetime.timedelta(
+                seconds=PAR_TIMEOUT))
+        info = mesh_mod.backend_info()
+        if rank == 0:
+            print(f"parallel: {PAR_RANKS} ranks, backend {info['backend']}, "
+                  f"sharing one card: {info['shared']}", flush=True)
+        cli.load_tokenizer = lambda path, family: ByteTokenizer()
+        for i in range(len(PAR_RUNS)):
+            par_one_run(rank, tmp, i)
+            # the run's share, caches and captured calls are gone: free
+            # the cached blocks before the next run draws its own
+            gc.collect()
+            torch.cuda.empty_cache()
+        par_collective_times(rank)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        print(f"rank {rank}:\n{traceback.format_exc()}", flush=True)
+        os._exit(1)
+
+
+def par_collective_times(rank):
+    """Host-clock ms of the decode step's collectives at one shard of
+    Llama-3-8B over 4 ranks (an fp32 all-reduce of 8 x 4096 after each
+    row-parallel product, the all-gather of the head's 8 x 32064 logits)
+    and of the prefill's all-reduce (8 x 384 x 4096), over the backend
+    of this layout; printed by rank 0."""
+    import torch
+    import torch.distributed as dist
+    from opus_pllm_tpu_torch.core import mesh as mesh_mod
+    out = []
+    for label, shape, gather in (("all_reduce", (8, 4096), False),
+                                 ("all_gather", (8, 32064), True),
+                                 ("all_reduce", (8 * 384, 4096), False)):
+        x = torch.randn(shape, device="cuda")
+        op = ((lambda: mesh_mod.all_gather_cat(x, None)) if gather
+              else (lambda: mesh_mod.all_reduce(x, None)))
+        for _ in range(3):
+            op()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            op()
+        torch.cuda.synchronize()
+        out.append(f"{label} {'x'.join(map(str, shape))} fp32 "
+                   f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms")
+    if rank == 0:
+        print(f"parallel collectives (host clock, {par_layout()}): "
+              + "; ".join(out), flush=True)
+
+
+def par_layout():
+    """How the ranks sit: sharing one card (times are the rehearsal's) or
+    a card each."""
+    from opus_pllm_tpu_torch.core import mesh as mesh_mod
+    info = mesh_mod.backend_info()
+    if info["shared"]:
+        return (f"{PAR_RANKS} ranks sharing one card over {info['backend']}:"
+                " rehearsal times, not tensor-parallel speed")
+    return f"{PAR_RANKS} ranks, a card each, over {info['backend']}"
+
+
+def par_cache_bytes(lcfg, b, slots, quantize):
+    """The bytes of the KV cache a rank holds: its heads, its slots."""
+    per = {False: 2 * lcfg.head_dim, "int8": lcfg.head_dim + 4,
+           True: lcfg.head_dim + 4, "int4": lcfg.head_dim // 2 + 4}[quantize]
+    return 2 * lcfg.num_layers * b * slots * lcfg.num_kv_heads * per
+
+
+def par_ring_logits(llm, lcfg, embeds, mask, pos, sp, new):
+    """The sequence-sharded prefill's first-step logits (the last rank's
+    head on the prompt's last row), or None on the other ranks."""
+    import torch
+    import torch.nn.functional as tnf
+    from opus_pllm_tpu_torch.infer import engine
+    from opus_pllm_tpu_torch.models import decoder
+    n = sp.size
+    b, l, _ = embeds.shape
+    pad = -(-l // n) * n - l
+    e = tnf.pad(embeds, (0, 0, pad, 0))
+    m = tnf.pad(mask, (pad, 0))
+    p = tnf.pad(pos, (pad, 0))
+    l_loc = e.shape[1] // n
+    sl = slice(sp.index * l_loc, (sp.index + 1) * l_loc)
+    cache = decoder.init_cache(lcfg, b, l_loc, device=embeds.device)
+    with torch.no_grad():
+        hid, _ = decoder.forward(llm, lcfg, e[:, sl], p[:, sl], m[:, sl],
+                                 cache, impl="ring", return_hidden=True,
+                                 ntk_ctx=engine.cache_capacity(lcfg, l, new),
+                                 sp=sp)
+        if sp.index != n - 1:
+            return None
+        return decoder.head_logits(llm, lcfg, hid[:, -1:])[:, 0].float()
+
+
+def par_examples(tmp):
+    """The phase's test files: `short` (synthetic keywords requests, one
+    batch) and `long` (an instruction of SEQ_CHARS bytes: ~4k-token
+    prompts for the sequence-sharded cache)."""
+    words = ("Describe the domains, the active sites, the localization "
+             "and the UniProtKB keywords of this protein. ")
+    long_instr = (words * (SEQ_CHARS // len(words) + 1))[:SEQ_CHARS]
+    for name, exs in (("short", synthetic_examples(PAR_EXAMPLES)),
+                      ("long", synthetic_examples(SEQ_EXAMPLES,
+                                                  instruction=long_instr))):
+        # the file name picks the task's metrics (keywords)
+        with open(os.path.join(tmp, f"par_{name}_keywords.json"), "w") as f:
+            json.dump([{"instruction": e.instruction, "input": e.sequence,
+                        "output": e.output} for e in exs], f)
+
+
+def par_single_llm(quantize):
+    """The single process's Llama-3-8B as the CLI draws it (core/builder.py's
+    LLM generator, seed 3, on this card), quantized as --load-int8 /
+    --load-int4 quantize it."""
+    import torch
+    from opus_pllm_tpu_torch.core import builder
+    from opus_pllm_tpu_torch.core.config import DecoderConfig
+    from opus_pllm_tpu_torch.models import decoder
+    lcfg = DecoderConfig.llama3_8b()
+    q = lambda tree: builder._quantize_part(tree, quantize, "auto")
+    llm = decoder.init(lcfg, generator=builder._generator(3, "cuda"),
+                       device="cuda",
+                       finish_head=lambda h: q({"lm_head": h,
+                                                "layers": []})["lm_head"],
+                       finish_layer=lambda lp: q({"layers": [lp]})[
+                           "layers"][0])
+    torch.cuda.synchronize()
+    return llm, lcfg
+
+
+def par_gates(card, i, res, llm, lcfg):
+    """Run i's gates against the single process on this card: tokens
+    equal across the ranks that generate together, every request
+    answered, exact launch counts a step per rank, each rank's peak
+    memory within its share plus the caches, the first step's logits
+    within phase 3's bound of the fp32 plain path, and every greedy token
+    within twice that bound of a teacher-forced single-process prefill's
+    argmax."""
+    import torch
+    from opus_pllm_tpu_torch.infer import engine
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    label, flags, which, n, kind = PAR_RUNS[i]
+    layers = lcfg.num_layers
+    enc = {name: 33 for name in fe.launches}
+    # the generating groups: data rows under --mesh 2,2, else every rank
+    groups = ([[0, 1], [2, 3]] if "2,2" in flags else [list(range(PAR_RANKS))])
+    for g in groups:
+        for r in g[1:]:
+            a, b = res[g[0]]["tokens"], res[r]["tokens"]
+            same = (a == b if isinstance(a, list) else torch.equal(a, b))
+            if not same:
+                fail(f"parallel {label}: rank {r}'s tokens differ from rank "
+                     f"{g[0]}'s")
+    with open(os.path.join(res[0]["tmp"], f"answers{i}.json")) as f:
+        saved = json.load(f)
+    if len(saved) != n:
+        fail(f"parallel {label}: {len(saved)} answers for {n} requests")
+    for r, rr in enumerate(res):
+        if kind == "static":
+            want = dict(enc, flash_attention=layers)
+            if "--load-int4" in flags:
+                # fused [q|k|v], o, [gate|up], down a layer and the head a
+                # step, the prefill's head once; the int4 cache's decode
+                want.update(int4_matmul=1 + rr["steps"] * (4 * layers + 1),
+                            decode_attention_int4=layers * rr["steps"])
+        elif kind == "engine":
+            want = dict(enc, flash_attention=layers * rr["prefills"],
+                        int8_matmul=4 * layers * rr["prefills"],
+                        decode_attention_int8=layers * rr["decode_steps"])
+        else:
+            want = dict(enc, int8_matmul=4 * layers)
+        expect_counts(f"parallel {label} rank {r}", rr["counts"], **want)
+        gib = lambda v: v / 2 ** 30
+        lim = rr["params"] + rr["cache_bytes"] + ACT_ALLOWANCE
+        print(f"parallel {label} rank {r}: peak {gib(rr['peak']):.2f} GiB "
+              f"(share {gib(rr['params']):.2f} + cache "
+              f"{gib(rr['cache_bytes']):.2f} + {gib(ACT_ALLOWANCE):.0f} GiB "
+              f"of working set allowed); host-staged rotations "
+              f"{rr['host_staged']['ring_shift']}", flush=True)
+        if rr["peak"] > lim:
+            fail(f"parallel {label} rank {r}: peak {gib(rr['peak']):.2f} GiB "
+                 f"above {gib(lim):.2f} GiB")
+    # no rank holds the whole LLM: a share is 1/M of the projections and
+    # the head, with the embedding and the norms whole
+    full, embed = _tree_bytes(llm), _tree_bytes(llm["embed_tokens"])
+    m = (2 if "2,2" in flags else 4) if "--mesh" in flags else 1
+    for r, rr in enumerate(res):
+        want = (full - embed) / m + embed
+        print(f"parallel {label} rank {r}: LLM share "
+              f"{rr['llm_bytes'] / 2 ** 30:.2f} GiB of the whole "
+              f"{full / 2 ** 30:.2f} (1/{m} of it a rank, the embedding "
+              f"whole: {want / 2 ** 30:.2f})", flush=True)
+        if rr["llm_bytes"] > 1.01 * want:
+            fail(f"parallel {label} rank {r}: an LLM share of "
+                 f"{rr['llm_bytes']} bytes, more than {want:.0f}")
+    r0 = res[0]
+    tok_n = (sum(len(t) for t in r0["tokens"]) if kind == "engine"
+             else int(sum(int(rr["lengths"].sum()) for rr in
+                          [res[g[0]] for g in groups])))
+    print(f"parallel {label}: {n} requests, {tok_n} tokens, wall "
+          f"{r0['wall']:.1f} s (weights drawn on the card included), decode "
+          f"{r0['decode_seconds']:.2f} s ({r0['layout']}) [{card}]",
+          flush=True)
+    fp32 = fp32_llm(llm, lcfg)
+    with torch.no_grad():
+        if kind == "engine":
+            from opus_pllm_tpu_torch.serve.engine import prefill_group
+            e, nv = r0["group_embs"].cuda(), r0["n_valid"].cuda()
+            kw = dict(max_len=r0["max_len"], quantize=r0["quantize"])
+            got = r0["logits"].cuda()
+            plain = prefill_group(llm, lcfg, e, nv, r0["bucket"],
+                                  impl="torch", **kw)[0]
+            ref = prefill_group(*fp32, e.float(), nv, r0["bucket"],
+                                impl="torch", **kw)[0]
+            tol = gate(f"parallel {label} prefill logits", got, plain, ref)
+            teacher_forced(f"parallel {label}", llm, lcfg,
+                           [t.cuda() for t in r0["tails"]], r0["tokens"],
+                           r0["max_len"], 2 * tol)
+            return
+        for g in groups:
+            rr = res[g[-1]] if kind == "seq" else res[g[0]]
+            e, m = rr["embeds"].cuda(), rr["mask"].cuda()
+            got = rr["logits"].cuda()
+            plain = prefill_logits(llm, lcfg, e, m, "torch")
+            ref = prefill_logits(*fp32, e.float(), m, "torch")
+            tol = gate(f"parallel {label} first-step logits (ranks {g})",
+                       got, plain, ref)
+            tails = tails_of(e, m)
+            outs = [row[:int(ln)].tolist() for row, ln in
+                    zip(rr["tokens"], rr["lengths"])]
+            cap = engine.cache_capacity(lcfg, e.shape[1], SEQ_NEW if kind ==
+                                        "seq" else PAR_NEW)
+            teacher_forced(f"parallel {label} (ranks {g})", llm, lcfg,
+                           tails, outs, cap, 2 * tol)
+
+
+def par_shard_kernels(card, rows):
+    """Each kernel the phase's runs launch, at the shard shapes, held
+    against its plain version (phase 3's compare): int4_matmul at M = 8
+    (tensor parallelism over 4: N / 4, and K / 4 for o_proj and down_proj)
+    and at run b's 4 rows over 2; int8_matmul at the engine prefill's M =
+    8 x 384 over 4; flash_attention with 8 query and 2 KV heads; both
+    decode attentions with 2 KV heads (run c) and 4 (run b)."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import decode_attention as da
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import quant, quant4
+    from opus_pllm_tpu_torch.models import decoder
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 16)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
+    d = 128
+
+    def shards(m):
+        return ((4096, (32 + 16) * d // m), (32 * d // m, 4096),
+                (4096, 2 * 14336 // m), (14336 // m, 4096),
+                (4096, 128256 // m))
+    for rows_m, m in ((8, 4), (4, 2)):
+        for k, n in shards(m):
+            q, s = quant4.quantize_grouped(
+                torch.randn((k, n), generator=g, device="cuda"))
+            packed = quant4.pack_int4_v2(q)
+            x = rnd(rows_m, k)
+            print(f"int4_matmul M={rows_m} K={k} N={n}: variant "
+                  f"{quant4.v2_kernel_variant(n)}", flush=True)
+            keep(rows, "int4_matmul", compare(
+                f"int4_matmul M={rows_m} K={k} N={n} (TP {m})",
+                lambda x: quant4.int4_matmul(x, packed, s),
+                lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
+                flops=2 * rows_m * k * n, more_bytes=nbytes(packed, s)),
+                False)
+            del q, s, packed
+    for k, n in shards(4)[:4]:
+        wq, s = quant.quantize_per_channel(
+            torch.randn((k, n), generator=g, device="cuda"))
+        x = rnd(8 * 384, k)
+        print(f"int8_matmul K={k} N={n}: variant "
+              f"{quant.kernel_variant(k, n)}", flush=True)
+        keep(rows, "int8_matmul", compare(
+            f"int8_matmul M={8 * 384} K={k} N={n} (TP 4)",
+            lambda x: quant.int8_matmul(x, wq, s),
+            lambda x: quant.int8_matmul_plain(x, wq, s), (x,), card,
+            flops=2 * 8 * 384 * k * n, more_bytes=nbytes(wq, s)), False)
+        del wq, s
+    b, l = 8, 384
+    pad = torch.randint(0, l // 2, (b,), generator=g, device="cuda")
+    valid = torch.arange(l, device="cuda")[None] >= pad[:, None]
+    mask = decoder.layers.causal_mask(valid)
+    q, kk, vv = rnd(b, l, 8, d), rnd(b, l, 2, d), rnd(b, l, 2, d)
+    keep(rows, "flash_attention", compare(
+        "flash_attention 8 x 384 causal, 8 q / 2 kv heads (TP 4)",
+        lambda q, k, v: fa.flash_attention(q, k, v, mask),
+        lambda q, k, v: fa.flash_attention_plain(q, k, v, mask),
+        (q, kk, vv), card, flops=4 * 8 * d * mask.sum().item(),
+        more_bytes=nbytes(mask)), False)
+    for kind, quant_kv, fn, bb, hkv, cap in (
+            ("int8", decoder._quantize_kv, da.decode_attention_int8, 17, 2,
+             448),
+            ("int4", decoder._quantize_kv4, da.decode_attention_int4, 4, 4,
+             396)):
+        lengths = torch.randint(cap // 2, cap + 1, (bb,), generator=g,
+                                device="cuda")
+        m4 = (torch.arange(cap, device="cuda")[None]
+              < lengths[:, None])[:, None, None, :]
+        kl, vl = ({key: t.contiguous() for key, t in quant_kv(torch.randn(
+            (bb, cap, hkv, d), generator=g, device="cuda")).items()}
+            for _ in range(2))
+        qd = rnd(bb, 1, 4 * hkv, d)
+        keep(rows, f"decode_attention_{kind}", compare(
+            f"decode_attention_{kind} B={bb} cap={cap} {hkv} kv heads",
+            lambda q: fn(q, kl, vl, m4),
+            lambda q: da.decode_attention_plain(q, kl, vl, m4), (qd,), card,
+            flops=4 * 4 * hkv * d * m4.sum().item(),
+            n_bytes=decode_bytes(qd, kl, vl, m4)), False)
+
+
+def check_parallel(card, rows):
+    """Phase 16 (module docstring): PAR_RANKS ranks on this card run the
+    port's CLI with --mesh and --seq-shards at full width; their results
+    are gated against a single process here."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="opus-parallel-")
+    try:
+        par_examples(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=par_rank, args=(r, tmp, here))
+                 for r in range(PAR_RANKS)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + PAR_TIMEOUT
+        while any(p.is_alive() for p in procs) and time.monotonic() < end:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        if codes != [0] * PAR_RANKS:
+            fail(f"parallel: rank exit codes {codes} (None: still running "
+                 f"after {PAR_TIMEOUT} s)")
+        print(f"parallel: {len(PAR_RUNS)} runs of {PAR_RANKS} ranks in "
+              f"{time.perf_counter() - t_phase:.1f} s (spawn, start-up and "
+              f"the weights' draws included) [{card}]", flush=True)
+        results = []
+        for i in range(len(PAR_RUNS)):
+            res = [torch.load(os.path.join(tmp, f"run{i}_rank{r}.pt"),
+                              weights_only=False) for r in range(PAR_RANKS)]
+            res[0]["tmp"] = tmp
+            for line in res[0]["printed"].splitlines():
+                print("   | " + line[:200], flush=True)
+            results.append(res)
+        for quantize, runs in ((None, (0,)), ("int4", (1,)),
+                               ("int8", (2, 3, 4))):
+            llm, lcfg = par_single_llm(quantize)
+            for i in runs:
+                par_gates(card, i, results[i], llm, lcfg)
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    par_shard_kernels(card, rows)
+    torch.cuda.empty_cache()
+    print(f"parallel phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
 def main():
     try:
         import torch
@@ -4589,6 +5143,9 @@ def main():
 
     phase("loaders")
     check_loaders(card)
+
+    phase("parallel (serving)")
+    check_parallel(card, rows)
 
     kernels = [{"name": n, "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNELS[n], "launches": counts[n]}

@@ -16,12 +16,33 @@ annotate-all, mcq, chat, serve) fuse the decoder's projections once on
 load (`models.decoder.fuse_layer`): 4 projection products a layer instead
 of 7, where the JAX CLI keeps the 7; the train commands keep them apart.
 
-Refused with NotImplementedError, naming ROADMAP.md §1 item 9 (the
-parallel axes): `--mesh`, `--distributed`, `--seq-shards`,
-`--pipe-stages`, `--micro-batches` and `--pipe-data` > 1. Parsed and
-without effect: `--unroll-layers` and `--scan-mode` (the JAX layer-loop
-layouts; the port runs a plain loop over its layer list). `bench` runs the
-JAX package's TPU harness there; here it exits with a pointer to
+The parallel axes of serving (cli/main.py:65-74, :86-91, :198-211): each
+rank is a process of a `torchrun` run, e.g.
+
+    torchrun --nproc-per-node 4 -m opus_pllm_tpu_torch.cli.main annotate \
+        --mesh 1,4 --test-json ... --model-base ...
+
+`--mesh D[,M]` (annotate, annotate-all, mcq, chat) splits the examples
+over D data rows and the LLM over M tensor-parallel ranks; each rank
+loads only its share (`core.builder.load_pretrained(mesh=...)`), and the
+projections are fused after the cut. `--seq-shards N` shards each
+prompt's KV cache over N ranks (ring prefill, LSE-merged decode);
+`--distributed` alone runs every rank on the data axis. The process
+group comes from torchrun's environment (`core.mesh.
+initialize_distributed`); `--mesh` without a live group of D x M ranks
+is an error naming torchrun. Exclusions as in JAX: `--seq-shards` with
+`--mesh`; `--engine` with `--seq-shards` or with D > 1. Rank 0 prints the
+results.
+
+Refused with NotImplementedError, naming ROADMAP.md §1 item 10 (the
+training axes and serve's mesh): `train-lora` / `train-projector` /
+`train-cstp` with `--mesh` or `--distributed`, `--seq-shards` on the
+train commands, `--pipe-stages`, `--micro-batches`, `--pipe-data` > 1,
+`serve --mesh` / `--distributed`, and the mesh flags of
+`precompute-pairs` and `convert-weights`. Parsed and without effect:
+`--unroll-layers` and `--scan-mode` (the JAX layer-loop layouts; the
+port runs a plain loop over its layer list). `bench` runs the JAX
+package's TPU harness there; here it exits with a pointer to
 chip_smoke.py, which holds the port's measurements.
 """
 
@@ -35,7 +56,7 @@ import time
 from typing import Optional
 
 STANDARD_AA = set("ACDEFGHIKLMNPQRSTVWY")
-ITEM_9 = "ROADMAP.md §1 item 9, the parallel axes"
+ITEM_10 = "ROADMAP.md §1 item 10, the training axes and serve's mesh"
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -76,9 +97,14 @@ def _model_args(p: argparse.ArgumentParser) -> None:
                         "changes nothing here (the port always runs a "
                         "loop over its layer list)")
     p.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
-                   help=f"SPMD device mesh: not ported ({ITEM_9})")
+                   help="(data, model) mesh of torchrun ranks, e.g. '1,4': "
+                        "the examples split over the data rows, the LLM "
+                        "tensor-parallel over the model ranks (annotate, "
+                        "annotate-all, mcq, chat)")
     p.add_argument("--distributed", action="store_true",
-                   help=f"multi-host start-up: not ported ({ITEM_9})")
+                   help="start the process group from torchrun's "
+                        "environment (RANK / WORLD_SIZE / MASTER_ADDR); "
+                        "without --mesh every rank is on the data axis")
     _device_arg(p)
 
 
@@ -93,7 +119,9 @@ def _gen_args(p: argparse.ArgumentParser) -> None:
                         "disables sampling")
     p.add_argument("--length-penalty", type=float, default=1.0)
     p.add_argument("--seq-shards", type=int, default=0,
-                   help=f"sequence-sharded KV cache: not ported ({ITEM_9})")
+                   help="shard each prompt's KV cache over this many "
+                        "torchrun ranks (ring prefill + LSE-merged decode, "
+                        "infer/sp_engine.py); exclusive with --mesh")
     p.add_argument("--draft-layers", type=int, default=0,
                    help="self-speculative decoding: draft with the "
                         "target's own first N layers, verify --n-draft "
@@ -108,28 +136,94 @@ def _gen_args(p: argparse.ArgumentParser) -> None:
 
 
 def _refuse_parallel(args) -> None:
-    """The parallel axes' options, refused before anything loads."""
+    """The parallel options of the commands that do not run them yet
+    (training, serve, precompute-pairs, convert-weights), refused before
+    anything loads."""
     for flag, value, off in (("--mesh", "mesh", None),
                              ("--distributed", "distributed", False),
                              ("--seq-shards", "seq_shards", 0),
                              ("--pipe-stages", "pipe_stages", 0),
                              ("--micro-batches", "micro_batches", 0)):
         if getattr(args, value, off) not in (off, None):
-            raise NotImplementedError(f"{flag} is not ported yet ({ITEM_9})")
+            raise NotImplementedError(f"{flag} is not ported yet ({ITEM_10})")
     if getattr(args, "pipe_data", 1) > 1:
         raise NotImplementedError(f"--pipe-data > 1 is not ported yet "
-                                  f"({ITEM_9})")
+                                  f"({ITEM_10})")
+
+
+def _launch_hint(n) -> str:
+    return (f"start it with torchrun --nproc-per-node {n} -m "
+            f"opus_pllm_tpu_torch.cli.main ...")
+
+
+def _parallel(args):
+    """--mesh / --seq-shards / --distributed of a generation command ->
+    (mesh or None, seq mesh or None), checked and built before anything
+    loads: the process group from torchrun's environment, then the mesh
+    over every rank of it (cli/main.py:198-211, :337-561)."""
+    flag = getattr(args, "mesh", None)
+    n_seq = getattr(args, "seq_shards", 0)
+    if not (flag or n_seq or getattr(args, "distributed", False)):
+        return None, None
+    if flag and n_seq:
+        raise SystemExit("--seq-shards and --mesh are mutually exclusive")
+    import torch.distributed as dist
+
+    from ..core import mesh as mesh_mod
+    mcfg = mesh_mod.parse_mesh_flag(flag) if flag else None
+    want = mcfg.data * mcfg.model if mcfg else n_seq
+    what = f"--mesh {flag}" if flag else (f"--seq-shards {n_seq}" if n_seq
+                                          else "--distributed")
+    want = want or "N"
+    if not mesh_mod.initialize_distributed(device_type=_device(args).type):
+        raise SystemExit(f"{what} needs a process group of {want} ranks "
+                         f"and none is running: {_launch_hint(want)}")
+    world = dist.get_world_size()
+    if n_seq:
+        from ..parallel.ring import make_sp_mesh
+        if n_seq != world:
+            raise SystemExit(f"--seq-shards {n_seq} runs on {n_seq} ranks, "
+                             f"this process group has {world}: "
+                             f"{_launch_hint(n_seq)}")
+        return None, make_sp_mesh(n_seq)
+    try:
+        return mesh_mod.make_mesh(mcfg), None
+    except ValueError as e:
+        raise SystemExit(f"{what}: {e} (the process group has {world} "
+                         f"ranks): {_launch_hint(want)}") from None
 
 
 def _device(args):
-    """The torch device of --device; a CUDA device without a GPU is an
-    error (the run does not move to the CPU)."""
+    """The torch device of --device (this rank's card under a process
+    group); a CUDA device without a GPU is an error (the run does not move
+    to the CPU)."""
     import torch
+    import torch.distributed as dist
     dev = torch.device(getattr(args, "device", "cuda"))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu "
                          "to run on the CPU")
+    if dist.is_initialized():
+        from ..core.mesh import rank_device
+        return rank_device(dev.type)
     return dev
+
+
+def _engine_mesh(mesh, seq_mesh):
+    """--engine composes with tensor-parallel meshes only (--mesh 1,N):
+    a data axis > 1 or --seq-shards has no engine meaning (the slot pool
+    is the batch axis), refused rather than left idle (cli/main.py:198)."""
+    if seq_mesh is not None:
+        raise SystemExit("--engine and --seq-shards are mutually exclusive")
+    if mesh is not None and mesh.data != 1:
+        raise SystemExit("--engine shards tensor-parallel only: use "
+                         "--mesh 1,N (the slot pool is the batch axis)")
+    return mesh
+
+
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def load_tokenizer(path: str, family: str):
@@ -277,9 +371,11 @@ def _quantize_flag(args) -> Optional[str]:
             else "int8" if getattr(args, "load_int8", False) else None)
 
 
-def _build(args):
+def _build(args, mesh=None):
     """Config, parameters on --device and tokenizer of a model command
-    (cli/main.py:240-311) -> (cfg, params, tokenizer)."""
+    (cli/main.py:240-311) -> (cfg, params, tokenizer). Under a mesh whose
+    model axis splits the LLM each rank loads only its share, and cfg.llm
+    is the share's config."""
     from ..core import builder
     if not args.model_base:
         raise SystemExit("--model-base is required for model commands")
@@ -291,8 +387,14 @@ def _build(args):
         quantize=_quantize_flag(args),
         # the train commands take the v1 int4 layout, decode the v2 one
         int4_layout=("v1" if getattr(args, "cmd", "").startswith("train")
-                     else "auto"), device=device)
+                     else "auto"), device=device, mesh=mesh)
     builder.check_train_layout(getattr(args, "cmd", ""), params["llm"])
+    if mesh is not None and mesh.model > 1:
+        import dataclasses
+
+        from ..parallel import partition
+        cfg = dataclasses.replace(cfg, llm=partition.config_for(
+            params["llm"], llm_cfg, mesh))
     if not getattr(args, "cmd", "").startswith("train"):
         # generation decodes on one [q|k|v] and one [gate|up] product a
         # layer: 4 projection launches instead of 7. A layer at a time, so
@@ -343,28 +445,31 @@ def cmd_annotate(args) -> None:
     from ..evals import runner
     from ..evals.datasets import max_new_tokens_for
 
-    _refuse_parallel(args)
     specs = _adapter_specs(args)
     aid = _single_adapter(args, specs)
-    cfg, params, tok = _build(args)
+    mesh, seq_mesh = _parallel(args)
+    use_engine = getattr(args, "engine", False)
+    e_mesh = _engine_mesh(mesh, seq_mesh) if use_engine else None
+    cfg, params, tok = _build(args, mesh)
     gen = _gen_config(args, tok, args.max_new_tokens
                       or max_new_tokens_for(args.test_json))
     bank = _adapter_bank(specs, cfg)
     embed_fn = _bert_embed_fn(getattr(args, "biobert", None), _device(args))
-    if getattr(args, "engine", False):
+    if use_engine:
         rep = runner.run_annotation_eval_engine(
             params, cfg, tok, args.test_json, gen=gen,
             max_slots=args.max_slots, steps_per_tick=args.steps_per_tick,
             splice_batch=args.batch_size, save_path=args.save_path,
-            lora_bank=bank or None, adapter_id=aid,
+            lora_bank=bank or None, adapter_id=aid, mesh=e_mesh,
             cache_prefix=getattr(args, "cache_prefix", False),
             bert_embed_fn=embed_fn)
     else:
         rep = runner.run_annotation_eval(
             params, cfg, tok, args.test_json, gen=gen,
             batch_size=args.batch_size, save_path=args.save_path,
-            bert_embed_fn=embed_fn)
-    print(json.dumps(rep.metrics))
+            bert_embed_fn=embed_fn, mesh=mesh, seq_mesh=seq_mesh)
+    if _is_rank0():
+        print(json.dumps(rep.metrics))
 
 
 def cmd_annotate_all(args) -> None:
@@ -373,7 +478,6 @@ def cmd_annotate_all(args) -> None:
     from ..evals import runner
     from ..evals.datasets import max_new_tokens_for
 
-    _refuse_parallel(args)
     use_engine = getattr(args, "engine", False)
     specs = _adapter_specs(args)
     if (specs or getattr(args, "map", None)) and not use_engine:
@@ -381,7 +485,9 @@ def cmd_annotate_all(args) -> None:
     adapter_map = (_adapter_map(specs, args.test_jsons,
                                 getattr(args, "map", None))
                    if specs else {})
-    cfg, params, tok = _build(args)
+    mesh, seq_mesh = _parallel(args)
+    e_mesh = _engine_mesh(mesh, seq_mesh) if use_engine else None
+    cfg, params, tok = _build(args, mesh)
     bank = _adapter_bank(specs, cfg)
     engine_cache: dict = {}
     all_metrics = {}
@@ -404,21 +510,22 @@ def cmd_annotate_all(args) -> None:
                     splice_batch=args.batch_size, save_path=save,
                     lora_bank=bank or None,
                     adapter_id=adapter_map.get(test_json),
-                    engine_cache=engine_cache,
+                    engine_cache=engine_cache, mesh=e_mesh,
                     cache_prefix=getattr(args, "cache_prefix", False))
             else:
                 out = runner.run_annotation_eval(
                     params, cfg, tok, test_json, gen=gen,
-                    batch_size=args.batch_size, save_path=save)
+                    batch_size=args.batch_size, save_path=save, mesh=mesh,
+                    seq_mesh=seq_mesh)
             runs.append(out.metrics)
         all_metrics[test_json] = runs
-    print(json.dumps(all_metrics, indent=1))
+    if _is_rank0():
+        print(json.dumps(all_metrics, indent=1))
 
 
 def cmd_mcq(args) -> None:
     from ..evals import runner
 
-    _refuse_parallel(args)
     use_engine = getattr(args, "engine", False)
     specs = _adapter_specs(args)
     aid = _single_adapter(args, specs)
@@ -426,10 +533,14 @@ def cmd_mcq(args) -> None:
         if use_engine:
             raise SystemExit("--scored is a single-forward evaluator; "
                              "drop --engine")
-        if getattr(args, "draft_layers", 0):
-            raise SystemExit("--scored runs one prefill forward: drop "
+        if (getattr(args, "draft_layers", 0) or getattr(args, "mesh", None)
+                or getattr(args, "seq_shards", 0)):
+            raise SystemExit("--scored runs single-device (one prefill "
+                             "forward): drop --mesh/--seq-shards/"
                              "--draft-layers")
-    cfg, params, tok = _build(args)
+    mesh, seq_mesh = _parallel(args)
+    e_mesh = _engine_mesh(mesh, seq_mesh) if use_engine else None
+    cfg, params, tok = _build(args, mesh)
     gen = _gen_config(args, tok, args.max_new_tokens or 50)
     if getattr(args, "scored", False):
         rep = runner.run_mcq_eval_scored(
@@ -441,12 +552,14 @@ def cmd_mcq(args) -> None:
             max_slots=args.max_slots, steps_per_tick=args.steps_per_tick,
             splice_batch=args.batch_size, save_path=args.save_path,
             lora_bank=_adapter_bank(specs, cfg) or None, adapter_id=aid,
-            cache_prefix=getattr(args, "cache_prefix", False))
+            mesh=e_mesh, cache_prefix=getattr(args, "cache_prefix", False))
     else:
         rep = runner.run_mcq_eval(params, cfg, tok, args.test_json, gen=gen,
                                   batch_size=args.batch_size,
-                                  save_path=args.save_path)
-    print(json.dumps(rep.metrics))
+                                  save_path=args.save_path, mesh=mesh,
+                                  seq_mesh=seq_mesh)
+    if _is_rank0():
+        print(json.dumps(rep.metrics))
 
 
 def cmd_chat(args) -> None:
@@ -456,25 +569,24 @@ def cmd_chat(args) -> None:
     from ..evals import runner
     from ..infer.conversation import VICUNA_V0, VICUNA_V3, annotation_prompt
 
-    _refuse_parallel(args)
-    cfg, params, tok = _build(args)
+    mesh, seq_mesh = _parallel(args)
+    cfg, params, tok = _build(args, mesh)
     gen = _gen_config(args, tok, args.max_new_tokens or 256)
     draft = runner.make_draft(params, cfg, gen)   # once, not per turn
     device = params["llm"]["embed_tokens"]["embedding"].device
-    print("opus-pllm-tpu chat — empty line to exit")
+    rank0 = _is_rank0()
+    if rank0:
+        print("opus-pllm-tpu chat — empty line to exit")
     turn = 0   # seeds each turn's sampling, so a repeated prompt resamples
     while True:
-        try:
-            instr = input("instruction> ").strip()
-        except EOFError:
-            break
+        instr, seq = _read_turn(rank0)
         if not instr:
             break
-        seq = input("sequence> ").strip().upper()
         bad = set(seq) - STANDARD_AA
         if bad:
-            print(f"invalid amino acids: {''.join(sorted(bad))} "
-                  f"(allowed: {''.join(sorted(STANDARD_AA))})")
+            if rank0:
+                print(f"invalid amino acids: {''.join(sorted(bad))} "
+                      f"(allowed: {''.join(sorted(STANDARD_AA))})")
             continue
         if getattr(args, "chat_template", False):
             prompt = tok.apply_chat_template(
@@ -488,9 +600,29 @@ def cmd_chat(args) -> None:
             device=device)
         texts, _ = runner._generate_spliced(
             params, cfg, tok, ids, mask, esm_toks, gen, impl="auto",
-            batch_index=turn, draft=draft)
+            batch_index=turn, draft=draft, seq_mesh=seq_mesh,
+            data_index=mesh.data_index if mesh is not None else 0)
         turn += 1
-        print(texts[0])
+        if rank0:
+            print(texts[0])
+
+
+def _read_turn(rank0: bool):
+    """One (instruction, sequence) from stdin; under a process group rank
+    0 reads it and broadcasts it, so every rank runs the same turn. An
+    empty instruction (or end of input) ends the chat."""
+    import torch.distributed as dist
+    turn = ["", ""]
+    if rank0:
+        try:
+            turn[0] = input("instruction> ").strip()
+            if turn[0]:
+                turn[1] = input("sequence> ").strip().upper()
+        except EOFError:
+            turn = ["", ""]
+    if dist.is_initialized():
+        dist.broadcast_object_list(turn, src=0)
+    return turn[0], turn[1]
 
 
 def cmd_train_cstp(args) -> None:
@@ -856,7 +988,8 @@ def build_parser() -> argparse.ArgumentParser:
     tc.add_argument("--epochs", type=int, default=1)
     tc.add_argument("--seed", type=int, default=0)
     tc.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
-                    help=f"DP mesh for stage (a): not ported ({ITEM_9})")
+                    help=f"DP mesh for stage (a): not ported yet "
+                         f"({ITEM_10})")
     tc.add_argument("--max-steps", type=int, default=0,
                     help="stop after N optimizer steps (0 = all)")
     tc.add_argument("--save-every", type=int, default=0,
@@ -865,7 +998,7 @@ def build_parser() -> argparse.ArgumentParser:
     tc.add_argument("--resume", action="store_true",
                     help="resume from the latest OUT/resume_state")
     tc.add_argument("--distributed", action="store_true",
-                    help=f"multi-host start-up: not ported ({ITEM_9})")
+                    help=f"multi-host start-up: not ported ({ITEM_10})")
     _device_arg(tc)
     tc.set_defaults(fn=cmd_train_cstp)
 
@@ -916,16 +1049,16 @@ def build_parser() -> argparse.ArgumentParser:
                             "the seeded data stream)")
         t.add_argument("--seq-shards", type=int, default=0,
                        help=f"sequence-parallel training: not ported "
-                            f"({ITEM_9})")
+                            f"({ITEM_10})")
         t.add_argument("--pipe-stages", type=int, default=0,
                        help=f"pipeline-parallel training: not ported "
-                            f"({ITEM_9})")
+                            f"({ITEM_10})")
         t.add_argument("--micro-batches", type=int, default=0,
                        help=f"microbatches per pipeline step: not ported "
-                            f"({ITEM_9})")
+                            f"({ITEM_10})")
         t.add_argument("--pipe-data", type=int, default=1,
                        help=f"pipeline replicas: values > 1 are not ported "
-                            f"({ITEM_9})")
+                            f"({ITEM_10})")
         t.add_argument("--export-reference-format", action="store_true",
                        help="also write the reference checkpoint layout "
                             "(modality_refinement_projector/, lora_adapter/)")

@@ -216,7 +216,7 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
                     lora_cfg: Optional[LoRAConfig] = None,
                     merge_lora: bool = True, quantize: Optional[str] = None,
                     int4_layout: str = "auto", dtype=torch.bfloat16,
-                    device=None) -> Tuple[dict, Optional[dict]]:
+                    device=None, mesh=None) -> Tuple[dict, Optional[dict]]:
     """The full parameter tree on `device` (None: CUDA) -> (params,
     unmerged LoRA tree or None).
 
@@ -227,7 +227,10 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
         after the LoRA merge on the device) or "int4" (after the merge, on
         the device, `int4_layout` "auto" / "v1" / "v2" as
         quant4.quantize_linear4 takes it): load_8bit / load_4bit's role
-        (builder.py:44-57)."""
+        (builder.py:44-57).
+    mesh: a core.mesh.Mesh whose model axis splits the LLM: each rank
+        keeps only its slice (`_load_llm_sharded`); its local config is
+        `parallel.partition.config_for(params["llm"], cfg.llm, mesh)`."""
     device = resolve_device(device)
     if quantize not in (None, "int8", "int4"):
         raise ValueError(f"unknown quantize mode: {quantize}")
@@ -266,14 +269,27 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
     lora_dir = weights_dir and os.path.join(weights_dir, LORA_DIR)
     has_lora = bool(lora_dir and os.path.isdir(lora_dir))
     will_merge = has_lora and merge_lora and bool(_lora_files(lora_dir))
+    tp_mesh = mesh if mesh is not None and mesh.model > 1 else None
+    if tp_mesh is not None:
+        params["llm"], unmerged = _load_llm_sharded(
+            model_base, cfg.llm, lora_dir if has_lora else None, lora_cfg,
+            merge_lora, quantize, int4_layout, dtype, device, tp_mesh)
+        return params, unmerged
     if model_base and os.path.isdir(model_base):
         llm = to_device(convert.decoder_from_hf(
             convert.load_hf_dir(model_base), cfg.llm, dtype,
             quantize_int8=(quantize == "int8" and not will_merge)), device)
     else:
         from ..models import decoder
-        llm = decoder.init(cfg.llm, generator=_generator(3, device),
-                           device=device)
+        # no adapter merges into a random draw: each part is quantized as
+        # it is drawn (the same values as quantizing the whole tree after,
+        # without the whole model in bf16 on the device first)
+        q = (lambda tree: _quantize_part(tree, quantize, int4_layout)) \
+            if quantize and not has_lora else (lambda tree: tree)
+        llm = decoder.init(
+            cfg.llm, generator=_generator(3, device), device=device,
+            finish_head=lambda h: q({"lm_head": h, "layers": []})["lm_head"],
+            finish_layer=lambda lp: q({"layers": [lp]})["layers"][0])
 
     unmerged = None
     if has_lora:
@@ -296,6 +312,84 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
         llm = quantize_decoder4(llm, int4_layout)
     params["llm"] = llm
     return params, unmerged
+
+
+def _quantize_part(tree: dict, quantize: Optional[str], layout: str):
+    """int8 / int4 quantization of a partial decoder tree ({"lm_head"?,
+    "layers": [...]}); projections already quantized stay as they are."""
+    if quantize == "int8":
+        from ..kernels.quant import quantize_decoder
+        return quantize_decoder(tree)
+    if quantize == "int4":
+        from ..kernels.quant4 import quantize_decoder4
+        return quantize_decoder4(tree, layout)
+    return tree
+
+
+def _load_llm_sharded(model_base, llm_cfg: DecoderConfig, lora_dir,
+                      lora_cfg, merge_lora: bool, quantize, int4_layout,
+                      dtype, device, mesh):
+    """The decoder of one rank of a tensor-parallel mesh: each part is
+    drawn (the single process's generators) or read from the files on the
+    host, merged with the LoRA adapter, moved to the device, quantized as
+    a single process quantizes it, and cut to this rank's slice
+    (parallel.partition) before the next part: no rank holds the whole
+    LLM on its device. A layer quantizes whole, then is cut (int8's
+    scale of a row-parallel product spans every row); the head is cut
+    first. -> (this rank's tree, its unmerged LoRA or None)."""
+    from ..parallel import partition
+
+    head_tp = partition.plan(llm_cfg, mesh)
+    state = {"tp": None}
+
+    def finish_head(head):
+        # column-parallel: each column quantizes on its own (int8 and int4
+        # scales are per column), so the slice quantizes first, the same
+        # values without the whole head's transients
+        head = partition.shard_head({"lm_head": to_device(head, device)},
+                                    head_tp)
+        return _quantize_part(dict(head, layers=[]), quantize,
+                              int4_layout)["lm_head"]
+
+    def finish_layer(lp):
+        lp = _quantize_part({"layers": [to_device(lp, device)]}, quantize,
+                            int4_layout)["layers"][0]
+        if state["tp"] is None:
+            state["tp"] = partition.plan(llm_cfg, mesh, lp)
+        return partition.shard_layer(lp, state["tp"])
+
+    flat = scale = None
+    if lora_dir is not None:
+        flat = convert.lora_from_peft(_load_peft_sd(lora_dir))
+        scale = _peft_scaling(lora_dir, lora_cfg)
+    if model_base and os.path.isdir(model_base):
+        host = convert.decoder_from_hf(convert.load_hf_dir(model_base),
+                                       llm_cfg, dtype)
+        if flat is not None and merge_lora:
+            host = convert.merge_lora_into_decoder(host, flat, scale)
+        llm = {k: to_device(v, device) for k, v in host.items()
+               if k not in ("layers", "lm_head")}
+        if "lm_head" in host:
+            llm["lm_head"] = finish_head(host.pop("lm_head"))
+        llm["layers"] = []
+        for i in range(len(host["layers"])):
+            llm["layers"].append(finish_layer(host["layers"][i]))
+            host["layers"][i] = None
+    else:
+        from ..models import decoder
+        llm = decoder.init(llm_cfg, generator=_generator(3, device),
+                           device=device, finish_head=finish_head,
+                           finish_layer=finish_layer)
+        if flat is not None and merge_lora:
+            raise ValueError("a LoRA adapter merges into loaded base "
+                             "weights: give --model-base a HF directory")
+    unmerged = None
+    if flat is not None and not merge_lora:
+        from ..lora.lora import tree_from_flat
+        unmerged = partition.shard_lora(
+            tree_from_flat(flat, llm_cfg.num_layers, device=device),
+            state["tp"])
+    return llm, unmerged
 
 
 def _load_peft_sd(lora_dir: str) -> Dict[str, Any]:

@@ -88,6 +88,10 @@ class DecoderConfig:
     do_layer_norm_before: bool = True
     activation: str = "silu"
     dtype: str = "bfloat16"
+    # tensor parallelism (parallel/partition.TensorParallel): set on the
+    # rank-local config `partition.local_config` returns, whose head and
+    # MLP widths are this rank's shares; None on a single process
+    tp: object = field(default=None, compare=False, repr=False)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -251,6 +255,19 @@ class GenerationConfig:
     @property
     def do_sample(self) -> bool:
         return self.temperature > 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh (config.py:294): the data axis for data parallelism,
+    the model axis for tensor parallelism."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, str]:
+        return ("data", "model")
 
 
 @dataclass(frozen=True)

@@ -42,9 +42,17 @@ padding, the copy to the device) on a prefetch thread
 run (`make_draft`); the engine runners take `draft_layers` as speculative
 ticks and refuse beams.
 
-Single process: the JAX runners' `local_slice` and `_allgather_results`
-are the identity here. Not ported yet, and refused: the device meshes
-(ROADMAP.md §1 item 9).
+The parallel axes (runner.py:66-85, :109-127, :199-238, :481-534,
+:712-745): with `mesh` (core.mesh.Mesh) each data row of ranks takes its
+contiguous slice of the examples (`core.mesh.data_slice`), the model
+ranks of a row run tensor-parallel over the row's share of the decoder
+(the runners shard a whole tree themselves; the CLI loads each rank's
+share), the data index folds into each batch's seed, and the results are
+gathered in order (`gather_json_blobs` over the mesh, model rank 0 of
+each data row contributing); global rank 0 logs, saves and scores.
+`seq_mesh` (parallel.ring.SeqMesh) shards each prompt's KV cache over
+its ranks instead (`infer.sp_engine`); beams and the static draft are
+refused there, as in JAX. The engine runners take a mesh of data 1.
 """
 
 from __future__ import annotations
@@ -56,7 +64,9 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..core import mesh as mesh_mod
 from ..core.config import SEQ_TOKEN_INDEX, GenerationConfig, OpusConfig
 from ..core.util import round_up
 from ..infer import engine
@@ -121,17 +131,25 @@ def make_draft(params, cfg: OpusConfig, gen: GenerationConfig):
 
 def _generate_spliced(params, cfg: OpusConfig, tokenizer, ids, mask,
                       esm_toks, gen: GenerationConfig, *, impl: str,
-                      batch_index: int, draft=None):
+                      batch_index: int, draft=None, seq_mesh=None,
+                      data_index: int = 0):
     """Splice -> generate -> decode texts. The sampling generator is seeded
-    from (gen.seed, batch_index) so batches draw independent noise.
-    gen.num_beams > 1: beam search; `draft` (make_draft): speculative
-    decoding, the same spliced embeddings feeding target and draft
-    (runner.py:130-165)."""
+    from (gen.seed, data_index * 100003 + batch_index) so batches and data
+    ranks draw independent noise (runner.py:135-136). gen.num_beams > 1:
+    beam search; `draft` (make_draft): speculative decoding, the same
+    spliced embeddings feeding target and draft; `seq_mesh`: the
+    sequence-sharded cache (runner.py:130-176)."""
     sp = opus.splice_prompt(params, cfg, ids, mask, esm_toks, left_pad=True,
                             impl=impl)
     pos = decoder.positions_from_mask(sp.mask)
     g = torch.Generator(device=ids.device)
-    g.manual_seed(gen.seed * 1_000_003 + batch_index)
+    g.manual_seed(gen.seed * 1_000_003 + data_index * 100003 + batch_index)
+    if seq_mesh is not None and gen.num_beams > 1:
+        raise ValueError("beam search over a sequence-sharded cache is not "
+                         "supported (--seq-shards with --num-beams 1 only)")
+    if seq_mesh is not None and draft is not None:
+        raise ValueError("--draft-layers over a sequence-sharded cache is "
+                         "unsupported (drop --seq-shards)")
     common = dict(max_new_tokens=gen.max_new_tokens,
                   eos_token_id=gen.eos_token_id,
                   pad_token_id=gen.pad_token_id,
@@ -141,6 +159,14 @@ def _generate_spliced(params, cfg: OpusConfig, tokenizer, ids, mask,
             params["llm"], cfg.llm, sp.embeds, sp.mask, pos,
             num_beams=gen.num_beams, length_penalty=gen.length_penalty,
             **common)
+    elif seq_mesh is not None:
+        from ..infer.sp_engine import generate_seq_sharded
+        out = generate_seq_sharded(
+            params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
+            mesh=seq_mesh, max_new_tokens=gen.max_new_tokens,
+            temperature=gen.temperature, top_p=gen.top_p,
+            eos_token_id=gen.eos_token_id, pad_token_id=gen.pad_token_id,
+            quantize_cache=gen.quantize_cache)
     elif draft is not None:
         from ..infer import speculative
         dparams, dcfg = draft
@@ -198,13 +224,17 @@ def run_annotation_eval(params, cfg: OpusConfig, tokenizer, file_path: str,
                         batch_size: int = 8, prompt_bucket: int = 64,
                         esm_bucket: int = 128, impl: str = "auto",
                         save_path: Optional[str] = None, examples=None,
-                        bert_embed_fn=None, log_fn=print) -> EvalReport:
+                        bert_embed_fn=None, mesh=None, seq_mesh=None,
+                        log_fn=print) -> EvalReport:
     """Batch annotation eval over one benchmark JSON (the reference's
     run_opus_ddp eval_model). `examples` overrides loading `file_path`;
     the file name still picks the task policy and the metrics. Runs on the
-    device that holds the parameters."""
+    device that holds the parameters. `mesh` / `seq_mesh`: the parallel
+    axes (module docstring); ranks other than 0 return empty metrics."""
     if examples is None:
         examples = ds.load_annotation_json(file_path)
+    params, cfg = _tp_share(params, cfg, mesh)
+    examples = examples[mesh_mod.data_slice(mesh, len(examples))]
     gen = gen or GenerationConfig(
         max_new_tokens=ds.max_new_tokens_for(file_path),
         eos_token_id=getattr(tokenizer, "eos_token_id", -1),
@@ -216,11 +246,12 @@ def run_annotation_eval(params, cfg: OpusConfig, tokenizer, file_path: str,
         lambda e: annotation_prompt(ds.instruction_for(e, file_path),
                                     VICUNA_V0),
         gen, batch_size=batch_size, prompt_bucket=prompt_bucket,
-        esm_bucket=esm_bucket, impl=impl)
+        esm_bucket=esm_bucket, impl=impl, mesh=mesh, seq_mesh=seq_mesh)
     results = [{"ground_truth": e.output, "generated": t}
                for e, t in zip(examples, texts)]
     dt = time.perf_counter() - t0
 
+    results = _allgather_results(results, mesh)
     eps, metrics = _report(results, dt, file_path, save_path,
                            bert_embed_fn, log_fn)
     return EvalReport(results, metrics, eps, dt, decode_tokens,
@@ -230,7 +261,8 @@ def run_annotation_eval(params, cfg: OpusConfig, tokenizer, file_path: str,
 def _static_generate(params, cfg: OpusConfig, tokenizer, examples,
                      prompt_of: Callable, gen: GenerationConfig, *,
                      batch_size: int, prompt_bucket: int, esm_bucket: int,
-                     impl: str) -> Tuple[List[str], int, float]:
+                     impl: str, mesh=None, seq_mesh=None
+                     ) -> Tuple[List[str], int, float]:
     """The static runners' loop (runner.py:212-226, :513-530): batches of
     `batch_size` (the last one padded), each prompted by `prompt_of` and
     prepared on the prefetch thread (`_prefetched_batches`), spliced and
@@ -244,19 +276,29 @@ def _static_generate(params, cfg: OpusConfig, tokenizer, examples,
             examples, batch_size, prompt_of, tokenizer,
             prompt_bucket=prompt_bucket, esm_bucket=esm_bucket,
             device=device):
-        out_texts, out = _generate_spliced(params, cfg, tokenizer, ids, mask,
-                                           esm_toks, gen, impl=impl,
-                                           batch_index=bi, draft=draft)
+        out_texts, out = _generate_spliced(
+            params, cfg, tokenizer, ids, mask, esm_toks, gen, impl=impl,
+            batch_index=bi, draft=draft, seq_mesh=seq_mesh,
+            data_index=mesh.data_index if mesh is not None else 0)
         decode_tokens += out.steps * len(chunk)
         decode_seconds += out.decode_seconds
         texts.extend(out_texts[:n_real])
     return texts, decode_tokens, decode_seconds
 
 
+def _is_logger() -> bool:
+    """Global rank 0 (or a single process): the rank that logs, saves and
+    scores (runner.py:238)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _report(results, dt, file_path, save_path, bert_embed_fn, log_fn):
     """After the timed window (runner.py:236-245): entries/s, the results
-    saved, the metrics computed and logged."""
+    saved, the metrics computed and logged (on the logging rank; the
+    others get empty metrics)."""
     eps = len(results) / dt if dt > 0 else 0.0
+    if not _is_logger():
+        return eps, {}
     log_fn(f"entries/sec: {eps:.3f}, time elapsed: {dt:.1f}s")
     if save_path:
         with open(save_path, "w") as f:
@@ -271,10 +313,63 @@ def _check_engine_gen(gen: GenerationConfig) -> None:
         raise ValueError("beam search needs the static path (drop --engine)")
 
 
-def _refuse_mesh(mesh) -> None:
-    from ..serve.engine import not_ported
-    if mesh is not None:
-        raise not_ported("mesh", 9)
+def _tp_share(params, cfg: OpusConfig, mesh):
+    """This rank's share of a whole tree under `mesh`'s model axis (the
+    tree as it is when it is a share already, or at M = 1)."""
+    if mesh is None or mesh.model <= 1 or cfg.llm.tp is not None:
+        return params, cfg
+    from ..parallel import partition
+    return partition.shard_params(mesh, params, cfg)
+
+
+def _engine_mesh(mesh):
+    """The engine runners' mesh: tensor-parallel only (cli/main.py:198)."""
+    if mesh is not None and mesh.data != 1:
+        raise ValueError("the engine shards tensor-parallel only: use a "
+                         "mesh of data 1 (--mesh 1,N; the slot pool is the "
+                         "batch axis)")
+    return mesh
+
+
+def gather_json_blobs(results: List[dict], process_count: int,
+                      process_index: int, allgather_fn) -> List[dict]:
+    """Variable-size JSON gather over a fixed-shape allgather primitive
+    (runner.py:712): each process serializes its results to a byte blob;
+    the blob sizes are allgathered first, every blob is padded to the
+    max, allgathered, and sliced back by its true size. `allgather_fn`
+    takes a local numpy array and returns the (process_count, ...)
+    stack."""
+    blob = json.dumps(results).encode()
+    arr = np.frombuffer(blob, np.uint8)
+    n = np.zeros((process_count,), np.int32)
+    n[process_index] = len(arr)
+    sizes = np.asarray(allgather_fn(n)).sum(0)
+    buf = np.zeros((max(int(sizes.max()), 1),), np.uint8)
+    buf[:len(arr)] = arr
+    all_bufs = np.asarray(allgather_fn(buf))
+    merged: List[dict] = []
+    for i in range(process_count):
+        merged.extend(json.loads(bytes(all_bufs[i][:int(sizes[i])]).decode()))
+    return merged
+
+
+def _allgather_results(results: List[dict], mesh) -> List[dict]:
+    """The data rows' results in order on every rank of the mesh
+    (run_opus_ddp.py:138's gather_object): model rank 0 of each data row
+    contributes its rows, the others an empty list. Identity without a
+    mesh or with one data row."""
+    if mesh is None or mesh.data == 1:
+        return results
+    ranks = [r for row in mesh.ranks for r in row]
+
+    def allgather(a: np.ndarray) -> np.ndarray:
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
+        return torch.stack(mesh_mod.all_gather_list(t, mesh.group)
+                           ).cpu().numpy()
+
+    mine = results if mesh.model_index == 0 else []
+    return gather_json_blobs(mine, len(ranks), ranks.index(dist.get_rank()),
+                             allgather)
 
 
 def _common_token_prefix(tok_ids: List[list]) -> int:
@@ -326,7 +421,7 @@ def _engine_generate(params, cfg: OpusConfig, tokenizer, prompts, sequences,
                      steps_per_tick: int, splice_batch: int,
                      prompt_bucket: int, esm_bucket: int, lora_bank=None,
                      adapter_id=None, engine_cache=None,
-                     cache_prefix: bool = False
+                     cache_prefix: bool = False, mesh=None
                      ) -> Tuple[List[List[int]], dict]:
     """Splice every (prompt, protein) pair in batches of `splice_batch`,
     drive the serving engine to completion, return the token lists in input
@@ -339,7 +434,8 @@ def _engine_generate(params, cfg: OpusConfig, tokenizer, prompts, sequences,
     cache_prefix: the prompts' common token prefix (16 tokens or more) is
     prefilled once (`register_prefix`) and every request admits with its
     suffix only; not under an adapter (the pinned prefix holds base-weight
-    state). gen.draft_layers / gen.n_draft: speculative ticks."""
+    state). gen.draft_layers / gen.n_draft: speculative ticks. `mesh` (data
+    1): the engine runs tensor-parallel over its model ranks."""
     from ..serve.engine import ServeRequest, ServingEngine
 
     if not prompts:
@@ -368,14 +464,14 @@ def _engine_generate(params, cfg: OpusConfig, tokenizer, prompts, sequences,
                     if b < longest) + (round_up(longest, 64),)
     max_len = plen + buckets[-1] + gen.max_new_tokens
     ck = (buckets, max_len, max_slots, steps_per_tick, gen.quantize_cache,
-          gen.draft_layers, gen.n_draft)
+          mesh is not None, gen.draft_layers, gen.n_draft)
     eng = engine_cache.get(ck) if engine_cache is not None else None
     if eng is None:
         eng = ServingEngine(params["llm"], cfg.llm, max_slots=max_slots,
                             max_len=max_len, prefill_buckets=buckets,
                             steps_per_tick=steps_per_tick,
                             quantize_cache=gen.quantize_cache, seed=gen.seed,
-                            lora_bank=lora_bank,
+                            lora_bank=lora_bank, mesh=mesh,
                             draft_layers=gen.draft_layers or None,
                             spec_k=gen.n_draft)
         if engine_cache is not None:
@@ -432,7 +528,6 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
     ({name: folded adapter tree}) with `adapter_id` runs the set under one
     bank adapter; `engine_cache`, `cache_prefix` and gen.draft_layers as
     in `_engine_generate`."""
-    _refuse_mesh(mesh)
     if examples is None:
         examples = ds.load_annotation_json(file_path)
     gen = gen or GenerationConfig(
@@ -449,7 +544,8 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
         max_slots=max_slots, steps_per_tick=steps_per_tick,
         splice_batch=splice_batch, prompt_bucket=prompt_bucket,
         esm_bucket=esm_bucket, lora_bank=lora_bank, adapter_id=adapter_id,
-        engine_cache=engine_cache, cache_prefix=cache_prefix)
+        engine_cache=engine_cache, cache_prefix=cache_prefix,
+        mesh=_engine_mesh(mesh))
     results = [{"ground_truth": e.output,
                 "generated": truncate_at_sep(tokenizer.decode(toks))}
                for e, toks in zip(examples, done)]
@@ -492,6 +588,8 @@ def _mcq_report(results, dt, save_path, log_fn):
     window (runner.py:532-541) -> (entries/s, metrics)."""
     acc, counts = mcq_mod.score(results)
     eps = len(results) / dt if dt > 0 else 0.0
+    if not _is_logger():
+        return eps, {"Accuracy": round(acc, 4), "OptionCounts": counts}
     log_fn(f"{counts}")
     log_fn(f"Accuracy: {acc * 100:.2f}%  entries/sec: {eps:.3f}")
     if save_path:
@@ -509,12 +607,12 @@ def run_mcq_eval(params, cfg: OpusConfig, tokenizer, file_path: str, *,
                  mesh=None, seq_mesh=None, log_fn=print) -> EvalReport:
     """MCQ eval (the reference's eval_run_multichoice eval_model): the
     chat-template prompt, 50 new tokens by default, option-letter accuracy
-    and histogram. Runs on the device that holds the parameters."""
-    if mesh is not None or seq_mesh is not None:
-        raise NotImplementedError("mesh / seq_mesh is not ported yet "
-                                  "(ROADMAP.md §1 item 9)")
+    and histogram. Runs on the device that holds the parameters; `mesh` /
+    `seq_mesh` as in `run_annotation_eval`."""
     if examples is None:
         examples = ds.load_mcq_json(file_path)
+    params, cfg = _tp_share(params, cfg, mesh)
+    examples = examples[mesh_mod.data_slice(mesh, len(examples))]
     gen = _mcq_gen(tokenizer, gen)
     render = _mcq_renderer(tokenizer, render_prompt)
 
@@ -523,10 +621,11 @@ def run_mcq_eval(params, cfg: OpusConfig, tokenizer, file_path: str, *,
         params, cfg, tokenizer, examples,
         lambda e: render(ds.mcq_prompt(e.question, e.options)), gen,
         batch_size=batch_size, prompt_bucket=prompt_bucket,
-        esm_bucket=esm_bucket, impl=impl)
+        esm_bucket=esm_bucket, impl=impl, mesh=mesh, seq_mesh=seq_mesh)
     results = [{"ground_truth": e.answer, "generated": t}
                for e, t in zip(examples, texts)]
     dt = time.perf_counter() - t0
+    results = _allgather_results(results, mesh)
     eps, metrics = _mcq_report(results, dt, save_path, log_fn)
     return EvalReport(results, metrics, eps, dt, decode_tokens,
                       decode_seconds)
@@ -563,14 +662,18 @@ def run_mcq_eval_scored(params, cfg: OpusConfig, tokenizer, file_path: str,
                         esm_bucket: int = 128, impl: str = "auto",
                         render_prompt: Optional[Callable] = None,
                         examples=None, save_path: Optional[str] = None,
-                        log_fn=print) -> EvalReport:
+                        mesh=None, log_fn=print) -> EvalReport:
     """Scored MCQ eval (CLI `mcq --scored`): one prefill forward a batch
     scores the option letters, and the answer is the option whose letter
     is the likeliest first generated token (log P summed over its
     candidate first tokens). Deterministic and regex-free; the results
-    carry the chosen letter, so `mcq.score` applies."""
+    carry the chosen letter, so `mcq.score` applies. `mesh` as in
+    `run_annotation_eval` (the JAX runner slices by process,
+    runner.py:588)."""
     if examples is None:
         examples = ds.load_mcq_json(file_path)
+    params, cfg = _tp_share(params, cfg, mesh)
+    examples = examples[mesh_mod.data_slice(mesh, len(examples))]
     render = _mcq_renderer(tokenizer, render_prompt)
     device = params["llm"]["embed_tokens"]["embedding"].device
     letters = "ABCD"
@@ -594,6 +697,7 @@ def run_mcq_eval_scored(params, cfg: OpusConfig, tokenizer, file_path: str,
                 logp[r], cand_ids[c]))
             results.append({"ground_truth": e.answer, "generated": best})
     dt = time.perf_counter() - t0
+    results = _allgather_results(results, mesh)
     eps, metrics = _mcq_report(results, dt, save_path, log_fn)
     return EvalReport(results, metrics, eps, dt)
 
@@ -630,7 +734,6 @@ def run_mcq_eval_engine(params, cfg: OpusConfig, tokenizer, file_path: str,
     `run_mcq_eval`. `decode_tokens` / `decode_seconds` are the engine's
     tokens and wall time, `engine` its counters and TTFT percentiles. The
     engine options as in `run_annotation_eval_engine`."""
-    _refuse_mesh(mesh)
     if examples is None:
         examples = ds.load_mcq_json(file_path)
     gen = _mcq_gen(tokenizer, gen)
@@ -645,7 +748,8 @@ def run_mcq_eval_engine(params, cfg: OpusConfig, tokenizer, file_path: str,
         max_slots=max_slots, steps_per_tick=steps_per_tick,
         splice_batch=splice_batch, prompt_bucket=prompt_bucket,
         esm_bucket=esm_bucket, lora_bank=lora_bank, adapter_id=adapter_id,
-        engine_cache=engine_cache, cache_prefix=cache_prefix)
+        engine_cache=engine_cache, cache_prefix=cache_prefix,
+        mesh=_engine_mesh(mesh))
     results = [{"ground_truth": e.answer,
                 "generated": tokenizer.decode(toks)}
                for e, toks in zip(examples, done)]

@@ -44,6 +44,7 @@ on CPU tensors. "torch" takes the plain versions on every device.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
 
@@ -63,11 +64,15 @@ OPT_POS_OFFSET = 2      # HF OPT learned-position offset (decoder.py:29)
 FAMILIES = ("llama", "qwen2", "opt")
 
 
-def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None):
+def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None,
+         finish_head=None, finish_layer=None):
     """Random parameters drawn from `generator` (decoder.py:37-80 scheme:
     q/k/v biases for qwen2; for opt LayerNorms with bias, the learned
     position table, q/k/v/o biases and fc1/fc2) on `device` (None: CUDA).
-    An unknown family raises ValueError."""
+    An unknown family raises ValueError. `finish_head(lm_head)` and
+    `finish_layer(layer)` map each part as soon as it is drawn (a rank of
+    a tensor-parallel mesh quantizes and keeps its slice: the draws are
+    the single process's, and the whole model never exists at once)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"decoder family {cfg.family!r} is not one of "
                          f"{FAMILIES}")
@@ -88,6 +93,8 @@ def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None):
             cfg.max_position_embeddings + OPT_POS_OFFSET, h, **kw)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = layers.dense_init(h, cfg.vocab_size, **kw)
+        if finish_head is not None:
+            params["lm_head"] = finish_head(params["lm_head"])
     qdim, kvdim = cfg.num_heads * d, cfg.num_kv_heads * d
     f = cfg.intermediate_size
     for _ in range(cfg.num_layers):
@@ -104,7 +111,7 @@ def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None):
             lp["gate_proj"] = layers.dense_init(h, f, **kw)
             lp["up_proj"] = layers.dense_init(h, f, **kw)
             lp["down_proj"] = layers.dense_init(f, h, **kw)
-        params["layers"].append(lp)
+        params["layers"].append(finish_layer(lp) if finish_layer else lp)
     return params
 
 
@@ -242,8 +249,9 @@ def _read_cache(layer_cache, dtype, rows=None):
 
 
 def _check_impl(impl: str) -> None:
-    if impl not in ("auto", "fused", "torch"):
-        raise ValueError(f"impl must be auto|fused|torch, got {impl!r}")
+    if impl not in ("auto", "fused", "torch", "ring", "sp_decode"):
+        raise ValueError(f"impl must be auto|fused|torch|ring|sp_decode, "
+                         f"got {impl!r}")
 
 
 def _norm(cfg: DecoderConfig, p, x):
@@ -253,18 +261,35 @@ def _norm(cfg: DecoderConfig, p, x):
     return rms_norm(p, x, eps=cfg.rms_norm_eps)
 
 
-def _mlp(cfg: DecoderConfig, p, x, mm, fused):
+def _mlp(cfg: DecoderConfig, p, x, mm, fused, row=None):
     """fc2(act(fc1 x)) for OPT, else down(silu(gate x) * up x)
     (decoder.py:232-240); `mm(name, x)` is the layer's projection,
-    `fused(name, x, parts)` the sliced product of a fused one."""
+    `fused(name, x, parts)` the sliced product of a fused one, `row` the
+    out-projection (mm unless it is row-parallel)."""
+    row = row or mm
     if cfg.family == "opt":
-        return mm("fc2", ACTIVATIONS[cfg.activation](mm("fc1", x)))
+        return row("fc2", ACTIVATIONS[cfg.activation](mm("fc1", x)))
     if "gateup_proj" in p:
         i = cfg.intermediate_size
         gate, up = fused("gateup_proj", x, (("gate_proj", i), ("up_proj", i)))
     else:
         gate, up = mm("gate_proj", x), mm("up_proj", x)
-    return mm("down_proj", ACTIVATIONS["silu"](gate) * up)
+    return row("down_proj", ACTIVATIONS["silu"](gate) * up)
+
+
+def _row_parallel(p, la, x, ls: float, impl: str, tp):
+    """A row-parallel projection under tensor parallelism: this rank's
+    input rows times its rows of the weight (and of LoRA's A), summed over
+    the model group by one fp32 all-reduce; the bias, held whole, is added
+    once after it and the sum rounded to x's dtype."""
+    y = dense({k: v for k, v in p.items() if k != "bias"}, x,
+              impl=impl).float()
+    if la is not None:
+        y = y + lora_delta(la, x, ls)
+    tp.all_reduce(y)
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
 
 
 def _fused_product(p, x, parts, la, ls, impl):
@@ -284,16 +309,34 @@ def _fused_product(p, x, parts, la, ls, impl):
 
 
 def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
-           impl: str = "auto", la=None, ls: float = 1.0, rows=None):
+           impl: str = "auto", la=None, ls: float = 1.0, rows=None,
+           sp=None):
     """One decoder layer; `la` this layer's LoRA adapters ({proj: {"A",
     "B"}} or None) at scaling `ls` (decoder.py:278-327). cos/sin None: no
-    rope (OPT). `rows`: the cache rows x's rows use (None: the same)."""
+    rope (OPT). `rows`: the cache rows x's rows use (None: the same).
+    Under tensor parallelism (`cfg.tp`) the heads and the MLP width are
+    this rank's shares and the out-projections all-reduce. impl "ring"
+    (a sequence-sharded prefill over `sp`'s group: the cache keeps this
+    rank's shard, attention runs over the rotating fresh shards) and
+    "sp_decode" (one token over a sequence-sharded cache, the partial
+    softmaxes merged across `sp`) are the seq-shards modes
+    (decoder.py:298-320); their `mask4` is the 2-D (B, S_loc) validity."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     la = la or {}
-    mm = lambda name, h: lora_dense(p[name], la.get(name), h, ls, impl=impl)
+    sharded = impl in ("ring", "sp_decode")
+    pimpl = "auto" if sharded else impl          # the projections' choice
+    mm = lambda name, h: lora_dense(p[name], la.get(name), h, ls,
+                                    impl=pimpl)
     fused = lambda name, h, parts: _fused_product(p[name], h, parts, la, ls,
-                                                  impl)
+                                                  pimpl)
+    tp = cfg.tp
+
+    def row(split):
+        if tp is None or not split:
+            return mm
+        return lambda name, h: _row_parallel(p[name], la.get(name), h, ls,
+                                             pimpl, tp)
     r = _norm(cfg, p["attn_norm"], x)
     if "qkv_proj" in p:
         q, k, v = fused("qkv_proj", r, (("q_proj", hq * d),
@@ -311,7 +354,12 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
     if layer_cache is not None:
         _write_cache(layer_cache, k, v, index, rows)
         lk, lv = layer_cache["k"], layer_cache["v"]
-        if (rows is None and isinstance(lk, dict) and impl != "torch"
+        if impl == "ring":
+            # the ring attends the fresh shards: the local cache read back
+            # would hand it capacity-length shards (decoder.py:300-306)
+            pass
+        elif (rows is None and isinstance(lk, dict)
+                and impl not in ("torch", "sp_decode")
                 and da.supports(q, lk, mask4)):
             # one-token attention straight over the quantized cache; the
             # dequantized K/V never exist (decoder.py:305-319)
@@ -320,12 +368,16 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
             a = fn(q, lk, lv, mask4)
         else:
             # attend over the cache: a quantized one DEQUANTIZED, as
-            # decoder.py:320-323 does (prefill, and impl="torch")
+            # decoder.py:320-323 does (prefill, impl="torch" and
+            # sp_decode, whose softmax merges across the shards)
             k, v = _read_cache(layer_cache, x.dtype, rows)
     if a is None:
-        a = attention(q, k, v, mask4, impl=impl)
-    x = x + mm("o_proj", a.reshape(b, s, hq * d))
-    return x + _mlp(cfg, p, _norm(cfg, p["ffn_norm"], x), mm, fused)
+        a = attention(q, k, v, mask4, impl=impl,
+                      group=sp.group if sp is not None else None)
+    x = x + row(tp is not None and tp.attn)("o_proj",
+                                             a.reshape(b, s, hq * d))
+    return x + _mlp(cfg, p, _norm(cfg, p["ffn_norm"], x), mm, fused,
+                    row(tp is not None and tp.mlp))
 
 
 def fuse_layer(lp: Dict) -> Dict:
@@ -448,7 +500,7 @@ def _remat_wrap(fn, remat):
 def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
             cache=None, *, lora=None, lora_scale: float = 1.0,
             impl: str = "auto", remat=False, return_hidden: bool = False,
-            ntk_ctx: Optional[int] = None
+            ntk_ctx: Optional[int] = None, sp=None
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """input_embeds (B, S, H); positions (B, S); mask4 (B, 1, S, Skv) bool
     (Skv = S without a cache, the cache capacity with one). With a cache,
@@ -463,7 +515,8 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     The dynamic-NTK context bound, as decoder.py:573-581 takes it: the
     caller's `ntk_ctx` (an engine that prefills into a smaller scratch
     cache than its decode cache pins one bound for both), else the cache
-    capacity, else this call's key length.
+    capacity, else this call's key length. `sp` (parallel.ring.SeqMesh)
+    goes with impl "ring" / "sp_decode" (`_block`).
     """
     _check_impl(impl)
     ctx = ntk_ctx if ntk_ctx is not None else (
@@ -479,7 +532,7 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
         lc = cache["layers"][i] if cache is not None else None
         la = lora["layers"][i] if lora is not None else None
         x = block(cfg, p, x, mask4, cos, sin, lc, index, impl, la,
-                  lora_scale, rows)
+                  lora_scale, rows, sp)
     if cache is not None:
         cache["index"] = index + input_embeds.shape[1]
     x = _final_norm(params, cfg, x)
@@ -527,6 +580,11 @@ def head_logits(params, cfg: DecoderConfig, x, *, impl: str = "auto"):
     head goes through `dense`, so its logits are rounded to x's dtype
     before fp32 (decoder.py:638-639)."""
     head = params.get("lm_head", {})
+    tp = cfg.tp
+    if tp is not None and tp.head and "lm_head" in params:
+        # column-parallel head: every rank gets the whole vocabulary
+        local = dataclasses.replace(cfg, tp=None)
+        return tp.gather(head_logits(params, local, x, impl=impl))
     if not cfg.tie_word_embeddings and (
             "kernel_p" in head or "kernel_q" in head):
         return dense(head, x, impl=impl).float()

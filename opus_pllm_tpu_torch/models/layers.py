@@ -188,13 +188,21 @@ def apply_rope(x, cos, sin):
 # Attention (layers.py:186-243)
 # ---------------------------------------------------------------------------
 
-def attention(q, k, v, mask=None, *, impl: str = "auto"):
+def attention(q, k, v, mask=None, *, impl: str = "auto", group=None):
     """Grouped-query attention (layers.py:186). impl "auto" (or "fused")
     takes the flash kernel where `flash_attention.supports` holds (bf16
     CUDA tensors, a broadcast mask, D % 128 == 0, Sq > 1), as the JAX
     package takes its Pallas kernel only on the TPU; "torch" and every
-    other shape take `attention_xla`. The ring and sp_decode modes come
-    with the parallel axes."""
+    other shape take `attention_xla`. "ring" (a sequence-sharded prefill:
+    q/k/v this rank's shard, `mask` the (B, S_loc) key validity) and
+    "sp_decode" (replicated queries over this rank's cache shard) run
+    over the sequence group `group` (parallel/ring.py, layers.py:197-210)."""
+    if impl == "ring":
+        from ..parallel.ring import ring_attention
+        return ring_attention(q, k, v, mask, group=group, causal=True)
+    if impl == "sp_decode":
+        from ..parallel.ring import sharded_decode_attention
+        return sharded_decode_attention(q, k, v, mask, group=group)
     if impl != "torch" and fa.supports(q, k, mask):
         return fa.flash_attention(q, k, v, mask)
     return attention_xla(q, k, v, mask)

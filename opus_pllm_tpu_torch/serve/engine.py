@@ -42,6 +42,13 @@ transition rules exactly, so the host never has to ask the device for it.
   into its slot's rows of the big cache (the decoder's `rows` path; the
   JAX engine gathers the group's rows and scatters them back whole, which
   leaves the same state), while the other slots keep decoding.
+* Tensor parallelism (`mesh`, a core.mesh.Mesh of data 1;
+  serve/engine.py:197-211, :259-265, :359): the engine shards a whole
+  tree itself (`parallel.partition.shard_decoder`) or takes a rank's
+  share as it is; the cache holds the rank's KV heads ((B, S, Hkv/M, D),
+  head-major for quantized leaves) and the bank its slice of each
+  projection. Every rank runs the same host scheduler on the same
+  (gathered) logits, so their slots stay in step.
 * The depth-1 pipeline: a tick's tokens (and an admission's first tokens)
   are copied to the host only when that entry is processed, after the next
   tick has been issued, so the host issues tick t + 1 while the card runs
@@ -61,12 +68,12 @@ tests/test_torch_serve_options.py).
 
 Ported: `ServeRequest` (:65), `Completion` (:92), `_RowState` (:98),
 `_bucket` (:118), `LatencyHistogram` (:125) and `ServingEngine` (:182)
-with its bank, speculative ticks, prefix cache, chunked prefill and
-scheduler. The padding rows of an admission group are not merged anywhere
-(the JAX engine scatters them to the trash row, index max_slots, which
-stays an inactive decode row here), and a chunk group is not padded. Not
-ported: the mesh (ROADMAP.md §1 item 9), refused with NotImplementedError;
-`warmup` (a jit warm-up) is not needed: PyTorch runs eagerly.
+with its bank, speculative ticks, prefix cache, chunked prefill, mesh
+and scheduler. The padding rows of an admission group are not merged
+anywhere (the JAX engine scatters them to the trash row, index
+max_slots, which stays an inactive decode row here), and a chunk group
+is not padded. Not
+ported: `warmup` (a jit warm-up) is not needed: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -85,11 +92,6 @@ from ..infer.engine import (_categorical, sample_token_rows,
 from ..infer.speculative import accept_and_emit, draft_from_target
 from ..lora.lora import make_bank, stack_adapter
 from ..models import decoder
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 "
-                               f"item {item})")
 
 
 @dataclasses.dataclass
@@ -338,7 +340,16 @@ class ServingEngine:
                  draft_layers: Optional[int] = None, spec_k: int = 4,
                  spec_adaptive: bool = True):
         if mesh is not None:
-            raise not_ported("mesh (tensor-parallel serving)", 9)
+            # tensor-parallel serving (serve/engine.py:197-211): this rank
+            # holds its heads' cache and its slice of every projection;
+            # the host scheduler runs alike on every rank
+            if mesh.data != 1:
+                raise ValueError("the engine shards tensor-parallel only: "
+                                 "a mesh of data 1 (--mesh 1,N; the slot "
+                                 "pool is the batch axis)")
+            if cfg.tp is None and mesh.model > 1:
+                from ..parallel import partition
+                params, cfg = partition.shard_decoder(params, cfg, mesh)
         self.params = params
         self.cfg = cfg
         self.device = params["embed_tokens"]["embedding"].device
@@ -348,6 +359,8 @@ class ServingEngine:
         if lora_bank:
             bank, self._adapter_index = make_bank(lora_bank,
                                                   capacity=adapter_capacity)
+            # stored whole, sliced per projection to this rank's share
+            bank = self._shard_bank(bank, cfg)
             self._lora_bank = {p: {k: x.to(self.device)
                                    for k, x in ab.items()}
                                for p, ab in bank.items()}
@@ -1229,7 +1242,7 @@ class ServingEngine:
             raise ValueError(
                 f"adapter bank is full ({self._bank_capacity} slots); "
                 "remove one or build the engine with more adapter_capacity")
-        stacked = stack_adapter(name, tree)
+        stacked = self._shard_bank(stack_adapter(name, tree), self.cfg)
         want = sorted((p, k, tuple(x.shape)) for p, ab in stacked.items()
                       for k, x in ab.items())
         have = sorted((p, k, tuple(x.shape[:1] + x.shape[2:]))
@@ -1261,6 +1274,13 @@ class ServingEngine:
         for ab in self._lora_bank.values():
             for x in ab.values():
                 x[:, idx] = 0
+
+    @staticmethod
+    def _shard_bank(bank: dict, cfg: DecoderConfig) -> dict:
+        if cfg.tp is None:
+            return bank
+        from ..parallel import partition
+        return partition.shard_bank(bank, cfg.tp)
 
     def reseed(self, seed: int) -> None:
         """Reset the sampling generator (engine reuse across repeats)."""

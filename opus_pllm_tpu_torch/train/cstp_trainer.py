@@ -20,7 +20,7 @@ state object is returned (the JAX step returns a new state).
 loads one into a freshly built state. `fit(prefetch=N)` places the next
 N batches on a background thread (`utils.prefetch`, the JAX default 2).
 Not ported yet, and refused with NotImplementedError: the mesh
-(ROADMAP.md §1 item 9).
+(ROADMAP.md §1 item 10, the training axes).
 """
 
 from __future__ import annotations
@@ -165,7 +165,7 @@ def fit(state: CSTPTrainState, tx: AdamW, cfg: CSTPConfig, tcfg: TrainConfig,
     the CheckpointManager `ckpt`; restore it with restore_state(ckpt,
     fresh_state) and skip `state.step` batches to resume."""
     if mesh is not None:
-        raise _not_ported("training on a mesh", 9)
+        raise _not_ported("training on a mesh", 10)
     device = resolve_device(device)
     stage = lambda pair: to_device(tuple(pair), device)
     if prefetch:

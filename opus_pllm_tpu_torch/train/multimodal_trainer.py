@@ -20,7 +20,8 @@ continues exactly (tests/test_torch_checkpoint.py).
 
 `fit(prefetch=N)` prepares and places the next N batches on a background
 thread (`utils.prefetch`, the JAX default 2). Not ported yet, and refused
-with NotImplementedError: the mesh (ROADMAP.md §1 item 9).
+with NotImplementedError: the mesh (ROADMAP.md §1 item 10, the training
+axes).
 """
 
 from __future__ import annotations
@@ -263,7 +264,7 @@ def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
     restore_state(ckpt, fresh_state) and skip `state.step` batches to
     resume a killed run exactly."""
     if mesh is not None:
-        raise _not_ported("training on a mesh", 9)
+        raise _not_ported("training on a mesh", 10)
     device = resolve_device(device)
     stage = lambda b: to_device(b, device)
     if prefetch:

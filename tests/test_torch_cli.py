@@ -16,7 +16,8 @@ train-lora for 2 steps with --export-reference-format (its
 adapter_config.json as the JAX CLI writes it, the PEFT export loading back
 as the trained adapters) and --resume, convert-weights through
 load_native, chat over stdin, the refusals of the parallel axes (ROADMAP
-item 9) and the missing GPU."""
+item 10: the training axes; the generation commands' --mesh /
+--seq-shards without torchrun's environment) and the missing GPU."""
 
 import argparse
 import io
@@ -290,8 +291,12 @@ def test_chat_over_stdin(dirs, byte_tok, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2,1"], ["--distributed"], ["--seq-shards", "2"]])
-def test_model_commands_refuse_the_parallel_axes(dirs, argv):
-    with pytest.raises(NotImplementedError, match="item 9"):
+def test_model_commands_refuse_the_parallel_axes(dirs, argv, monkeypatch):
+    # the flags run under torchrun (tests/test_torch_mesh.py); a single
+    # process without its environment stops before loading anything
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
         cli.main(tc.annotate_args(dirs) + argv + ["--device", "cpu"])
 
 
@@ -299,10 +304,10 @@ def test_model_commands_refuse_the_parallel_axes(dirs, argv):
     ["--pipe-stages", "2"], ["--micro-batches", "2"], ["--pipe-data", "2"],
     ["--seq-shards", "2"], ["--mesh", "4"]])
 def test_train_commands_refuse_the_parallel_axes(dirs, tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(_lora_args(dirs, "t.json", str(tmp_path), *argv))
     if argv[0] in ("--mesh",):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             cli.main(["train-cstp", "--vec-pickle", "v.pkl", "--out",
                       str(tmp_path), "--device", "cpu", *argv])
 

@@ -369,5 +369,5 @@ def test_fit_checkpoints_restore_and_resume(tmp_path):
     for a, b in zip(leaves(resumed) + moments(resumed),
                     leaves(state) + moments(state)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         ct.fit(state, tx, tc, tcfg, batches, device="cpu", mesh=object())

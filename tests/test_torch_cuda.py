@@ -1171,3 +1171,65 @@ def test_beam_and_speculative_decode_on_the_card():
     picked = torch.gather(lg, 2, spec.tokens.long()[..., None])[..., 0]
     gap = (lg.amax(-1) - picked).max().item()
     assert gap <= 0.02 * lg.abs().max().item(), gap
+
+
+# the tensor-parallel shard shapes of Llama-3-8B (parallel/partition.py):
+# M ranks hold N / M of [q|k|v], [gate|up] and the head, K / M of o_proj
+# and down_proj (every one a whole int4 v2 superblock count)
+def _tp_shapes(m):
+    return [(4096, 48 * 128 // m), (4096 // m, 4096),
+            (4096, 2 * 14336 // m), (14336 // m, 4096),
+            (4096, 128256 // m)]
+
+
+@pytest.mark.parametrize("rows,m,k,n", [(8, 4, k, n) for k, n in
+                                        _tp_shapes(4)]
+                         + [(4, 2, k, n) for k, n in _tp_shapes(2)])
+def test_int4_matmul_at_the_shard_shapes(rows, m, k, n):
+    """The aligned tensor-core kernel (N % 4 == 0, K a whole number of
+    superblocks) at each shard, one launch a call."""
+    g = _gen()
+    q, s = quant4.quantize_grouped(
+        torch.randn((k, n), generator=g, device="cuda"))
+    packed = quant4.pack_int4_v2(q)
+    assert quant4.v2_kernel_variant(n) == "int4_matmul"
+    quant4.reset_launches()
+    _check(lambda x: quant4.int4_matmul(x, packed, s),
+           lambda x: quant4.int4_matmul_plain(x, packed, s),
+           (_rnd(g, rows, k),))
+    assert quant4.launches["int4_matmul"] == 1
+
+
+@pytest.mark.parametrize("k,n", _tp_shapes(4)[:4])
+def test_int8_matmul_at_the_shard_shapes(k, n):
+    """The engine prefill's int8 products over 4 ranks (M = 8 x 384)."""
+    g = _gen()
+    wq, s = quant.quantize_per_channel(torch.randn((k, n), generator=g,
+                                                   device="cuda"))
+    quant.reset_launches()
+    _check(lambda x: quant.int8_matmul(x, wq, s),
+           lambda x: quant.int8_matmul_plain(x, wq, s), (_rnd(g, 3072, k),))
+    assert quant.launches["int8_matmul"] == 1
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (16, 4)])
+def test_attention_kernels_at_the_shard_heads(hq, hkv):
+    """flash_attention over a rank's 8 / 2 (4 ranks) or 16 / 4 (2 ranks)
+    heads at the static prefill's mask, and both decode attentions over
+    its KV heads."""
+    g = _gen()
+    q, k, v, mask = _flash_inputs(g, 8, 327, 391, hq, hkv, 128, "static")
+    fa.reset_launches()
+    _check(lambda q, k, v: fa.flash_attention(q, k, v, mask),
+           lambda q, k, v: fa.flash_attention_plain(q, k, v, mask),
+           (q, k, v))
+    assert fa.launches["flash_attention"] == 1
+    for kind in ("int8", "int4"):
+        kl, vl, m4 = _cache(g, 17, hkv, 448, 128, kind)
+        qd = _rnd(g, 17, 1, hq, 128, scale=0.5)
+        fn = da.decode_attention_int4 if kind == "int4" else \
+            da.decode_attention_int8
+        da.reset_launches()
+        _check(lambda q: fn(q, kl, vl, m4),
+               lambda q: da.decode_attention_plain(q, kl, vl, m4), (qd,))
+        assert da.launches[f"decode_attention_{kind}"] == 1

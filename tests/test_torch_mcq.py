@@ -10,6 +10,7 @@ decoding: texts, Accuracy and OptionCounts must be identical."""
 
 import dataclasses
 import json
+import types
 
 import jax
 import numpy as np
@@ -334,10 +335,15 @@ def test_engine_matches_static_runner(models):
 # static runner tests to the JAX one). "scored": the run answers every
 # question (tests/test_torch_beam_spec.py holds beam search to JAX).
 @pytest.mark.parametrize("which, kw, expect", [
-    pytest.param("static", dict(mesh=object()), NotImplementedError,
-                 id="static-kw0-NotImplementedError"),
-    pytest.param("static", dict(seq_mesh=object()), NotImplementedError,
-                 id="static-kw1-NotImplementedError"),
+    # a mesh of one rank runs as no mesh (meshes of 2 and 4 gloo ranks:
+    # tests/test_torch_serve_tp.py)
+    pytest.param("static", dict(mesh=types.SimpleNamespace(
+        data=1, model=1, data_index=0, model_index=0)), "static-runs",
+        id="static-kw0-NotImplementedError"),
+    # beams over a sequence-sharded cache are refused, as in JAX
+    pytest.param("static", dict(seq_mesh=object(), gen=config.
+                                GenerationConfig(**GEN, num_beams=2)),
+                 ValueError, id="static-kw1-NotImplementedError"),
     pytest.param("static", dict(gen=config.GenerationConfig(**GEN,
                                                            num_beams=2)),
                  "scored", id="static-kw2-NotImplementedError"),
@@ -355,8 +361,10 @@ def test_engine_matches_static_runner(models):
                  id="engine-kw6-NotImplementedError"),
     pytest.param("engine", dict(cache_prefix=True), "runs",
                  id="engine-kw7-NotImplementedError"),
-    pytest.param("engine", dict(mesh=object()), NotImplementedError,
-                 id="engine-kw8-NotImplementedError"),
+    # the engine is tensor-parallel only: a data axis is refused
+    pytest.param("engine", dict(mesh=types.SimpleNamespace(data=2,
+                                                           model=1)),
+                 ValueError, id="engine-kw8-NotImplementedError"),
     pytest.param("engine", dict(gen=config.GenerationConfig(num_beams=2)),
                  ValueError, id="engine-kw9-ValueError"),
     # the 2-layer decoder has no 2-layer draft (serve/engine.py:316-320)
@@ -374,6 +382,14 @@ def test_unported_options_are_refused(models, which, kw, expect):
         assert len(rep.results) == len(_examples())
         assert sum(rep.metrics["OptionCounts"].values()) == len(_examples())
         return
+    if expect == "static-runs":
+        gen = config.GenerationConfig(**GEN)
+        rep = fn(tp, _cfg(config), ByteTokenizer(), FILE, **KW, **call,
+                 gen=gen)
+        base = fn(tp, _cfg(config), ByteTokenizer(), FILE, **KW, gen=gen,
+                  examples=_examples(), log_fn=lambda *_: None)
+        assert rep.results == base.results
+        return
     if expect == "runs":
         small = dict(gen=config.GenerationConfig(**GEN), max_slots=2,
                      steps_per_tick=2, splice_batch=2, prompt_bucket=32,
@@ -388,6 +404,7 @@ def test_unported_options_are_refused(models, which, kw, expect):
             assert rep.engine["prefix_tokens"] >= 16
         return
     match = {NotImplementedError: "not ported", ValueError:
-             "beam search|unknown adapter|draft_layers must be"}[expect]
+             "beam search|unknown adapter|draft_layers must be|data 1"}[
+                 expect]
     with pytest.raises(expect, match=match):
         fn(tp, _cfg(config), ByteTokenizer(), FILE, **call)

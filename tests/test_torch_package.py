@@ -5,8 +5,9 @@ library with make_logprob_fn, the checkpoint modules, stage (a)
 trainer), the HTTP server's front with its OpenAI API, the engine with
 speculative ticks, a prefix and chunked prefill, the observability
 module, the CLI, the checkpoint builder, the HF tokenizer wrapper, the
-prefetch thread, beam search and static speculative decoding loads
-neither jax nor the JAX package, and chip_smoke.py refuses
+prefetch thread, beam search and static speculative decoding, and the
+parallel axes' modules (core.mesh, parallel.partition, parallel.ring,
+infer.sp_engine) loads neither jax nor the JAX package, and chip_smoke.py refuses
 to run without a CUDA device (non-zero exit, no result line). Its entry
 points default to CUDA."""
 
@@ -148,6 +149,13 @@ assert engine_mod.beam_generate(params["llm"], cfg.llm, x, m, p4,
 assert speculative.speculative_generate(dp, params["llm"], dc, cfg.llm, x,
                                         x, m, p4, max_new_tokens=2,
                                         n_draft=2).tokens.shape == (1, 2)
+from opus_pllm_tpu_torch.core import mesh as mesh_mod
+from opus_pllm_tpu_torch.core.config import MeshConfig
+from opus_pllm_tpu_torch.infer import sp_engine
+from opus_pllm_tpu_torch.parallel import partition, ring
+assert partition.specs(params["llm"], MeshConfig(1, 2))["lm_head"][
+    "kernel"] == ("data", "model")
+assert mesh_mod.local_slice(5, 1, 2) == slice(3, 5)
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "opus_pllm_tpu")
        or m.startswith(("jax.", "jaxlib.", "opus_pllm_tpu."))]
 print("LOADED", bad)

@@ -13,6 +13,8 @@ and the per-row sampler against the JAX one."""
 
 import jax
 import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -194,8 +196,9 @@ def test_submit_validates_and_refuses_unported(tiny):
     """Submit's checks, and the constructor options as the JAX engine
     takes them: an unregistered prefix and an adapter without a bank are
     ValueErrors, chunk_prefill and draft_layers build, a bank entry that is
-    no adapter tree fails in both packages alike, and only the mesh is
-    still refused."""
+    no adapter tree fails in both packages alike, and a mesh with a data
+    axis is refused (the engine is tensor-parallel only; meshes that run:
+    tests/test_torch_serve_tp.py)."""
     jcfg, tcfg, jp, tp = tiny
     eng = ServingEngine(tp, tcfg, max_slots=2, max_len=32,
                         prefill_buckets=(16,))
@@ -211,9 +214,10 @@ def test_submit_validates_and_refuses_unported(tiny):
     with pytest.raises(ValueError, match="unknown adapter"):
         eng.submit(ServeRequest("l", embeds=_emb(0, 4), max_new_tokens=4,
                                 adapter_id="x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+    with pytest.raises(ValueError, match="tensor-parallel only"):
         ServingEngine(tp, tcfg, max_slots=2, max_len=32,
-                      prefill_buckets=(16,), mesh=object())
+                      prefill_buckets=(16,),
+                      mesh=types.SimpleNamespace(data=2, model=1))
     with pytest.raises(KeyError):
         jserve.ServingEngine(jp, jcfg, max_slots=2, max_len=32,
                              prefill_buckets=(16,), lora_bank={"a": {}})

@@ -12,6 +12,7 @@ requests share three slots, so requests are admitted mid-stream into freed
 slots."""
 
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -124,15 +125,18 @@ def test_sampled_engine_eval_answers_every_request(models):
 
 
 def test_engine_eval_refuses_unported_options(models):
-    """Only the mesh is still refused. A bank entry that is no adapter
+    """A mesh with a data axis is refused (the engine runners are
+    tensor-parallel only; meshes that run: tests/test_torch_serve_tp.py).
+    A bank entry that is no adapter
     tree fails in make_bank, as in the JAX package; beam search needs the
     static path; an empty set returns no results."""
     _, tp = models
     exs = [ds.AnnotationExample(*e) for e in _examples(1)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+    with pytest.raises(ValueError, match="data 1"):
         runner.run_annotation_eval_engine(
             tp, _cfg(config), ByteTokenizer(), FILE, examples=exs,
-            log_fn=lambda *_: None, mesh=object())
+            log_fn=lambda *_: None,
+            mesh=types.SimpleNamespace(data=2, model=1))
     with pytest.raises(KeyError):
         runner.run_annotation_eval_engine(
             tp, _cfg(config), ByteTokenizer(), FILE, examples=exs,

@@ -383,7 +383,7 @@ def test_unported_trainer_options_raise():
     state, tx = mmt.create_state(tcfg, TrainConfig(), tfrozen,
                                  trainable=ttrain, lora_cfg=lcfg[1],
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         mmt.fit(state, tx, tcfg, TrainConfig(), tfrozen, [],
                 lora_cfg=lcfg[1], device="cpu", mesh=object())
     mmt.fit(state, tx, tcfg, TrainConfig(), tfrozen, [], lora_cfg=lcfg[1],
