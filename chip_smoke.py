@@ -382,9 +382,58 @@ and prints no result:
      with the variant it takes. A rank that raises or hangs fails the
      phase. The collectives' host-clock times and the runs' walls
      measure this rehearsal on one card, not tensor-parallel speed.
+ 17. parallel (training and serve): 4 ranks spawned as in phase 16, each
+     running through the port's CLI: (a) train-lora --mesh 2,2 over a
+     bf16 Llama-3-8B and (b) over its int4 v1 quantization (--load-int4:
+     QLoRA), 2 steps each of train-lora's defaults (batch 16 at L = 519,
+     LoRA rank 16 on the seven projections, remat full), the frozen tree
+     FSDP-cut over the data pair and the LLM tensor-parallel over the
+     model pair; when the ranks share one card at 8 of the 32 layers
+     and with the chunked cross-entropy (--ce-chunk 64): four ranks'
+     full-vocabulary fp32 logits, gathered weights and fp32 switches
+     overflow one card (PERF.md); with a card a rank at 32 layers and
+     train-lora's whole-sequence cross-entropy; (c)
+     train-cstp --mesh 4 on 256 pairs of ESM2-650M / Llama-3-8B widths,
+     batch 128, 2 steps; (d) serve --mesh 1,4 --load-int8
+     --cache-system-prefix with an adapter bank of one PEFT directory and
+     a spare row, at 32 layers: rank 0 takes 8 HTTP requests (4 greedy
+     annotate requests at once, a greedy and a sampled generate, one
+     cancelled by its timeout, one adapter added from a PEFT directory)
+     and one greedy request under the new adapter, then SIGTERM. Gates,
+     step 1 against one process running the same command on the same
+     batches here, each later step against one process resumed from the
+     mesh's checkpoint of the step before (the same parameters and
+     moments): the loss (within 2^-7 in bf16, 1e-5 in fp32 (CSTP), with
+     every CSTP metric within 1e-3), the gradients AdamW took (each leaf
+     within 2^-4 of its largest entry in bf16, 1e-4 in fp32), step 1's
+     sign rule on the parameters (an entry moves the other way only where
+     one process's gradient lies within that bound of 0), the later
+     updates from the same state (every entry within 2 lr, at most 1% of
+     them beyond lr / 10); train-lora's losses at every step also within
+     2^-7 of the first one process's; exact launch counts a step on every
+     rank; the bf16 run's checkpoint (the mesh's full tree,
+     in one process's format) equals its final tree bit for bit and one
+     process resumes it for a third step; serving: every request answered
+     as asked (504 for the cancelled one, the adapter listed, one
+     cancellation in /health), rank 0 drained, every rank exited 0, the
+     ranks' launch counts equal, the first prefill group's logits within
+     phase 3's bound of the fp32 plain path and every greedy token within
+     twice that bound of a teacher-forced argmax of one process's LLM;
+     then the training shards' kernels against their plain versions
+     (`compare`): flash forward and both backward kernels with 16 query
+     and 4 KV heads at a data rank's 8 x 519 rows, int4_matmul_v1 at M =
+     8 x 519 on the M = 2 shards.
      Each phase prints its wall, then chip_smoke prints its total.
 The last two lines: a JSON object of the kernels' numbers, then
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --parallel
+
+runs phases 1 and 2, then phases 16 and 17 alone (on a machine with four
+cards, over NCCL with a card a rank: train-lora at 32 layers; phase 17
+times one process's train steps beside the mesh's), then the
+single-card baseline of phase 16's run (a) on one process. It prints no
+result line.
 
     python3 chip_smoke.py --profile-serving
 
@@ -4866,10 +4915,12 @@ def par_gates(card, i, res, llm, lcfg):
     tok_n = (sum(len(t) for t in r0["tokens"]) if kind == "engine"
              else int(sum(int(rr["lengths"].sum()) for rr in
                           [res[g[0]] for g in groups])))
+    per_step = (f", {1e3 * r0['decode_seconds'] / r0['steps']:.1f} ms a "
+                f"step" if r0.get("steps") else "")
     print(f"parallel {label}: {n} requests, {tok_n} tokens, wall "
           f"{r0['wall']:.1f} s (weights drawn on the card included), decode "
-          f"{r0['decode_seconds']:.2f} s ({r0['layout']}) [{card}]",
-          flush=True)
+          f"{r0['decode_seconds']:.2f} s{per_step} ({r0['layout']}) "
+          f"[{card}]", flush=True)
     fp32 = fp32_llm(llm, lcfg)
     with torch.no_grad():
         if kind == "engine":
@@ -5044,7 +5095,796 @@ def check_parallel(card, rows):
           f"[{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the trainers on the mesh and serve's lockstep mesh
+# ---------------------------------------------------------------------------
+
+PT_RANKS, PT_STEPS = 4, 2
+PT_LAYERS_SHARED = 8       # training depth when the ranks share one card
+PT_CE_CHUNK_SHARED = 64    # and the chunked cross-entropy there
+PT_TIMEOUT = 900           # the phase's whole run
+PT_CSTP_PAIRS, PT_CSTP_BATCH = 256, 128
+PT_SERVE_NEW = 12
+PT_LORA_LR = 2e-5          # train-lora's default
+PT_CSTP_LR = 0.05          # train-cstp's default
+PT_LOSS_RTOL = 2 ** -7     # bf16 train-lora losses: one bf16 rounding
+PT_GRAD_RTOL = 2 ** -4     # bf16 LoRA gradients, of each leaf's largest
+PT_CSTP_RTOL = 1e-5        # fp32 CSTP losses
+PT_CSTP_GRAD_RTOL = 1e-4   # fp32 CSTP gradients, of each leaf's largest
+PT_RUNS = (   # (label, kind, flags)
+    ("lora bf16 mesh 2,2", "lora", ["--mesh", "2,2"]),
+    ("lora int4-v1 mesh 2,2", "lora", ["--mesh", "2,2", "--load-int4"]),
+    ("cstp mesh 4", "cstp", ["--mesh", "4"]),
+    ("serve mesh 1,4 int8", "serve", ["--mesh", "1,4", "--load-int8",
+                                      "--cache-system-prefix",
+                                      "--adapter-slots", "2"]),
+)
+
+
+def pt_shared():
+    """True when the phase's ranks share this one card (gloo)."""
+    import torch
+    return torch.cuda.device_count() < PT_RANKS
+
+
+def pt_depth(layers):
+    """Cut the CLI's Llama-3-8B preset to `layers` layers (None: whole):
+    core.builder.decoder_config_for wrapped; returns the original."""
+    import dataclasses
+    from opus_pllm_tpu_torch.core import builder
+    orig = builder.__dict__.get("_pt_orig", builder.decoder_config_for)
+    builder._pt_orig = orig
+    builder.decoder_config_for = (
+        orig if layers is None else
+        lambda path: dataclasses.replace(orig(path), num_layers=layers))
+    return orig
+
+
+def pt_files(tmp):
+    """The phase's inputs: the train-lora records, the stage-(a) pairs
+    (ESM2-650M and Llama-3-8B widths) and two PEFT adapter directories
+    (rank 4 on q_proj and v_proj, every layer)."""
+    import pickle
+    import numpy as np
+    import torch
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    with open(os.path.join(tmp, "train.json"), "w") as f:
+        # a few spare records: the 512-token cap drops some
+        json.dump(train_records((PT_STEPS + 1) * TRAIN_BATCH,
+                                ByteTokenizer()), f)
+    rng = np.random.default_rng(SEED + 17)
+    with open(os.path.join(tmp, "pairs.pkl"), "wb") as f:
+        pickle.dump([{"seq_embedding": rng.standard_normal(1280).astype(
+                          np.float32),
+                      "text_embedding": rng.standard_normal(4096).astype(
+                          np.float32)} for _ in range(PT_CSTP_PAIRS)], f)
+    g = torch.Generator().manual_seed(SEED + 17)
+    for name in ("a", "b"):
+        d = os.path.join(tmp, f"adapter_{name}")
+        os.makedirs(d)
+        with open(os.path.join(d, "adapter_config.json"), "w") as f:
+            json.dump({"r": 4, "lora_alpha": 8, "peft_type": "LORA",
+                       "task_type": "CAUSAL_LM",
+                       "target_modules": ["q_proj", "v_proj"]}, f)
+        sd = {}
+        for i in range(32):
+            for proj, out in (("q_proj", 4096), ("v_proj", 1024)):
+                stem = f"base_model.model.model.layers.{i}.self_attn.{proj}"
+                sd[stem + ".lora_A.weight"] = torch.randn(
+                    (4, 4096), generator=g) * 0.01
+                sd[stem + ".lora_B.weight"] = torch.randn(
+                    (out, 4), generator=g) * 0.01
+        write_safetensors(os.path.join(d, "adapter_model.safetensors"), sd)
+
+
+def pt_argv(tmp, i, out, mesh=True):
+    """Run i's command line (without its mesh flags when `mesh` is
+    False: the single process's)."""
+    label, kind, flags = PT_RUNS[i]
+    if not mesh:
+        flags = [f for j, f in enumerate(flags)
+                 if f != "--mesh" and (j == 0 or flags[j - 1] != "--mesh")]
+    model = ["--model-base", os.path.join(tmp, "Meta-Llama-3-8B")]
+    if kind == "lora":
+        chunk = PT_CE_CHUNK_SHARED if pt_shared() else 0
+        return (["train-lora"] + model + [
+            "--train-json", os.path.join(tmp, "train.json"), "--out", out,
+            "--max-steps", str(PT_STEPS), "--save-every", "1",
+            "--ce-chunk", str(chunk)] + flags)
+    if kind == "cstp":
+        return ["train-cstp", "--vec-pickle", os.path.join(tmp, "pairs.pkl"),
+                "--out", out, "--max-steps", str(PT_STEPS), "--save-every",
+                "1"] + flags
+    return (["serve"] + model + [
+        "--host", "127.0.0.1", "--port", out, "--max-new-tokens",
+        str(PT_SERVE_NEW), "--drain-grace", "30", "--adapter",
+        "a=" + os.path.join(tmp, "adapter_a")] + flags)
+
+
+def pt_record_training():
+    """Wrap the optimizer's step and the trainers' step factories: every
+    step's metrics and the gradients AdamW takes, gathered whole on a
+    mesh (each rank calls the gather; rank 0 keeps them) -> (the record,
+    a function restoring the originals)."""
+    import torch.distributed as dist
+    from opus_pllm_tpu_torch.parallel import partition
+    from opus_pllm_tpu_torch.train import cstp_trainer as ct
+    from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
+    from opus_pllm_tpu_torch.train import optim
+    seen = {"grads": [], "metrics": []}
+    keep = not dist.is_initialized() or dist.get_rank() == 0
+    orig_step = optim.AdamW.step
+
+    def step(self):
+        grads = [p.grad.detach() for p in self.params]
+        if self.layout is not None:
+            grads = partition.uncut_leaves(grads, self.layout)
+        if keep:
+            seen["grads"].append([g.float().cpu() for g in grads])
+        return orig_step(self)
+    saved = [(optim.AdamW, "step", orig_step)]
+    optim.AdamW.step = step
+    for mod in (mmt, ct):
+        orig = mod.make_train_step
+
+        def make(*a, _orig=orig, **k):
+            fn = _orig(*a, **k)
+
+            def run(state, *args):
+                state, m = fn(state, *args)
+                seen["metrics"].append({key: float(v)
+                                        for key, v in m.items()})
+                seen.setdefault("stamps", []).append(time.perf_counter())
+                return state, m
+            return run
+        saved.append((mod, "make_train_step", orig))
+        mod.make_train_step = make
+
+    def restore():
+        for obj, name, orig in saved:
+            setattr(obj, name, orig)
+    return seen, restore
+
+
+def pt_serve_client(port, tmp, got):
+    """Rank 0's client: wait for /health, then 8 requests (4 greedy
+    annotate requests at once, a greedy and a sampled generate, one
+    cancelled by its timeout, one adapter added, then one greedy request
+    under it), /health and /metrics, and SIGTERM to this process."""
+    import signal
+    import threading
+    import urllib.request
+    end = time.monotonic() + 600
+    while time.monotonic() < end:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                        timeout=5):
+                break
+        except OSError:
+            time.sleep(0.5)
+    got["t0"] = time.perf_counter()
+    seqs = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWYACDEFGH",
+            "MSTNPKPQRKTKRNTNRRPQDVKFPGG", "MVLSPADKTNVKAAWGKVGAHAGEYGAE"]
+    greedy = [("/v1/annotate", {"instruction": "What are the UniProtKB "
+               "keywords of this protein?", "sequence": s,
+               "max_new_tokens": PT_SERVE_NEW, "temperature": 0.0})
+              for s in seqs]
+    answers = [None] * len(greedy)
+
+    def send(j):
+        answers[j] = http_call(port, *greedy[j])
+    threads = [threading.Thread(target=send, args=(j,))
+               for j in range(len(greedy))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got["greedy"] = answers
+    prompt = "The protein kinase domain " * 4
+    got["generate"] = http_call(port, "/v1/generate", {
+        "prompt": prompt, "max_new_tokens": PT_SERVE_NEW,
+        "temperature": 0.0})
+    got["sampled"] = http_call(port, "/v1/generate", {
+        "prompt": prompt, "max_new_tokens": PT_SERVE_NEW,
+        "temperature": 0.7, "top_p": 0.9})
+    try:
+        got["cancelled"] = http_call(port, "/v1/generate", {
+            "prompt": prompt, "max_new_tokens": 700, "temperature": 0.0,
+            "_timeout": 0.3})
+    except Exception as e:   # noqa: BLE001 — the 504 is the expected end
+        got["cancelled"] = repr(e)
+    got["adapter"] = http_call(port, "/v1/adapters", {
+        "name": "b", "path": os.path.join(tmp, "adapter_b")})
+    got["under_b"] = http_call(port, "/v1/generate", {
+        "prompt": prompt, "max_new_tokens": PT_SERVE_NEW,
+        "temperature": 0.0, "adapter": "b"})
+    got["wall"] = time.perf_counter() - got["t0"]
+    got["health"] = http_call(port, "/health")
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        got["metrics"] = r.read().decode()
+    os.kill(os.getpid(), signal.SIGTERM)
+
+
+def pt_one_run(rank, tmp, i, layers):
+    """Run i of PT_RUNS on this rank through the port's CLI; what the
+    gates need is saved to `tmp` (module docstring, phase 17)."""
+    import contextlib
+    import io
+    import signal
+    import threading
+    import torch
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.serve import engine as serve_engine
+    from opus_pllm_tpu_torch.serve import server
+    label, kind, flags = PT_RUNS[i]
+    pt_depth(layers if kind == "lora" else None)
+    res = {}
+    out = os.path.join(tmp, f"out{i}")
+    restore = lambda: None    # noqa: E731
+    rec = Calls()
+    if kind == "serve":
+        port = int(open(os.path.join(tmp, "port")).read())
+        argv = pt_argv(tmp, i, str(port))
+        if rank == 0:
+            got = res.setdefault("client", {})
+            threading.Thread(target=pt_serve_client, args=(port, tmp, got),
+                             daemon=True).start()
+            rec.wrap(serve_engine, "prefill_group")
+            reqs, done = res.setdefault("requests", {}), res.setdefault(
+                "done", {})
+            submit = serve_engine.ServingEngine.submit
+            deliver = server.OpusServer._deliver
+
+            def sub(self, req):
+                submit(self, req)
+                e = req.embeds
+                reqs[req.request_id] = {
+                    "embeds": e.detach().cpu() if e is not None else None,
+                    "token_ids": req.token_ids,
+                    "prefix_id": req.prefix_id, "adapter": req.adapter_id,
+                    "temperature": req.temperature}
+
+            def dlv(self, rid, result):
+                done[rid] = (list(result.tokens) if hasattr(result, "tokens")
+                             else repr(result))
+                deliver(self, rid, result)
+            serve_engine.ServingEngine.submit = sub
+            server.OpusServer._deliver = dlv
+
+            def restore():
+                serve_engine.ServingEngine.submit = submit
+                server.OpusServer._deliver = deliver
+    else:
+        argv = pt_argv(tmp, i, out)
+        seen, restore = pt_record_training()
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    saved_term = signal.getsignal(signal.SIGTERM)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    finally:
+        restore()
+        rec.restore()
+        signal.signal(signal.SIGTERM, saved_term)
+        pt_depth(None)
+    torch.cuda.synchronize()
+    res.update(counts=read_counts(), wall=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated(),
+               printed=buf.getvalue(), layout=par_layout())
+    if kind != "serve":
+        res.update(metrics=seen["metrics"], grads=seen["grads"],
+                   stamps=seen.get("stamps", []))
+    elif rank == 0:
+        firsts = [(a, k, o) for a, k, o in rec.calls.get("prefill_group", [])
+                  if k.get("prefix") is None]
+        if firsts:
+            (a, k, (lg, _)) = firsts[0]
+            res.update(logits=lg.cpu(), group_embs=a[2].cpu(),
+                       n_valid=a[3].cpu(), bucket=a[4], max_len=k["max_len"],
+                       quantize=k["quantize"])
+    torch.save(res, os.path.join(tmp, f"pt{i}_rank{rank}.pt"))
+
+
+def pt_rank(rank, tmp, here, layers):
+    """One rank of phase 17: its process group (file rendezvous, the
+    backend core.mesh picks), then every run of PT_RUNS through the port's
+    CLI. Any exception exits non-zero."""
+    import datetime
+    import gc
+    import traceback
+    try:
+        sys.path.insert(0, here)
+        import torch
+        import torch.distributed as dist
+        from opus_pllm_tpu_torch.cli import main as cli
+        from opus_pllm_tpu_torch.core import mesh as mesh_mod
+        from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh_mod.initialize_distributed(
+            "file://" + os.path.join(tmp, "rendezvous"), PT_RANKS, rank,
+            device_type="cuda", timeout=datetime.timedelta(
+                seconds=PT_TIMEOUT))
+        info = mesh_mod.backend_info()
+        if rank == 0:
+            print(f"parallel training: {PT_RANKS} ranks, backend "
+                  f"{info['backend']}, sharing one card: {info['shared']}",
+                  flush=True)
+        cli.load_tokenizer = lambda path, family: ByteTokenizer()
+        for i in range(len(PT_RUNS)):
+            pt_one_run(rank, tmp, i, layers)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        print(f"rank {rank}:\n{traceback.format_exc()}", flush=True)
+        os._exit(1)
+
+
+def pt_reference(tmp, i, layers):
+    """Run i's command on one process (no mesh flags) -> (its record,
+    launch counts, printed lines, seconds)."""
+    import gc
+    import torch
+    pt_depth(layers)
+    seen, restore = pt_record_training()
+    reset_counts()
+    try:
+        lines, dt = run_cli(pt_argv(tmp, i, os.path.join(tmp, f"one{i}"),
+                                    mesh=False))
+    finally:
+        restore()
+        pt_depth(None)
+    counts = read_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen, counts, lines, dt
+
+
+def pt_train_want(i, layers):
+    """The launches a step of run i takes on every rank (and on one
+    process): the flash forward twice (remat) and each backward once a
+    layer, the encoder kernels once an ESM2 layer, the v1 product twice
+    for each of the 7 projections a layer, and for the head once, or
+    twice a chunk of the chunked cross-entropy (each chunk's head runs
+    again in its recompute)."""
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    if PT_RUNS[i][1] == "cstp":
+        return {}
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            **{n: 33 for n in fe.launches}}
+    if "--load-int4" in PT_RUNS[i][2]:
+        chunk = PT_CE_CHUNK_SHARED if pt_shared() else 0
+        heads = 2 * -(-(TRAIN_LEN - 1) // chunk) if chunk else 1
+        want["int4_matmul_v1"] = 2 * 7 * layers + heads
+    return {n: PT_STEPS * c for n, c in want.items()}
+
+
+def pt_resumed(tmp, i, layers, step):
+    """Run i's command on one process resumed from the mesh's checkpoint
+    of `step` - 1, for `step` only -> (its record, its checkpoint
+    directory)."""
+    import gc
+    import shutil
+    import torch
+    kind = PT_RUNS[i][1]
+    d = os.path.join(tmp, f"resumed{i}_{step}")
+    shutil.copytree(os.path.join(tmp, f"out{i}", "resume_state",
+                                 str(step - 1)),
+                    os.path.join(d, "resume_state", str(step - 1)))
+    pt_depth(layers if kind == "lora" else None)
+    seen, restore = pt_record_training()
+    try:
+        argv = pt_argv(tmp, i, d, mesh=False)
+        argv[argv.index("--max-steps") + 1] = str(step)
+        run_cli(argv + ["--resume"])
+    finally:
+        restore()
+        pt_depth(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen, os.path.join(d, "resume_state")
+
+
+def pt_train_gates(card, tmp, i, res, layers):
+    """Run i against one process (module docstring, phase 17): step 1
+    against one process on the same batches, each later step against one
+    process resumed from the mesh's checkpoint of the step before (the
+    same parameters and moments), the launch counts on every rank; for
+    the bf16 run the mesh's checkpoint restored and resumed on one
+    process."""
+    import math
+    import torch
+    from opus_pllm_tpu_torch.core.checkpoint import CheckpointManager
+    from opus_pllm_tpu_torch.train.multimodal_trainer import leaves
+    label, kind, flags = PT_RUNS[i]
+    seen, counts, lines, dt = pt_reference(tmp, i, layers)
+    r0 = res[0]
+    expect_counts(f"parallel {label}, one process", counts,
+                  **pt_train_want(i, layers))
+    for r, rr in enumerate(res):
+        expect_counts(f"parallel {label} rank {r}", rr["counts"],
+                      **pt_train_want(i, layers))
+    lora = kind == "lora"
+    rtol = PT_LOSS_RTOL if lora else PT_CSTP_RTOL
+    grel = PT_GRAD_RTOL if lora else PT_CSTP_GRAD_RTOL
+    lr = PT_LORA_LR if lora else PT_CSTP_LR
+    key = "trainable" if lora else "params"
+    out = os.path.join(tmp, f"out{i}")
+    got_l = [m["loss"] for m in r0["metrics"]]
+    want_l = [m["loss"] for m in seen["metrics"]]
+    step_s = lambda st: ", ".join(f"{b - a:.3f}" for a, b in zip(st, st[1:]))
+    print(f"parallel {label}: losses mesh {got_l} one process {want_l}; "
+          f"step {PT_STEPS}'s wall mesh {step_s(r0['stamps'])} s "
+          f"({r0['layout']}), one process {step_s(seen['stamps'])} s; "
+          f"whole runs {r0['wall']:.1f} / {dt:.1f} s (weights drawn "
+          f"included) [{card}]", flush=True)
+    if len(got_l) != PT_STEPS or not all(map(math.isfinite, got_l)):
+        fail(f"parallel {label}: losses {got_l}")
+
+    def held(step, m, w, g, gw):
+        # one step of the mesh against one process on the same parameters
+        if abs(m["loss"] - w["loss"]) > rtol * abs(w["loss"]):
+            fail(f"parallel {label} step {step}: loss {m['loss']}, one "
+                 f"process {w['loss']} (rtol {rtol:.3e})")
+        if not lora and (m["grad_norm"] <= 0 or any(
+                abs(m[k] - w[k]) > 1e-3 * max(abs(w[k]), 1.0) for k in w)):
+            fail(f"parallel {label} step {step}: metrics {m}, one process "
+                 f"{w}")
+        worst = 0.0
+        for a, b in zip(g, gw):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            worst = max(worst, err / max(scale, 1e-30))
+            if a.shape != b.shape or err > grel * scale:
+                fail(f"parallel {label} step {step}: a gradient leaf "
+                     f"{tuple(a.shape)} {err:.3e} from one process's "
+                     f"(largest {scale:.3e})")
+        return worst
+    worst = [held(1, r0["metrics"][0], seen["metrics"][0], r0["grads"][0],
+                  seen["grads"][0])]
+    # step 1's parameters: Adam's first step moves each entry by lr sign(g),
+    # so an entry may move the other way only where one process's gradient
+    # lies within the gradient bound of 0
+    p1 = [leaves(CheckpointManager(os.path.join(d, "resume_state")).restore(
+        step=1)[key]) for d in (out, os.path.join(tmp, f"one{i}"))]
+    flips = 0
+    for a, b, gw in zip(*p1, seen["grads"][0]):
+        flip = (a.float() - b.float()).abs() > lr
+        flips += int(flip.sum())
+        if flip.any() and (gw.abs()[flip.cpu()] >
+                           grel * gw.abs().max()).any():
+            fail(f"parallel {label}: step 1 moved an entry the other way "
+                 f"where one process's gradient is not within the bound")
+    resumed_l, far, dmax, n_all = [], 0, 0.0, 0
+    for step in range(2, PT_STEPS + 1):
+        rs, rdir = pt_resumed(tmp, i, layers, step)
+        resumed_l.append(rs["metrics"][0]["loss"])
+        worst.append(held(step, r0["metrics"][step - 1], rs["metrics"][0],
+                          r0["grads"][step - 1], rs["grads"][0]))
+        # the update from the same state: an entry may differ where the
+        # two gradients differ near 0 (Adam's update is about lr sign(g)
+        # there), never by more than 2 lr
+        got_p, want_p = (leaves(CheckpointManager(d).restore(step=step)[key])
+                         for d in (os.path.join(out, "resume_state"), rdir))
+        for a, b in zip(got_p, want_p):
+            d = (a.float() - b.float()).abs()
+            dmax = max(dmax, d.max().item())
+            far += int((d > lr / 10).sum())
+            n_all += d.numel()
+    print(f"parallel {label}: step 1 against one process, steps 2-"
+          f"{PT_STEPS} against one process resumed from the mesh's "
+          f"checkpoint of the step before (losses {resumed_l}): gradients "
+          f"within {', '.join(f'{w:.3e}' for w in worst)} of one process's "
+          f"(of each leaf's largest; allowed {grel:.3e}); step 1 moved "
+          f"{flips} entries the other way, each where the gradient is "
+          f"within that bound of 0; the later updates from the same state "
+          f"within {dmax:.3e} (allowed 2 lr = {2 * lr:.3e}), "
+          f"{far / max(n_all, 1):.3e} of the entries beyond lr / 10 "
+          f"(allowed 1e-2)", flush=True)
+    if dmax > 2 * lr or far > 1e-2 * n_all:
+        fail(f"parallel {label}: the later updates {dmax:.3e} from one "
+             f"process's, {far} of {n_all} entries beyond lr / 10")
+    if lora and not all(abs(x - y) <= rtol * abs(y)
+                        for x, y in zip(got_l, want_l)):
+        # the parameters after step 1 differ only in the flipped entries,
+        # whose gradients are near 0: the losses stay within the bound
+        fail(f"parallel {label}: losses {got_l}, one process {want_l}")
+    gib = lambda v: v / 2 ** 30
+    print(f"parallel {label}: peak per rank " + ", ".join(
+        f"{gib(rr['peak']):.2f}" for rr in res) + " GiB", flush=True)
+    if not (lora and "--load-int4" not in flags):
+        return
+    # the mesh's checkpoint: the full tree, restored and resumed on one
+    # process
+    mgr = CheckpointManager(os.path.join(out, "resume_state"))
+    saved = mgr.restore()
+    final = leaves(CheckpointManager(out).restore())
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        leaves(saved["trainable"]), final)]
+    if mgr.latest_step() != PT_STEPS or not all(same):
+        fail(f"parallel {label}: the mesh's checkpoint of step "
+             f"{mgr.latest_step()} holds {sum(same)} of {len(same)} "
+             f"leaves of its final tree")
+    pt_depth(layers)
+    try:
+        lines, dt = run_cli(pt_argv(tmp, i, out, mesh=False)
+                            + ["--max-steps", str(PT_STEPS + 1),
+                               "--resume"])
+    finally:
+        pt_depth(None)
+    if f"resuming from step {PT_STEPS}" not in lines or not any(
+            f"at step {PT_STEPS + 1}" in ln for ln in lines):
+        fail(f"parallel {label}: one process did not resume the mesh's "
+             f"checkpoint: {lines}")
+    print(f"parallel {label}: the mesh's checkpoint (step {PT_STEPS}) is "
+          f"its final tree bit for bit and one process resumed it to step "
+          f"{PT_STEPS + 1} in {dt:.1f} s", flush=True)
+
+
+def pt_serve_gates(card, tmp, i, res):
+    """Run i (serve): every request answered as asked, the ranks' launch
+    counts, and the greedy tokens against one process's LLM: the first
+    prefill group's logits within phase 3's bound of the fp32 plain path,
+    every greedy token within twice that bound of a teacher-forced
+    argmax."""
+    import torch
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.models import decoder
+    from opus_pllm_tpu_torch.serve.engine import prefill_group
+    from opus_pllm_tpu_torch.serve.server import system_prefix_ids
+    label = PT_RUNS[i][0]
+    r0 = res[0]
+    c = r0["client"]
+    for line in r0["printed"].splitlines():
+        print("   | " + line[:200], flush=True)
+    ok = (all("text" in a for a in c.get("greedy", []) + [
+              c.get("generate", {}), c.get("sampled", {}),
+              c.get("under_b", {})])
+          and len(c.get("greedy", [])) == 4
+          and "504" in str(c.get("cancelled"))
+          and sorted(c.get("adapter", {}).get("adapters", [])) == ["a", "b"]
+          and c.get("health", {}).get("total_cancelled") == 1)
+    if not ok:
+        fail(f"parallel {label}: the client got {c}")
+    if "SIGTERM: draining" not in r0["printed"]:
+        fail(f"parallel {label}: rank 0 did not drain on SIGTERM")
+    # the LLM's kernels alike on every rank; the encoder's on rank 0
+    # only, which splices each protein request (33 layers)
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    steps = [rr["counts"] for rr in res]
+    llm = [{k: v for k, v in st.items() if k not in fe.launches}
+           for st in steps]
+    n_prot = len(c["greedy"])
+    if any(x != llm[0] for x in llm[1:]) or any(
+            steps[0][k] != 33 * n_prot or any(st[k] for st in steps[1:])
+            for k in fe.launches):
+        fail(f"parallel {label}: launches a rank {steps}")
+    print(f"parallel {label}: launches on every rank {llm[0]}, the encoder "
+          f"kernels {33 * n_prot} each on rank 0 ({n_prot} proteins "
+          f"spliced); 9 requests in {c['wall']:.1f} s ({r0['layout']}) "
+          f"[{card}]", flush=True)
+    # every prefill runs flash on each rank's heads; int8_matmul runs
+    # where an admission group reaches 256 rows (the four annotate
+    # requests admitted together), the others take the dequantize route
+    if llm[0].get("flash_attention", 0) == 0:
+        fail(f"parallel {label}: the kernels did not run: {llm[0]}")
+    llm, lcfg = par_single_llm("int8")
+    greedy = [(rid, q) for rid, q in r0["requests"].items()
+              if q["temperature"] == 0.0 and q["adapter"] is None
+              and isinstance(r0["done"].get(rid), list)]
+    sys_ids = torch.tensor(system_prefix_ids(ByteTokenizer()),
+                           device="cuda")
+    tails, outs = [], []
+    with torch.no_grad():
+        for rid, q in greedy:
+            if q["embeds"] is not None:
+                e = q["embeds"].cuda()
+            else:
+                e = decoder.embed_tokens(llm, torch.as_tensor(
+                    q["token_ids"], device="cuda").long())
+            if q["prefix_id"] == "sys":
+                e = torch.cat([decoder.embed_tokens(llm, sys_ids).to(
+                    e.dtype), e])
+            tails.append(e)
+            outs.append(r0["done"][rid])
+        fp32 = fp32_llm(llm, lcfg)
+        e, nv = r0["group_embs"].cuda(), r0["n_valid"].cuda()
+        kw = dict(max_len=r0["max_len"], quantize=r0["quantize"])
+        plain = prefill_group(llm, lcfg, e, nv, r0["bucket"], impl="torch",
+                              **kw)[0]
+        ref = prefill_group(*fp32, e.float(), nv, r0["bucket"],
+                            impl="torch", **kw)[0]
+        tol = gate(f"parallel {label} prefill logits", r0["logits"].cuda(),
+                   plain, ref)
+        del fp32
+    if len(greedy) < 5:
+        fail(f"parallel {label}: {len(greedy)} greedy requests recorded")
+    teacher_forced(f"parallel {label}", llm, lcfg, tails, outs,
+                   r0["max_len"], 2 * tol)
+    del llm
+
+
+def pt_shard_kernels(card, rows):
+    """The training shards' kernels against their plain versions (phase
+    3's compare): the flash forward and both backward kernels at a data
+    rank's 8 x 519 rows with 16 query and 4 KV heads (M = 2), and
+    int4_matmul_v1 at M = 8 x 519 on the projections' shards at M = 2
+    (the head's N / 2)."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
+    from opus_pllm_tpu_torch.kernels import quant4
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 17)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
+    b, l, hq, hkv, d = TRAIN_BATCH // 2, TRAIN_LEN, 16, 4, 128
+    n_valid = torch.randint(l // 2, l + 1, (b,), generator=g, device="cuda")
+    mask = train_mask(n_valid, l)
+    pairs = mask.sum().item()
+    q, k, v, dout = rnd(b, l, hq, d), rnd(b, l, hkv, d), rnd(b, l, hkv, d), \
+        rnd(b, l, hq, d)
+    label = f"{b} x {l}, {hq} q / {hkv} kv heads (TP 2)"
+    keep(rows, "flash_attention", compare(
+        f"flash_attention {label}",
+        lambda q, k, v: fa.flash_attention(q, k, v, mask),
+        lambda q, k, v: fa.flash_attention_plain(q, k, v, mask),
+        (q, k, v), card, flops=4 * hq * d * pairs,
+        more_bytes=nbytes(mask)), False)
+    out, lse = fa.flash_attention(q, k, v, mask, return_lse=True)
+    delta = fab._delta(out, dout)
+    plain = lambda q, k, v, dout: fab.flash_attention_bwd_plain(
+        q, k, v, mask, out, lse, dout)
+    saved = nbytes(mask, lse, delta)
+    keep(rows, "flash_attention_bwd_dq", compare(
+        f"flash_attention_bwd_dq {label}",
+        lambda q, k, v, dout: fab.flash_attention_bwd_dq(
+            q, k, v, mask, lse, delta, dout),
+        lambda *a: plain(*a)[0], (q, k, v, dout), card,
+        flops=6 * hq * d * pairs, more_bytes=saved, scaled_atol=True), False)
+    keep(rows, "flash_attention_bwd_dkv", compare(
+        f"flash_attention_bwd_dkv {label}",
+        lambda q, k, v, dout: fab.flash_attention_bwd_dkv(
+            q, k, v, mask, lse, delta, dout),
+        lambda *a: torch.stack(plain(*a)[1:]), (q, k, v, dout), card,
+        flops=8 * hq * d * pairs, more_bytes=saved, scaled_atol=True), False)
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    m = b * l
+    for kk, n in ((4096, 2048), (4096, 512), (2048, 4096), (4096, 7168),
+                  (7168, 4096), (4096, 64128)):
+        wq, s = quant4.quantize_grouped(torch.randn(
+            (kk, n), generator=g, device="cuda"))
+        packed = quant4.pack_int4(wq)
+        del wq
+        x = rnd(m, kk)
+        keep(rows, "int4_matmul_v1", compare(
+            f"int4_matmul_v1 M={m} K={kk} N={n} (TP 2)",
+            lambda x: quant4.int4_matmul(x, packed, s),
+            lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
+            flops=2 * m * kk * n, more_bytes=nbytes(packed, s)), False)
+        del s, packed, x
+        torch.cuda.empty_cache()
+
+
+def check_parallel_training(card, rows):
+    """Phase 17 (module docstring): PT_RANKS ranks on this card (or a card
+    each) run train-lora / train-cstp on meshes and serve --mesh 1,4
+    through the port's CLI; their results are gated against one process
+    here."""
+    import gc
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    t_phase = time.perf_counter()
+    # the one process's runs take the byte tokenizer, as the ranks do (no
+    # tokenizer files; and no hub lookup, ever)
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    cli.load_tokenizer = lambda path, family: ByteTokenizer()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="opus-parallel-train-")
+    layers = PT_LAYERS_SHARED if pt_shared() else 32
+    print(f"parallel training: train-lora at {layers} of Llama-3-8B's 32 "
+          f"layers ({'the ranks share one card' if pt_shared() else 'a card a rank'}); serve at 32", flush=True)
+    try:
+        pt_files(tmp)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        with open(os.path.join(tmp, "port"), "w") as f:
+            f.write(str(port))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=pt_rank, args=(r, tmp, here, layers))
+                 for r in range(PT_RANKS)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + PT_TIMEOUT
+        while any(p.is_alive() for p in procs) and time.monotonic() < end:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        if codes != [0] * PT_RANKS:
+            fail(f"parallel training: rank exit codes {codes} (None: still "
+                 f"running after {PT_TIMEOUT} s)")
+        print(f"parallel training: {len(PT_RUNS)} runs of {PT_RANKS} ranks, "
+              f"every rank exited 0, in {time.perf_counter() - t_phase:.1f} "
+              f"s [{card}]", flush=True)
+        results = [[torch.load(os.path.join(tmp, f"pt{i}_rank{r}.pt"),
+                               weights_only=False) for r in range(PT_RANKS)]
+                   for i in range(len(PT_RUNS))]
+        for i, (label, kind, _) in enumerate(PT_RUNS):
+            if kind == "serve":
+                pt_serve_gates(card, tmp, i, results[i])
+            else:
+                pt_train_gates(card, tmp, i, results[i], layers)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pt_shard_kernels(card, rows)
+    torch.cuda.empty_cache()
+    print(f"parallel training phase wall {time.perf_counter() - t_phase:.1f}"
+          f" s [{card}]", flush=True)
+
+
+def single_card_baseline(card):
+    """Phase 16's run (a) (annotate, bf16 Llama-3-8B, 8 requests, greedy)
+    on one process on this card: the baseline of the TP-4 decode step
+    phase 16 printed (phase 17 prints its one process's train steps
+    beside the mesh's)."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.infer import engine
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    cli.load_tokenizer = lambda path, family: ByteTokenizer()
+    tmp = tempfile.mkdtemp(prefix="opus-baseline-")
+    try:
+        par_examples(tmp)
+        rec = Calls()
+        rec.wrap(engine, "generate")
+        try:
+            run_cli(["annotate", "--model-base",
+                     os.path.join(tmp, "Meta-Llama-3-8B"), "--test-json",
+                     os.path.join(tmp, "par_short_keywords.json"),
+                     "--max-new-tokens", str(PAR_NEW), "--temperature",
+                     "0", "--batch-size", "8"])
+        finally:
+            rec.restore()
+        (_, _, out), = rec.calls["generate"]
+        print(f"single-card baseline, phase 16 run a on one process: decode "
+              f"{out.decode_seconds:.2f} s, {out.steps} steps, "
+              f"{1e3 * out.decode_seconds / out.steps:.1f} ms a step "
+              f"[{card}]", flush=True)
+        del rec, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
+    # nothing here reads a tokenizer or a model from a hub
+    os.environ["HF_HUB_OFFLINE"] = "1"
     try:
         import torch
     except ImportError:
@@ -5097,6 +5937,15 @@ def main():
         phase("training profile")
         profile_training(card)
         return
+    if "--parallel" in sys.argv[1:]:
+        rows = {}
+        phase("parallel (serving)")
+        check_parallel(card, rows)
+        phase("parallel (training and serve)")
+        check_parallel_training(card, rows)
+        phase("single-card baseline")
+        single_card_baseline(card)
+        return
 
     phase("kernels vs plain")
     rows = check_kernels(card)
@@ -5146,6 +5995,9 @@ def main():
 
     phase("parallel (serving)")
     check_parallel(card, rows)
+
+    phase("parallel (training and serve)")
+    check_parallel_training(card, rows)
 
     kernels = [{"name": n, "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNELS[n], "launches": counts[n]}

@@ -27,21 +27,33 @@ over D data rows and the LLM over M tensor-parallel ranks; each rank
 loads only its share (`core.builder.load_pretrained(mesh=...)`), and the
 projections are fused after the cut. `--seq-shards N` shards each
 prompt's KV cache over N ranks (ring prefill, LSE-merged decode);
-`--distributed` alone runs every rank on the data axis. The process
-group comes from torchrun's environment (`core.mesh.
-initialize_distributed`); `--mesh` without a live group of D x M ranks
-is an error naming torchrun. Exclusions as in JAX: `--seq-shards` with
-`--mesh`; `--engine` with `--seq-shards` or with D > 1. Rank 0 prints the
+`--distributed` alone runs every rank on the data axis, and under
+`--engine` each rank runs its own engine on its slice of the examples
+(the JAX CLI's mesh None: runner.py:405, :667). The process group comes
+from torchrun's environment (`core.mesh.initialize_distributed`);
+`--mesh` without a live group of D x M ranks is an error naming
+torchrun. Exclusions as in JAX: `--seq-shards` with `--mesh`; `--engine`
+with `--seq-shards` or with `--mesh D,M`, D > 1. Rank 0 prints the
 results.
 
-Refused with NotImplementedError, naming ROADMAP.md §1 item 10 (the
-training axes and serve's mesh): `train-lora` / `train-projector` /
-`train-cstp` with `--mesh` or `--distributed`, `--seq-shards` on the
-train commands, `--pipe-stages`, `--micro-batches`, `--pipe-data` > 1,
-`serve --mesh` / `--distributed`, and the mesh flags of
-`precompute-pairs` and `convert-weights`. Parsed and without effect:
+`train-lora` / `train-projector --mesh D[,M]` train data- and
+tensor-parallel with the train state sharded
+(`train.multimodal_trainer.fit(mesh=)`); `train-cstp --mesh D` is stage
+(a)'s data parallelism. `--distributed` alone puts every rank on the data
+axis (the JAX CLI leaves each process its own whole-batch copy there;
+the trained parameters are the same). Rank 0 saves and prints.
+`serve --mesh 1,N` serves tensor-parallel in lockstep (rank 0 runs HTTP,
+the others `serve.server.serve_follower`); `serve --distributed` alone
+serves one whole model a rank, as in JAX, and stops when two ranks of
+one host would bind one port.
+
+Refused with NotImplementedError, naming ROADMAP.md §1 item 10 (steps
+(c) and (d)): `--seq-shards` on the train commands, `--pipe-stages`,
+`--micro-batches`, `--pipe-data` > 1. Parsed and without effect:
 `--unroll-layers` and `--scan-mode` (the JAX layer-loop layouts; the
-port runs a plain loop over its layer list). `bench` runs the JAX
+port runs a plain loop over its layer list), and `--mesh` /
+`--distributed` on `precompute-pairs` and `convert-weights` (the JAX
+commands take them and never read them). `bench` runs the JAX
 package's TPU harness there; here it exits with a pointer to
 chip_smoke.py, which holds the port's measurements.
 """
@@ -55,8 +67,11 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
+
 STANDARD_AA = set("ACDEFGHIKLMNPQRSTVWY")
-ITEM_10 = "ROADMAP.md §1 item 10, the training axes and serve's mesh"
+ITEM_10 = ("ROADMAP.md §1 item 10, sequence- and pipeline-parallel "
+           "training")
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -98,13 +113,14 @@ def _model_args(p: argparse.ArgumentParser) -> None:
                         "loop over its layer list)")
     p.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
                    help="(data, model) mesh of torchrun ranks, e.g. '1,4': "
-                        "the examples split over the data rows, the LLM "
-                        "tensor-parallel over the model ranks (annotate, "
-                        "annotate-all, mcq, chat)")
+                        "the examples (or the training batch) split over "
+                        "the data rows, the LLM tensor-parallel over the "
+                        "model ranks; serve takes '1,N'")
     p.add_argument("--distributed", action="store_true",
                    help="start the process group from torchrun's "
                         "environment (RANK / WORLD_SIZE / MASTER_ADDR); "
-                        "without --mesh every rank is on the data axis")
+                        "without --mesh every rank is on the data axis "
+                        "(--engine and serve: one whole engine a rank)")
     _device_arg(p)
 
 
@@ -135,16 +151,23 @@ def _gen_args(p: argparse.ArgumentParser) -> None:
                         "(--draft-layers only)")
 
 
-def _refuse_parallel(args) -> None:
-    """The parallel options of the commands that do not run them yet
-    (training, serve, precompute-pairs, convert-weights), refused before
-    anything loads."""
-    for flag, value, off in (("--mesh", "mesh", None),
-                             ("--distributed", "distributed", False),
-                             ("--seq-shards", "seq_shards", 0),
-                             ("--pipe-stages", "pipe_stages", 0),
-                             ("--micro-batches", "micro_batches", 0)):
-        if getattr(args, value, off) not in (off, None):
+def _train_axes(args) -> None:
+    """The train commands' exclusions, as in JAX (cli/main.py:616-625),
+    then the axes not ported yet, refused before anything loads."""
+    seq, pipe = getattr(args, "seq_shards", 0), getattr(args, "pipe_stages",
+                                                        0)
+    if sum(bool(x) for x in (seq, pipe, getattr(args, "mesh", None))) > 1:
+        raise SystemExit("--seq-shards, --pipe-stages and --mesh are "
+                         "mutually exclusive (sequence vs pipeline vs "
+                         "data/model parallelism)")
+    if getattr(args, "val_json", None) and (seq or pipe):
+        raise SystemExit("--val-json runs on the standard (mesh/single-"
+                         "device) path only; drop --seq-shards/"
+                         "--pipe-stages")
+    for flag, value in (("--seq-shards", seq), ("--pipe-stages", pipe),
+                        ("--micro-batches",
+                         getattr(args, "micro_batches", 0))):
+        if value:
             raise NotImplementedError(f"{flag} is not ported yet ({ITEM_10})")
     if getattr(args, "pipe_data", 1) > 1:
         raise NotImplementedError(f"--pipe-data > 1 is not ported yet "
@@ -219,6 +242,17 @@ def _engine_mesh(mesh, seq_mesh):
         raise SystemExit("--engine shards tensor-parallel only: use "
                          "--mesh 1,N (the slot pool is the batch axis)")
     return mesh
+
+
+def _engine_meshes(args, mesh, seq_mesh):
+    """--engine's (tensor-parallel mesh, data mesh): `--distributed`
+    without --mesh gives every rank its own engine over its slice of the
+    examples, gathered afterwards (the JAX CLI's mesh None); otherwise the
+    engine's mesh is `_engine_mesh`'s and there is no data split."""
+    if (mesh is not None and not getattr(args, "mesh", None)
+            and getattr(args, "distributed", False)):
+        return None, mesh
+    return _engine_mesh(mesh, seq_mesh), None
 
 
 def _is_rank0() -> bool:
@@ -343,7 +377,8 @@ def _resume_setup(args, state, restore_fn, data):
     if getattr(args, "resume", False) and rs_mgr.latest_step() is not None:
         state = restore_fn(rs_mgr, state)
         skip = int(state.step)
-        print(f"resuming from step {skip}")
+        if _is_rank0():
+            print(f"resuming from step {skip}")
     if skip:
         data = itertools.islice(data, skip, None)
     if getattr(args, "max_steps", 0):
@@ -449,7 +484,8 @@ def cmd_annotate(args) -> None:
     aid = _single_adapter(args, specs)
     mesh, seq_mesh = _parallel(args)
     use_engine = getattr(args, "engine", False)
-    e_mesh = _engine_mesh(mesh, seq_mesh) if use_engine else None
+    e_mesh, d_mesh = (_engine_meshes(args, mesh, seq_mesh) if use_engine
+                      else (None, None))
     cfg, params, tok = _build(args, mesh)
     gen = _gen_config(args, tok, args.max_new_tokens
                       or max_new_tokens_for(args.test_json))
@@ -461,6 +497,7 @@ def cmd_annotate(args) -> None:
             max_slots=args.max_slots, steps_per_tick=args.steps_per_tick,
             splice_batch=args.batch_size, save_path=args.save_path,
             lora_bank=bank or None, adapter_id=aid, mesh=e_mesh,
+            data_mesh=d_mesh,
             cache_prefix=getattr(args, "cache_prefix", False),
             bert_embed_fn=embed_fn)
     else:
@@ -486,7 +523,8 @@ def cmd_annotate_all(args) -> None:
                                 getattr(args, "map", None))
                    if specs else {})
     mesh, seq_mesh = _parallel(args)
-    e_mesh = _engine_mesh(mesh, seq_mesh) if use_engine else None
+    e_mesh, d_mesh = (_engine_meshes(args, mesh, seq_mesh) if use_engine
+                      else (None, None))
     cfg, params, tok = _build(args, mesh)
     bank = _adapter_bank(specs, cfg)
     engine_cache: dict = {}
@@ -511,6 +549,7 @@ def cmd_annotate_all(args) -> None:
                     lora_bank=bank or None,
                     adapter_id=adapter_map.get(test_json),
                     engine_cache=engine_cache, mesh=e_mesh,
+                    data_mesh=d_mesh,
                     cache_prefix=getattr(args, "cache_prefix", False))
             else:
                 out = runner.run_annotation_eval(
@@ -539,7 +578,8 @@ def cmd_mcq(args) -> None:
                              "forward): drop --mesh/--seq-shards/"
                              "--draft-layers")
     mesh, seq_mesh = _parallel(args)
-    e_mesh = _engine_mesh(mesh, seq_mesh) if use_engine else None
+    e_mesh, d_mesh = (_engine_meshes(args, mesh, seq_mesh) if use_engine
+                      else (None, None))
     cfg, params, tok = _build(args, mesh)
     gen = _gen_config(args, tok, args.max_new_tokens or 50)
     if getattr(args, "scored", False):
@@ -552,7 +592,8 @@ def cmd_mcq(args) -> None:
             max_slots=args.max_slots, steps_per_tick=args.steps_per_tick,
             splice_batch=args.batch_size, save_path=args.save_path,
             lora_bank=_adapter_bank(specs, cfg) or None, adapter_id=aid,
-            mesh=e_mesh, cache_prefix=getattr(args, "cache_prefix", False))
+            mesh=e_mesh, data_mesh=d_mesh,
+            cache_prefix=getattr(args, "cache_prefix", False))
     else:
         rep = runner.run_mcq_eval(params, cfg, tok, args.test_json, gen=gen,
                                   batch_size=args.batch_size,
@@ -633,7 +674,7 @@ def cmd_train_cstp(args) -> None:
     from ..data.datasets import UniProtQAVecDataset, batch_iterator
     from ..train import cstp_trainer
 
-    _refuse_parallel(args)
+    mesh, _ = _parallel(args)
     device = _device(args)
     tcfg = TrainConfig(learning_rate=args.lr, weight_decay=args.wd,
                        batch_size=args.batch_size, num_epochs=args.epochs)
@@ -655,10 +696,12 @@ def cmd_train_cstp(args) -> None:
 
     state, data, rs_mgr, save_every = _resume_setup(
         args, state, cstp_trainer.restore_state, batches())
-    state = cstp_trainer.fit(state, tx, cfg, tcfg, data, ckpt=rs_mgr,
-                             save_every=save_every, device=device)
-    mgr.save(int(state.step), state.params)
-    print(f"saved CSTP adapter at step {int(state.step)} -> {args.out}")
+    state = cstp_trainer.fit(state, tx, cfg, tcfg, data, mesh=mesh,
+                             ckpt=rs_mgr, save_every=save_every,
+                             device=device)
+    if _is_rank0():
+        mgr.save(int(state.step), state.params)
+        print(f"saved CSTP adapter at step {int(state.step)} -> {args.out}")
 
 
 def _export_reference(args, cfg, trainable, lcfg) -> None:
@@ -703,8 +746,17 @@ def _train_multimodal(args, *, lora: bool) -> None:
     from ..data.datasets import InstructionDataset
     from ..train import multimodal_trainer as mmt
 
-    _refuse_parallel(args)
-    cfg, params, tok = _build(args)
+    import dataclasses
+
+    from ..core import builder
+
+    _train_axes(args)
+    mesh, _ = _parallel(args)
+    cfg, params, tok = _build(args, mesh)
+    # the trainable tree is the single process's (drawn from the whole
+    # model's config), then cut to this rank's share
+    full_cfg = dataclasses.replace(
+        cfg, llm=builder.decoder_config_for(args.model_base))
     device = params["llm"]["embed_tokens"]["embedding"].device
     tcfg = TrainConfig(learning_rate=args.lr, weight_decay=args.wd,
                        batch_size=args.batch_size, num_epochs=args.epochs,
@@ -714,7 +766,7 @@ def _train_multimodal(args, *, lora: bool) -> None:
     ds = InstructionDataset(args.train_json)
     g = torch.Generator(device=device)
     g.manual_seed(args.seed)
-    state, tx = mmt.create_state(cfg, tcfg, params, generator=g,
+    state, tx = mmt.create_state(full_cfg, tcfg, params, generator=g,
                                  train_switch=not lora or args.train_switch,
                                  lora_cfg=lcfg, device=device)
     batches = instruction_batches(ds, tok, tcfg.batch_size, seed=args.seed,
@@ -722,6 +774,10 @@ def _train_multimodal(args, *, lora: bool) -> None:
                                   max_len=args.max_len)
     state, batches, rs_mgr, save_every = _resume_setup(
         args, state, mmt.restore_state, batches)
+    if mesh is not None:
+        from ..parallel import partition
+        params, cfg = partition.shard_frozen(mesh, params, cfg)
+        state, tx = mmt.shard_state(mesh, state, cfg)
     mgr = CheckpointManager(args.out, max_to_keep=2)
     val_fn = None
     if args.val_json:
@@ -731,13 +787,16 @@ def _train_multimodal(args, *, lora: bool) -> None:
             vds, tok, min(tcfg.batch_size, len(vds)), shuffle=False,
             seed=0, epochs=1, drop_remainder=False, max_len=args.max_len)
     state = mmt.fit(state, tx, cfg, tcfg, params, batches, lora_cfg=lcfg,
-                    ckpt=rs_mgr, save_every=save_every,
+                    mesh=mesh, ckpt=rs_mgr, save_every=save_every,
                     val_batches_fn=val_fn, val_every=args.val_every,
                     device=device)
-    mgr.save(int(state.step), state.trainable)
+    trainable = mmt.full_trainable(state)
+    if not _is_rank0():
+        return
+    mgr.save(int(state.step), trainable)
     print(f"saved trainable tree at step {int(state.step)} -> {args.out}")
     if args.export_reference_format:
-        _export_reference(args, cfg, state.trainable, lcfg)
+        _export_reference(args, full_cfg, trainable, lcfg)
 
 
 def cmd_precompute(args) -> None:
@@ -763,7 +822,6 @@ def cmd_precompute_pairs(args) -> None:
     from ..data import precompute
     from ..models import decoder
 
-    _refuse_parallel(args)
     device = _device(args)
     esm_cfg = builder.esm_config_for(args.esm)
     esm_params = builder.load_esm(args.esm, esm_cfg, device=device)
@@ -787,7 +845,6 @@ def cmd_convert(args) -> None:
     from ..core import builder
     from ..kernels.quant4 import quant_layout_of
 
-    _refuse_parallel(args)
     if not args.model_base:
         raise SystemExit("--model-base required")
     cfg = _opus_config(args, builder.decoder_config_for(args.model_base))
@@ -806,37 +863,83 @@ def cmd_bench(args) -> None:
                      "`python3 chip_smoke.py` on a machine with a GPU")
 
 
+def _serve_mesh(args):
+    """serve's parallel flags -> the engine's mesh or None: --mesh 1,N
+    (tensor-parallel, in lockstep); --mesh D,M with D > 1 refused as the
+    engine refuses it; --distributed alone one whole server a rank (the
+    JAX CLI's mesh None), which ranks sharing a host cannot do: they
+    would all bind one port."""
+    if getattr(args, "mesh", None):
+        mesh, _ = _parallel(args)
+        return _engine_mesh(mesh, None)
+    if getattr(args, "distributed", False):
+        env = os.environ
+        local = int(env.get("LOCAL_WORLD_SIZE", env.get("WORLD_SIZE", "1")))
+        if local > 1:
+            raise SystemExit(
+                f"serve --distributed without --mesh runs one whole "
+                f"server a rank, and the {local} ranks on this host would "
+                f"all bind port {args.port}: start one rank a host, or "
+                f"serve tensor-parallel with --mesh 1,{local}")
+    return None
+
+
 def cmd_serve(args) -> None:
     """The HTTP serving daemon over the continuous-batching engine
-    (serve/engine.py + serve/server.py)."""
-    from ..serve.server import OpusServer
+    (serve/engine.py + serve/server.py); under --mesh 1,N rank 0 serves
+    and the other ranks follow it in lockstep."""
+    from ..serve.server import (OpusServer, serve_follower,
+                                system_prefix_ids)
 
-    _refuse_parallel(args)
     specs = _adapter_specs(args)
-    cfg, params, tok = _build(args)
+    mesh = _serve_mesh(args)
+    cfg, params, tok = _build(args, mesh)
     bank = _adapter_bank(specs, cfg)
     if args.adapter_slots and not bank:
         raise SystemExit("--adapter-slots needs at least one --adapter "
                          "NAME=PATH (the bank's shapes come from the "
                          "first adapter)")
-    srv = OpusServer(
-        params, cfg, tok, chat_template=args.chat_template,
-        default_max_new=args.max_new_tokens or 256,
+    engine_kw = dict(
         max_slots=args.max_slots, max_len=args.max_len,
         steps_per_tick=args.steps_per_tick,
         admit_min_free=args.admit_min_free,
         quantize_cache=args.quantize_cache, seed=args.seed,
-        model_id=args.served_model_name or "opus-pllm-tpu",
         lora_bank=bank or None, chunk_prefill=args.chunk_prefill,
         adapter_capacity=args.adapter_slots,
+        # serve's parser has no --draft-layers / --n-draft (as in JAX,
+        # which reads them with getattr): no speculation unless given
+        draft_layers=getattr(args, "draft_layers", 0) or None,
+        spec_k=getattr(args, "n_draft", 4),
+        spec_adaptive=not args.no_spec_adaptive, mesh=mesh)
+    if mesh is not None and mesh.model > 1 and not _is_rank0():
+        from ..serve.engine import ServingEngine
+        engine = ServingEngine(params["llm"], cfg.llm, **engine_kw)
+        if args.cache_system_prefix and not args.chat_template:
+            # rank 0 pins the same header before its first message
+            engine.register_prefix("sys", token_ids=np.asarray(
+                system_prefix_ids(tok), np.int64))
+        serve_follower(engine, mesh)
+        return
+    srv = OpusServer(
+        params, cfg, tok, chat_template=args.chat_template,
+        default_max_new=args.max_new_tokens or 256,
+        model_id=args.served_model_name or "opus-pllm-tpu",
         cache_system_prefix=args.cache_system_prefix,
-        max_queue=args.max_queue,
-        draft_layers=args.draft_layers or None, spec_k=args.n_draft,
-        spec_adaptive=not args.no_spec_adaptive)
+        max_queue=args.max_queue, **engine_kw)
     t0 = time.time()
     srv.warmup()
     print(f"warmup done in {time.time() - t0:.1f}s")
     srv.serve_forever(args.host, args.port, drain_grace=args.drain_grace)
+
+
+def _no_effect(p: argparse.ArgumentParser) -> None:
+    """--mesh / --distributed of a command that runs on one device: taken,
+    as the JAX CLI takes them through `_model_args`, and without effect."""
+    for action in p._actions:
+        if action.dest in ("mesh", "distributed"):
+            action.help = ("taken for the JAX CLI's surface; changes "
+                           "nothing here (this command runs on one "
+                           "device)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -988,8 +1091,9 @@ def build_parser() -> argparse.ArgumentParser:
     tc.add_argument("--epochs", type=int, default=1)
     tc.add_argument("--seed", type=int, default=0)
     tc.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
-                    help=f"DP mesh for stage (a): not ported yet "
-                         f"({ITEM_10})")
+                    help="data-parallel mesh of torchrun ranks for stage "
+                         "(a): the batch splits over the data rows, the "
+                         "similarity spans the global batch")
     tc.add_argument("--max-steps", type=int, default=0,
                     help="stop after N optimizer steps (0 = all)")
     tc.add_argument("--save-every", type=int, default=0,
@@ -998,7 +1102,9 @@ def build_parser() -> argparse.ArgumentParser:
     tc.add_argument("--resume", action="store_true",
                     help="resume from the latest OUT/resume_state")
     tc.add_argument("--distributed", action="store_true",
-                    help=f"multi-host start-up: not ported ({ITEM_10})")
+                    help="start the process group from torchrun's "
+                         "environment; without --mesh every rank is on "
+                         "the data axis")
     _device_arg(tc)
     tc.set_defaults(fn=cmd_train_cstp)
 
@@ -1079,6 +1185,7 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--uniprot-pickle", required=True)
     pp.add_argument("--out", required=True)
     pp.add_argument("--batch-size", type=int, default=8)
+    _no_effect(pp)
     pp.set_defaults(fn=cmd_precompute_pairs)
 
     cv = sub.add_parser("convert-weights")
@@ -1091,6 +1198,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "magic-bitcast words (decode and serving; train-* "
                          "commands reject it). Recorded in "
                          "<out>/quant_layout.json")
+    _no_effect(cv)
     cv.set_defaults(fn=cmd_convert)
 
     b = sub.add_parser("bench")

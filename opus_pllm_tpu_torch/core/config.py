@@ -92,6 +92,10 @@ class DecoderConfig:
     # rank-local config `partition.local_config` returns, whose head and
     # MLP widths are this rank's shares; None on a single process
     tp: object = field(default=None, compare=False, repr=False)
+    # FSDP (parallel/partition.DataShards): set on a training rank's
+    # config when its layers are stored 1/D over the data axis; the
+    # decoder gathers each layer just before it runs
+    fsdp: object = field(default=None, compare=False, repr=False)
 
     @property
     def torch_dtype(self) -> torch.dtype:

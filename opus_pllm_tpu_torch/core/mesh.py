@@ -17,7 +17,19 @@ own, else gloo (the CPU, and ranks that share one card: NCCL refuses two
 ranks on one device). Gloo takes CUDA tensors for `all_reduce`,
 `broadcast` and `all_gather`, not for `send` / `recv`: the ring's rotation
 on a shared card goes through host memory, explicitly in `ring_shift`,
-and is counted in `host_staged`.
+and is counted in `host_staged`. The trainers' gradient reduce-scatter
+is one all-reduce and a slice (train/multimodal_trainer.py), so nothing
+depends on what a backend offers beyond those three.
+
+Training runs through collectives that autograd differentiates (the JAX
+package gets them from XLA's transpose of the sharded program):
+`copy_to_model` (identity forward, sum backward: before a column-parallel
+product), `reduce_from_model` (sum forward, identity backward: after a
+row-parallel product), `gather_from` (an
+all-gather forward whose backward takes this rank's slice and sums
+nothing: every rank of the group computes the same loss from the same
+gathered tensor). `all_gather_flat` gathers a list of tensors of any
+dtypes in one collective (the FSDP gathers of parallel/partition.py).
 """
 
 from __future__ import annotations
@@ -277,3 +289,95 @@ def ring_shift(tensors: Sequence[torch.Tensor], group
     if staged:
         return [r.to(t.device) for r, t in zip(recv, tensors)]
     return recv
+
+
+_ALIGN = 16       # byte alignment of each tensor in a flat buffer
+
+
+def all_gather_flat(tensors: Sequence[torch.Tensor], group
+                    ) -> List[List[torch.Tensor]]:
+    """Every rank's `tensors` (the same shapes and dtypes on every rank of
+    `group`), in ONE all-gather of a byte buffer: out[r][i] is rank r's
+    tensors[i]. The tensors share one device."""
+    if not tensors:
+        return [[] for _ in range(dist.get_world_size(group))]
+    offs, total = [], 0
+    for t in tensors:
+        offs.append(total)
+        total += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+    buf = torch.empty(total, dtype=torch.uint8, device=tensors[0].device)
+    for t, o in zip(tensors, offs):
+        nb = t.numel() * t.element_size()
+        buf[o:o + nb] = t.contiguous().reshape(-1).view(torch.uint8)
+    out = []
+    for part in all_gather_list(buf, group):
+        out.append([part[o:o + t.numel() * t.element_size()].view(
+            t.dtype).reshape(t.shape) for t, o in zip(tensors, offs)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collectives that autograd differentiates
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim = dim % x.dim()
+        ctx.width = x.shape[ctx.dim]
+        ctx.index = dist.get_rank(group)
+        return all_gather_cat(x, group, dim=ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.width,
+                         ctx.width).contiguous(), None, None)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is; in the backward its gradient is summed over `group`
+    (the input of a column-parallel product: each rank's product
+    contributes its columns' part of the input's gradient)."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group` (after a row-parallel product); the
+    gradient passes to every rank's x unchanged."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The group's x concatenated along `dim`: a column-parallel head's
+    logits over `model`, the CSTP projections of each rank's rows over
+    `data` (so the similarity spans the global batch). Backward: this
+    rank's slice of the gradient, not summed: every rank computes the same
+    loss from the same gathered tensor, so a sum would count the gradient
+    once a rank (the parameters' gradients are summed over `data`
+    afterwards)."""
+    return _GatherFrom.apply(x, group, dim)

@@ -52,7 +52,10 @@ gathered in order (`gather_json_blobs` over the mesh, model rank 0 of
 each data row contributing); global rank 0 logs, saves and scores.
 `seq_mesh` (parallel.ring.SeqMesh) shards each prompt's KV cache over
 its ranks instead (`infer.sp_engine`); beams and the static draft are
-refused there, as in JAX. The engine runners take a mesh of data 1.
+refused there, as in JAX. The engine runners take a mesh of data 1, and
+`data_mesh`: a mesh whose data rows each run their own engine on their
+slice of the examples, the results gathered (JAX's engine runners under
+several processes: `local_slice` of the set, runner.py:405, :667).
 """
 
 from __future__ import annotations
@@ -517,7 +520,7 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
                                adapter_id: Optional[str] = None,
                                engine_cache: Optional[dict] = None,
                                mesh=None, cache_prefix: bool = False,
-                               bert_embed_fn=None,
+                               bert_embed_fn=None, data_mesh=None,
                                log_fn=print) -> EvalReport:
     """Annotation eval through the continuous-batching serving engine (CLI
     `annotate --engine`, defaults 16 slots and 4 steps a tick). Greedy
@@ -527,9 +530,10 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
     and wall time, `engine` its counters and TTFT percentiles. `lora_bank`
     ({name: folded adapter tree}) with `adapter_id` runs the set under one
     bank adapter; `engine_cache`, `cache_prefix` and gen.draft_layers as
-    in `_engine_generate`."""
+    in `_engine_generate`; `data_mesh` as in the module docstring."""
     if examples is None:
         examples = ds.load_annotation_json(file_path)
+    examples = examples[mesh_mod.data_slice(data_mesh, len(examples))]
     gen = gen or GenerationConfig(
         max_new_tokens=ds.max_new_tokens_for(file_path),
         eos_token_id=getattr(tokenizer, "eos_token_id", -1),
@@ -551,6 +555,7 @@ def run_annotation_eval_engine(params, cfg: OpusConfig, tokenizer,
                for e, toks in zip(examples, done)]
     dt = time.perf_counter() - t0
 
+    results = _allgather_results(results, data_mesh)
     eps, metrics = _report(results, dt, file_path, save_path,
                            bert_embed_fn, log_fn)
     return EvalReport(results, metrics, eps, dt, stats.get("tokens", 0),
@@ -727,15 +732,16 @@ def run_mcq_eval_engine(params, cfg: OpusConfig, tokenizer, file_path: str,
                         lora_bank=None, adapter_id: Optional[str] = None,
                         engine_cache: Optional[dict] = None,
                         mesh=None, cache_prefix: bool = False,
-                        log_fn=print) -> EvalReport:
+                        data_mesh=None, log_fn=print) -> EvalReport:
     """MCQ eval through the continuous-batching engine (CLI `mcq
     --engine`): the static runner's prompts and scoring, each question
     finishing on its own. Greedy output is token-identical to
     `run_mcq_eval`. `decode_tokens` / `decode_seconds` are the engine's
     tokens and wall time, `engine` its counters and TTFT percentiles. The
-    engine options as in `run_annotation_eval_engine`."""
+    engine options and `data_mesh` as in `run_annotation_eval_engine`."""
     if examples is None:
         examples = ds.load_mcq_json(file_path)
+    examples = examples[mesh_mod.data_slice(data_mesh, len(examples))]
     gen = _mcq_gen(tokenizer, gen)
     _check_engine_gen(gen)
     render = _mcq_renderer(tokenizer, render_prompt)
@@ -754,6 +760,7 @@ def run_mcq_eval_engine(params, cfg: OpusConfig, tokenizer, file_path: str,
                 "generated": tokenizer.decode(toks)}
                for e, toks in zip(examples, done)]
     dt = time.perf_counter() - t0
+    results = _allgather_results(results, data_mesh)
     eps, metrics = _mcq_report(results, dt, save_path, log_fn)
     return EvalReport(results, metrics, eps, dt, stats.get("tokens", 0),
                       stats.get("seconds", 0.0), stats)

@@ -52,6 +52,7 @@ import torch
 import torch.utils.checkpoint
 from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
+from ..core import mesh as mesh_mod
 from ..core.config import DecoderConfig
 from ..core.util import mm_fp32, resolve_device
 from ..kernels import decode_attention as da
@@ -281,14 +282,27 @@ def _row_parallel(p, la, x, ls: float, impl: str, tp):
     """A row-parallel projection under tensor parallelism: this rank's
     input rows times its rows of the weight (and of LoRA's A), summed over
     the model group by one fp32 all-reduce; the bias, held whole, is added
-    once after it and the sum rounded to x's dtype."""
+    once after it and the sum rounded to x's dtype. With grad on the sum
+    is `reduce_from_model` (its gradient reaches every rank's rows); under
+    no_grad an in-place all-reduce."""
     y = dense({k: v for k, v in p.items() if k != "bias"}, x,
               impl=impl).float()
     if la is not None:
-        y = y + lora_delta(la, x, ls)
-    tp.all_reduce(y)
+        # the base and the LoRA delta summed apart, so that the base sum is
+        # rounded to x's dtype before the fp32 delta is added, as
+        # lora_dense rounds one process's product: a delta below half a
+        # unit of the base's last place is lost alike on both
+        y = torch.stack([y, lora_delta(la, x, ls)])
+    if torch.is_grad_enabled():
+        y = mesh_mod.reduce_from_model(y, tp.group)
+    else:
+        tp.all_reduce(y)
+    if la is not None:
+        y, delta = y.unbind(0)
     if "bias" in p:
         y = y + p["bias"].float()
+    if la is not None:
+        y = y.to(x.dtype).float() + delta
     return y.to(x.dtype)
 
 
@@ -315,7 +329,9 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
     "B"}} or None) at scaling `ls` (decoder.py:278-327). cos/sin None: no
     rope (OPT). `rows`: the cache rows x's rows use (None: the same).
     Under tensor parallelism (`cfg.tp`) the heads and the MLP width are
-    this rank's shares and the out-projections all-reduce. impl "ring"
+    this rank's shares and the out-projections all-reduce; with grad on
+    the inputs of the split column-parallel products pass through
+    `copy_to_model`, so training's gradients are whole. impl "ring"
     (a sequence-sharded prefill over `sp`'s group: the cache keeps this
     rank's shard, attention runs over the rotating fresh shards) and
     "sp_decode" (one token over a sequence-sharded cache, the partial
@@ -337,7 +353,14 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
             return mm
         return lambda name, h: _row_parallel(p[name], la.get(name), h, ls,
                                              pimpl, tp)
-    r = _norm(cfg, p["attn_norm"], x)
+
+    def col(h, split):
+        # the input of split column-parallel products: with grad on, its
+        # gradient is summed over the model ranks' columns
+        if tp is None or not split or not torch.is_grad_enabled():
+            return h
+        return mesh_mod.copy_to_model(h, tp.group)
+    r = col(_norm(cfg, p["attn_norm"], x), tp is not None and tp.attn)
     if "qkv_proj" in p:
         q, k, v = fused("qkv_proj", r, (("q_proj", hq * d),
                                         ("k_proj", hkv * d),
@@ -376,8 +399,17 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
                       group=sp.group if sp is not None else None)
     x = x + row(tp is not None and tp.attn)("o_proj",
                                              a.reshape(b, s, hq * d))
-    return x + _mlp(cfg, p, _norm(cfg, p["ffn_norm"], x), mm, fused,
-                    row(tp is not None and tp.mlp))
+    split = tp is not None and tp.mlp
+    return x + _mlp(cfg, p, col(_norm(cfg, p["ffn_norm"], x), split), mm,
+                    fused, row(split))
+
+
+def _gathered_block(cfg: DecoderConfig, p, *rest):
+    """`_block` over this rank's data share of a layer (FSDP, `cfg.fsdp`):
+    the layer's leaves are all-gathered over the data ranks first and die
+    with the call; under remat the recompute gathers them again, on every
+    rank in the same order."""
+    return _block(cfg, cfg.fsdp.gather_layer(p), *rest)
 
 
 def fuse_layer(lp: Dict) -> Dict:
@@ -525,9 +557,9 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
                                      ctx=ctx)
     index = cache["index"] if cache is not None else None
     rows = cache.get("rows") if cache is not None else None
-    block = _block
+    block = _block if cfg.fsdp is None else _gathered_block
     if cache is None and torch.is_grad_enabled():
-        block = _remat_wrap(_block, remat)
+        block = _remat_wrap(block, remat)
     for i, p in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
         la = lora["layers"][i] if lora is not None else None
@@ -582,9 +614,14 @@ def head_logits(params, cfg: DecoderConfig, x, *, impl: str = "auto"):
     head = params.get("lm_head", {})
     tp = cfg.tp
     if tp is not None and tp.head and "lm_head" in params:
-        # column-parallel head: every rank gets the whole vocabulary
+        # column-parallel head: every rank gets the whole vocabulary; with
+        # grad on, x's gradient sums the ranks' columns and each rank's
+        # logits take their slice of the (replicated) loss's gradient
         local = dataclasses.replace(cfg, tp=None)
-        return tp.gather(head_logits(params, local, x, impl=impl))
+        if torch.is_grad_enabled():
+            x = mesh_mod.copy_to_model(x, tp.group)
+        return mesh_mod.gather_from(
+            head_logits(params, local, x, impl=impl), tp.group)
     if not cfg.tie_word_embeddings and (
             "kernel_p" in head or "kernel_q" in head):
         return dense(head, x, impl=impl).float()

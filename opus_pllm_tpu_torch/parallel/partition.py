@@ -19,17 +19,33 @@ of the vocabulary; the decoder all-reduces after each row-parallel
 product and all-gathers the head's logits (`TensorParallel`). A group
 whose widths do not split (heads not divisible by M, an int4 row block
 that a shard would cut) runs whole on every rank, as `_sanitize`
-replicates a dimension in JAX. The "data" half of each spec (FSDP) leaves
-the parameter replicated here. The protein encoder, CSTP and switch run
-whole on every rank.
+replicates a dimension in JAX. For serving and eval the "data" half of
+each spec (FSDP) leaves the parameter replicated, and the protein
+encoder, CSTP and switch run whole on every rank.
+
+Training adds the "data" half (JAX's partition.py:49-150 through
+`shard_state`): `data_dims` names, leaf for leaf, the dim a spec puts on
+`data` (None where the spec has none or the rank's dim does not divide),
+`cut_data` keeps this rank's 1/D of each such dim on top of the model
+cut, and `gather_data` puts the D shares back together
+(`shard_frozen`: every frozen leaf but the switch). The decoder gathers
+each layer that way just before it runs (`DataShards`, attached to the
+local config as `fsdp`); the trainers gather the rest of the frozen tree
+and the trainable leaves once a step. `TrainLayout` says how each
+trainable leaf lies across the mesh: its model-cut and data-cut dims, and
+whether its gradient is a partial sum on each model rank (LoRA A of a
+split column-parallel projection, LoRA B of a split row-parallel one);
+`cut_leaves` / `uncut_leaves` turn the single process's leaves into a
+rank's shares and back (checkpoints).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core import mesh as mesh_mod
 from ..core.mesh import DATA_AXIS, MODEL_AXIS
@@ -133,6 +149,231 @@ def specs(params, mesh=None) -> Any:
 # ---------------------------------------------------------------------------
 # tensor parallelism
 # ---------------------------------------------------------------------------
+
+def data_dims(tree, mesh) -> Any:
+    """Leaf for leaf, the dim of this rank's leaf that its spec puts on
+    the mesh's data axis, or None: no data axis in the spec, a data axis
+    of 1, or a size the axis does not divide (JAX's `_sanitize`, on the
+    leaf as the model cut left it)."""
+    d = _axis_sizes(mesh)[DATA_AXIS]
+
+    def dim_of(names, leaf):
+        if d <= 1 or not isinstance(leaf, torch.Tensor):
+            return None
+        spec = _rule(names, leaf)
+        for dim, ax in enumerate(spec[:leaf.ndim]):
+            if ax == DATA_AXIS and leaf.shape[dim] % d == 0:
+                return dim
+        return None
+    return _map_with_names(dim_of, tree)
+
+
+def _zip_map(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
+
+
+def _flat(tree, out=None) -> list:
+    out = [] if out is None else out
+    if isinstance(tree, dict):
+        for k in tree:
+            _flat(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _flat(v, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def cut_data(tree, dims, index: int, size: int) -> Any:
+    """This data rank's share of every leaf whose `dims` entry is a dim
+    (a copy, so the whole leaf can be freed); the other leaves as they
+    are."""
+    def cut(x, dim):
+        if dim is None:
+            return x
+        n = x.shape[dim] // size
+        return x.narrow(dim, index * n, n).clone()
+    return _zip_map(cut, tree, dims)
+
+
+BUCKET_BYTES = 256 << 20     # shares gathered in one collective, at most
+
+
+def _gather_big(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """One large share gathered into the whole leaf without a staging
+    buffer: along dim 0 the ranks' shares land in the output's rows."""
+    n = dist.get_world_size(group)
+    if dim == 0:
+        shape = (x.shape[0] * n,) + tuple(x.shape[1:])
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        dist.all_gather(list(out.chunk(n, 0)), x.contiguous(), group=group)
+        return out
+    return torch.cat(mesh_mod.all_gather_list(x, group), dim=dim)
+
+
+def gather_data(tree, dims, group) -> Any:
+    """`cut_data`'s inverse over the data `group`: the shares of every
+    leaf with a dim all-gathered and concatenated in group-rank order; the
+    other leaves as they are (the same objects). Shares of up to a
+    quarter of BUCKET_BYTES go together, up to BUCKET_BYTES a collective
+    (`all_gather_flat`); a larger one alone into its whole leaf, so a
+    gather holds little more than the whole leaves it returns."""
+    flat_x, flat_d = _flat(tree), _flat(dims)
+    todo = [i for i, d in enumerate(flat_d) if d is not None]
+    if not todo:
+        return tree
+    whole = {}
+    bucket, size = [], 0
+
+    def flush():
+        nonlocal bucket, size
+        if bucket:
+            parts = mesh_mod.all_gather_flat([flat_x[i] for i in bucket],
+                                             group)
+            for j, i in enumerate(bucket):
+                whole[i] = torch.cat([p[j] for p in parts], dim=flat_d[i])
+        bucket, size = [], 0
+    for i in todo:
+        nb = flat_x[i].numel() * flat_x[i].element_size()
+        if nb > BUCKET_BYTES // 4:
+            whole[i] = _gather_big(flat_x[i], flat_d[i], group)
+            continue
+        if size + nb > BUCKET_BYTES:
+            flush()
+        bucket.append(i)
+        size += nb
+    flush()
+    it = iter(range(len(flat_x)))
+    return _zip_map(lambda x, d: whole.get(next(it), x), tree, dims)
+
+
+@dataclasses.dataclass
+class DataShards:
+    """The FSDP half of a decoder share: its layers' leaves stored 1/D
+    over the data `group` (`layer_dims`: the data dims of a layer, the
+    same for every layer). The decoder calls `gather_layer` just before a
+    layer runs; the gathered tensors die with the layer's call (and are
+    gathered again by the recompute under remat)."""
+    group: Any
+    layer_dims: Any
+    dims: Any                  # the data dims of the whole frozen tree
+
+    def gather_layer(self, lp: Dict) -> Dict:
+        return gather_data(lp, self.layer_dims, self.group)
+
+
+@dataclasses.dataclass
+class LeafLayout:
+    """One trainable leaf across the mesh: the dim the model cut splits
+    (None: whole on every model rank), the dim the data cut splits, and
+    whether each model rank's gradient is a partial sum (a whole leaf
+    used against a split projection)."""
+    model_dim: Optional[int]
+    data_dim: Optional[int]
+    partial: bool
+
+
+class TrainLayout:
+    """How a trainable tree ({"lora"?, "switch"?}) lies across `mesh`
+    under the decoder plan `tp` (None at M = 1): built from the tree as a
+    rank holds it after the model cut (LoRA by `shard_lora`, the switch
+    whole)."""
+
+    def __init__(self, local_tree, mesh, tp: Optional[TensorParallel]):
+        self.mesh = mesh
+        roles = {}
+        if "lora" in local_tree:
+            roles["lora"] = {"layers": [
+                {n: _lora_roles(n, tp) for n in la}
+                for la in local_tree["lora"]["layers"]]}
+        if "switch" in local_tree:
+            roles["switch"] = _map_with_names(
+                lambda n, x: LeafLayout(None, None, False),
+                local_tree["switch"])
+        self.leaves: List[LeafLayout] = _sorted_leaves(_zip_map(
+            lambda lay, dd: dataclasses.replace(lay, data_dim=dd), roles,
+            data_dims({k: local_tree[k] for k in roles}, mesh)))
+
+    def replicas(self, lay: LeafLayout) -> int:
+        """On how many ranks of the mesh this leaf's share is held."""
+        return ((self.mesh.model if lay.model_dim is None else 1)
+                * (self.mesh.data if lay.data_dim is None else 1))
+
+    def data_share(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf i's tensor as this rank's model cut holds it -> this
+        rank's share of it along the data axis."""
+        dim = self.leaves[i].data_dim
+        if dim is None:
+            return x
+        w = x.shape[dim] // self.mesh.data
+        return x.narrow(dim, self.mesh.data_index * w, w)
+
+
+def _lora_roles(name: str, tp) -> Dict:
+    """{"A", "B"} layouts (data dims left None) of a LoRA adapter on
+    projection `name` (`shard_lora_proj`'s cut)."""
+    lay = LeafLayout
+    if tp is None or not _split(name, tp):
+        return {"A": lay(None, None, False), "B": lay(None, None, False)}
+    if name in _ROW:
+        return {"A": lay(0, None, False), "B": lay(None, None, True)}
+    return {"A": lay(None, None, True), "B": lay(1, None, False)}
+
+
+def _sorted_leaves(tree) -> list:
+    """The leaves in the trainers' order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _sorted_leaves(v)]
+    return [tree]
+
+
+def cut_leaves(xs: List[torch.Tensor], layout: TrainLayout,
+               model_cut: bool = True) -> List[torch.Tensor]:
+    """Whole leaves (in the trainers' order) -> this rank's shares: the
+    model cut (unless `model_cut` is False: already taken), then the data
+    cut."""
+    m = layout.mesh
+    out = []
+    for i, (x, lay) in enumerate(zip(xs, layout.leaves)):
+        if model_cut and lay.model_dim is not None:
+            n = x.shape[lay.model_dim] // m.model
+            x = x.narrow(lay.model_dim, m.model_index * n, n)
+        out.append(layout.data_share(x, i).clone())
+    return out
+
+
+def uncut_leaves(xs: List[torch.Tensor], layout: TrainLayout,
+                 model: bool = True) -> List[torch.Tensor]:
+    """`cut_leaves`' inverse on every rank: the data shares all-gathered
+    (one collective), then (unless `model` is False) the model shares."""
+    m = layout.mesh
+    idx = [i for i, lay in enumerate(layout.leaves)
+           if lay.data_dim is not None]
+    out = list(xs)
+    if idx:
+        parts = mesh_mod.all_gather_flat([xs[i] for i in idx], m.data_group)
+        for j, i in enumerate(idx):
+            out[i] = torch.cat([p[j] for p in parts],
+                               dim=layout.leaves[i].data_dim)
+    if not model:
+        return out
+    idx = [i for i, lay in enumerate(layout.leaves)
+           if lay.model_dim is not None]
+    if idx:
+        parts = mesh_mod.all_gather_flat([out[i] for i in idx],
+                                         m.model_group)
+        for j, i in enumerate(idx):
+            out[i] = torch.cat([p[j] for p in parts],
+                               dim=layout.leaves[i].model_dim)
+    return out
+
 
 @dataclasses.dataclass
 class TensorParallel:
@@ -308,3 +549,28 @@ def shard_params(mesh, params: Dict, cfg):
         llm, lcfg = shard_decoder(params["llm"], cfg.llm, mesh)
         return dict(params, llm=llm), dataclasses.replace(cfg, llm=lcfg)
     return shard_decoder(params, cfg, mesh)
+
+
+def shard_frozen(mesh, params: Dict, cfg):
+    """The frozen Opus tree and its OpusConfig -> (this rank's share, the
+    share's config) for training on `mesh`: the LLM cut over `model` by
+    projection role (`shard_params`, unless `cfg.llm.tp` says the tree is
+    a share already), then every leaf's data dim over `data` (FSDP), with
+    `DataShards` on the LLM's config so the decoder gathers each layer as
+    it runs; the frozen switch stays whole (below). The LLM must be
+    unfused."""
+    if mesh.model > 1 and cfg.llm.tp is None:
+        params, cfg = shard_params(mesh, params, cfg)
+    dims = data_dims(params, mesh)
+    if "switch" in dims:
+        # the frozen switch stays whole: it runs as one matrix (4.3 GB
+        # fp32 at Llama-3-8B) on one activation, so its data cut would
+        # add the share to the peak (share + the gathered whole) and
+        # all-gather the whole matrix every step
+        dims["switch"] = _map_with_names(lambda n, x: None,
+                                         params["switch"])
+    share = cut_data(params, dims, mesh.data_index, mesh.data)
+    layers = dims["llm"]["layers"]
+    fs = DataShards(mesh.data_group, layers[0] if layers else {}, dims)
+    return share, dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, fsdp=fs))

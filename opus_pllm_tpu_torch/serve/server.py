@@ -33,10 +33,33 @@ and the engine's sampling generator lives on that device.
 `add_adapter` of an in-memory tree works through
 `run_on_engine(lambda: srv.engine.add_adapter(name, tree))`. `warmup` is a
 no-op (a jit warm-up in the JAX package; PyTorch runs eagerly).
+
+Tensor-parallel serving over several processes (`mesh`, a core.mesh.Mesh
+of data 1 and M > 1 ranks; the JAX server is one controller whose HTTP
+threads feed one engine over every device): rank 0 runs this server and
+HTTP; every other rank runs `serve_follower` over an engine built the same
+way. Each iteration of rank 0's engine thread broadcasts one message over
+the mesh: the adapter operations it applied (as data: the folded tree's
+tensors, a name), the cancellations, the submissions it accepted
+(request id, token ids or spliced embeddings, generation options), the
+LLM forwards an embeddings request needs, whether to step, and stop.
+Every rank applies them in the same order and steps the engine, so the
+engines' collectives meet. Closures never cross ranks: `run_on_engine`
+stays rank 0's, and only an operation and its data reach the followers.
+Rank 0 validates a request (`engine.submit`) before it broadcasts it, so
+a follower whose submit raises is out of step: it stops with an error,
+as does rank 0 when a step or a broadcast fails. An idle server
+broadcasts an empty message every 0.05 s, well inside the process
+group's timeout. Rank 0 splices proteins (ESM2 -> CSTP -> switch) and
+broadcasts the embeddings: a follower uses the LLM share only (it holds
+what the CLI loads on every rank, and never runs the protein tower).
+/health and /metrics answer from rank 0; SIGTERM drains rank 0, whose
+last message stops the followers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue
 import threading
@@ -46,13 +69,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..bridge import cstp as cstp_mod
 from ..core.config import OpusConfig
 from ..core.util import round_up
 from ..infer.conversation import VICUNA_V0, VICUNA_V3, annotation_prompt, \
     truncate_at_sep
 from ..infer.tokenization import pad_batch, tokenize_with_seq
-from ..models import esm2, opus
+from ..models import esm2, opus, text_encoder
 from .engine import Completion, ServeRequest, ServingEngine
 
 STANDARD_AA = set("ACDEFGHIKLMNPQRSTVWY")
@@ -69,13 +94,118 @@ class ServerOverloaded(Exception):
     timing every client out)."""
 
 
+class LockstepError(RuntimeError):
+    """A rank of a tensor-parallel server fell out of step (a follower
+    could not apply what rank 0 did, or a collective failed)."""
+
+
+def system_prefix_ids(tokenizer) -> list:
+    """The token ids of the constant conversation header that
+    `cache_system_prefix` pins (manual-layout prompts only): the system
+    prompt up to the role tag, everything before the first varying
+    character of an annotation prompt."""
+    header = f"{VICUNA_V0.system}\n\n### {VICUNA_V0.roles[0]}: "
+    return tokenize_with_seq(header, tokenizer.encode,
+                             getattr(tokenizer, "bos_token_id", None))
+
+
+def _mesh_src(mesh) -> int:
+    """The global rank of the mesh's first rank (the one that serves)."""
+    return mesh.ranks[0][0]
+
+
+def _broadcast(msg, mesh):
+    box = [msg]
+    dist.broadcast_object_list(box, src=_mesh_src(mesh), group=mesh.group)
+    return box[0]
+
+
+def _wire_request(req: ServeRequest) -> dict:
+    """What a follower needs of an accepted request (no callback; the
+    embeddings on the host, whatever card they lie on)."""
+    emb = req.embeds
+    if isinstance(emb, torch.Tensor):
+        emb = emb.detach().cpu()
+    return {"request_id": req.request_id, "embeds": emb,
+            "token_ids": req.token_ids, "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature, "top_p": req.top_p,
+            "eos_token_id": req.eos_token_id, "prefix_id": req.prefix_id,
+            "adapter_id": req.adapter_id}
+
+
+def _text_forward(engine: ServingEngine, ids, mask):
+    """The LLM half of a text embedding over the engine's (share of the)
+    decoder: the part of `opus.text_cstp_embeddings` whose collectives
+    every rank of a tensor-parallel server must run."""
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(engine.device)
+    return text_encoder.text_embeddings(engine.params, engine.cfg, to(ids),
+                                        to(mask), mask_pad=True)
+
+
+def _apply_op(engine: ServingEngine, op) -> None:
+    """A follower's replay of an operation rank 0 applied."""
+    if op[0] == "add_adapter":
+        engine.add_adapter(op[1], op[2])
+    elif op[0] == "remove_adapter":
+        engine.remove_adapter(op[1])
+    elif op[0] == "text_embed":
+        with torch.no_grad():
+            _text_forward(engine, op[1], op[2])
+    else:
+        raise LockstepError(f"unknown operation {op[0]!r}")
+
+
+_COLLECTIVE_OPS = ("text_embed",)
+
+
+def serve_follower(engine: ServingEngine, mesh, log_fn=print) -> None:
+    """A follower rank of a tensor-parallel server: receive rank 0's
+    message, apply its operations, cancellations and submissions in rank
+    0's order, step when rank 0 steps; return on rank 0's stop. Anything
+    that fails here raises LockstepError (the rank exits non-zero).
+    SIGTERM is noted and ignored: rank 0 drains, then stops this rank."""
+    import signal
+    try:
+        signal.signal(signal.SIGTERM, lambda *_: log_fn(
+            "SIGTERM: this rank follows rank 0's drain"))
+    except ValueError:
+        pass    # not the main thread
+    if engine.device.type == "cuda":
+        torch.cuda.set_device(engine.device)
+    while True:
+        msg = _broadcast(None, mesh)
+        try:
+            for op in msg["ops"]:
+                if op[0] not in _COLLECTIVE_OPS:
+                    _apply_op(engine, op)
+            for rid in msg["cancels"]:
+                engine.cancel(rid)
+            for wire in msg["submits"]:
+                engine.submit(ServeRequest(**wire))
+            for op in msg["ops"]:
+                if op[0] in _COLLECTIVE_OPS:
+                    _apply_op(engine, op)
+        except Exception as e:
+            raise LockstepError(f"rank {dist.get_rank()} cannot follow rank "
+                                f"0: {type(e).__name__}: {e}") from e
+        if msg["stop"]:
+            return
+        if engine.busy != msg["step"]:
+            raise LockstepError(f"rank {dist.get_rank()}: the engine is "
+                                f"{'' if engine.busy else 'not '}busy where "
+                                f"rank 0's is{'' if msg['step'] else ' not'}")
+        if msg["step"]:
+            engine.step()
+
+
 class OpusServer:
     """Multimodal request front + engine thread + HTTP plumbing.
 
     params/cfg/tokenizer as produced by core.builder (the full
     {esm,cstp,switch,llm} tree); engine kwargs pass through to
     ServingEngine (slots, capacity, buckets, steps_per_tick,
-    quantize_cache).
+    quantize_cache). `mesh`: tensor-parallel serving; with more than one
+    rank this is rank 0 of a lockstep server (module docstring).
     """
 
     def __init__(self, params, cfg: OpusConfig, tokenizer, *,
@@ -83,7 +213,7 @@ class OpusServer:
                  esm_bucket: int = 128, default_max_new: int = 256,
                  model_id: str = "opus-pllm-tpu",
                  cache_system_prefix: bool = False,
-                 max_queue: Optional[int] = None,
+                 max_queue: Optional[int] = None, mesh=None,
                  **engine_kwargs):
         self.params = params
         self.cfg = cfg
@@ -101,7 +231,20 @@ class OpusServer:
         self.cache_system_prefix = bool(cache_system_prefix)
         self._sys_ids: Optional[list] = None
         self.max_queue = max_queue   # admission backpressure (None: off)
-        self.engine = ServingEngine(params["llm"], cfg.llm, **engine_kwargs)
+        self.engine = ServingEngine(params["llm"], cfg.llm, mesh=mesh,
+                                    **engine_kwargs)
+        self.mesh = mesh
+        self._lockstep = mesh is not None and mesh.model > 1
+        if self._lockstep:
+            if dist.get_rank() != _mesh_src(mesh):
+                raise ValueError("OpusServer runs on the mesh's first rank; "
+                                 "the others run serve_follower")
+            # the LLM as the engine holds it (its share): the text
+            # embeddings run the followers' collectives on it
+            self.params = dict(params, llm=self.engine.params)
+            self.cfg = dataclasses.replace(cfg, llm=self.engine.cfg)
+        self._fatal: Optional[BaseException] = None
+        self._on_fatal = None
 
         self._pending: "queue.Queue[ServeRequest]" = queue.Queue()
         self._cancels: "queue.Queue[Any]" = queue.Queue()
@@ -164,9 +307,7 @@ class OpusServer:
         f"{system}\\n\\n### {role}: {instruction}")."""
         if not self.cache_system_prefix or self.chat_template:
             return
-        header = f"{VICUNA_V0.system}\n\n### {VICUNA_V0.roles[0]}: "
-        ids = tokenize_with_seq(header, self.tok.encode,
-                                getattr(self.tok, "bos_token_id", None))
+        ids = system_prefix_ids(self.tok)
         self.engine.register_prefix(
             "sys", token_ids=np.asarray(ids, np.int64))
         self._sys_ids = ids
@@ -227,29 +368,54 @@ class OpusServer:
         so cosine(protein, text) ranks protein<->description matches.
         Lengths bucket-pad and batches pad to powers of two (padding rows
         repeat row 0), as in the JAX server. The model runs on the engine
-        thread."""
-        return self.run_on_engine(lambda: self._embed_items(items))
+        thread; the texts' LLM forward is an operation every rank of a
+        lockstep server runs."""
+        txt = [s for k, s in items if k == "text"]
+        text_in = self._text_batch(txt) if txt else None
+        wire = None if text_in is None else ("text_embed",) + text_in[:2]
+        return self.run_on_engine(lambda: self._embed_items(items, text_in),
+                                  wire=wire)
+
+    def _text_batch(self, texts) -> tuple:
+        """Texts -> (ids, mask, token count): bos-prefixed, right-padded to
+        a bucket, the batch padded to a power of two by repeating row 0.
+        Raises ValueError when this server cannot embed text."""
+        if "cstp" not in self.params:
+            raise ValueError("text embeddings need a CSTP adapter "
+                             "(this server runs the identity-projector "
+                             "fallback)")
+        if self.cfg.cstp.text_dim != self.cfg.llm.hidden_size:
+            raise ValueError(
+                f"text embeddings are unavailable: the served LLM's "
+                f"hidden size ({self.cfg.llm.hidden_size}) differs "
+                f"from cstp.text_dim ({self.cfg.cstp.text_dim}) — the "
+                "CSTP text encoder is a different model (stage-(a) "
+                "training); protein embeddings still work")
+        ids_l = []
+        bos = getattr(self.tok, "bos_token_id", None)
+        for s in texts:
+            ids = list(self.tok.encode(s))
+            if bos is not None and (not ids or ids[0] != bos):
+                ids = [bos] + ids
+            ids_l.append(ids)
+        cap = round_up(max(len(i) for i in ids_l), self.prompt_bucket)
+        ids, mask = pad_batch(ids_l, self.tok.pad_token_id, left=False,
+                              max_len=cap)
+        n = ServingEngine._pad_group(len(ids_l))
+        ids = np.concatenate(
+            [ids, np.repeat(ids[:1], n - len(ids_l), axis=0)])
+        mask = np.concatenate(
+            [mask, np.repeat(mask[:1], n - len(ids_l), axis=0)])
+        return ids, mask, sum(len(i) for i in ids_l)
 
     @torch.no_grad()
-    def _embed_items(self, items) -> tuple:
+    def _embed_items(self, items, text_in) -> tuple:
         dev = self.engine.device
         to = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
         out: list = [None] * len(items)
         ntok = 0
         prot = [(i, s) for i, (k, s) in enumerate(items) if k == "protein"]
         txt = [(i, s) for i, (k, s) in enumerate(items) if k == "text"]
-        if txt:
-            if "cstp" not in self.params:
-                raise ValueError("text embeddings need a CSTP adapter "
-                                 "(this server runs the identity-projector "
-                                 "fallback)")
-            if self.cfg.cstp.text_dim != self.cfg.llm.hidden_size:
-                raise ValueError(
-                    f"text embeddings are unavailable: the served LLM's "
-                    f"hidden size ({self.cfg.llm.hidden_size}) differs "
-                    f"from cstp.text_dim ({self.cfg.cstp.text_dim}) — the "
-                    "CSTP text encoder is a different model (stage-(a) "
-                    "training); protein embeddings still work")
         if prot:
             seqs = [s for _, s in prot]
             toks, _ = esm2.tokenize(
@@ -264,25 +430,11 @@ class OpusServer:
             for (i, _), e in zip(prot, emb):
                 out[i] = e
         if txt:
-            ids_l = []
-            for _, s in txt:
-                ids = list(self.tok.encode(s))
-                bos = getattr(self.tok, "bos_token_id", None)
-                if bos is not None and (not ids or ids[0] != bos):
-                    ids = [bos] + ids
-                ids_l.append(ids)
-            ntok += sum(len(i) for i in ids_l)
-            cap = round_up(max(len(i) for i in ids_l), self.prompt_bucket)
-            ids, mask = pad_batch(ids_l, self.tok.pad_token_id, left=False,
-                                  max_len=cap)
-            n = ServingEngine._pad_group(len(ids_l))
-            ids = np.concatenate(
-                [ids, np.repeat(ids[:1], n - len(ids_l), axis=0)])
-            mask = np.concatenate(
-                [mask, np.repeat(mask[:1], n - len(ids_l), axis=0)])
-            emb = opus.text_cstp_embeddings(
-                self.params, self.cfg, to(ids), to(mask)).float().cpu(
-                ).numpy()
+            ids, mask, n_text = text_in
+            ntok += n_text
+            emb = cstp_mod.text_forward(
+                self.params["cstp"], _text_forward(self.engine, ids, mask)
+            ).float().cpu().numpy()
             for (i, _), e in zip(txt, emb):
                 out[i] = e
         return out, ntok
@@ -312,16 +464,47 @@ class OpusServer:
     def _loop(self) -> None:
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
-        while not self._stop.is_set():
+        try:
+            self._iterate()
+        except BaseException as e:   # noqa: BLE001 — lockstep faults only
+            # a failed step or broadcast leaves the followers out of step:
+            # every waiter fails, the loop ends, serve_forever raises
+            self._fatal = e
+            for rid in list(self._events):
+                self._deliver(rid, LockstepError(
+                    f"the tensor-parallel engine failed: "
+                    f"{type(e).__name__}: {e}"))
+            if self._on_fatal is not None:
+                self._on_fatal()
+
+    def _iterate(self) -> None:
+        """The engine thread's loop: admin operations, cancellations and
+        submissions, then a step when the engine is busy. Under lockstep
+        each iteration's message goes to the followers before the
+        collective work (module docstring)."""
+        lock = self._lockstep
+        while True:
+            stop = self._stop.is_set()
+            if stop and not lock:
+                return
+            msg = ({"ops": [], "cancels": [], "submits": [], "stop": stop}
+                   if lock else None)
+            later = []          # collective operations: after the message
             moved = False
             while True:
                 try:
-                    fn, done, box = self._admin.get_nowait()
+                    fn, done, box, wire = self._admin.get_nowait()
                 except queue.Empty:
                     break
                 moved = True
+                if lock and wire is not None and wire[0] in _COLLECTIVE_OPS:
+                    msg["ops"].append(wire)
+                    later.append((fn, done, box))
+                    continue
                 try:
                     box["out"] = fn()
+                    if lock and wire is not None:
+                        msg["ops"].append(wire)
                 except Exception as e:   # noqa: BLE001 — surfaces to the
                     box["err"] = e       # admin caller, not this thread
                 done.set()
@@ -331,6 +514,8 @@ class OpusServer:
                 except queue.Empty:
                     break
                 moved = True
+                if lock:
+                    msg["cancels"].append(rid)
                 if self.engine.cancel(rid):
                     # its 'cancelled' Completion surfaces at the next
                     # harvest — mark it so _deliver drops it
@@ -356,11 +541,29 @@ class OpusServer:
                     self.engine.submit(req)
                 except Exception as e:   # invalid request: fail IT, not
                     self._deliver(req.request_id, e)  # the engine thread
-            if self.engine.busy:
+                    continue
+                if lock:
+                    msg["submits"].append(_wire_request(req))
+            busy = self.engine.busy
+            if lock:
+                msg["step"] = busy
+                _broadcast(msg, self.mesh)
+                for fn, done, box in later:
+                    try:
+                        box["out"] = fn()
+                    except Exception as e:   # noqa: BLE001 — to the
+                        box["err"] = e       # caller (a broken collective
+                        # fails the next broadcast, which is fatal)
+                    done.set()
+                if stop:
+                    return
+            if busy:
                 try:
                     for c in self.engine.step():
                         self._deliver(c.request_id, c)
                 except Exception as e:
+                    if lock:
+                        raise
                     # an engine fault strands every in-flight request —
                     # fail them all loudly rather than hanging waiters
                     # (not the still-pending ones: those submit next
@@ -370,7 +573,8 @@ class OpusServer:
                             self._deliver(rid, e)
                 moved = True
             if not moved:
-                # idle: park until the next submission (or shutdown)
+                # idle: park until the next submission (or shutdown); a
+                # lockstep server's next message leaves within 0.05 s
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
 
@@ -492,12 +696,14 @@ class OpusServer:
         self._cancels.put(rid)
         self._wake.set()
 
-    def run_on_engine(self, fn, timeout: float = 120.0):
+    def run_on_engine(self, fn, timeout: float = 120.0, wire=None):
         """Execute fn() on the engine thread (which owns all engine
-        state) and return its result; exceptions re-raise here."""
+        state) and return its result; exceptions re-raise here. `wire`:
+        the operation a lockstep server's followers replay (None: fn is
+        this rank's alone)."""
         done = threading.Event()
         box: dict = {}
-        self._admin.put((fn, done, box))
+        self._admin.put((fn, done, box, wire))
         self._wake.set()
         if not done.wait(timeout):
             raise TimeoutError("engine admin operation timed out")
@@ -520,11 +726,13 @@ class OpusServer:
         dynamic-LoRA-loading role). The disk load happens on the calling
         thread; only the in-place bank write runs on the engine thread."""
         tree = self._load_adapter_tree(path)
-        self.run_on_engine(lambda: self.engine.add_adapter(name, tree))
+        self.run_on_engine(lambda: self.engine.add_adapter(name, tree),
+                           wire=("add_adapter", name, tree))
         return self.adapters_info()
 
     def remove_adapter(self, name: str) -> dict:
-        self.run_on_engine(lambda: self.engine.remove_adapter(name))
+        self.run_on_engine(lambda: self.engine.remove_adapter(name),
+                           wire=("remove_adapter", name))
         return self.adapters_info()
 
     def adapters_info(self) -> dict:
@@ -563,9 +771,12 @@ class OpusServer:
         return True
 
     def close(self) -> None:
+        """Stop the engine thread (under lockstep its last message stops
+        the followers; the join then waits for it, each collective being
+        bounded by the process group's timeout)."""
         self._stop.set()
         self._wake.set()
-        self._thread.join(timeout=10)
+        self._thread.join(timeout=None if self._lockstep else 10)
 
     # ------------------------------------------------------------------
     # request handlers (shared by HTTP and tests)
@@ -923,6 +1134,9 @@ class OpusServer:
             signal.signal(signal.SIGTERM, _term)
         except ValueError:
             pass   # not the main thread (embedded/test use)
+        # a lockstep fault stops the HTTP loop; serve_forever then raises
+        self._on_fatal = lambda: threading.Thread(target=httpd.shutdown,
+                                                  daemon=True).start()
         try:
             httpd.serve_forever()
         except KeyboardInterrupt:
@@ -930,3 +1144,6 @@ class OpusServer:
         finally:
             httpd.shutdown()
             self.close()
+        if self._fatal is not None:
+            raise LockstepError("the tensor-parallel server stopped") \
+                from self._fatal

@@ -19,8 +19,19 @@ state object is returned (the JAX step returns a new state).
 "step"}) through a `core.checkpoint.CheckpointManager`; `restore_state`
 loads one into a freshly built state. `fit(prefetch=N)` places the next
 N batches on a background thread (`utils.prefetch`, the JAX default 2).
-Not ported yet, and refused with NotImplementedError: the mesh
-(ROADMAP.md §1 item 10, the training axes).
+
+`fit(mesh=)` is stage (a)'s data parallelism (JAX :110-166; Lightning
+DDP's role): the parameters and moments stay whole on every rank, each
+batch's rows split over the data ranks (B % D == 0), and each rank's
+projected embeddings are all-gathered over `data` before the similarity
+(`core.mesh.gather_from`), so the contrastive matrix spans the
+global batch as one process's does; its backward hands each rank its
+rows' part of the gradient, and one all-reduce over `data` sums the
+parameters' gradients: every rank then holds the gradient one process
+computes on the global batch, and the loss, the accuracies, `grad_norm`
+and `evidence_dead` are the global batch's. Ranks along `model` compute
+the same, as JAX replicates it. Checkpoints as in the multimodal trainer
+(rank 0 writes).
 """
 
 from __future__ import annotations
@@ -33,11 +44,13 @@ import torch
 
 from ..bridge import cstp, losses
 from ..core import checkpoint
+from ..core import mesh as mesh_mod
 from ..core.config import CSTPConfig, TrainConfig
 from ..core.util import resolve_device, to_device
 from ..utils.prefetch import prefetch_to_device
-from .multimodal_trainer import (_not_ported, _trainable_copy, finish_saves,
-                                 leaves, maybe_save)
+from .multimodal_trainer import (_flat_all_reduce, _is_rank0,
+                                 _trainable_copy, finish_saves, leaves,
+                                 maybe_save)
 from .optim import AdamW, adamw
 
 
@@ -63,7 +76,8 @@ def create_state(cfg: CSTPConfig, tcfg: TrainConfig,
     return CSTPTrainState(params, tx, 0), tx
 
 
-def loss_and_metrics(params, cfg: CSTPConfig, seq_emb, text_emb, step: int):
+def loss_and_metrics(params, cfg: CSTPConfig, seq_emb, text_emb, step: int,
+                     mesh=None):
     """(loss, metrics) of one batch: the symmetric evidential loss over the
     (B, B) similarity logits, and both directions' top-1 retrieval
     accuracy. `cfg.warmup_info_nce_steps` N > 0 takes `info_nce_sym` at
@@ -74,8 +88,12 @@ def loss_and_metrics(params, cfg: CSTPConfig, seq_emb, text_emb, step: int):
     the metrics carry `warmup_active` (1.0 where InfoNCE ran). Beyond the
     JAX function's metrics, `evidence_dead` is 1.0 where
     `losses.evidence_is_dead` holds for the batch (the evidential loss's
-    gradient is 0 there)."""
+    gradient is 0 there). With `mesh` the embeddings are this data rank's
+    rows and the projections are gathered over the data ranks first."""
     p, t = cstp.forward(params, seq_emb, text_emb)
+    if mesh is not None and mesh.data > 1:
+        p = mesh_mod.gather_from(p, mesh.data_group, dim=0)
+        t = mesh_mod.gather_from(t, mesh.data_group, dim=0)
     al = cstp.alignment(p, t)
     loss = losses.trust_evidence(al["protein2text"], al["text2protein"],
                                  al["targets"], cfg)
@@ -100,17 +118,22 @@ def loss_and_metrics(params, cfg: CSTPConfig, seq_emb, text_emb, step: int):
     return loss, metrics
 
 
-def make_train_step(cfg: CSTPConfig, tx: AdamW):
+def make_train_step(cfg: CSTPConfig, tx: AdamW, mesh=None):
     """train_step(state, seq_emb, text_emb) -> (state, metrics): the
     metrics at the parameters before the update, then one AdamW update in
     place. The metrics also carry `grad_norm`, the global norm of the
-    gradient the update took (a 0-d tensor)."""
+    gradient the update took (a 0-d tensor). With `mesh` the embeddings
+    are the rank's rows of the batch and the gradients are summed over
+    the data ranks in one all-reduce (module docstring)."""
 
     def train_step(state: CSTPTrainState, seq_emb, text_emb):
         lv = leaves(state.params)
         loss, metrics = loss_and_metrics(state.params, cfg, seq_emb,
-                                         text_emb, state.step)
+                                         text_emb, state.step, mesh)
         grads = torch.autograd.grad(loss, lv)
+        if mesh is not None and mesh.data > 1:
+            grads = _flat_all_reduce([g.float() for g in grads],
+                                     mesh.data_group)
         metrics["grad_norm"] = torch.sqrt(sum(g.float().pow(2).sum()
                                               for g in grads))
         for p, g in zip(lv, grads):
@@ -123,22 +146,26 @@ def make_train_step(cfg: CSTPConfig, tx: AdamW):
     return train_step
 
 
-def make_eval_step(cfg: CSTPConfig):
+def make_eval_step(cfg: CSTPConfig, mesh=None):
     @torch.no_grad()
     def eval_step(params, seq_emb, text_emb):
-        return loss_and_metrics(params, cfg, seq_emb, text_emb, 0)[1]
+        return loss_and_metrics(params, cfg, seq_emb, text_emb, 0, mesh)[1]
     return eval_step
 
 
-def evaluate(params, cfg: CSTPConfig, batches, *, device=None) -> dict:
+def evaluate(params, cfg: CSTPConfig, batches, *, device=None,
+             mesh=None) -> dict:
     """Mean loss and both retrieval accuracies over (seq_emb, text_emb)
     batches (the validation / test epoch summaries), on `device` (None:
-    CUDA)."""
+    CUDA). With `mesh` each batch is split over the data ranks as in
+    training (B % D == 0) and the metrics are the global batch's."""
     device = resolve_device(device)
-    ev = make_eval_step(cfg)
+    ev = make_eval_step(cfg, mesh)
     sums: dict = {}
     n = 0
     for pair in batches:
+        if mesh is not None:
+            pair = mesh_mod.shard_batch(mesh, tuple(pair))
         m = ev(params, *to_device(tuple(pair), device))
         for k, v in m.items():
             sums[k] = sums.get(k, 0.0) + float(v)
@@ -164,14 +191,22 @@ def fit(state: CSTPTrainState, tx: AdamW, cfg: CSTPConfig, tcfg: TrainConfig,
     ckpt + save_every > 0: every `save_every` steps the full state saves to
     the CheckpointManager `ckpt`; restore it with restore_state(ckpt,
     fresh_state) and skip `state.step` batches to resume."""
-    if mesh is not None:
-        raise _not_ported("training on a mesh", 10)
     device = resolve_device(device)
+    if mesh is not None:
+        def rows(pair):
+            n = pair[0].shape[0]
+            if n % mesh.data:
+                raise ValueError(f"batch {n} does not split over the "
+                                 f"mesh's data axis of {mesh.data}")
+            return mesh_mod.shard_batch(mesh, tuple(pair))
+        batches = (rows(pair) for pair in batches)
+        if not _is_rank0():
+            log_fn = lambda *_: None    # noqa: E731 — rank 0 logs
     stage = lambda pair: to_device(tuple(pair), device)
     if prefetch:
         batches = prefetch_to_device(batches, size=prefetch, device=device)
         stage = lambda pair: pair    # already placed by the producer
-    step_fn = make_train_step(cfg, tx)
+    step_fn = make_train_step(cfg, tx, mesh)
     start = state.step
     for i, pair in enumerate(batches):
         state, metrics = step_fn(state, *stage(pair))
@@ -184,7 +219,7 @@ def fit(state: CSTPTrainState, tx: AdamW, cfg: CSTPConfig, tcfg: TrainConfig,
                 f"{k}={float(v):.4f}" for k, v in metrics.items()))
             if val_batches_fn is not None:
                 vm = evaluate(state.params, cfg, val_batches_fn(),
-                              device=device)
+                              device=device, mesh=mesh)
                 log_fn("  val: " + " ".join(f"{k}={v:.4f}"
                                             for k, v in vm.items()))
     finish_saves(ckpt, save_every)

@@ -19,9 +19,28 @@ freshly built state, from which `fit` over the batches after its step
 continues exactly (tests/test_torch_checkpoint.py).
 
 `fit(prefetch=N)` prepares and places the next N batches on a background
-thread (`utils.prefetch`, the JAX default 2). Not ported yet, and refused
-with NotImplementedError: the mesh (ROADMAP.md §1 item 10, the training
-axes).
+thread (`utils.prefetch`, the JAX default 2).
+
+`fit(mesh=)` (JAX :212-290, `shard_state` :197) trains on a (data, model)
+mesh of ranks, one process a rank. The caller shards first, as in JAX:
+`partition.shard_frozen` cuts the frozen tree (the LLM by projection role
+over `model`, every leaf's data dim over `data`: FSDP) and `shard_state`
+keeps each trainable leaf and its AdamW moments as this rank's share. A
+step: the batch's rows split over the data ranks (B % D == 0); the
+trainable shares are all-gathered over `data` once (the LLM's frozen
+layers one at a time inside the decoder, again under remat's
+recompute); each rank takes the gradient of its LOSS SUM, accumulated in
+fp32 over `grad_accum` chunks; the partial sums of LoRA leaves used
+against split projections are added over `model`, then every gradient
+and the valid-token count over `data` in one all-reduce, and divided by
+the GLOBAL count: the gradient of the mean over every valid token of the
+global batch, as one process computes it. The clip takes the global norm
+(optim.AdamW), AdamW steps the shares. Logs, held-out losses and
+checkpoints hold global values; a checkpoint holds the single process's
+full tree (`state_tree` gathers it, rank 0 writes, the others wait at a
+barrier), so a mesh run resumes on one process and one process's
+checkpoint on a mesh (`restore_state` on the full state, then
+`shard_state`).
 """
 
 from __future__ import annotations
@@ -29,13 +48,18 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..core import checkpoint
+from ..core import mesh as mesh_mod
 from ..core.config import IGNORE_INDEX, LoRAConfig, OpusConfig, TrainConfig
 from ..core.util import resolve_device, to_device
 from ..lora import lora as lora_mod
-from ..models import opus
+from ..models import esm2, opus
+from ..parallel import partition
 from ..utils.prefetch import prefetch_to_device
 from .optim import AdamW, adamw
 
@@ -54,6 +78,21 @@ def leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in leaves(v)]
     return [tree]
+
+
+def tree_from_leaves(like, xs):
+    """`leaves`' inverse: the structure of `like` with the tensors `xs` in
+    `leaves` order."""
+    it = iter(xs)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(like)
 
 
 def _trainable_copy(tree):
@@ -99,33 +138,101 @@ def create_state(cfg: OpusConfig, tcfg: TrainConfig, frozen_params, *,
     return MMTrainState(trainable, tx, 0), tx
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 "
-                               f"item {item})")
+def _on_mesh() -> bool:
+    return dist.is_initialized()
+
+
+def _is_rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def full_trainable(state) -> dict:
+    """The single process's trainable tree: on a mesh the ranks' shares
+    gathered (every rank calls this and gets the whole tree), else the
+    state's own."""
+    layout = state.opt_state.layout
+    if layout is None:
+        return state.trainable
+    full = partition.uncut_leaves(
+        [x.detach() for x in leaves(state.trainable)], layout)
+    return tree_from_leaves(state.trainable, full)
+
+
+def _moments(sd: dict, fn) -> dict:
+    """An AdamW state_dict() with fn(list of a moment's tensors in leaf
+    order) applied to exp_avg and exp_avg_sq (a new dict)."""
+    st = sd["opt"]["state"]
+    if not st:
+        return sd
+    idx = sorted(st)
+    new = {i: dict(st[i]) for i in idx}
+    for key in ("exp_avg", "exp_avg_sq"):
+        for i, x in zip(idx, fn([st[i][key] for i in idx])):
+            new[i][key] = x
+    return {**sd, "opt": {**sd["opt"], "state": new}}
 
 
 def state_tree(state) -> dict:
     """The tree a checkpoint holds: the state's fields with the optimizer
     as its state_dict() ({"trainable", "opt_state", "step"} here,
     {"params", "opt_state", "step"} for the CSTP state), as the JAX
-    state's `_asdict()`."""
+    state's `_asdict()`. On a mesh the shares of the leaves and moments
+    are gathered into the single process's tree (every rank calls it)."""
     tree = {f.name: getattr(state, f.name) for f in fields(state)}
-    tree["opt_state"] = state.opt_state.state_dict()
+    tx = state.opt_state
+    tree["opt_state"] = tx.state_dict()
+    if tx.layout is not None:
+        tree["trainable"] = full_trainable(state)
+        tree["opt_state"] = _moments(
+            tree["opt_state"],
+            lambda xs: partition.uncut_leaves(xs, tx.layout))
     return tree
 
 
 def maybe_save(ckpt, save_every: int, step_no: int, state) -> None:
     """Every `save_every` steps, the full state to `ckpt`. The manager
     copies the tensors to the host before it returns (the next step
-    updates them in place); only the file write runs in the background."""
+    updates them in place); only the file write runs in the background.
+    Under a process group every rank gathers, rank 0 saves and the others
+    wait for its copy at a barrier."""
     if ckpt is not None and save_every and step_no % save_every == 0:
-        ckpt.save(step_no, state_tree(state), wait=False)
+        tree = state_tree(state)
+        if _is_rank0():
+            ckpt.save(step_no, tree, wait=False)
+        if _on_mesh():
+            dist.barrier()
 
 
 def finish_saves(ckpt, save_every: int) -> None:
-    """Wait for the saves in flight before the fit loop returns."""
+    """Wait for the saves in flight before the fit loop returns (on a
+    mesh: rank 0's writes, the others at a barrier)."""
     if ckpt is not None and save_every:
-        ckpt.wait()
+        if _is_rank0():
+            ckpt.wait()
+        if _on_mesh():
+            dist.barrier()
+
+
+def shard_state(mesh, state: MMTrainState, cfg: OpusConfig):
+    """A single process's train state (fresh, or restored by
+    `restore_state`) -> (this rank's state, its optimizer): each trainable
+    leaf and its AdamW moments cut to the rank's share under `cfg.llm.tp`
+    (the plan of the frozen share, `partition.shard_frozen`) and the
+    specs' data dims (JAX `shard_state`, multimodal_trainer.py:197)."""
+    tp = cfg.llm.tp
+    local = dict(state.trainable)
+    if "lora" in local:
+        local["lora"] = partition.shard_lora(local["lora"], tp)
+    layout = partition.TrainLayout(local, mesh, tp)
+    xs = partition.cut_leaves(leaves(local), layout, model_cut=False)
+    trainable = tree_from_leaves(
+        local, [x.detach().requires_grad_(True) for x in xs])
+    old = state.opt_state
+    tx = old.over(leaves(trainable))
+    tx.load_state_dict(_moments(old.state_dict(),
+                                lambda xs: partition.cut_leaves(xs, layout)))
+    tx.layout = layout
+    return MMTrainState(trainable, tx, state.step), tx
 
 
 def restore_state(ckpt, like: MMTrainState,
@@ -146,6 +253,36 @@ def restore_state(ckpt, like: MMTrainState,
     like.opt_state.load_state_dict(saved["opt_state"])
     like.step = int(saved["step"])
     return like
+
+
+def _mesh_params(trainable, frozen, cfg: OpusConfig, batch, impl: str):
+    """The tree `loss_fn` runs on a mesh: every frozen leaf outside the
+    LLM's layers gathered over the data ranks (the protein tower first, on
+    its own and under no_grad: its pooled embedding goes on in the batch,
+    and the gathered encoder dies here; the frozen switch is whole, and
+    unused when the switch trains), the layers left as shares for the
+    decoder's per-layer gather -> (params, batch)."""
+    fs = cfg.llm.fsdp
+    dims = fs.dims
+    if batch.get("pooled_emb") is None:
+        with torch.no_grad():
+            esm = partition.gather_data(frozen["esm"], dims["esm"], fs.group)
+            b, p, l = batch["esm_tokens"].shape
+            pooled = esm2.pooled_embedding(
+                esm, cfg.esm, batch["esm_tokens"].reshape(b * p, l),
+                impl=impl)
+            batch = dict(batch, pooled_emb=pooled.reshape(b, p, -1))
+            del esm
+    skip = {"esm", "llm"} | ({"switch"} if "switch" in trainable else set())
+    rest = {k: v for k, v in frozen.items() if k not in skip}
+    head = {k: v for k, v in frozen["llm"].items() if k != "layers"}
+    got = partition.gather_data(
+        {"rest": rest, "llm": head},
+        {"rest": {k: dims[k] for k in rest},
+         "llm": {k: dims["llm"][k] for k in head}}, fs.group)
+    params = dict(got["rest"], llm=dict(got["llm"],
+                                         layers=frozen["llm"]["layers"]))
+    return params, batch
 
 
 def _assemble(frozen, trainable):
@@ -184,54 +321,101 @@ def make_train_step(cfg: OpusConfig, tx: AdamW, *,
     """step(state, frozen, batch) -> (state, metrics). grad_accum > 1 splits
     the batch into that many micro-chunks, one forward / backward each,
     and combines their gradients weighted by valid-token counts, so the
-    update equals the one-big-batch step (multimodal_trainer.py:117-181)."""
+    update equals the one-big-batch step (multimodal_trainer.py:117-181):
+    each chunk's gradient is that of its loss SUM, added in fp32 and
+    divided once by the count. When `tx` steps a mesh's shares
+    (`shard_state`) the chunks are this rank's rows, the trainable shares
+    are gathered over `data` first, and before the division the partial
+    sums of LoRA leaves used against split projections are added over
+    `model`, then every gradient with the loss sum and the count over
+    `data` in one all-reduce: the gradient of the mean over every valid
+    token of the global batch, as one process computes it (module
+    docstring)."""
     ls = lora_mod.scaling(lora_cfg) if lora_cfg is not None else 1.0
+    layout = tx.layout
 
-    def grads_of(trainable, frozen, batch):
-        lv = leaves(trainable)
-
-        def one(b):
-            loss, metrics = loss_fn(trainable, frozen, cfg, b, ls, remat,
-                                    ce_chunk, impl)
-            grads = torch.autograd.grad(loss, lv, allow_unused=True,
-                                        materialize_grads=True)
-            return loss.detach(), metrics, grads
-
-        if grad_accum <= 1:
-            return one(batch)
+    def train_step(state: MMTrainState, frozen, batch):
+        shares = leaves(state.trainable)
+        tree = (state.trainable if layout is None
+                else _gathered_trainable(state.trainable, layout))
+        lv = leaves(tree)
         n = batch["input_ids"].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by "
                              f"grad_accum={grad_accum}")
         per = n // grad_accum
-        loss_sum = cnt = torch.zeros((), dtype=torch.float32,
-                                     device=lv[0].device)
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in lv]
+        gsum = None
+        stats = torch.zeros((2,), dtype=torch.float32, device=lv[0].device)
         for i in range(grad_accum):
             chunk = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            loss, metrics, grads = one(chunk)
+            params = frozen
+            if layout is not None:
+                params, chunk = _mesh_params(tree, frozen, cfg, chunk, impl)
+            loss, metrics = loss_fn(tree, params, cfg, chunk, ls, remat,
+                                    ce_chunk, impl)
             c = metrics["valid"].float()
-            # d(mean)/dw * count = d(sum)/dw: sum the loss-SUM gradients in
-            # fp32, normalize once by the total count
-            gsum = [a + g.float() * c for a, g in zip(gsum, grads)]
-            loss_sum = loss_sum + loss * c
-            cnt = cnt + c
-        denom = cnt.clamp_min(1.0)
-        grads = [(g / denom).to(p.dtype) for g, p in zip(gsum, lv)]
-        loss = loss_sum / denom
-        return loss, {"loss": loss, "valid": cnt.int()}, grads
-
-    def train_step(state: MMTrainState, frozen, batch):
-        _, metrics, grads = grads_of(state.trainable, frozen, batch)
-        for p, g in zip(leaves(state.trainable), grads):
-            p.grad = g
+            # the gathered frozen leaves the backward does not need go
+            # now (the head keeps its own reference)
+            del params
+            # d(mean)/dw * count = d(sum)/dw, normalized once below
+            grads = torch.autograd.grad(loss * c, lv, allow_unused=True,
+                                        materialize_grads=True)
+            if gsum is None:
+                gsum = [g.float() for g in grads]
+            else:
+                for a, g in zip(gsum, grads):
+                    a.add_(g.float())
+            stats = stats + torch.stack([loss.detach() * c, c])
+        if layout is not None:
+            gsum, stats = _reduce_over_mesh(gsum, stats, layout)
+        denom = stats[1].clamp_min(1.0)
+        for i, (p, g) in enumerate(zip(shares, gsum)):
+            if layout is not None:
+                g = layout.data_share(g, i)
+            p.grad = (g / denom).to(p.dtype)
         tx.step()
         tx.zero_grad()
         state.step += 1
-        return state, metrics
+        return state, {"loss": stats[0] / denom, "valid": stats[1].int()}
 
     return train_step
+
+
+def _gathered_trainable(trainable, layout):
+    """The trainable shares gathered over the data ranks (one collective):
+    this rank's model cut whole, as fresh leaves that take gradients."""
+    xs = partition.uncut_leaves([x.detach() for x in leaves(trainable)],
+                                layout, model=False)
+    return tree_from_leaves(trainable,
+                            [x.detach().requires_grad_(True) for x in xs])
+
+
+def _flat_all_reduce(xs: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """fp32 tensors summed over `group` in one all-reduce."""
+    if not xs:
+        return xs
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    dist.all_reduce(flat, group=group)
+    out, o = [], 0
+    for x in xs:
+        out.append(flat[o:o + x.numel()].reshape(x.shape))
+        o += x.numel()
+    return out
+
+
+def _reduce_over_mesh(gsum, stats, layout):
+    """The loss-sum gradients of a rank's model cut and its (loss sum,
+    count) -> the mesh's: the partial sums of the leaves the model ranks
+    share added over `model`, then everything over `data`."""
+    mesh = layout.mesh
+    part = [i for i, lay in enumerate(layout.leaves) if lay.partial]
+    if mesh.model > 1 and part:
+        for i, g in zip(part, _flat_all_reduce([gsum[i] for i in part],
+                                               mesh.model_group)):
+            gsum[i] = g
+    if mesh.data > 1:
+        *gsum, stats = _flat_all_reduce(gsum + [stats], mesh.data_group)
+    return gsum, stats
 
 
 def make_eval_step(cfg: OpusConfig, *, lora_cfg: Optional[LoRAConfig] = None,
@@ -240,11 +424,35 @@ def make_eval_step(cfg: OpusConfig, *, lora_cfg: Optional[LoRAConfig] = None,
 
     @torch.no_grad()
     def eval_step(trainable, frozen, batch):
+        if cfg.llm.fsdp is not None:
+            frozen, batch = _mesh_params(trainable, frozen, cfg, batch, impl)
         _, metrics = loss_fn(trainable, frozen, cfg, batch, ls, False,
                              ce_chunk, impl)
         return metrics
 
     return eval_step
+
+
+def _train_rows(mesh, batch):
+    """This data rank's rows of a training batch (B % D == 0)."""
+    n = batch["input_ids"].shape[0]
+    if n % mesh.data:
+        raise ValueError(f"batch {n} does not split over the mesh's data "
+                         f"axis of {mesh.data}")
+    return mesh_mod.shard_batch(mesh, batch)
+
+
+def _val_rows(mesh, batch):
+    """This data rank's rows of a held-out batch, which may not split
+    evenly: a rank left without a row takes the first one with every
+    label ignored (it adds no token to the global mean, and its forward
+    keeps the data ranks' collectives in step)."""
+    rows = mesh_mod.data_slice(mesh, batch["input_ids"].shape[0])
+    if rows.stop > rows.start:
+        return mesh_mod.shard_batch(mesh, batch)
+    out = {k: v[:1] for k, v in batch.items()}
+    out["labels"] = np.full_like(out["labels"], IGNORE_INDEX)
+    return out
 
 
 def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
@@ -263,9 +471,15 @@ def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
     saves to the core.checkpoint.CheckpointManager `ckpt`; restore it with
     restore_state(ckpt, fresh_state) and skip `state.step` batches to
     resume a killed run exactly."""
-    if mesh is not None:
-        raise _not_ported("training on a mesh", 10)
     device = resolve_device(device)
+    if mesh is not None:
+        if tx.layout is None or cfg.llm.fsdp is None:
+            raise ValueError("fit(mesh=) takes the rank's shares: "
+                             "partition.shard_frozen(mesh, params, cfg) "
+                             "and shard_state(mesh, state, cfg) first")
+        batches = (_train_rows(mesh, b) for b in batches)
+        if not _is_rank0():
+            log_fn = lambda *_: None   # noqa: E731 — rank 0 logs
     stage = lambda b: to_device(b, device)
     if prefetch:
         batches = prefetch_to_device(batches, size=prefetch, device=device)
@@ -281,11 +495,20 @@ def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
 
     def run_val(step_no: int) -> float:
         tot = n = 0.0
+        trainable = state.trainable
+        if mesh is not None:
+            trainable = _gathered_trainable(trainable, tx.layout)
         for vb in val_batches_fn():
-            m = eval_fn(state.trainable, frozen, to_device(vb, device))
+            if mesh is not None:
+                vb = _val_rows(mesh, vb)
+            m = eval_fn(trainable, frozen, to_device(vb, device))
             w = float(m["valid"])
             tot += float(m["loss"]) * w
             n += w
+        if mesh is not None and mesh.data > 1:
+            t = torch.tensor([tot, n], dtype=torch.float64, device=device)
+            dist.all_reduce(t, group=mesh.data_group)
+            tot, n = t.tolist()
         vl = tot / max(n, 1.0)
         log_fn(f"step {step_no}: val_loss={vl:.4f} "
                f"({int(n)} held-out tokens)")

@@ -22,6 +22,7 @@ import math
 from typing import Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import TrainConfig
 
@@ -44,7 +45,12 @@ class AdamW:
 
     def __init__(self, params: Iterable[torch.Tensor], cfg: TrainConfig,
                  total_steps: Optional[int] = None):
+        self._args = (cfg, total_steps)
         self.params = list(params)
+        # parallel.partition.TrainLayout of the leaves when they are a
+        # rank's shares on a mesh (`multimodal_trainer.shard_state`); the
+        # clip then takes the global norm over every rank's shares
+        self.layout = None
         self.lr = cfg.learning_rate
         self.warmup = cfg.warmup_steps if total_steps else 0
         self.decay = max(total_steps or 0, cfg.warmup_steps + 1)
@@ -64,7 +70,7 @@ class AdamW:
     def step(self) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.clip > 0 and grads:
-            norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+            norm = torch.sqrt(self._sq_norm())
             factor = torch.where(norm < self.clip, torch.ones_like(norm),
                                  self.clip / norm)
             for g in grads:
@@ -73,6 +79,25 @@ class AdamW:
             group["lr"] = self.current_lr()
         self.opt.step()
         self.count += 1
+
+    def _sq_norm(self) -> torch.Tensor:
+        """The squared global norm of the gradients. On a mesh each rank
+        sums its shares' squares, a share held on k ranks weighted 1 / k,
+        and one all-reduce over the mesh adds the ranks' sums: a
+        replicated leaf counts once."""
+        if self.layout is None:
+            return sum(p.grad.float().pow(2).sum() for p in self.params
+                       if p.grad is not None)
+        tot = sum(p.grad.float().pow(2).sum() / self.layout.replicas(lay)
+                  for p, lay in zip(self.params, self.layout.leaves)
+                  if p.grad is not None)
+        dist.all_reduce(tot, group=self.layout.mesh.group)
+        return tot
+
+    def over(self, params: Iterable[torch.Tensor]) -> "AdamW":
+        """A fresh optimizer with this one's settings over `params` (no
+        moments, no updates made)."""
+        return AdamW(params, *self._args)
 
     def zero_grad(self) -> None:
         for p in self.params:

@@ -14,6 +14,7 @@ Tolerances:
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -369,5 +370,8 @@ def test_fit_checkpoints_restore_and_resume(tmp_path):
     for a, b in zip(leaves(resumed) + moments(resumed),
                     leaves(state) + moments(state)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ct.fit(state, tx, tc, tcfg, batches, device="cpu", mesh=object())
+    # on a mesh (tests/test_torch_train_mesh.py) a batch must split over
+    # the data ranks
+    with pytest.raises(ValueError, match="does not split"):
+        ct.fit(state, tx, tc, tcfg, batches, device="cpu", prefetch=0,
+               mesh=types.SimpleNamespace(data=3, data_index=0))

@@ -6,8 +6,10 @@ int8, int4 v1 and v2; a LoRA tree and a serving bank) at meshes 1x4, 2x2
 and 4x1, `_sanitize` included; `parse_mesh_flag`, `local_slice` and
 `gather_json_blobs` equal the JAX functions. The rest needs no process
 group: the backend rule, `initialize_distributed` without torchrun's
-environment, and the CLI's exclusions and refusals (the training axes
-and `serve --mesh` point at ROADMAP item 10). Then two gloo ranks run the
+environment, and the CLI's exclusions and refusals (sequence- and
+pipeline-parallel training point at ROADMAP item 10; the training mesh
+and serve's run in tests/test_torch_serve_mesh.py and
+test_torch_train_mesh.py). Then two gloo ranks run the
 port's CLI (tests/torch_dist.RankPool): `annotate --mesh 1,2`,
 `annotate --seq-shards 2` and `chat --seq-shards 2` give the JAX CLI's
 answers on the toy checkpoints, and both ranks print the same."""
@@ -211,22 +213,15 @@ def test_engine_exclusions():
 
 
 @pytest.mark.parametrize("argv", [
-    ["train-lora", "--mesh", "2,1"], ["train-lora", "--seq-shards", "2"],
-    ["train-lora", "--distributed"], ["train-lora", "--pipe-stages", "2"],
+    ["train-lora", "--seq-shards", "2"], ["train-lora", "--pipe-stages", "2"],
     ["train-lora", "--micro-batches", "2"], ["train-lora", "--pipe-data",
-                                             "2"],
-    ["train-projector", "--mesh", "2"], ["serve", "--mesh", "1,2"],
-    ["serve", "--distributed"], ["train-cstp", "--mesh", "2"],
-    ["convert-weights", "--mesh", "1,2"]], ids=lambda a: " ".join(a))
+                                             "2"]],
+    ids=lambda a: " ".join(a))
 def test_training_axes_refused_naming_item_10(dirs, tmp_path, argv):
-    args = {"train-lora": ["--train-json", "x", "--out", str(tmp_path)],
-            "train-projector": ["--train-json", "x", "--out",
-                                str(tmp_path)],
-            "train-cstp": ["--vec-pickle", "x", "--out", str(tmp_path)],
-            "convert-weights": ["--out", str(tmp_path)],
-            "serve": []}[argv[0]]
-    model = [] if argv[0] == "train-cstp" else [
-        "--model-base", dirs["llama"], "--esm", dirs["esm"]]
+    # the training mesh, serve's mesh and the one-device commands' flags
+    # run: tests/test_torch_serve_mesh.py
+    args = ["--train-json", "x", "--out", str(tmp_path)]
+    model = ["--model-base", dirs["llama"], "--esm", dirs["esm"]]
     with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(argv + args + model + ["--device", "cpu"])
 

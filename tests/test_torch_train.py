@@ -374,16 +374,16 @@ def test_collate_and_batches_match_jax(tmp_path):
 
 
 def test_unported_trainer_options_raise():
-    """The mesh is refused with NotImplementedError naming its ROADMAP
-    item, before any step runs; the prefetch thread runs (an empty stream
-    ends at once). (Checkpointing is ported:
-    tests/test_torch_checkpoint.py; prefetch: tests/test_torch_loaders.py.)
-    """
+    """fit(mesh=) takes the rank's shares (tests/test_torch_train_mesh.py):
+    a state that `shard_state` did not cut is refused with ValueError
+    before any step runs; the prefetch thread runs (an empty stream ends
+    at once). (Checkpointing: tests/test_torch_checkpoint.py; prefetch:
+    tests/test_torch_loaders.py.)"""
     _, tcfg, _, tfrozen, _, ttrain, lcfg = _setup("lora")
     state, tx = mmt.create_state(tcfg, TrainConfig(), tfrozen,
                                  trainable=ttrain, lora_cfg=lcfg[1],
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="shard_state"):
         mmt.fit(state, tx, tcfg, TrainConfig(), tfrozen, [],
                 lora_cfg=lcfg[1], device="cpu", mesh=object())
     mmt.fit(state, tx, tcfg, TrainConfig(), tfrozen, [], lora_cfg=lcfg[1],
