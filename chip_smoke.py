@@ -423,17 +423,48 @@ and prints no result:
      (`compare`): flash forward and both backward kernels with 16 query
      and 4 KV heads at a data rank's 8 x 519 rows, int4_matmul_v1 at M =
      8 x 519 on the M = 2 shards.
+ 18. parallel training axes: 4 ranks spawned as in phase 17, each running
+     train-lora through the port's CLI, at the depth and cross-entropy
+     chunking of phase 17 (8 of 32 layers and --ce-chunk 64 when the
+     ranks share one card, 32 and the whole-sequence cross-entropy with a
+     card a rank): (a) --seq-shards 4 over a bf16 Llama-3-8B at batch 2
+     of ~4k-token examples (--max-len 4096: 4103 spliced rows, 1026 a
+     shard; ring attention, its backward a reverse ring), (b) the same
+     with --load-int4 (QLoRA: int4_matmul_v1 at M = 2 x 1026), (c)
+     --pipe-stages 4 --micro-batches 4 over bf16 at train-lora's defaults
+     (batch 16 at L = 519: microbatches of 4 rows), (d) --pipe-stages 2
+     --pipe-data 2 --load-int4 (two replicas of 8 rows, 2 microbatches),
+     2 steps each. Phase 17's gates against one process running the same
+     command on the same batches (step 1's loss within 2^-7, the
+     gradients AdamW took within 2^-4 of each leaf's largest, step 1's
+     sign rule, each later step against one process resumed from the
+     axis's checkpoint, the bf16 runs' checkpoint equal to the final tree
+     bit for bit and resumed by one process for a third step), exact
+     launch counts a step on every rank (the encoder kernels 33 each; a
+     sequence shard no flash and the v1 product twice a projection; a
+     pipeline stage the flash forward 2 x (L/P) x M, dq and dk/dv (L/P) x
+     M, v1 twice a projection a microbatch and the head on the last
+     stage); each rank holds its share of the decoder (every layer on a
+     sequence shard, L / P on a stage) and peaks, loading and training,
+     within 24 GiB beyond the tree it holds; step walls beside one
+     process's, the bubble fraction (P - 1) / (M + P - 1) and the
+     host-staged rotations and sends printed. Then the axes' kernels
+     against their plain versions (`compare`): flash forward, dq and
+     dk/dv at a 4 x 519 microbatch with 32 query and 8 KV heads,
+     int4_matmul_v1 at M = 2 x 1026 on Llama-3-8B's five (K, N).
      Each phase prints its wall, then chip_smoke prints its total.
 The last two lines: a JSON object of the kernels' numbers, then
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --parallel
 
-runs phases 1 and 2, then phases 16 and 17 alone (on a machine with four
-cards, over NCCL with a card a rank: train-lora at 32 layers; phase 17
-times one process's train steps beside the mesh's), then the
-single-card baseline of phase 16's run (a) on one process. It prints no
-result line.
+runs phases 1 and 2, then phases 16, 17 and 18 alone (on a machine with
+four cards, over NCCL with a card a rank: train-lora at 32 layers;
+phases 17 and 18 time one process's train steps beside the ranks'),
+then the single-card baseline of phase 16's run (a) on one process. It
+runs as a child of itself whose whole output, the ranks' included, is
+also written to chiprun_out/parallel.log beside the script. It prints
+no result line.
 
     python3 chip_smoke.py --profile-serving
 
@@ -1958,11 +1989,12 @@ def check_serve_slice(card, params, cfg, gen):
     return stats["bf16 cache"]
 
 
-def train_records(n, tok):
+def train_records(n, tok, lo=460, hi=501):
     """n synthetic train-lora records: the keywords question followed by
-    protein context, sized so that the tokenized prompt is 460-500 tokens,
-    a protein of 60-500 residues and a 24-64-token answer (with the
-    leading space and EOS), so most records pass the 512-token cap."""
+    protein context, sized so that the tokenized prompt is lo to hi - 1
+    tokens (default 460-500), a protein of 60-500 residues and a 24-64-
+    token answer (with the leading space and EOS), so most records pass
+    the 512-token cap."""
     import numpy as np
     from opus_pllm_tpu_torch.infer.conversation import annotation_prompt
     from opus_pllm_tpu_torch.infer.tokenization import tokenize_with_seq
@@ -1973,12 +2005,12 @@ def train_records(n, tok):
     question = "What are the UniProtKB keywords of this protein?"
     context = (" The protein was isolated from a soil bacterium; its gene "
                "lies next to an ABC transporter operon and it is expressed "
-               "under zinc limitation.") * 8
+               "under zinc limitation.") * (hi // 150 + 2)
     base = len(tokenize_with_seq(annotation_prompt("<seq>\n" + question),
                                  tok.encode, tok.bos_token_id))
     recs = []
     for _ in range(n):
-        extra = int(rng.integers(460, 501)) - base
+        extra = int(rng.integers(lo, hi)) - base
         answer = "; ".join(rng.choice(words, 12))[:int(rng.integers(22, 63))]
         recs.append({"instruction": question + context[:extra],
                      "input": "".join(rng.choice(aa, int(rng.integers(
@@ -5224,8 +5256,11 @@ def pt_record_training():
         return orig_step(self)
     saved = [(optim.AdamW, "step", orig_step)]
     optim.AdamW.step = step
-    for mod in (mmt, ct):
-        orig = mod.make_train_step
+    from opus_pllm_tpu_torch.train import pp, sp
+    for mod, name in ((mmt, "make_train_step"), (ct, "make_train_step"),
+                      (sp, "make_sp_train_step"),
+                      (pp, "make_pp_train_step")):
+        orig = getattr(mod, name)
 
         def make(*a, _orig=orig, **k):
             fn = _orig(*a, **k)
@@ -5237,8 +5272,8 @@ def pt_record_training():
                 seen.setdefault("stamps", []).append(time.perf_counter())
                 return state, m
             return run
-        saved.append((mod, "make_train_step", orig))
-        mod.make_train_step = make
+        saved.append((mod, name, orig))
+        setattr(mod, name, make)
 
     def restore():
         for obj, name, orig in saved:
@@ -5426,16 +5461,17 @@ def pt_rank(rank, tmp, here, layers):
         os._exit(1)
 
 
-def pt_reference(tmp, i, layers):
+def pt_reference(tmp, i, layers, ph=None):
     """Run i's command on one process (no mesh flags) -> (its record,
     launch counts, printed lines, seconds)."""
     import gc
     import torch
+    ph = ph or PT
     pt_depth(layers)
     seen, restore = pt_record_training()
     reset_counts()
     try:
-        lines, dt = run_cli(pt_argv(tmp, i, os.path.join(tmp, f"one{i}"),
+        lines, dt = run_cli(ph.argv(tmp, i, os.path.join(tmp, f"one{i}"),
                                     mesh=False))
     finally:
         restore()
@@ -5446,13 +5482,13 @@ def pt_reference(tmp, i, layers):
     return seen, counts, lines, dt
 
 
-def pt_train_want(i, layers):
+def pt_train_want(i, layers, rank=None):
     """The launches a step of run i takes on every rank (and on one
-    process): the flash forward twice (remat) and each backward once a
-    layer, the encoder kernels once an ESM2 layer, the v1 product twice
-    for each of the 7 projections a layer, and for the head once, or
-    twice a chunk of the chunked cross-entropy (each chunk's head runs
-    again in its recompute)."""
+    process, `rank` None): the flash forward twice (remat) and each
+    backward once a layer, the encoder kernels once an ESM2 layer, the v1
+    product twice for each of the 7 projections a layer, and for the head
+    once, or twice a chunk of the chunked cross-entropy (each chunk's head
+    runs again in its recompute)."""
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
     if PT_RUNS[i][1] == "cstp":
         return {}
@@ -5466,14 +5502,27 @@ def pt_train_want(i, layers):
     return {n: PT_STEPS * c for n, c in want.items()}
 
 
-def pt_resumed(tmp, i, layers, step):
+class TrainPhase:
+    """A training phase's runs ((label, kind, flags), ...), its command
+    lines `argv(tmp, i, out, mesh)` (mesh False: the one process's) and
+    launches a step `want(i, layers, rank)` (rank None: one process)."""
+
+    def __init__(self, runs, argv, want):
+        self.runs, self.argv, self.want = runs, argv, want
+
+
+PT = TrainPhase(PT_RUNS, pt_argv, pt_train_want)
+
+
+def pt_resumed(tmp, i, layers, step, ph=None):
     """Run i's command on one process resumed from the mesh's checkpoint
     of `step` - 1, for `step` only -> (its record, its checkpoint
     directory)."""
     import gc
     import shutil
     import torch
-    kind = PT_RUNS[i][1]
+    ph = ph or PT
+    kind = ph.runs[i][1]
     d = os.path.join(tmp, f"resumed{i}_{step}")
     shutil.copytree(os.path.join(tmp, f"out{i}", "resume_state",
                                  str(step - 1)),
@@ -5481,7 +5530,7 @@ def pt_resumed(tmp, i, layers, step):
     pt_depth(layers if kind == "lora" else None)
     seen, restore = pt_record_training()
     try:
-        argv = pt_argv(tmp, i, d, mesh=False)
+        argv = ph.argv(tmp, i, d, mesh=False)
         argv[argv.index("--max-steps") + 1] = str(step)
         run_cli(argv + ["--resume"])
     finally:
@@ -5492,25 +5541,26 @@ def pt_resumed(tmp, i, layers, step):
     return seen, os.path.join(d, "resume_state")
 
 
-def pt_train_gates(card, tmp, i, res, layers):
-    """Run i against one process (module docstring, phase 17): step 1
-    against one process on the same batches, each later step against one
-    process resumed from the mesh's checkpoint of the step before (the
-    same parameters and moments), the launch counts on every rank; for
-    the bf16 run the mesh's checkpoint restored and resumed on one
-    process."""
+def pt_train_gates(card, tmp, i, res, layers, ph=None):
+    """Run i against one process (module docstring, phases 17 and 18):
+    step 1 against one process on the same batches, each later step
+    against one process resumed from the mesh's checkpoint of the step
+    before (the same parameters and moments), the launch counts on every
+    rank; for the bf16 runs the mesh's checkpoint restored and resumed on
+    one process. -> one process's step walls."""
     import math
     import torch
     from opus_pllm_tpu_torch.core.checkpoint import CheckpointManager
     from opus_pllm_tpu_torch.train.multimodal_trainer import leaves
-    label, kind, flags = PT_RUNS[i]
-    seen, counts, lines, dt = pt_reference(tmp, i, layers)
+    ph = ph or PT
+    label, kind, flags = ph.runs[i]
+    seen, counts, lines, dt = pt_reference(tmp, i, layers, ph)
     r0 = res[0]
     expect_counts(f"parallel {label}, one process", counts,
-                  **pt_train_want(i, layers))
+                  **ph.want(i, layers, None))
     for r, rr in enumerate(res):
         expect_counts(f"parallel {label} rank {r}", rr["counts"],
-                      **pt_train_want(i, layers))
+                      **ph.want(i, layers, r))
     lora = kind == "lora"
     rtol = PT_LOSS_RTOL if lora else PT_CSTP_RTOL
     grel = PT_GRAD_RTOL if lora else PT_CSTP_GRAD_RTOL
@@ -5564,7 +5614,7 @@ def pt_train_gates(card, tmp, i, res, layers):
                  f"where one process's gradient is not within the bound")
     resumed_l, far, dmax, n_all = [], 0, 0.0, 0
     for step in range(2, PT_STEPS + 1):
-        rs, rdir = pt_resumed(tmp, i, layers, step)
+        rs, rdir = pt_resumed(tmp, i, layers, step, ph)
         resumed_l.append(rs["metrics"][0]["loss"])
         worst.append(held(step, r0["metrics"][step - 1], rs["metrics"][0],
                           r0["grads"][step - 1], rs["grads"][0]))
@@ -5600,7 +5650,7 @@ def pt_train_gates(card, tmp, i, res, layers):
     print(f"parallel {label}: peak per rank " + ", ".join(
         f"{gib(rr['peak']):.2f}" for rr in res) + " GiB", flush=True)
     if not (lora and "--load-int4" not in flags):
-        return
+        return seen["stamps"]
     # the mesh's checkpoint: the full tree, restored and resumed on one
     # process
     mgr = CheckpointManager(os.path.join(out, "resume_state"))
@@ -5614,7 +5664,7 @@ def pt_train_gates(card, tmp, i, res, layers):
              f"leaves of its final tree")
     pt_depth(layers)
     try:
-        lines, dt = run_cli(pt_argv(tmp, i, out, mesh=False)
+        lines, dt = run_cli(ph.argv(tmp, i, out, mesh=False)
                             + ["--max-steps", str(PT_STEPS + 1),
                                "--resume"])
     finally:
@@ -5626,6 +5676,7 @@ def pt_train_gates(card, tmp, i, res, layers):
     print(f"parallel {label}: the mesh's checkpoint (step {PT_STEPS}) is "
           f"its final tree bit for bit and one process resumed it to step "
           f"{PT_STEPS + 1} in {dt:.1f} s", flush=True)
+    return seen["stamps"]
 
 
 def pt_serve_gates(card, tmp, i, res):
@@ -5844,6 +5895,356 @@ def check_parallel_training(card, rows):
           f" s [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the parallel training axes (sequence and pipeline parallelism)
+# ---------------------------------------------------------------------------
+
+AX_RUNS = (   # (label, kind, flags): train-lora on 4 ranks
+    ("lora bf16 seq-shards 4", "lora", ["--seq-shards", "4"]),
+    ("lora int4-v1 seq-shards 4", "lora", ["--seq-shards", "4",
+                                           "--load-int4"]),
+    ("lora bf16 pipe-stages 4 x 4 microbatches", "lora",
+     ["--pipe-stages", "4", "--micro-batches", "4"]),
+    ("lora int4-v1 pipe-stages 2 x pipe-data 2", "lora",
+     ["--pipe-stages", "2", "--pipe-data", "2", "--load-int4"]),
+)
+AX_AXIS_FLAGS = ("--seq-shards", "--pipe-stages", "--micro-batches",
+                 "--pipe-data")
+# the sequence-parallel runs: batch 2 of ~4k-token examples (prompts of
+# 4040-4059 tokens and the answer cut at --max-len 4096, so every batch
+# pads to 4096 and splices to 4103 rows: 1026 a shard)
+AX_LONG_BATCH, AX_LONG_MAX = 2, 4096
+AX_LONG_LEN = AX_LONG_MAX + 8 - 1
+# a rank's peak beyond the tree it holds: on a last pipeline stage without
+# --ce-chunk the head's fp32 logits over 16 x 518 rows and their
+# gradients (4.25 GB each, four alive in the recompute) dominate
+AX_WORKING_GIB = 24
+
+
+def ax_axis(i):
+    """Run i's (seq shards, pipe stages, microbatches, pipe replicas)."""
+    flags = AX_RUNS[i][2]
+    val = lambda f, d: int(flags[flags.index(f) + 1]) if f in flags else d
+    pipe = val("--pipe-stages", 0)
+    return (val("--seq-shards", 0), pipe, val("--micro-batches", pipe),
+            val("--pipe-data", 1))
+
+
+def ax_argv(tmp, i, out, mesh=True):
+    """Run i's command line (without its axis flags when `mesh` is False:
+    the single process's)."""
+    flags = AX_RUNS[i][2]
+    if not mesh:
+        flags = [f for j, f in enumerate(flags) if f not in AX_AXIS_FLAGS
+                 and (j == 0 or flags[j - 1] not in AX_AXIS_FLAGS)]
+    chunk = PT_CE_CHUNK_SHARED if pt_shared() else 0
+    data = (["--train-json", os.path.join(tmp, "long.json"),
+             "--batch-size", str(AX_LONG_BATCH), "--max-len",
+             str(AX_LONG_MAX)] if ax_axis(i)[0]
+            else ["--train-json", os.path.join(tmp, "train.json")])
+    return (["train-lora", "--model-base",
+             os.path.join(tmp, "Meta-Llama-3-8B")] + data + [
+        "--out", out, "--max-steps", str(PT_STEPS), "--save-every", "1",
+        "--ce-chunk", str(chunk)] + flags)
+
+
+def ax_train_want(i, layers, rank=None):
+    """The launches a step of run i takes on rank `rank` (None: one
+    process, phase 17's count). Every rank splices its batch (the encoder
+    kernels 33 each). A sequence shard runs ring attention (plain, no
+    flash) and the v1 product twice for each of the 7 projections a
+    layer over its 1026 rows, and its chunked cross-entropy's head twice
+    a chunk (one chunk without --ce-chunk). A pipeline stage runs its L /
+    P layers for each of its M microbatches: the flash forward twice
+    (remat), dq and dk/dv once, the v1 product twice a projection; the
+    last stage runs the head twice a cross-entropy chunk over the
+    replica's rows."""
+    import math
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    seq, pipe, micro, _ = ax_axis(i)
+    chunk = PT_CE_CHUNK_SHARED if pt_shared() else 0
+    int4 = "--load-int4" in AX_RUNS[i][2]
+    length = AX_LONG_LEN if seq else TRAIN_LEN
+    want = {n: 33 for n in fe.launches}
+
+    def heads(rows):       # the checkpointed chunks' head, twice a chunk
+        c = chunk if 0 < chunk < rows else rows
+        return 2 * math.ceil(rows / c)
+    if rank is None:
+        want.update(flash_attention=2 * layers,
+                    flash_attention_bwd_dq=layers,
+                    flash_attention_bwd_dkv=layers)
+        if int4:
+            want["int4_matmul_v1"] = 2 * 7 * layers + (
+                2 * math.ceil((length - 1) / chunk) if chunk else 1)
+    elif seq:
+        if int4:
+            want["int4_matmul_v1"] = 2 * 7 * layers + heads(
+                -(-length // seq))
+    else:
+        per = layers // pipe
+        want.update(flash_attention=2 * per * micro,
+                    flash_attention_bwd_dq=per * micro,
+                    flash_attention_bwd_dkv=per * micro)
+        if int4:
+            last = rank % pipe == pipe - 1
+            want["int4_matmul_v1"] = 2 * 7 * per * micro + (
+                heads(length - 1) if last else 0)
+    return {n: PT_STEPS * c for n, c in want.items()}
+
+
+AX = TrainPhase(AX_RUNS, ax_argv, ax_train_want)
+
+
+def ax_files(tmp):
+    """The phase's records: train-lora's (phase 17's) and the ~4k-token
+    ones of the sequence-parallel runs (3 steps' worth and spares)."""
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    tok = ByteTokenizer()
+    with open(os.path.join(tmp, "train.json"), "w") as f:
+        json.dump(train_records((PT_STEPS + 1) * TRAIN_BATCH, tok), f)
+    with open(os.path.join(tmp, "long.json"), "w") as f:
+        json.dump(train_records((PT_STEPS + 2) * AX_LONG_BATCH, tok,
+                                lo=AX_LONG_MAX - 56, hi=AX_LONG_MAX - 36),
+                  f)
+
+
+def ax_one_run(rank, tmp, i, layers):
+    """Run i of AX_RUNS on this rank through the port's CLI; what the
+    gates need is saved to `tmp`: the launch counts, each step's metrics
+    and (rank 0) the gradients AdamW took, the tree the rank holds (its
+    bytes and decoder layers), the peak while loading and after, the
+    host-staged rotations and sends."""
+    import contextlib
+    import io
+    import torch
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.core import mesh as mesh_mod
+    pt_depth(layers)
+    seen, restore = pt_record_training()
+    built = {}
+    build = cli._build
+
+    def hooked(*a, **k):
+        cfg, params, tok = build(*a, **k)
+        torch.cuda.synchronize()
+        built.update(tree_bytes=_tree_bytes(params),
+                     layers_held=len(params["llm"]["layers"]),
+                     load_peak=torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return cfg, params, tok
+    cli._build = hooked
+    torch.cuda.empty_cache()
+    reset_counts()
+    mesh_mod.reset_host_staged()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(ax_argv(tmp, i, os.path.join(tmp, f"out{i}")))
+    finally:
+        restore()
+        cli._build = build
+        pt_depth(None)
+    torch.cuda.synchronize()
+    res = dict(built, counts=read_counts(), wall=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated(),
+               printed=buf.getvalue(), layout=par_layout(),
+               metrics=seen["metrics"], grads=seen["grads"],
+               stamps=seen.get("stamps", []),
+               host_staged=dict(mesh_mod.host_staged))
+    torch.save(res, os.path.join(tmp, f"pt{i}_rank{rank}.pt"))
+
+
+def ax_rank(rank, tmp, here, layers):
+    """One rank of phase 18: its process group, then every run of
+    AX_RUNS through the port's CLI. Any exception exits non-zero."""
+    import datetime
+    import gc
+    import traceback
+    try:
+        sys.path.insert(0, here)
+        import torch
+        import torch.distributed as dist
+        from opus_pllm_tpu_torch.cli import main as cli
+        from opus_pllm_tpu_torch.core import mesh as mesh_mod
+        from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh_mod.initialize_distributed(
+            "file://" + os.path.join(tmp, "rendezvous"), PT_RANKS, rank,
+            device_type="cuda", timeout=datetime.timedelta(
+                seconds=PT_TIMEOUT))
+        cli.load_tokenizer = lambda path, family: ByteTokenizer()
+        for i in range(len(AX_RUNS)):
+            ax_one_run(rank, tmp, i, layers)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        print(f"rank {rank}:\n{traceback.format_exc()}", flush=True)
+        os._exit(1)
+
+
+def ax_rank_gates(card, i, res, layers, one_stamps):
+    """Run i's ranks beyond pt_train_gates: each holds its share of the
+    decoder (every layer on a sequence shard, L / P on a pipeline stage),
+    its peak while loading and after within the tree it holds plus
+    AX_WORKING_GIB; the step walls, the bubble fraction and the
+    host-staged rotations and sends printed."""
+    label = AX_RUNS[i][0]
+    seq, pipe, micro, data = ax_axis(i)
+    gib = lambda v: v / 2 ** 30
+    want_layers = layers if seq else layers // pipe
+    for r, rr in enumerate(res):
+        over = max(rr["peak"], rr["load_peak"]) - rr["tree_bytes"]
+        print(f"parallel {label} rank {r}: holds {rr['layers_held']} "
+              f"decoder layers, {gib(rr['tree_bytes']):.2f} GiB of "
+              f"parameters; peak {gib(rr['load_peak']):.2f} GiB loading, "
+              f"{gib(rr['peak']):.2f} GiB training ({gib(over):.2f} GiB "
+              f"beyond the tree; allowed {AX_WORKING_GIB}); host-staged "
+              f"{rr['host_staged']} [{card}]", flush=True)
+        if rr["layers_held"] != want_layers:
+            fail(f"parallel {label} rank {r}: holds {rr['layers_held']} "
+                 f"decoder layers, not {want_layers}")
+        if gib(over) > AX_WORKING_GIB:
+            fail(f"parallel {label} rank {r}: peak {gib(over):.2f} GiB "
+                 f"beyond its tree")
+    step_s = lambda st: [round(b - a, 3) for a, b in zip(st, st[1:])]
+    what = (f"{seq} sequence shards of {-(-AX_LONG_LEN // seq)} rows"
+            if seq else
+            f"{pipe} stages x {data} replicas, {micro} microbatches, "
+            f"bubble fraction (P - 1) / (M + P - 1) = "
+            f"{(pipe - 1) / (micro + pipe - 1):.3f}")
+    print(f"parallel {label}: {what}; step walls after the first, rank 0 "
+          f"{step_s(res[0]['stamps'])} s, one process "
+          f"{step_s(one_stamps)} s ({res[0]['layout']}) [{card}]",
+          flush=True)
+
+
+def ax_shard_kernels(card, rows):
+    """The axes' kernels at their shapes against their plain versions
+    (phase 3's compare): the flash forward and both backward kernels at a
+    pipeline microbatch of 4 x 519 rows with 32 query and 8 KV heads, and
+    int4_matmul_v1 at M = 2 x 1026 (a sequence shard's rows) on the five
+    (K, N) of Llama-3-8B's projections and head."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import flash_attention as fa
+    from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
+    from opus_pllm_tpu_torch.kernels import quant4
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 18)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
+    b, l, hq, hkv, d = TRAIN_BATCH // 4, TRAIN_LEN, 32, 8, 128
+    n_valid = torch.randint(l // 2, l + 1, (b,), generator=g, device="cuda")
+    mask = train_mask(n_valid, l)
+    pairs = mask.sum().item()
+    q, k, v, dout = rnd(b, l, hq, d), rnd(b, l, hkv, d), rnd(b, l, hkv, d), \
+        rnd(b, l, hq, d)
+    label = f"{b} x {l} microbatch, {hq} q / {hkv} kv heads"
+    keep(rows, "flash_attention", compare(
+        f"flash_attention {label}",
+        lambda q, k, v: fa.flash_attention(q, k, v, mask),
+        lambda q, k, v: fa.flash_attention_plain(q, k, v, mask),
+        (q, k, v), card, flops=4 * hq * d * pairs,
+        more_bytes=nbytes(mask)), False)
+    out, lse = fa.flash_attention(q, k, v, mask, return_lse=True)
+    delta = fab._delta(out, dout)
+    plain = lambda q, k, v, dout: fab.flash_attention_bwd_plain(
+        q, k, v, mask, out, lse, dout)
+    saved = nbytes(mask, lse, delta)
+    keep(rows, "flash_attention_bwd_dq", compare(
+        f"flash_attention_bwd_dq {label}",
+        lambda q, k, v, dout: fab.flash_attention_bwd_dq(
+            q, k, v, mask, lse, delta, dout),
+        lambda *a: plain(*a)[0], (q, k, v, dout), card,
+        flops=6 * hq * d * pairs, more_bytes=saved, scaled_atol=True), False)
+    keep(rows, "flash_attention_bwd_dkv", compare(
+        f"flash_attention_bwd_dkv {label}",
+        lambda q, k, v, dout: fab.flash_attention_bwd_dkv(
+            q, k, v, mask, lse, delta, dout),
+        lambda *a: torch.stack(plain(*a)[1:]), (q, k, v, dout), card,
+        flops=8 * hq * d * pairs, more_bytes=saved, scaled_atol=True), False)
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    m = AX_LONG_BATCH * -(-AX_LONG_LEN // 4)
+    for kk, n in INT4_SHAPES:
+        wq, s = quant4.quantize_grouped(torch.randn(
+            (kk, n), generator=g, device="cuda"))
+        packed = quant4.pack_int4(wq)
+        del wq
+        x = rnd(m, kk)
+        keep(rows, "int4_matmul_v1", compare(
+            f"int4_matmul_v1 M={m} K={kk} N={n} (sequence shard)",
+            lambda x: quant4.int4_matmul(x, packed, s),
+            lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
+            flops=2 * m * kk * n, more_bytes=nbytes(packed, s)), False)
+        del s, packed, x
+        torch.cuda.empty_cache()
+
+
+def check_parallel_axes(card, rows):
+    """Phase 18 (module docstring): PT_RANKS ranks on this card (or a card
+    each) run train-lora sequence- and pipeline-parallel through the
+    port's CLI; their results are gated against one process here."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from opus_pllm_tpu_torch.cli import main as cli
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    t_phase = time.perf_counter()
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    cli.load_tokenizer = lambda path, family: ByteTokenizer()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="opus-parallel-axes-")
+    layers = PT_LAYERS_SHARED if pt_shared() else 32
+    print(f"parallel training axes: train-lora at {layers} of Llama-3-8B's "
+          f"32 layers ({'the ranks share one card' if pt_shared() else 'a card a rank'})",
+          flush=True)
+    try:
+        ax_files(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=ax_rank, args=(r, tmp, here, layers))
+                 for r in range(PT_RANKS)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + PT_TIMEOUT
+        while any(p.is_alive() for p in procs) and time.monotonic() < end:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        if codes != [0] * PT_RANKS:
+            fail(f"parallel training axes: rank exit codes {codes} (None: "
+                 f"still running after {PT_TIMEOUT} s)")
+        print(f"parallel training axes: {len(AX_RUNS)} runs of {PT_RANKS} "
+              f"ranks, every rank exited 0, in "
+              f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+        for i in range(len(AX_RUNS)):
+            res = [torch.load(os.path.join(tmp, f"pt{i}_rank{r}.pt"),
+                              weights_only=False) for r in range(PT_RANKS)]
+            one_stamps = pt_train_gates(card, tmp, i, res, layers, AX)
+            ax_rank_gates(card, i, res, layers, one_stamps)
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ax_shard_kernels(card, rows)
+    torch.cuda.empty_cache()
+    print(f"parallel training axes phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def single_card_baseline(card):
     """Phase 16's run (a) (annotate, bf16 Llama-3-8B, 8 requests, greedy)
     on one process on this card: the baseline of the TP-4 decode step
@@ -5882,9 +6283,39 @@ def single_card_baseline(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def tee_parallel():
+    """--parallel: this script again in a child process with the same
+    arguments, its whole output (the ranks' included) copied line by line
+    to this one's and to chiprun_out/parallel.log beside the script, so
+    that all of it survives a caller that keeps only the end -> the
+    child's exit code."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "chiprun_out", "parallel.log")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    env = dict(os.environ, CHIP_SMOKE_TEED="1", PYTHONUNBUFFERED="1")
+    with open(path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__)] + sys.argv[1:],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+            text=True, bufsize=1)
+        try:
+            for line in child.stdout:
+                sys.stdout.write(line)
+                sys.stdout.flush()
+                log.write(line)
+                log.flush()
+        finally:
+            code = child.wait()
+    print(f"the whole output is in {path} (exit code {code})", flush=True)
+    return code
+
+
 def main():
     # nothing here reads a tokenizer or a model from a hub
     os.environ["HF_HUB_OFFLINE"] = "1"
+    if "--parallel" in sys.argv[1:] and not os.environ.get(
+            "CHIP_SMOKE_TEED"):
+        sys.exit(tee_parallel())
     try:
         import torch
     except ImportError:
@@ -5943,6 +6374,8 @@ def main():
         check_parallel(card, rows)
         phase("parallel (training and serve)")
         check_parallel_training(card, rows)
+        phase("parallel training axes")
+        check_parallel_axes(card, rows)
         phase("single-card baseline")
         single_card_baseline(card)
         return
@@ -5998,6 +6431,9 @@ def main():
 
     phase("parallel (training and serve)")
     check_parallel_training(card, rows)
+
+    phase("parallel training axes")
+    check_parallel_axes(card, rows)
 
     kernels = [{"name": n, "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNELS[n], "launches": counts[n]}

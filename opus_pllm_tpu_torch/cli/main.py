@@ -47,9 +47,15 @@ the others `serve.server.serve_follower`); `serve --distributed` alone
 serves one whole model a rank, as in JAX, and stops when two ranks of
 one host would bind one port.
 
-Refused with NotImplementedError, naming ROADMAP.md §1 item 10 (steps
-(c) and (d)): `--seq-shards` on the train commands, `--pipe-stages`,
-`--micro-batches`, `--pipe-data` > 1. Parsed and without effect:
+`train-lora` / `train-projector --seq-shards N` train sequence-parallel
+over N ranks (train/sp.py: ring attention, whole model and batch on
+every rank), `--pipe-stages P [--micro-batches M] [--pipe-data D]`
+pipeline-parallel over P x D ranks (train/pp.py: GPipe, each stage
+loading only its block of the layers); `--micro-batches` and
+`--pipe-data` without `--pipe-stages` change nothing, as in JAX. The
+exclusions are JAX's: `--seq-shards`, `--pipe-stages` and `--mesh`
+exclude each other, `--val-json` takes none of the first two. Parsed
+and without effect:
 `--unroll-layers` and `--scan-mode` (the JAX layer-loop layouts; the
 port runs a plain loop over its layer list), and `--mesh` /
 `--distributed` on `precompute-pairs` and `convert-weights` (the JAX
@@ -70,8 +76,6 @@ from typing import Optional
 import numpy as np
 
 STANDARD_AA = set("ACDEFGHIKLMNPQRSTVWY")
-ITEM_10 = ("ROADMAP.md §1 item 10, sequence- and pipeline-parallel "
-           "training")
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -151,29 +155,6 @@ def _gen_args(p: argparse.ArgumentParser) -> None:
                         "(--draft-layers only)")
 
 
-def _train_axes(args) -> None:
-    """The train commands' exclusions, as in JAX (cli/main.py:616-625),
-    then the axes not ported yet, refused before anything loads."""
-    seq, pipe = getattr(args, "seq_shards", 0), getattr(args, "pipe_stages",
-                                                        0)
-    if sum(bool(x) for x in (seq, pipe, getattr(args, "mesh", None))) > 1:
-        raise SystemExit("--seq-shards, --pipe-stages and --mesh are "
-                         "mutually exclusive (sequence vs pipeline vs "
-                         "data/model parallelism)")
-    if getattr(args, "val_json", None) and (seq or pipe):
-        raise SystemExit("--val-json runs on the standard (mesh/single-"
-                         "device) path only; drop --seq-shards/"
-                         "--pipe-stages")
-    for flag, value in (("--seq-shards", seq), ("--pipe-stages", pipe),
-                        ("--micro-batches",
-                         getattr(args, "micro_batches", 0))):
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet ({ITEM_10})")
-    if getattr(args, "pipe_data", 1) > 1:
-        raise NotImplementedError(f"--pipe-data > 1 is not ported yet "
-                                  f"({ITEM_10})")
-
-
 def _launch_hint(n) -> str:
     return (f"start it with torchrun --nproc-per-node {n} -m "
             f"opus_pllm_tpu_torch.cli.main ...")
@@ -230,6 +211,43 @@ def _device(args):
         from ..core.mesh import rank_device
         return rank_device(dev.type)
     return dev
+
+
+def _train_parallel(args):
+    """The train commands' axes -> (mesh, seq mesh, pipe mesh), at most
+    one of them not None: --seq-shards N over a process group of N ranks,
+    --pipe-stages P over P x --pipe-data ranks, else `_parallel`'s mesh
+    (cli/main.py:645-659). The JAX exclusions (cli/main.py:616-625) are
+    checked first, before anything loads."""
+    seq, pipe = args.seq_shards, args.pipe_stages
+    if sum(bool(x) for x in (seq, pipe, args.mesh)) > 1:
+        raise SystemExit("--seq-shards, --pipe-stages and --mesh are "
+                         "mutually exclusive (sequence vs pipeline vs "
+                         "data/model parallelism)")
+    if args.val_json and (seq or pipe):
+        raise SystemExit("--val-json runs on the standard (mesh/single-"
+                         "device) path only; drop --seq-shards/"
+                         "--pipe-stages")
+    if not (seq or pipe):
+        return _parallel(args)[0], None, None
+    import torch.distributed as dist
+
+    from ..core import mesh as mesh_mod
+    want = seq or pipe * args.pipe_data
+    what = (f"--seq-shards {seq}" if seq else
+            f"--pipe-stages {pipe} --pipe-data {args.pipe_data}")
+    if not mesh_mod.initialize_distributed(device_type=_device(args).type):
+        raise SystemExit(f"{what} needs a process group of {want} ranks "
+                         f"and none is running: {_launch_hint(want)}")
+    world = dist.get_world_size()
+    if want != world:
+        raise SystemExit(f"{what} runs on {want} ranks, this process group "
+                         f"has {world}: {_launch_hint(want)}")
+    if seq:
+        from ..parallel.ring import make_sp_mesh
+        return None, make_sp_mesh(seq), None
+    from ..parallel.pipeline import make_pp_mesh
+    return None, None, make_pp_mesh(pipe, data=args.pipe_data)
 
 
 def _engine_mesh(mesh, seq_mesh):
@@ -406,11 +424,12 @@ def _quantize_flag(args) -> Optional[str]:
             else "int8" if getattr(args, "load_int8", False) else None)
 
 
-def _build(args, mesh=None):
+def _build(args, mesh=None, pipe=None):
     """Config, parameters on --device and tokenizer of a model command
     (cli/main.py:240-311) -> (cfg, params, tokenizer). Under a mesh whose
     model axis splits the LLM each rank loads only its share, and cfg.llm
-    is the share's config."""
+    is the share's config; on a pipeline stage (`pipe`) only the stage's
+    layers load (cfg stays the whole model's)."""
     from ..core import builder
     if not args.model_base:
         raise SystemExit("--model-base is required for model commands")
@@ -422,7 +441,9 @@ def _build(args, mesh=None):
         quantize=_quantize_flag(args),
         # the train commands take the v1 int4 layout, decode the v2 one
         int4_layout=("v1" if getattr(args, "cmd", "").startswith("train")
-                     else "auto"), device=device, mesh=mesh)
+                     else "auto"), device=device, mesh=mesh,
+        keep_layers=(pipe.layer_range(llm_cfg.num_layers)
+                     if pipe is not None else None))
     builder.check_train_layout(getattr(args, "cmd", ""), params["llm"])
     if mesh is not None and mesh.model > 1:
         import dataclasses
@@ -750,9 +771,8 @@ def _train_multimodal(args, *, lora: bool) -> None:
 
     from ..core import builder
 
-    _train_axes(args)
-    mesh, _ = _parallel(args)
-    cfg, params, tok = _build(args, mesh)
+    mesh, seq_mesh, pipe = _train_parallel(args)
+    cfg, params, tok = _build(args, mesh, pipe)
     # the trainable tree is the single process's (drawn from the whole
     # model's config), then cut to this rank's share
     full_cfg = dataclasses.replace(
@@ -786,10 +806,21 @@ def _train_multimodal(args, *, lora: bool) -> None:
         val_fn = lambda: instruction_batches(  # noqa: E731
             vds, tok, min(tcfg.batch_size, len(vds)), shuffle=False,
             seed=0, epochs=1, drop_remainder=False, max_len=args.max_len)
-    state = mmt.fit(state, tx, cfg, tcfg, params, batches, lora_cfg=lcfg,
-                    mesh=mesh, ckpt=rs_mgr, save_every=save_every,
-                    val_batches_fn=val_fn, val_every=args.val_every,
-                    device=device)
+    if seq_mesh is not None:
+        from ..train import sp
+        state = sp.fit(state, tx, cfg, tcfg, params, batches, seq_mesh,
+                       lora_cfg=lcfg, ckpt=rs_mgr, save_every=save_every,
+                       device=device)
+    elif pipe is not None:
+        from ..train import pp
+        state = pp.fit(state, tx, cfg, tcfg, params, batches, pipe,
+                       lora_cfg=lcfg, n_micro=args.micro_batches or None,
+                       ckpt=rs_mgr, save_every=save_every, device=device)
+    else:
+        state = mmt.fit(state, tx, cfg, tcfg, params, batches,
+                        lora_cfg=lcfg, mesh=mesh, ckpt=rs_mgr,
+                        save_every=save_every, val_batches_fn=val_fn,
+                        val_every=args.val_every, device=device)
     trainable = mmt.full_trainable(state)
     if not _is_rank0():
         return
@@ -1154,17 +1185,23 @@ def build_parser() -> argparse.ArgumentParser:
                             "checkpoint (skips the consumed batches of "
                             "the seeded data stream)")
         t.add_argument("--seq-shards", type=int, default=0,
-                       help=f"sequence-parallel training: not ported "
-                            f"({ITEM_10})")
+                       help="sequence-parallel training over this many "
+                            "torchrun ranks: ring attention over the "
+                            "sequence shards, the model replicated "
+                            "(train/sp.py); exclusive with --mesh and "
+                            "--pipe-stages")
         t.add_argument("--pipe-stages", type=int, default=0,
-                       help=f"pipeline-parallel training: not ported "
-                            f"({ITEM_10})")
+                       help="pipeline-parallel training: the decoder's "
+                            "layers split over this many stages, one "
+                            "torchrun rank each (GPipe, train/pp.py)")
         t.add_argument("--micro-batches", type=int, default=0,
-                       help=f"microbatches per pipeline step: not ported "
-                            f"({ITEM_10})")
+                       help="microbatches per pipeline step (default: the "
+                            "stage count); bubble fraction (P-1)/(M+P-1). "
+                            "Only with --pipe-stages")
         t.add_argument("--pipe-data", type=int, default=1,
-                       help=f"pipeline replicas: values > 1 are not ported "
-                            f"({ITEM_10})")
+                       help="pipeline replicas over batch shards (DPxPP: "
+                            "--pipe-stages x --pipe-data ranks). Only with "
+                            "--pipe-stages")
         t.add_argument("--export-reference-format", action="store_true",
                        help="also write the reference checkpoint layout "
                             "(modality_refinement_projector/, lora_adapter/)")

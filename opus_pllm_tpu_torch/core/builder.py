@@ -216,7 +216,9 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
                     lora_cfg: Optional[LoRAConfig] = None,
                     merge_lora: bool = True, quantize: Optional[str] = None,
                     int4_layout: str = "auto", dtype=torch.bfloat16,
-                    device=None, mesh=None) -> Tuple[dict, Optional[dict]]:
+                    device=None, mesh=None,
+                    keep_layers: Optional[range] = None
+                    ) -> Tuple[dict, Optional[dict]]:
     """The full parameter tree on `device` (None: CUDA) -> (params,
     unmerged LoRA tree or None).
 
@@ -230,7 +232,11 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
         (builder.py:44-57).
     mesh: a core.mesh.Mesh whose model axis splits the LLM: each rank
         keeps only its slice (`_load_llm_sharded`); its local config is
-        `parallel.partition.config_for(params["llm"], cfg.llm, mesh)`."""
+        `parallel.partition.config_for(params["llm"], cfg.llm, mesh)`.
+    keep_layers: only these decoder layers are kept (a pipeline stage's
+        block, `parallel.pipeline.PipeMesh.layer_range`): every layer is
+        still drawn or read as one process does, and the others dropped
+        before the next, so the tree's "layers" holds the block alone."""
     device = resolve_device(device)
     if quantize not in (None, "int8", "int4"):
         raise ValueError(f"unknown quantize mode: {quantize}")
@@ -270,10 +276,11 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
     has_lora = bool(lora_dir and os.path.isdir(lora_dir))
     will_merge = has_lora and merge_lora and bool(_lora_files(lora_dir))
     tp_mesh = mesh if mesh is not None and mesh.model > 1 else None
-    if tp_mesh is not None:
+    if tp_mesh is not None or keep_layers is not None:
         params["llm"], unmerged = _load_llm_sharded(
             model_base, cfg.llm, lora_dir if has_lora else None, lora_cfg,
-            merge_lora, quantize, int4_layout, dtype, device, tp_mesh)
+            merge_lora, quantize, int4_layout, dtype, device, tp_mesh,
+            keep_layers)
         return params, unmerged
     if model_base and os.path.isdir(model_base):
         llm = to_device(convert.decoder_from_hf(
@@ -328,32 +335,40 @@ def _quantize_part(tree: dict, quantize: Optional[str], layout: str):
 
 def _load_llm_sharded(model_base, llm_cfg: DecoderConfig, lora_dir,
                       lora_cfg, merge_lora: bool, quantize, int4_layout,
-                      dtype, device, mesh):
-    """The decoder of one rank of a tensor-parallel mesh: each part is
-    drawn (the single process's generators) or read from the files on the
-    host, merged with the LoRA adapter, moved to the device, quantized as
-    a single process quantizes it, and cut to this rank's slice
-    (parallel.partition) before the next part: no rank holds the whole
-    LLM on its device. A layer quantizes whole, then is cut (int8's
-    scale of a row-parallel product spans every row); the head is cut
-    first. -> (this rank's tree, its unmerged LoRA or None)."""
+                      dtype, device, mesh, keep=None):
+    """The decoder of one rank of a tensor-parallel mesh (`mesh`) and / or
+    of one pipeline stage (`keep`, its layers): each part is drawn (the
+    single process's generators) or read from the files on the host,
+    merged with the LoRA adapter, moved to the device, quantized as a
+    single process quantizes it, and cut to this rank's slice
+    (parallel.partition), or dropped when it is a layer outside `keep`,
+    before the next part: no rank holds the whole LLM on its device. A
+    layer quantizes whole, then is cut (int8's scale of a row-parallel
+    product spans every row); the head is cut first. -> (this rank's
+    tree, its unmerged LoRA or None)."""
     from ..parallel import partition
 
-    head_tp = partition.plan(llm_cfg, mesh)
-    state = {"tp": None}
+    head_tp = partition.plan(llm_cfg, mesh) if mesh is not None else None
+    state = {"tp": None, "i": -1}
 
     def finish_head(head):
         # column-parallel: each column quantizes on its own (int8 and int4
         # scales are per column), so the slice quantizes first, the same
         # values without the whole head's transients
-        head = partition.shard_head({"lm_head": to_device(head, device)},
-                                    head_tp)
+        head = {"lm_head": to_device(head, device)}
+        if head_tp is not None:
+            head = partition.shard_head(head, head_tp)
         return _quantize_part(dict(head, layers=[]), quantize,
                               int4_layout)["lm_head"]
 
     def finish_layer(lp):
+        state["i"] += 1
+        if keep is not None and state["i"] not in keep:
+            return None
         lp = _quantize_part({"layers": [to_device(lp, device)]}, quantize,
                             int4_layout)["layers"][0]
+        if mesh is None:
+            return lp
         if state["tp"] is None:
             state["tp"] = partition.plan(llm_cfg, mesh, lp)
         return partition.shard_layer(lp, state["tp"])
@@ -383,12 +398,15 @@ def _load_llm_sharded(model_base, llm_cfg: DecoderConfig, lora_dir,
         if flat is not None and merge_lora:
             raise ValueError("a LoRA adapter merges into loaded base "
                              "weights: give --model-base a HF directory")
+    llm["layers"] = [lp for lp in llm["layers"] if lp is not None]
     unmerged = None
     if flat is not None and not merge_lora:
         from ..lora.lora import tree_from_flat
-        unmerged = partition.shard_lora(
-            tree_from_flat(flat, llm_cfg.num_layers, device=device),
-            state["tp"])
+        unmerged = tree_from_flat(flat, llm_cfg.num_layers, device=device)
+        if keep is not None:
+            unmerged = {"layers": [unmerged["layers"][i] for i in keep]}
+        if mesh is not None:
+            unmerged = partition.shard_lora(unmerged, state["tp"])
     return llm, unmerged
 
 

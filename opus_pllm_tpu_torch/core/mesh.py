@@ -49,8 +49,9 @@ MODEL_AXIS = "model"
 TIMEOUT = datetime.timedelta(seconds=60)
 
 # collectives that went through host memory because the backend does not
-# take the tensor's device (gloo send / recv with CUDA tensors)
-host_staged: Dict[str, int] = {"ring_shift": 0}
+# take the tensor's device (gloo send / recv with CUDA tensors): the ring's
+# rotations and the pipeline's stage-to-stage sends (parallel/pipeline.py)
+host_staged: Dict[str, int] = {"ring_shift": 0, "pipe_p2p": 0}
 # what initialize_distributed chose: backend, whether ranks share a card,
 # this rank's device type
 _STATE: Dict[str, object] = {}

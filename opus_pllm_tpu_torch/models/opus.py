@@ -137,15 +137,23 @@ def next_token_loss(logits, labels, mask):
 
 
 def next_token_loss_hidden(llm_params, llm_cfg, hidden, labels, mask, *,
-                           chunk: int = 64):
+                           chunk: int = 64, shift: bool = True,
+                           reduce: bool = True):
     """The same loss from final-normed hidden states, the vocab projection
     and cross-entropy applied per sequence chunk of `chunk` positions
     (opus.py:156-216): each chunk runs under torch.utils.checkpoint, so
     only (B, chunk, V) fp32 logits live at a time and the backward
-    recomputes each chunk's head. (The JAX function's shift=False /
-    reduce=False forms serve its sequence-parallel trainer, not ported.)"""
-    hs, tg = hidden[:, :-1], labels[:, 1:]
-    valid = (tg != IGNORE_INDEX) & mask[:, 1:]
+    recomputes each chunk's head. shift=False takes PRE-shifted targets
+    (labels[i] is position i's target: the sequence-parallel trainer
+    shifts before sharding, since a shard's last target lives in the next
+    shard); reduce=False returns the (sum, count) partials, for callers
+    that add them over ranks first."""
+    if shift:
+        hs, tg = hidden[:, :-1], labels[:, 1:]
+        valid = (tg != IGNORE_INDEX) & mask[:, 1:]
+    else:
+        hs, tg = hidden, labels
+        valid = (tg != IGNORE_INDEX) & mask
     tg = tg.clamp_min(0)
 
     def chunk_sum(hc, tc, vc):
@@ -161,4 +169,6 @@ def next_token_loss_hidden(llm_params, llm_cfg, hidden, labels, mask, *,
                 chunk_sum, *args, use_reentrant=False)
         else:
             tot = tot + chunk_sum(*args)
+    if not reduce:
+        return tot, valid.sum()
     return tot / valid.sum().clamp_min(1)

@@ -11,6 +11,13 @@ an online softmax in fp32, the JAX merge rule. A causal shard strictly in
 a rank's future is skipped (`src <= idx`); every rank still sends and
 receives at every step that has a next one, so the ring stays in step
 (the last rotation, which would feed nothing, is not made).
+
+With grad on, `ring_attention` is one autograd Function whose backward is
+a reverse ring written by hand (JAX gets it from transposing `ppermute`
+and `cond`): every collective of the forward and of the backward runs
+inside the Function, on every rank alike whatever the causal skip, so
+autograd's graph is the same on every rank and a remat recompute repeats
+the forward's rotations in step.
 `sharded_decode_attention` merges the partial softmaxes of replicated
 queries over a sequence-sharded cache with one MAX and two SUM
 all-reduces. Plain torch, as the JAX module is plain jnp: no kernel.
@@ -81,22 +88,14 @@ def _merge(carry, qf, kb, vb, maskb, q_pos, src: int, s_loc: int,
     return m_new, l, acc
 
 
-def ring_attention(q, k, v, kv_mask, *, group, causal: bool = True,
-                   scale: Optional[float] = None):
-    """Blockwise ring attention on this rank's shards. q (B, S_loc, Hq,
-    D); k, v (B, S_loc, Hkv, D), Hq % Hkv == 0; kv_mask (B, S_loc) the
-    local keys' validity. The rank at index i of `group` holds global rows
-    [i S_loc, (i + 1) S_loc); causality compares global indices (the
-    right-pad contract of layers.causal_mask). Returns this rank's (B,
-    S_loc, Hq, D) output, equal to single-device attention up to float
-    reassociation; a row with no valid key gets the uniform mean of v,
-    as attention_xla gives it."""
+def _ring_forward(q, k, v, kv_mask, group, causal: bool, scale: float):
+    """The forward ring -> (output in q's dtype, fp32 output, running max
+    m, running sum l), m and l (B, Hkv, G, S_loc)."""
     n = dist.get_world_size(group)
     idx = dist.get_rank(group)
     b, s_loc, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    scale = (1.0 / math.sqrt(d)) if scale is None else scale
     dev = q.device
     qf = (q.float() * scale).reshape(b, s_loc, hkv, g, d)
     q_pos = idx * s_loc + torch.arange(s_loc, device=dev)
@@ -111,9 +110,100 @@ def ring_attention(q, k, v, kv_mask, *, group, causal: bool = True,
                            causal)
         if t + 1 < n:
             kb, vb, maskb = mesh_mod.ring_shift([kb, vb, maskb], group)
-    _, l, acc = carry
+    m, l, acc = carry
     out = acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(b, s_loc, hq, d).to(q.dtype)
+    out = out.reshape(b, s_loc, hq, d)
+    return out.to(q.dtype), out, m, l
+
+
+class _RingAttention(torch.autograd.Function):
+    """`ring_attention` with grad on. Forward: `_ring_forward`, saving q,
+    k, v, the key mask, the fp32 output and each row's running max m and
+    sum l (its log-sum-exp m + log l, kept apart so that a row with no
+    valid key, whose m is NEG_LARGE, recomputes its uniform weights 1 / l
+    exactly). Backward, on each rank: its own K/V shard and fresh dK / dV
+    accumulators start the reverse ring; at each step the rank recomputes
+    the held block's P = exp(s - m) / l from its queries, adds the block's
+    dq locally and the block's dK / dV to the accumulators, which travel
+    with their shard. Rotations: n - 1 of (K, V, mask, dK, dV), then one
+    more of (dK, dV), which brings every accumulator home to its owner:
+    n in all on every rank (the forward makes n - 1). The function is the
+    gradient `jax.vjp` gives through the JAX ring, whose transposed
+    ppermutes rotate the cotangents the other way."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, group, causal, scale):
+        out, out_f, m, l = _ring_forward(q, k, v, kv_mask, group, causal,
+                                         scale)
+        ctx.save_for_backward(q, k, v, kv_mask, out_f, m, l)
+        ctx.group, ctx.causal, ctx.scale = group, causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, out_f, m, l = ctx.saved_tensors
+        group, causal, scale = ctx.group, ctx.causal, ctx.scale
+        n = dist.get_world_size(group)
+        idx = dist.get_rank(group)
+        b, s_loc, hq, d = q.shape
+        hkv = k.shape[2]
+        g = hq // hkv
+        dev = q.device
+        qf = (q.float() * scale).reshape(b, s_loc, hkv, g, d)
+        do = dout.float().reshape(b, s_loc, hkv, g, d)
+        # delta_i = sum_d dO_i O_i: the softmax's row term
+        delta = (do * out_f.reshape(b, s_loc, hkv, g, d)).sum(-1)
+        delta = delta.permute(0, 2, 3, 1)               # (B, Hkv, G, Sq)
+        inv_l = 1.0 / l.clamp_min(1e-30)
+        q_pos = idx * s_loc + torch.arange(s_loc, device=dev)
+        dq = torch.zeros_like(qf)
+        kb, vb, maskb = k, v, kv_mask.to(torch.uint8)
+        dkb = torch.zeros((b, s_loc, hkv, d), device=dev)
+        dvb = torch.zeros((b, s_loc, hkv, d), device=dev)
+        for t in range(n):
+            src = (idx - t) % n
+            if not causal or src <= idx:
+                kf = kb.float()
+                s_blk = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+                k_pos = src * s_loc + torch.arange(s_loc, device=dev)
+                valid = maskb.bool()[:, None, None, None, :]
+                if causal:
+                    valid = valid & (q_pos[None, None, None, :, None]
+                                     >= k_pos[None, None, None, None, :])
+                s_blk = torch.where(valid, s_blk,
+                                    torch.full_like(s_blk, NEG_LARGE))
+                p = torch.exp(s_blk - m[..., None]) * inv_l[..., None]
+                dvb = dvb + torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+                dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vb.float())
+                ds = p * (dp - delta[..., None])
+                ds = torch.where(valid, ds, torch.zeros_like(ds))
+                dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+                dkb = dkb + torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+            if t + 1 < n:
+                kb, vb, maskb, dkb, dvb = mesh_mod.ring_shift(
+                    [kb, vb, maskb, dkb, dvb], group)
+        # the accumulators are one hop short of their owners
+        dkb, dvb = mesh_mod.ring_shift([dkb, dvb], group)
+        dq = (dq * scale).reshape(b, s_loc, hq, d).to(q.dtype)
+        return dq, dkb.to(k.dtype), dvb.to(v.dtype), None, None, None, None
+
+
+def ring_attention(q, k, v, kv_mask, *, group, causal: bool = True,
+                   scale: Optional[float] = None):
+    """Blockwise ring attention on this rank's shards. q (B, S_loc, Hq,
+    D); k, v (B, S_loc, Hkv, D), Hq % Hkv == 0; kv_mask (B, S_loc) the
+    local keys' validity. The rank at index i of `group` holds global rows
+    [i S_loc, (i + 1) S_loc); causality compares global indices (the
+    right-pad contract of layers.causal_mask). Returns this rank's (B,
+    S_loc, Hq, D) output, equal to single-device attention up to float
+    reassociation; a row with no valid key gets the uniform mean of v,
+    as attention_xla gives it. With grad on and any of q, k, v requiring
+    it, the gradient runs the reverse ring of `_RingAttention`: every
+    rank of `group` must call its backward too."""
+    scale = (1.0 / math.sqrt(q.shape[-1])) if scale is None else scale
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _RingAttention.apply(q, k, v, kv_mask, group, causal, scale)
+    return _ring_forward(q, k, v, kv_mask, group, causal, scale)[0]
 
 
 def sharded_decode_attention(q, k_shard, v_shard, kv_mask, *, group,

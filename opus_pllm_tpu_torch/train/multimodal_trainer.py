@@ -403,6 +403,47 @@ def _flat_all_reduce(xs: List[torch.Tensor], group) -> List[torch.Tensor]:
     return out
 
 
+def apply_summed(state, tx: AdamW, params, gsum, stats, group):
+    """The step of the replicated trainers (train/sp.py, train/pp.py):
+    each rank's loss-sum gradients `gsum` of `params` (fp32, zeros where
+    the rank computed none) and its (loss sum, count) `stats` summed over
+    `group` in one all-reduce and divided by the global count, then one
+    AdamW step on every rank alike -> (state, metrics)."""
+    *gsum, stats = _flat_all_reduce(gsum + [stats], group)
+    denom = stats[1].clamp_min(1.0)
+    for p, g in zip(params, gsum):
+        p.grad = (g / denom).to(p.dtype)
+    tx.step()
+    tx.zero_grad()
+    state.step += 1
+    return state, {"loss": stats[0] / denom, "valid": stats[1].int()}
+
+
+def fit_steps(step_fn, state, frozen, batches, tcfg: TrainConfig, *,
+              log_fn=print, prefetch: int = 2, ckpt=None,
+              save_every: int = 0, device=None):
+    """The loop of the replicated trainers' `fit`: every rank takes the
+    same batches (moved to `device`, on a thread with `prefetch`), rank 0
+    logs `step N: loss=...` every `tcfg.log_every` steps, and the state
+    saves to `ckpt` every `save_every` steps (`maybe_save`)."""
+    device = resolve_device(device)
+    if not _is_rank0():
+        log_fn = lambda *_: None   # noqa: E731 — rank 0 logs
+    stage = lambda b: to_device(b, device)   # noqa: E731
+    if prefetch:
+        batches = prefetch_to_device(batches, size=prefetch, device=device)
+        stage = lambda b: b        # noqa: E731 — placed by the producer
+    start = state.step
+    for i, batch in enumerate(batches):
+        state, metrics = step_fn(state, frozen, stage(batch))
+        step_no = start + i + 1
+        if tcfg.log_every and i % tcfg.log_every == 0:
+            log_fn(f"step {step_no}: loss={float(metrics['loss']):.4f}")
+        maybe_save(ckpt, save_every, step_no, state)
+    finish_saves(ckpt, save_every)
+    return state
+
+
 def _reduce_over_mesh(gsum, stats, layout):
     """The loss-sum gradients of a rank's model cut and its (loss sum,
     count) -> the mesh's: the partial sums of the leaves the model ranks

@@ -15,9 +15,10 @@ commands on the unfused ones. The rest runs the port's commands: mcq (static, --
 train-lora for 2 steps with --export-reference-format (its
 adapter_config.json as the JAX CLI writes it, the PEFT export loading back
 as the trained adapters) and --resume, convert-weights through
-load_native, chat over stdin, the refusals of the parallel axes (ROADMAP
-item 10: sequence- and pipeline-parallel training; --mesh / --seq-shards
-without torchrun's environment) and the missing GPU."""
+load_native, chat over stdin, the parallel axes without torchrun's
+environment (--mesh, --seq-shards and --pipe-stages stop naming it;
+--micro-batches and --pipe-data without --pipe-stages change nothing)
+and the missing GPU."""
 
 import argparse
 import io
@@ -305,18 +306,22 @@ def test_model_commands_refuse_the_parallel_axes(dirs, argv, monkeypatch):
     ["--seq-shards", "2"], ["--mesh", "4"]])
 def test_train_commands_refuse_the_parallel_axes(dirs, tmp_path, argv,
                                                  monkeypatch):
-    # sequence and pipeline parallelism are not ported (item 10); --mesh
-    # runs under torchrun (tests/test_torch_serve_mesh.py), and a single
-    # process without its environment stops before loading anything
-    if argv[0] != "--mesh":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cli.main(_lora_args(dirs, "t.json", str(tmp_path), *argv))
-        return
+    # the axes run under torchrun (tests/test_torch_serve_mesh.py,
+    # test_torch_mesh.py); a single process without its environment stops
+    # before loading anything, while --micro-batches and --pipe-data
+    # without --pipe-stages change nothing, as in JAX: no process group
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
-    for cmd in (_lora_args(dirs, "t.json", str(tmp_path)),
-                ["train-cstp", "--vec-pickle", "v.pkl", "--out",
-                 str(tmp_path), "--device", "cpu"]):
+    if argv[0] in ("--micro-batches", "--pipe-data"):
+        args = cli.build_parser().parse_args(
+            _lora_args(dirs, "t.json", str(tmp_path), *argv))
+        assert cli._train_parallel(args) == (None, None, None)
+        return
+    cmds = [_lora_args(dirs, "t.json", str(tmp_path))]
+    if argv[0] == "--mesh":
+        cmds.append(["train-cstp", "--vec-pickle", "v.pkl", "--out",
+                     str(tmp_path), "--device", "cpu"])
+    for cmd in cmds:
         with pytest.raises(SystemExit, match="torchrun"):
             cli.main(cmd + argv)
 

@@ -6,13 +6,13 @@ int8, int4 v1 and v2; a LoRA tree and a serving bank) at meshes 1x4, 2x2
 and 4x1, `_sanitize` included; `parse_mesh_flag`, `local_slice` and
 `gather_json_blobs` equal the JAX functions. The rest needs no process
 group: the backend rule, `initialize_distributed` without torchrun's
-environment, and the CLI's exclusions and refusals (sequence- and
-pipeline-parallel training point at ROADMAP item 10; the training mesh
-and serve's run in tests/test_torch_serve_mesh.py and
-test_torch_train_mesh.py). Then two gloo ranks run the
-port's CLI (tests/torch_dist.RankPool): `annotate --mesh 1,2`,
-`annotate --seq-shards 2` and `chat --seq-shards 2` give the JAX CLI's
-answers on the toy checkpoints, and both ranks print the same."""
+environment, and the CLI's exclusions (the training mesh and serve's
+run in tests/test_torch_serve_mesh.py and test_torch_train_mesh.py).
+Then two gloo ranks run the port's CLI (tests/torch_dist.RankPool):
+`annotate --mesh 1,2`, `annotate --seq-shards 2` and `chat --seq-shards
+2` give the JAX CLI's answers on the toy checkpoints, and both ranks
+print the same; `train-lora --seq-shards 2` and `--pipe-stages 2` save
+one process's trained tree."""
 
 import json
 import types
@@ -213,17 +213,36 @@ def test_engine_exclusions():
 
 
 @pytest.mark.parametrize("argv", [
-    ["train-lora", "--seq-shards", "2"], ["train-lora", "--pipe-stages", "2"],
-    ["train-lora", "--micro-batches", "2"], ["train-lora", "--pipe-data",
-                                             "2"]],
+    ["train-lora", "--seq-shards", "2", "--mesh", "2,1"],
+    ["train-lora", "--pipe-stages", "2", "--seq-shards", "2"],
+    ["train-lora", "--seq-shards", "2", "--val-json", "v.json"],
+    ["train-lora", "--pipe-stages", "2", "--val-json", "v.json"]],
     ids=lambda a: " ".join(a))
 def test_training_axes_refused_naming_item_10(dirs, tmp_path, argv):
-    # the training mesh, serve's mesh and the one-device commands' flags
-    # run: tests/test_torch_serve_mesh.py
+    """The training axes' exclusions that remain, as the JAX CLI makes
+    them, before anything loads (the axes themselves run below and in
+    tests/test_torch_sp_train.py, test_torch_pp_train.py)."""
     args = ["--train-json", "x", "--out", str(tmp_path)]
     model = ["--model-base", dirs["llama"], "--esm", dirs["esm"]]
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(SystemExit, match="mutually exclusive|--val-json"):
         cli.main(argv + args + model + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("extra,want", [
+    (("--seq-shards", "2"), 2), (("--pipe-stages", "2"), 2),
+    (("--pipe-stages", "2", "--pipe-data", "2", "--micro-batches", "4"), 4)],
+    ids=lambda v: " ".join(v) if isinstance(v, tuple) else str(v))
+def test_train_axes_need_a_process_group(dirs, tmp_path, monkeypatch, extra,
+                                         want):
+    """--seq-shards N starts N ranks, --pipe-stages P --pipe-data D P x D:
+    without torchrun's process group the command stops naming it."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["train-lora", "--train-json", "x", "--out", str(tmp_path),
+            "--model-base", dirs["llama"], "--esm", dirs["esm"],
+            "--device", "cpu", *extra]
+    with pytest.raises(SystemExit, match=f"torchrun --nproc-per-node {want}"):
+        cli.main(argv)
 
 
 @pytest.fixture(scope="module")
@@ -284,3 +303,52 @@ def test_chat_seq_shards_matches_jax(dirs, pool, monkeypatch):
                                       "cpu"], feeds)
     assert got[0].strip().splitlines()[-1] == ref.strip().splitlines()[-1]
     assert got[1] == ""
+
+
+def _train_json(path, n=4):
+    with open(path, "w") as f:
+        json.dump([{"instruction": "What does this protein do?",
+                    "input": tc.SEQS[i % 3], "output": "It binds zinc."}
+                   for i in range(n)], f)
+    return path
+
+
+TRAIN_LR, TRAIN_STEPS = 1e-3, 2
+
+
+@pytest.mark.parametrize("flags", [("--seq-shards", "2"),
+                                   ("--pipe-stages", "2")],
+                         ids=lambda f: " ".join(f))
+def test_train_lora_seq_and_pipe_match_one_process(dirs, pool, tmp_path,
+                                                    monkeypatch, flags):
+    """train-lora --seq-shards 2 (ring attention over the sequence) and
+    --pipe-stages 2 (a stage a rank, 2 microbatches) over both ranks save
+    one process's trained tree: within 2 lr x steps, 95% of the entries
+    within 5e-5 (bf16 base; tests/test_torch_serve_mesh.py's bounds);
+    rank 0 prints and saves."""
+    from opus_pllm_tpu_torch.core.checkpoint import CheckpointManager
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.train.multimodal_trainer import leaves
+    monkeypatch.setattr(cli, "load_tokenizer",
+                        lambda path, family: ByteTokenizer())
+    train = _train_json(str(tmp_path / "train.json"))
+
+    def argv(out, *extra):
+        return ["train-lora", "--model-base", dirs["llama"], "--esm",
+                dirs["esm"], "--weights", dirs["weights"], "--train-json",
+                train, "--out", out, "--batch-size", "2", "--max-len", "320",
+                "--lora-rank", "4", "--lr", str(TRAIN_LR), "--device", "cpu",
+                "--max-steps", str(TRAIN_STEPS), *extra]
+    one, out = str(tmp_path / "one"), str(tmp_path / "axis")
+    cli.main(argv(one))
+    printed = pool.run(cases.cli, argv(out, *flags))
+    assert f"step {TRAIN_STEPS}" in printed[0] and printed[1] == ""
+    assert CheckpointManager(out).latest_step() == TRAIN_STEPS
+    want = leaves(CheckpointManager(one).restore())
+    got = leaves(CheckpointManager(out).restore())
+    assert len(want) == len(got) > 0
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        d = (a.float() - b.float()).abs()
+        assert d.max() <= 2 * TRAIN_LR * TRAIN_STEPS
+        assert (d <= 5e-5).float().mean() >= 0.95

@@ -1,5 +1,6 @@
 """What each rank of tests/torch_dist.RankPool runs for the port's parallel
-tests (test_torch_ring.py, test_torch_serve_tp.py, test_torch_mesh.py):
+tests (test_torch_ring.py, test_torch_serve_tp.py, test_torch_mesh.py,
+test_torch_train_mesh.py, test_torch_sp_train.py, test_torch_pp_train.py):
 functions of (rank, *args) over numpy inputs that return numpy or plain
 Python results. torch and the port only; the JAX references are computed
 in the test process."""
@@ -37,6 +38,29 @@ def ring_attention(rank, n, q, k, v, mask, causal):
         return None
     return ring.ring_self_attention(sp, _t(q), _t(k), _t(v), _t(mask),
                                     causal=causal).numpy()
+
+
+def ring_attention_grad(rank, n, q, k, v, mask, dout, causal, remat):
+    """This rank's shard through `ring_attention` with grad on, its slice
+    of the cotangent `dout` backpropagated (under a non-reentrant
+    checkpoint when `remat`, so the ring runs again in the backward) ->
+    (out, dq, dk, dv) of the shard, or None off the mesh."""
+    import torch.utils.checkpoint
+    from opus_pllm_tpu_torch.parallel import ring
+    sp = ring.make_sp_mesh(n)
+    if sp is None:
+        return None
+    s = q.shape[1] // n
+    sl = slice(sp.index * s, (sp.index + 1) * s)
+    qt, kt, vt = (_t(x[:, sl]).requires_grad_(True) for x in (q, k, v))
+    fn = lambda a, b, c: ring.ring_attention(  # noqa: E731
+        a, b, c, _t(mask[:, sl]), group=sp.group, causal=causal) * 1.0
+    out = (torch.utils.checkpoint.checkpoint(fn, qt, kt, vt,
+                                             use_reentrant=False)
+           if remat else fn(qt, kt, vt))
+    out.backward(_t(dout[:, sl]))
+    return (out.detach().numpy(), qt.grad.numpy(), kt.grad.numpy(),
+            vt.grad.numpy())
 
 
 def sharded_decode(rank, n, q, k, v, mask):
@@ -295,6 +319,87 @@ def train_step(rank, data, model, cfg_dicts, frozen_tree, trainable_tree,
     mmt.finish_saves(ckpt, 1)
     split = [(lay.model_dim, lay.data_dim) for lay in tx.layout.leaves]
     return steps, _np_tree(mmt.full_trainable(state)), split
+
+
+def _axis_steps(step_fn, state, tx, params, batches, ckpt_dir):
+    """Run `step_fn` over `batches` (the global batch on every rank) ->
+    (each step's (loss, valid count, the gradient AdamW took (after the
+    clip), as a tree), the post-step trainable tree); with `ckpt_dir`
+    each step's state is saved there (rank 0 writes)."""
+    from opus_pllm_tpu_torch.core.checkpoint import CheckpointManager
+    from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
+    seen = {}
+    adam = tx.opt.step
+
+    def record(*a, **k):
+        seen["grads"] = [p.grad.clone() for p in tx.params]
+        return adam(*a, **k)
+    tx.opt.step = record
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    steps = []
+    for batch in batches:
+        state, metrics = step_fn(state, params, {
+            k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()})
+        grads = mmt.tree_from_leaves(state.trainable, seen["grads"])
+        steps.append((float(metrics["loss"]), int(metrics["valid"]),
+                      _np_tree(grads)))
+        mmt.maybe_save(ckpt, 1, state.step, state)
+    mmt.finish_saves(ckpt, 1)
+    return steps, _np_tree(state.trainable)
+
+
+def _axis_state(cfg_dicts, frozen_tree, trainable_tree, tcfg_fields,
+                lora_fields):
+    from opus_pllm_tpu_torch.core.config import LoRAConfig, TrainConfig
+    from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
+    params, cfg = _opus(cfg_dicts, frozen_tree)
+    tcfg = TrainConfig(**tcfg_fields)
+    lcfg = LoRAConfig(**lora_fields) if lora_fields else None
+    state, tx = mmt.create_state(
+        cfg, tcfg, params, trainable=convert.trainable_from_jax(
+            trainable_tree, device="cpu"), lora_cfg=lcfg, device="cpu")
+    return params, cfg, tcfg, lcfg, state, tx
+
+
+def sp_train_steps(rank, n, cfg_dicts, frozen_tree, trainable_tree,
+                   batches, tcfg_fields, lora_fields, ckpt_dir=None):
+    """train.sp's step on a ("seq",) mesh of `n` ranks -> `_axis_steps`'
+    result, or None off the mesh."""
+    from opus_pllm_tpu_torch.parallel import ring
+    from opus_pllm_tpu_torch.train import sp
+    mesh = ring.make_sp_mesh(n)
+    if mesh is None:
+        return None
+    params, cfg, tcfg, lcfg, state, tx = _axis_state(
+        cfg_dicts, frozen_tree, trainable_tree, tcfg_fields, lora_fields)
+    step = sp.make_sp_train_step(cfg, tx, mesh, lora_cfg=lcfg,
+                                 ce_chunk=tcfg.ce_chunk,
+                                 remat=tcfg.remat_mode,
+                                 grad_accum=tcfg.grad_accum, impl="torch")
+    return _axis_steps(step, state, tx, params, batches, ckpt_dir)
+
+
+def pp_train_steps(rank, stages, data, n_micro, cfg_dicts, frozen_tree,
+                   trainable_tree, batches, tcfg_fields, lora_fields,
+                   ckpt_dir=None):
+    """train.pp's step on `data` replicas of `stages` stages (the frozen
+    tree cut to the rank's stage) -> (`_axis_steps`' result, the layers
+    the stage holds), or None off the mesh."""
+    from opus_pllm_tpu_torch.parallel import pipeline
+    from opus_pllm_tpu_torch.train import pp
+    mesh = pipeline.make_pp_mesh(stages, data=data)
+    if mesh is None:
+        return None
+    params, cfg, tcfg, lcfg, state, tx = _axis_state(
+        cfg_dicts, frozen_tree, trainable_tree, tcfg_fields, lora_fields)
+    params = pp.shard_frozen(mesh, params, cfg)
+    step = pp.make_pp_train_step(cfg, tx, mesh, lora_cfg=lcfg,
+                                 ce_chunk=tcfg.ce_chunk, n_micro=n_micro,
+                                 remat=tcfg.remat_mode, impl="torch",
+                                 grad_accum=tcfg.grad_accum)
+    return (_axis_steps(step, state, tx, params, batches, ckpt_dir),
+            len(params["llm"]["layers"]))
 
 
 def cstp_steps(rank, data, params_tree, batches, cfg_fields, tcfg_fields):
