@@ -62,6 +62,13 @@ port runs a plain loop over its layer list), and `--mesh` /
 commands take them and never read them). `bench` runs the JAX
 package's TPU harness there; here it exits with a pointer to
 chip_smoke.py, which holds the port's measurements.
+
+Another option the JAX CLI lacks: `--trace-spans PATH` (annotate,
+train-lora, train-projector) writes the process's spans and counters
+(`utils.observability.SPANS`) to PATH as a Chrome trace when the command
+ends: host spans a track per thread, device-clock durations on a track
+of their own. Under a process group each rank writes
+`<stem>.rank<N><suffix>`.
 """
 
 from __future__ import annotations
@@ -1002,6 +1009,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "test set by basename, or forced via --use-adapter")
     a.add_argument("--use-adapter", default=None, metavar="NAME",
                    help="run the whole set under this bank adapter")
+    _trace_spans_arg(a)
     a.set_defaults(fn=cmd_annotate)
 
     aa = sub.add_parser("annotate-all",
@@ -1205,6 +1213,7 @@ def build_parser() -> argparse.ArgumentParser:
         t.add_argument("--export-reference-format", action="store_true",
                        help="also write the reference checkpoint layout "
                             "(modality_refinement_projector/, lora_adapter/)")
+        _trace_spans_arg(t)
         t.set_defaults(fn=lambda a, _l=is_lora: _train_multimodal(a, lora=_l))
 
     pc = sub.add_parser("precompute-embeddings")
@@ -1243,9 +1252,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _trace_spans_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace-spans", default=None, metavar="PATH",
+                   help="at exit, write the run's spans and counters to "
+                        "PATH as a Chrome trace (chrome://tracing, "
+                        "Perfetto); each rank of a process group adds "
+                        ".rank<N> to the file name")
+
+
+def write_spans(path: str) -> str:
+    """The recorder's ring and counters to `path` (this rank's name under
+    a process group of more than one rank) -> the path written."""
+    import torch.distributed as dist
+
+    from ..utils.observability import SPANS
+    rank = 0
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        rank = dist.get_rank()
+        root, ext = os.path.splitext(path)
+        path = f"{root}.rank{rank}{ext}"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    return SPANS.export_chrome(path, pid=rank)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    try:
+        args.fn(args)
+    finally:
+        if getattr(args, "trace_spans", None):
+            write_spans(args.trace_spans)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,10 @@ instruction, one `<seq>` sentinel, the answer plus EOS as labels
 (IGNORE_INDEX over the prompt and the padding), ESM tokens for the protein
 tower (or the precomputed pooled embeddings). numpy arrays out, as in the
 JAX package.
+
+`count_positions` counts a collated batch's spliced positions for the
+recorder (`utils.observability`): the trainer calls it, which knows how
+many soft tokens the protein's sentinel becomes.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from ..core.util import round_up
 from ..infer.conversation import VICUNA_V0, annotation_prompt
 from ..infer.tokenization import pad_batch, tokenize_with_seq
 from ..models import esm2
+from ..utils.observability import count
 
 
 def collate_instruction_batch(examples: Sequence[dict], tokenizer, *,
@@ -69,6 +74,17 @@ def collate_instruction_batch(examples: Sequence[dict], tokenizer, *,
                                     max_len=round_up(aa_len, esm_bucket))
         out["esm_tokens"] = esm_toks[:, None, :]
     return out
+
+
+def count_positions(batch: Dict, n_tokens: int) -> None:
+    """Count a collated batch's spliced positions (host values only):
+    `collate.positions` += rows x the spliced length, and
+    `collate.positions_live` += those that are not padding, each valid id
+    once and the protein's sentinel as its `n_tokens` soft tokens."""
+    rows, length = batch["attn_mask"].shape
+    count("collate.positions", rows * (length + n_tokens - 1))
+    count("collate.positions_live",
+          int(batch["attn_mask"].sum()) + rows * (n_tokens - 1))
 
 
 def instruction_batches(dataset, tokenizer, batch_size: int, *,

@@ -77,6 +77,7 @@ from ..infer.conversation import (VICUNA_V0, VICUNA_V3, annotation_prompt,
                                   truncate_at_sep)
 from ..infer.tokenization import pad_batch, tokenize_with_seq
 from ..models import decoder, esm2, opus
+from ..utils.observability import count, span
 from . import datasets as ds
 from . import mcq as mcq_mod
 from .metrics import compute_metrics
@@ -105,6 +106,8 @@ def _prepare_from_ids(tokenizer, tok_ids, sequences, *, prompt_bucket: int,
     aa_len = max(len(s) for s in sequences) + 2
     esm_toks, _ = esm2.tokenize(list(sequences),
                                 max_len=round_up(aa_len, esm_bucket))
+    count("esm.rows", esm_toks.shape[0] * esm_toks.shape[1])
+    count("esm.rows_residue", sum(len(s) + 2 for s in sequences))
     to = lambda a: torch.from_numpy(a).to(device)
     return to(ids), to(mask), to(esm_toks)[:, None]
 
@@ -141,55 +144,69 @@ def _generate_spliced(params, cfg: OpusConfig, tokenizer, ids, mask,
     ranks draw independent noise (runner.py:135-136). gen.num_beams > 1:
     beam search; `draft` (make_draft): speculative decoding, the same
     spliced embeddings feeding target and draft; `seq_mesh`: the
-    sequence-sharded cache (runner.py:130-176)."""
-    sp = opus.splice_prompt(params, cfg, ids, mask, esm_toks, left_pad=True,
-                            impl=impl)
-    pos = decoder.positions_from_mask(sp.mask)
-    g = torch.Generator(device=ids.device)
-    g.manual_seed(gen.seed * 1_000_003 + data_index * 100003 + batch_index)
-    if seq_mesh is not None and gen.num_beams > 1:
-        raise ValueError("beam search over a sequence-sharded cache is not "
-                         "supported (--seq-shards with --num-beams 1 only)")
-    if seq_mesh is not None and draft is not None:
-        raise ValueError("--draft-layers over a sequence-sharded cache is "
-                         "unsupported (drop --seq-shards)")
-    common = dict(max_new_tokens=gen.max_new_tokens,
-                  eos_token_id=gen.eos_token_id,
-                  pad_token_id=gen.pad_token_id,
-                  quantize_cache=gen.quantize_cache, impl=impl)
-    if gen.num_beams > 1:
-        out = engine.beam_generate(
-            params["llm"], cfg.llm, sp.embeds, sp.mask, pos,
-            num_beams=gen.num_beams, length_penalty=gen.length_penalty,
-            **common)
-    elif seq_mesh is not None:
-        from ..infer.sp_engine import generate_seq_sharded
-        out = generate_seq_sharded(
-            params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
-            mesh=seq_mesh, max_new_tokens=gen.max_new_tokens,
-            temperature=gen.temperature, top_p=gen.top_p,
-            eos_token_id=gen.eos_token_id, pad_token_id=gen.pad_token_id,
-            quantize_cache=gen.quantize_cache)
-    elif draft is not None:
-        from ..infer import speculative
-        dparams, dcfg = draft
-        out = speculative.speculative_generate(
-            dparams, params["llm"], dcfg, cfg.llm, sp.embeds, sp.embeds,
-            sp.mask, pos, n_draft=gen.n_draft,
-            temperature=gen.temperature if gen.do_sample else 0.0,
-            top_p=gen.top_p if gen.do_sample else 1.0, generator=g,
-            **common)
-    else:
-        out = engine.generate(
-            params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
-            temperature=gen.temperature, top_p=gen.top_p, **common)
-    toks = out.tokens.cpu().numpy()
-    lens = out.lengths.cpu().numpy()
-    texts = []
-    for row, n in zip(toks, lens):
-        ids_out = [int(t) for t in row[:n] if int(t) != gen.eos_token_id]
-        texts.append(truncate_at_sep(tokenizer.decode(ids_out)))
-    return texts, out
+    sequence-sharded cache (runner.py:130-176).
+
+    Spans: `runner.batch` around it all, `runner.splice` (device clock)
+    and `runner.detokenize`; counters `decode.row_steps` (steps x rows)
+    and `decode.row_steps_live` (the tokens the rows generated)."""
+    with span("runner.batch", device=ids.device, batch=batch_index,
+              rows=ids.shape[0]):
+        with span("runner.splice", device=ids.device):
+            sp = opus.splice_prompt(params, cfg, ids, mask, esm_toks,
+                                    left_pad=True, impl=impl)
+        pos = decoder.positions_from_mask(sp.mask)
+        g = torch.Generator(device=ids.device)
+        g.manual_seed(gen.seed * 1_000_003 + data_index * 100003
+                      + batch_index)
+        if seq_mesh is not None and gen.num_beams > 1:
+            raise ValueError("beam search over a sequence-sharded cache is "
+                             "not supported (--seq-shards with --num-beams "
+                             "1 only)")
+        if seq_mesh is not None and draft is not None:
+            raise ValueError("--draft-layers over a sequence-sharded cache "
+                             "is unsupported (drop --seq-shards)")
+        common = dict(max_new_tokens=gen.max_new_tokens,
+                      eos_token_id=gen.eos_token_id,
+                      pad_token_id=gen.pad_token_id,
+                      quantize_cache=gen.quantize_cache, impl=impl)
+        if gen.num_beams > 1:
+            out = engine.beam_generate(
+                params["llm"], cfg.llm, sp.embeds, sp.mask, pos,
+                num_beams=gen.num_beams, length_penalty=gen.length_penalty,
+                **common)
+        elif seq_mesh is not None:
+            from ..infer.sp_engine import generate_seq_sharded
+            out = generate_seq_sharded(
+                params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
+                mesh=seq_mesh, max_new_tokens=gen.max_new_tokens,
+                temperature=gen.temperature, top_p=gen.top_p,
+                eos_token_id=gen.eos_token_id,
+                pad_token_id=gen.pad_token_id,
+                quantize_cache=gen.quantize_cache)
+        elif draft is not None:
+            from ..infer import speculative
+            dparams, dcfg = draft
+            out = speculative.speculative_generate(
+                dparams, params["llm"], dcfg, cfg.llm, sp.embeds, sp.embeds,
+                sp.mask, pos, n_draft=gen.n_draft,
+                temperature=gen.temperature if gen.do_sample else 0.0,
+                top_p=gen.top_p if gen.do_sample else 1.0, generator=g,
+                **common)
+        else:
+            out = engine.generate(
+                params["llm"], cfg.llm, sp.embeds, sp.mask, pos, g,
+                temperature=gen.temperature, top_p=gen.top_p, **common)
+        with span("runner.detokenize"):
+            toks = out.tokens.cpu().numpy()
+            lens = out.lengths.cpu().numpy()
+            count("decode.row_steps", out.steps * len(lens))
+            count("decode.row_steps_live", int(lens.sum()))
+            texts = []
+            for row, n in zip(toks, lens):
+                ids_out = [int(t) for t in row[:n]
+                           if int(t) != gen.eos_token_id]
+                texts.append(truncate_at_sep(tokenizer.decode(ids_out)))
+        return texts, out
 
 
 def _prefetched_batches(examples, batch_size: int, prompt_of: Callable,

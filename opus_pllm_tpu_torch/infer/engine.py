@@ -11,6 +11,12 @@ the KV cache is updated in place. Randomness comes from an explicit
 `torch.Generator` on the logits' device (Gumbel-max over the warped
 logits, as `jax.random.categorical` draws), so sampled tokens match the
 JAX engine in distribution, not bit for bit.
+
+`generate` records spans (`utils.observability`): `engine.prefill`
+(device clock), `engine.decode` around the decode loop between its two
+synchronizations (its host duration is `GenerateOutput.decode_seconds`),
+and in each step `engine.stop_check` (the loop's one read of the device),
+`engine.sample` and `engine.forward`.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from ..core.config import DecoderConfig
 from ..models import decoder
+from ..utils.observability import prof_range, ranged, span
 
 # KV block of the JAX flash-attention kernel (flash_attention.py:30); kept
 # as a literal so the capacity rounding matches without importing it
@@ -53,13 +60,14 @@ def nucleus_kth(probs, top_ps, *, iters: int = 50):
     lo = torch.zeros(shape, dtype=torch.float32, device=probs.device)
     hi = torch.ones(shape, dtype=torch.float32, device=probs.device)
     zero = probs.new_zeros(())
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        mass = torch.where(probs >= mid[..., None], probs, zero).sum(-1)
-        ge = mass >= tp
-        lo = torch.where(ge, mid, lo)
-        hi = torch.where(ge, hi, mid)
-    return torch.where(probs <= hi[..., None], probs, zero).amax(-1)
+    with prof_range("engine.nucleus_kth"):
+        for _ in ranged(range(iters), "engine.nucleus_kth.passes", 10):
+            mid = 0.5 * (lo + hi)
+            mass = torch.where(probs >= mid[..., None], probs, zero).sum(-1)
+            ge = mass >= tp
+            lo = torch.where(ge, mid, lo)
+            hi = torch.where(ge, hi, mid)
+        return torch.where(probs <= hi[..., None], probs, zero).amax(-1)
 
 
 def sample_token(logits, generator: torch.Generator, temperature: float,
@@ -155,6 +163,12 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _running(done) -> bool:
+    """The decode loop's test: some row not done (a read of the device)."""
+    with span("engine.stop_check"):
+        return not bool(done.all())
+
+
 @torch.no_grad()
 def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
              generator: torch.Generator, *, max_new_tokens: int,
@@ -176,20 +190,21 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
     tail_len = (max(len(s) for s in stop_sequences) if stop_sequences
                 else 0)
     cap = cache_capacity(cfg, l, max_new_tokens)
-    cache = decoder.init_cache(cfg, b, cap, dtype=dt, device=dev,
-                               quantize=quantize_cache)
-    cache["mask"][:, :l] = attn_mask
+    with span("engine.prefill", device=dev):
+        cache = decoder.init_cache(cfg, b, cap, dtype=dt, device=dev,
+                                   quantize=quantize_cache)
+        cache["mask"][:, :l] = attn_mask
 
-    rows = torch.arange(l, device=dev)[None, None, :, None]
-    cols = torch.arange(cap, device=dev)[None, None, None, :]
-    pre_mask4 = cache["mask"][:, None, None, :] & (cols <= rows)
-    # ntk_ctx: the cache capacity, the dynamic-NTK bound the JAX forward
-    # derives from its cache (engine.py:44-53)
-    hid, cache = decoder.forward(params, cfg, input_embeds.to(dt), positions,
-                                 pre_mask4, cache, impl=impl,
-                                 return_hidden=True, ntk_ctx=cap)
-    cur_logits = decoder.head_logits(params, cfg, hid[:, -1:],
-                                     impl=impl)[:, 0].float()
+        rows = torch.arange(l, device=dev)[None, None, :, None]
+        cols = torch.arange(cap, device=dev)[None, None, None, :]
+        pre_mask4 = cache["mask"][:, None, None, :] & (cols <= rows)
+        # ntk_ctx: the cache capacity, the dynamic-NTK bound the JAX
+        # forward derives from its cache (engine.py:44-53)
+        hid, cache = decoder.forward(params, cfg, input_embeds.to(dt),
+                                     positions, pre_mask4, cache, impl=impl,
+                                     return_hidden=True, ntk_ctx=cap)
+        cur_logits = decoder.head_logits(params, cfg, hid[:, -1:],
+                                         impl=impl)[:, 0].float()
 
     last_pos = positions[:, -1]
     out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int32,
@@ -199,25 +214,30 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
     nwritten = torch.zeros((b,), dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     _sync(dev)
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     step = 0
-    while step < max_new_tokens and not bool(done.all()):
-        nxt, new_done, tail, nwritten = advance_sampling(
-            step, done, cur_logits, generator, out, tail, nwritten,
-            temperature=temperature, top_p=top_p, pad_token_id=pad_token_id,
-            eos_token_id=eos_token_id, stop_sequences=stop_sequences,
-            tail_len=tail_len)
-        emb = decoder.embed_tokens(params, nxt.long())[:, None].to(dt)
-        pos = (last_pos + 1 + step)[:, None]
-        cache["mask"][:, l + step] = ~done
-        step_mask4 = cache["mask"][:, None, None, :]
-        lg, cache = decoder.forward(params, cfg, emb, pos, step_mask4, cache,
-                                    impl=impl, ntk_ctx=cap)
-        cur_logits = lg[:, 0].float()
-        done = new_done
-        step += 1
-    _sync(dev)
-    return GenerateOutput(out, nwritten, step, time.perf_counter() - t0)
+    with span("engine.decode") as decode:
+        while step < max_new_tokens and _running(done):
+            with span("engine.sample"):
+                nxt, new_done, tail, nwritten = advance_sampling(
+                    step, done, cur_logits, generator, out, tail, nwritten,
+                    temperature=temperature, top_p=top_p,
+                    pad_token_id=pad_token_id, eos_token_id=eos_token_id,
+                    stop_sequences=stop_sequences, tail_len=tail_len)
+            with span("engine.forward"):
+                emb = decoder.embed_tokens(params, nxt.long())[:, None].to(dt)
+                pos = (last_pos + 1 + step)[:, None]
+                cache["mask"][:, l + step] = ~done
+                step_mask4 = cache["mask"][:, None, None, :]
+                lg, cache = decoder.forward(params, cfg, emb, pos, step_mask4,
+                                            cache, impl=impl, ntk_ctx=cap)
+                cur_logits = lg[:, 0].float()
+            done = new_done
+            step += 1
+        _sync(dev)
+    # the span's own interval when the recorder is on
+    ns = decode.host_ns if decode is not None else time.perf_counter_ns() - t0
+    return GenerateOutput(out, nwritten, step, ns / 1e9)
 
 
 NEG_INF = -1.0e9   # HF beam search's masking constant (engine.py:284)

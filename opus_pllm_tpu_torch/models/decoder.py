@@ -56,6 +56,7 @@ from ..core import mesh as mesh_mod
 from ..core.config import DecoderConfig
 from ..core.util import mm_fp32, resolve_device
 from ..kernels import decode_attention as da
+from ..utils.observability import prof_range
 from . import layers
 from .layers import (ACTIVATIONS, apply_rope, attention, dense, embed,
                      layer_norm, lora_delta, lora_dense, ntk_scaled_theta,
@@ -563,8 +564,11 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     for i, p in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
         la = lora["layers"][i] if lora is not None else None
-        x = block(cfg, p, x, mask4, cos, sin, lc, index, impl, la,
-                  lora_scale, rows, sp)
+        # a profiler range a layer (only while one records): keeps each
+        # idle gap of the device within reach of a name in its trace
+        with prof_range("decoder.layer"):
+            x = block(cfg, p, x, mask4, cos, sin, lc, index, impl, la,
+                      lora_scale, rows, sp)
     if cache is not None:
         cache["index"] = index + input_embeds.shape[1]
     x = _final_norm(params, cfg, x)

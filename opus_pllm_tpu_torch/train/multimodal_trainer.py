@@ -57,11 +57,17 @@ from ..core import checkpoint
 from ..core import mesh as mesh_mod
 from ..core.config import IGNORE_INDEX, LoRAConfig, OpusConfig, TrainConfig
 from ..core.util import resolve_device, to_device
+from ..data.collate import count_positions
 from ..lora import lora as lora_mod
 from ..models import esm2, opus
 from ..parallel import partition
+from ..utils.observability import ranged, span
 from ..utils.prefetch import prefetch_to_device
 from .optim import AdamW, adamw
+
+# leaves a profiler range of the per-leaf gradient loops covers (a few
+# hundred host operations: within the reach of a trace's gap labels)
+GRAD_LEAF_RUN = 32
 
 
 @dataclass
@@ -330,52 +336,69 @@ def make_train_step(cfg: OpusConfig, tx: AdamW, *,
     `model`, then every gradient with the loss sum and the count over
     `data` in one all-reduce: the gradient of the mean over every valid
     token of the global batch, as one process computes it (module
-    docstring)."""
+    docstring).
+
+    Spans (`utils.observability`, each on the device's clock too):
+    `train.step` (`step` the state's step before it), in it
+    `train.forward` and `train.backward` once a micro-chunk (the backward
+    with the chunk's gradient added to the sum), then `train.optimizer`
+    from the summed gradients to the end of `tx.zero_grad()`."""
     ls = lora_mod.scaling(lora_cfg) if lora_cfg is not None else 1.0
     layout = tx.layout
 
     def train_step(state: MMTrainState, frozen, batch):
         shares = leaves(state.trainable)
-        tree = (state.trainable if layout is None
-                else _gathered_trainable(state.trainable, layout))
-        lv = leaves(tree)
-        n = batch["input_ids"].shape[0]
-        if n % grad_accum:
-            raise ValueError(f"batch {n} not divisible by "
-                             f"grad_accum={grad_accum}")
-        per = n // grad_accum
-        gsum = None
-        stats = torch.zeros((2,), dtype=torch.float32, device=lv[0].device)
-        for i in range(grad_accum):
-            chunk = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            params = frozen
-            if layout is not None:
-                params, chunk = _mesh_params(tree, frozen, cfg, chunk, impl)
-            loss, metrics = loss_fn(tree, params, cfg, chunk, ls, remat,
-                                    ce_chunk, impl)
-            c = metrics["valid"].float()
-            # the gathered frozen leaves the backward does not need go
-            # now (the head keeps its own reference)
-            del params
-            # d(mean)/dw * count = d(sum)/dw, normalized once below
-            grads = torch.autograd.grad(loss * c, lv, allow_unused=True,
-                                        materialize_grads=True)
-            if gsum is None:
-                gsum = [g.float() for g in grads]
-            else:
-                for a, g in zip(gsum, grads):
-                    a.add_(g.float())
-            stats = stats + torch.stack([loss.detach() * c, c])
-        if layout is not None:
-            gsum, stats = _reduce_over_mesh(gsum, stats, layout)
-        denom = stats[1].clamp_min(1.0)
-        for i, (p, g) in enumerate(zip(shares, gsum)):
-            if layout is not None:
-                g = layout.data_share(g, i)
-            p.grad = (g / denom).to(p.dtype)
-        tx.step()
-        tx.zero_grad()
-        state.step += 1
+        dev = shares[0].device
+        with span("train.step", device=dev, step=state.step):
+            tree = (state.trainable if layout is None
+                    else _gathered_trainable(state.trainable, layout))
+            lv = leaves(tree)
+            n = batch["input_ids"].shape[0]
+            if n % grad_accum:
+                raise ValueError(f"batch {n} not divisible by "
+                                 f"grad_accum={grad_accum}")
+            per = n // grad_accum
+            gsum = None
+            stats = torch.zeros((2,), dtype=torch.float32, device=dev)
+            for i in range(grad_accum):
+                chunk = {k: v[i * per:(i + 1) * per]
+                         for k, v in batch.items()}
+                with span("train.forward", device=dev):
+                    params = frozen
+                    if layout is not None:
+                        params, chunk = _mesh_params(tree, frozen, cfg,
+                                                     chunk, impl)
+                    loss, metrics = loss_fn(tree, params, cfg, chunk, ls,
+                                            remat, ce_chunk, impl)
+                    c = metrics["valid"].float()
+                    # the gathered frozen leaves the backward does not
+                    # need go now (the head keeps its own reference)
+                    del params
+                with span("train.backward", device=dev):
+                    # d(mean)/dw * count = d(sum)/dw, normalized once below
+                    grads = torch.autograd.grad(loss * c, lv,
+                                                allow_unused=True,
+                                                materialize_grads=True)
+                    if gsum is None:
+                        gsum = [g.float() for g in grads]
+                    else:
+                        for a, g in ranged(zip(gsum, grads),
+                                           "train.grad_leaves",
+                                           GRAD_LEAF_RUN):
+                            a.add_(g.float())
+                stats = stats + torch.stack([loss.detach() * c, c])
+            with span("train.optimizer", device=dev):
+                if layout is not None:
+                    gsum, stats = _reduce_over_mesh(gsum, stats, layout)
+                denom = stats[1].clamp_min(1.0)
+                for i, (p, g) in ranged(enumerate(zip(shares, gsum)),
+                                        "train.grad_leaves", GRAD_LEAF_RUN):
+                    if layout is not None:
+                        g = layout.data_share(g, i)
+                    p.grad = (g / denom).to(p.dtype)
+                tx.step()
+                tx.zero_grad()
+            state.step += 1
         return state, {"loss": stats[0] / denom, "valid": stats[1].int()}
 
     return train_step
@@ -496,6 +519,14 @@ def _val_rows(mesh, batch):
     return out
 
 
+def _counted(batches, n_tokens: int):
+    """`batches`, each counted (`collate.count_positions`) as it is taken:
+    on the prefetch thread when there is one."""
+    for b in batches:
+        count_positions(b, n_tokens)
+        yield b
+
+
 def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
         frozen, batches, *, lora_cfg: Optional[LoRAConfig] = None, mesh=None,
         log_fn=print, prefetch: int = 2, ckpt=None, save_every: int = 0,
@@ -521,6 +552,7 @@ def fit(state: MMTrainState, tx: AdamW, cfg: OpusConfig, tcfg: TrainConfig,
         batches = (_train_rows(mesh, b) for b in batches)
         if not _is_rank0():
             log_fn = lambda *_: None   # noqa: E731 — rank 0 logs
+    batches = _counted(batches, cfg.switch.n_tokens)
     stage = lambda b: to_device(b, device)
     if prefetch:
         batches = prefetch_to_device(batches, size=prefetch, device=device)

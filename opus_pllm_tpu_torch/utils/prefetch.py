@@ -11,6 +11,10 @@ steps stay on the consumer's thread. An exception in the producer is
 raised at the consumer's next `next()`; a consumer that stops early (a
 step that raises, a partial loop) releases the thread, which then exits
 instead of blocking on a full queue.
+
+Spans (`utils.observability`): `prefetch.produce` on the producer thread
+around producing and placing each item, `prefetch.wait` on the
+consumer's around each wait for the next one.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import threading
 from typing import Callable, Iterable, Iterator, Optional
 
 from ..core.util import to_device
+from .observability import span
 
 _END = object()
 
@@ -51,8 +56,13 @@ def prefetch_to_device(batches: Iterable, size: int = 2,
 
     def produce():
         try:
-            for b in batches:
-                staged = place(b)
+            it = iter(batches)
+            while True:
+                with span("prefetch.produce"):
+                    b = next(it, _END)
+                    if b is _END:
+                        return
+                    staged = place(b)
                 put(staged)
                 if abandoned.is_set():
                     return
@@ -66,7 +76,8 @@ def prefetch_to_device(batches: Iterable, size: int = 2,
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("prefetch.wait"):
+                item = q.get()
             if item is _END:
                 if err:
                     raise err[0]

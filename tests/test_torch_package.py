@@ -129,8 +129,10 @@ done = eng.run([ServeRequest(0, token_ids=[1, 2, 3], max_new_tokens=3,
                 ServeRequest(1, token_ids=list(range(3, 30)),
                              max_new_tokens=3)])
 assert [len(done[i].tokens) for i in (0, 1)] == [3, 3]
-with observability.profile_trace(None), observability.annotate("x"):
-    observability.Throughput().report()
+with observability.span("x", batch=0):
+    observability.count("x.n", 2)
+assert observability.SPANS.spans()[-1].name == "x"
+assert observability.SPANS.counters()["x.n"] == 2
 from opus_pllm_tpu_torch.cli import main as cli_main
 from opus_pllm_tpu_torch.core import builder
 from opus_pllm_tpu_torch.infer import hf_tokenizer
