@@ -12,11 +12,19 @@ the KV cache is updated in place. Randomness comes from an explicit
 logits, as `jax.random.categorical` draws), so sampled tokens match the
 JAX engine in distribution, not bit for bit.
 
+`generate`'s decode step is the sampler, run eagerly, then the one-token
+forward (`DecodeStep`): one function of device tensors, captured once as a
+CUDA graph and replayed at every later step where one process owns a CUDA
+device, called directly elsewhere (the CPU, a tensor-parallel or FSDP
+mesh).
+
 `generate` records spans (`utils.observability`): `engine.prefill`
 (device clock), `engine.decode` around the decode loop between its two
 synchronizations (its host duration is `GenerateOutput.decode_seconds`),
 and in each step `engine.stop_check` (the loop's one read of the device),
-`engine.sample` and `engine.forward`.
+`engine.sample` and `engine.forward` (the step's input copies and its
+forward: a graph's launch once captured). Counters: `decode.steps` (the
+steps run) and `decode.graph_steps` (those whose forward was a replay).
 """
 
 from __future__ import annotations
@@ -27,12 +35,17 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.config import DecoderConfig
+from ..kernels import (decode_attention, flash_attention, flash_attention_bwd,
+                       fused_encoder, quant, quant4)
 from ..models import decoder
-from ..utils.observability import prof_range, ranged, span
+from ..utils.observability import count, prof_range, ranged, span
 
 # KV block of the JAX flash-attention kernel (flash_attention.py:30); kept
 # as a literal so the capacity rounding matches without importing it
 FLASH_BLOCK_K = 256
+# the modules whose hand-written kernels count their launches (`launches`)
+KERNELS = (decode_attention, flash_attention, flash_attention_bwd,
+           fused_encoder, quant, quant4)
 
 
 class GenerateOutput(NamedTuple):
@@ -158,6 +171,122 @@ def advance_sampling(step: int, done, cur_logits, generator, out, tail,
     return nxt, new_done, tail, nwritten
 
 
+def _graphable(device, cfg: DecoderConfig) -> bool:
+    """Whether the decode step runs as a CUDA graph: where one process owns
+    a CUDA device. Under a tensor-parallel or FSDP mesh each layer's
+    collectives stay eager."""
+    return device.type == "cuda" and cfg.tp is None and cfg.fsdp is None
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device):
+    """The device's one stream for warm-ups and captures (cuBLAS sets up a
+    workspace for each stream it runs on: one stream, one workspace)."""
+    key = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device=key)
+    return _SIDE_STREAMS[key]
+
+
+class DecodeStep:
+    """The one-token forward of a decode step: the sampled tokens'
+    embedding, the decoder over `cache`, the head and the fp32 logits, as
+    one function of device tensors (`forward`). A call writes its inputs
+    in place (the token ids, the positions, the cache slot as a 0-dim
+    tensor), so the function reads nothing from the host, and returns the
+    logits (B, V).
+
+    Where one process owns a CUDA device (`_graphable`), the first call
+    runs the function on a side stream (its warm-up), the second captures
+    it there as a CUDA graph in thread-local mode (another thread, such as
+    the runner's prefetch, may copy to the card meanwhile) and replays it,
+    as does every later call; `logits` is then the graph's output buffer.
+    Elsewhere every call runs the function directly. A failed capture
+    raises. A replay adds the launches its capture recorded to the
+    hand-written kernels' counters, which the capture itself leaves as
+    they were."""
+
+    def __init__(self, params, cfg: DecoderConfig, cache, *, pos_dtype,
+                 impl: str, ntk_ctx: int):
+        self.params, self.cfg, self.impl = params, cfg, impl
+        self.ntk_ctx = ntk_ctx
+        self.layers, self.mask = cache["layers"], cache["mask"]
+        b, dev = self.mask.shape[0], self.mask.device
+        self.device = dev
+        self.tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((b, 1), dtype=pos_dtype, device=dev)
+        self.slot = torch.zeros((), dtype=torch.long, device=dev)
+        self.graphed = _graphable(dev, cfg)
+        self.calls = self.replays = 0
+        self.graph = self.logits = None
+        self.recorded = []       # (counters, kernel, launches) a replay adds
+
+    def forward(self):
+        """The step function: fp32 logits (B, V) of the tokens `tok` at
+        positions `pos`, their keys and values written at slot `slot`."""
+        emb = decoder.embed_tokens(self.params, self.tok.long())[:, None]
+        view = {"layers": self.layers, "index": self.slot,
+                "mask": self.mask}
+        lg, _ = decoder.forward(self.params, self.cfg,
+                                emb.to(self.cfg.torch_dtype), self.pos,
+                                self.mask[:, None, None, :], view,
+                                impl=self.impl, ntk_ctx=self.ntk_ctx)
+        return lg[:, 0].float()
+
+    def __call__(self, tokens, positions, slot: int):
+        """tokens (B,), positions (B, 1), slot: the cache slot they take."""
+        self.tok.copy_(tokens)
+        self.pos.copy_(positions)
+        self.slot.fill_(slot)
+        self.calls += 1
+        if self.graph is not None:
+            self._replay()
+        elif not self.graphed:
+            self.logits = self.forward()
+        elif self.calls == 1:
+            self.logits = self._warm_up()
+        else:
+            self._capture()
+            self._replay()
+        return self.logits
+
+    def _warm_up(self):
+        here, side = torch.cuda.current_stream(self.device), \
+            _side_stream(self.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = self.forward()
+        here.wait_stream(side)
+        return out
+
+    def _capture(self):
+        before = [dict(m.launches) for m in KERNELS]
+        side = _side_stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.logits = self.forward()
+            finally:
+                graph.capture_end()
+        for counters, was in zip((m.launches for m in KERNELS), before):
+            for name, n in counters.items():
+                if n != was[name]:
+                    self.recorded.append((counters, name, n - was[name]))
+                    counters[name] = was[name]
+        self.graph = graph
+
+    def _replay(self):
+        self.graph.replay()
+        self.replays += 1
+        for counters, name, n in self.recorded:
+            counters[name] += n
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -207,6 +336,8 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
                                          impl=impl)[:, 0].float()
 
     last_pos = positions[:, -1]
+    forward = DecodeStep(params, cfg, cache, pos_dtype=positions.dtype,
+                         impl=impl, ntk_ctx=cap)
     out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int32,
                      device=dev)
     tail = torch.full((b, max(tail_len, 1)), -1, dtype=torch.int32,
@@ -225,16 +356,14 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
                     pad_token_id=pad_token_id, eos_token_id=eos_token_id,
                     stop_sequences=stop_sequences, tail_len=tail_len)
             with span("engine.forward"):
-                emb = decoder.embed_tokens(params, nxt.long())[:, None].to(dt)
-                pos = (last_pos + 1 + step)[:, None]
                 cache["mask"][:, l + step] = ~done
-                step_mask4 = cache["mask"][:, None, None, :]
-                lg, cache = decoder.forward(params, cfg, emb, pos, step_mask4,
-                                            cache, impl=impl, ntk_ctx=cap)
-                cur_logits = lg[:, 0].float()
+                cur_logits = forward(nxt, (last_pos + 1 + step)[:, None],
+                                     l + step)
             done = new_done
             step += 1
         _sync(dev)
+    count("decode.steps", step)
+    count("decode.graph_steps", forward.replays)
     # the span's own interval when the recorder is on
     ns = decode.host_ns if decode is not None else time.perf_counter_ns() - t0
     return GenerateOutput(out, nwritten, step, ns / 1e9)

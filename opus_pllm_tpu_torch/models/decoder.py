@@ -27,8 +27,10 @@ see kernels/quant4.py), each on its own or fused by `fuse_projections`
 into one [q|k|v] and one [gate|up] product.
 
 KV cache: {"layers": [{"k", "v"}], "index", "mask": (B, cap) bool}. The
-index is an int (every row writes at the same slots) or a (B,) integer
-tensor (each row at its own slot: the serving engine).
+index is an int or a 0-dim integer tensor (every row writes at the same
+slots; the tensor keeps the slot on the device, so a decode step captured
+as a CUDA graph reads it at every replay) or a (B,) integer tensor (each
+row at its own slot: the serving engine).
 A bf16 leaf is (B, cap, Hkv, D). A quantized leaf is head-major:
 {"q": (B, Hkv, cap, D) int8, "s": (B, Hkv, cap, 1) fp32} (int8) or
 {"q4": (B, Hkv, cap, D/2) int8, "s": ...} (int4, low nibble d, high nibble
@@ -215,25 +217,37 @@ def _write_rows(buf, new, index, slot_dim: int, rows=None):
 def _write_cache(layer_cache, k_new, v_new, index, rows=None):
     """Write S new keys/values into the cache in place; quantized leaves
     quantize them first (decoder.py:171-214). An int index writes slots
-    [index, index + S) of every row; a (B,) tensor index writes each row at
+    [index, index + S) of every row, and so does a 0-dim tensor index,
+    without reading it on the host; a (B,) tensor index writes each row at
     its own slots, dropping those past the capacity, into the cache rows
     `rows` (B,) when given (the engine's chunked prefill: a group of slots
     of the pool, written in place)."""
     s = k_new.shape[1]
     per_row = isinstance(index, torch.Tensor) and index.dim() == 1
+    slots = None
+    if isinstance(index, torch.Tensor) and index.dim() == 0:
+        # one token (a decode step): the slot itself, a view, no launch
+        slots = (index.long().reshape(1) if s == 1
+                 else index.long() + torch.arange(s, device=index.device))
+
+    def put(buf, val, slot_dim):
+        if per_row:
+            _write_rows(buf, val, index, slot_dim, rows)
+        elif slots is not None:
+            buf.index_copy_(slot_dim, slots, val.to(buf.dtype))
+        elif slot_dim == 1:
+            buf[:, index:index + s] = val
+        else:
+            buf[:, :, index:index + s] = val
+
     for name, new in (("k", k_new), ("v", v_new)):
         buf = layer_cache[name]
         if isinstance(buf, dict):
             qn = _quantize_kv4(new) if "q4" in buf else _quantize_kv(new)
             for key, val in qn.items():
-                if per_row:
-                    _write_rows(buf[key], val, index, 2, rows)
-                else:
-                    buf[key][:, :, index:index + s] = val
-        elif per_row:
-            _write_rows(buf, new, index, 1, rows)
+                put(buf[key], val, 2)
         else:
-            buf[:, index:index + s] = new
+            put(buf, new, 1)
     return layer_cache
 
 

@@ -8,7 +8,8 @@ the int4 v1 matmul (the int8 and the v1 matmul each in its TMA + wgmma
 kernel and in the kernel kept for N that is not a multiple of 16); then
 the gradients through the autograd Functions and the launch counts of one
 tiny train step; flash at the serving engine's option masks and a tiny
-engine with every option (a CUDA kernel has no CPU mode:
+engine with every option; `generate`'s decode step replayed as a CUDA
+graph against the same step run eagerly (a CUDA kernel has no CPU mode:
 these skip where torch sees no GPU). Run on a GPU machine with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -1233,3 +1234,114 @@ def test_attention_kernels_at_the_shard_heads(hq, hkv):
         _check(lambda q: fn(q, kl, vl, m4),
                lambda q: da.decode_attention_plain(q, kl, vl, m4), (qd,))
         assert da.launches[f"decode_attention_{kind}"] == 1
+
+
+def _generate_seen(monkeypatch, args, **kw):
+    """engine.generate on `args`, with the fp32 logits it hands its
+    sampler at each step, the decode-attention launches it made and the
+    growth of the decode counters."""
+    from opus_pllm_tpu_torch.infer import engine
+    from opus_pllm_tpu_torch.utils.observability import SPANS
+    seen, sample = {}, engine.advance_sampling
+
+    def spy(step, done, cur_logits, *a, **k):
+        seen[step] = cur_logits.clone()
+        return sample(step, done, cur_logits, *a, **k)
+
+    monkeypatch.setattr(engine, "advance_sampling", spy)
+    da.reset_launches()
+    before = SPANS.counters()
+    out = engine.generate(*args, **kw)
+    after = SPANS.counters()
+    monkeypatch.setattr(engine, "advance_sampling", sample)
+    grew = {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("decode.steps", "decode.graph_steps")}
+    return out, seen, dict(da.launches), grew
+
+
+@pytest.mark.parametrize("during", [None, "copies", "profiler"])
+@pytest.mark.parametrize("temperature", [0.0, 0.1])
+@pytest.mark.parametrize("quantize", [False, "int8"])
+def test_decode_graph_matches_the_eager_step(monkeypatch, quantize,
+                                             temperature, during):
+    """`generate` with its decode step captured and replayed against the
+    same loop with the step run eagerly (`_graphable` patched false),
+    each on its own cache: the same tokens and the same logits at every
+    step, greedy and sampled from one generator seed, over a bf16 and an
+    int8 cache (the decode-attention kernel inside the graph, its launch
+    count the eager one); also while another thread copies to the card,
+    as the runner's prefetch does, and while a profiler records."""
+    import threading
+    import time
+
+    from opus_pllm_tpu_torch.infer import engine
+    cfg = DecoderConfig(family="qwen2", vocab_size=1024, hidden_size=512,
+                        intermediate_size=1024, num_layers=3, num_heads=4,
+                        num_kv_heads=2, head_dim=128, attention_bias=True,
+                        dtype="bfloat16")
+    g = _gen()
+    llm = decoder.fuse_projections(
+        decoder.init(cfg, generator=g, device="cuda"), cfg)
+    x = _rnd(g, 8, 24, 512, scale=0.5)
+    am = torch.ones((8, 24), dtype=torch.bool, device="cuda")
+    am[:3, :5] = False
+    new = 12
+    kw = dict(max_new_tokens=new, temperature=temperature, top_p=0.7,
+              eos_token_id=-1, quantize_cache=quantize)
+    args = lambda: (llm, cfg, x, am, decoder.positions_from_mask(am),
+                    torch.Generator(device="cuda").manual_seed(3))
+    stop, copies, overlapped = threading.Event(), [], []
+
+    def copy():
+        host = torch.randn(1 << 20)
+        pinned = host.pin_memory()
+        while not stop.is_set():
+            copies.append(host.to("cuda").sum()
+                          + pinned.to("cuda", non_blocking=True).sum())
+
+    step_fn = engine.DecodeStep.forward
+
+    def forward_beside_copies(self):
+        # the capture stays open until the thread has copied once more
+        if torch.cuda.is_current_stream_capturing():
+            n, deadline = len(copies), time.monotonic() + 60
+            while len(copies) == n and time.monotonic() < deadline:
+                time.sleep(0.001)
+            overlapped.append(len(copies) > n)
+        return step_fn(self)
+
+    t = threading.Thread(target=copy) if during == "copies" else None
+    if t is not None:
+        monkeypatch.setattr(engine.DecodeStep, "forward",
+                            forward_beside_copies)
+        t.start()
+    try:
+        if during == "profiler":
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]):
+                graphed = _generate_seen(monkeypatch, args(), **kw)
+        else:
+            graphed = _generate_seen(monkeypatch, args(), **kw)
+    finally:
+        stop.set()
+        if t is not None:
+            t.join(timeout=60)
+    assert t is None or not t.is_alive()
+    assert overlapped == ([True] if during == "copies" else [])
+    monkeypatch.setattr(engine.DecodeStep, "forward", step_fn)
+    monkeypatch.setattr(engine, "_graphable", lambda *a: False)
+    eager = _generate_seen(monkeypatch, args(), **kw)
+    (g_out, g_seen, g_launches, g_grew), (e_out, e_seen, e_launches,
+                                          e_grew) = graphed, eager
+    assert g_out.steps == e_out.steps == new
+    assert torch.equal(g_out.tokens, e_out.tokens)
+    assert torch.equal(g_out.lengths, e_out.lengths)
+    assert sorted(g_seen) == sorted(e_seen) == list(range(new))
+    for step in range(new):
+        assert torch.equal(g_seen[step], e_seen[step]), step
+    assert g_grew == {"decode.steps": new, "decode.graph_steps": new - 1}
+    assert e_grew == {"decode.steps": new, "decode.graph_steps": 0}
+    assert g_launches == e_launches
+    want = cfg.num_layers * new if quantize == "int8" else 0
+    assert g_launches["decode_attention_int8"] == want

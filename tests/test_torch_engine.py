@@ -7,7 +7,16 @@ Greedy generate must be token-identical to the JAX engine, including the
 EOS exit and a stop sequence, on a tiny llama whose embedding table is
 scaled up so greedy decoding does not collapse onto one token. Sampling
 draws differ by construction (torch.Generator vs jax.random); it is
-checked against the distribution it should draw from."""
+checked against the distribution it should draw from.
+
+The decode step's one-token forward (`engine.DecodeStep`, a device-tensor
+cache slot) gives, called directly, bit for bit the logits and the cache
+leaves of a `decoder.forward` step at an int index, in fp32 for the three
+families over bf16-layout, int8 and int4 caches; `generate` counts its
+steps, none of them a graph replay on the CPU, and hands every step's
+logits to `engine.advance_sampling` by its module attribute."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +31,7 @@ from opus_pllm_tpu_torch.core import convert
 from opus_pllm_tpu_torch.core.config import DecoderConfig
 from opus_pllm_tpu_torch.infer import engine
 from opus_pllm_tpu_torch.models import decoder
+from opus_pllm_tpu_torch.utils.observability import SPANS
 
 
 def test_nucleus_kth_matches_jax():
@@ -107,3 +117,97 @@ def test_greedy_generate_eos_and_stop_sequence(model):
     lengths = got.lengths.tolist()
     assert lengths[0] == 3 and lengths[1] <= 6
     assert (got.tokens[0, 3:] == 0).all()     # pad after done
+
+
+def _leaves(cache):
+    """Every tensor of a cache: the K/V planes (q, q4 and s of a quantized
+    leaf) of each layer, then the mask."""
+    out = []
+    for lc in cache["layers"]:
+        for name in ("k", "v"):
+            t = lc[name]
+            out += [t[k] for k in sorted(t)] if isinstance(t, dict) else [t]
+    return out + [cache["mask"]]
+
+
+@pytest.mark.parametrize("quantize", [False, "int8", "int4"])
+@pytest.mark.parametrize("family", ["qwen2", "llama", "opt"])
+def test_decode_step_matches_the_int_index_step(family, quantize):
+    cfg = DecoderConfig.tiny(family)
+    g = torch.Generator().manual_seed(0)
+    params = decoder.init(cfg, generator=g, device="cpu")
+    b, l, new = 3, 6, 4
+    cap = engine.cache_capacity(cfg, l, new)
+    x = torch.randn((b, l, cfg.hidden_size), generator=g)
+    am = torch.ones((b, l), dtype=torch.bool)
+    am[1, :2] = False
+    pos = decoder.positions_from_mask(am)
+    caches = []
+    for _ in range(2):
+        c = decoder.init_cache(cfg, b, cap, device="cpu", quantize=quantize)
+        c["mask"][:, :l] = am
+        pre = c["mask"][:, None, None, :] & (
+            torch.arange(cap)[None, :] <= torch.arange(l)[:, None])
+        decoder.forward(params, cfg, x, pos, pre, c,
+                        return_hidden=True, ntk_ctx=cap)
+        caches.append(c)
+    want_c, got_c = caches
+    step = engine.DecodeStep(params, cfg, got_c, pos_dtype=pos.dtype,
+                             impl="auto", ntk_ctx=cap)
+    assert not step.graphed
+    for i in range(new):
+        tok = torch.randint(0, cfg.vocab_size, (b,), generator=g,
+                            dtype=torch.int32)
+        p = (pos[:, -1] + 1 + i)[:, None]
+        for c in caches:
+            c["mask"][:, l + i] = torch.tensor([True, i != 2, True])
+        emb = decoder.embed_tokens(params, tok.long())[:, None]
+        want, _ = decoder.forward(params, cfg, emb, p,
+                                  want_c["mask"][:, None, None, :], want_c,
+                                  ntk_ctx=cap)
+        got = step(tok, p, l + i)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want[:, 0])
+    assert want_c["index"] == l + new and step.replays == 0
+    for w, t in zip(_leaves(want_c), _leaves(got_c), strict=True):
+        assert torch.equal(w, t)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_generate_counts_its_steps_and_samples_every_step(model, monkeypatch,
+                                                          temperature):
+    _, tcfg, _, tp, x, am, pos = model
+    seen = []
+    sample = engine.advance_sampling
+
+    def spy(step, done, cur_logits, *a, **k):
+        seen.append((step, cur_logits.clone()))
+        return sample(step, done, cur_logits, *a, **k)
+
+    monkeypatch.setattr(engine, "advance_sampling", spy)
+    before = SPANS.counters()
+    out = engine.generate(tp, tcfg, torch.from_numpy(x),
+                          torch.from_numpy(am), torch.from_numpy(pos),
+                          torch.Generator().manual_seed(0), max_new_tokens=6,
+                          temperature=temperature, top_p=0.9)
+    after = SPANS.counters()
+    grew = lambda k: after.get(k, 0) - before.get(k, 0)
+    assert out.steps == 6
+    assert [s for s, _ in seen] == list(range(out.steps))
+    assert all(type(s) is int for s, _ in seen)
+    # each step hands on the logits of the token sampled before it
+    assert all(not torch.equal(a, b) for (_, a), (_, b) in
+               zip(seen, seen[1:]))
+    assert grew("decode.steps") == out.steps
+    assert grew("decode.graph_steps") == 0
+
+
+@pytest.mark.parametrize("device,mesh,graphed", [
+    ("cpu", None, False), ("cuda", None, True), ("cuda", "tp", False),
+    ("cuda", "fsdp", False)])
+def test_the_step_is_a_graph_only_where_one_process_owns_a_card(
+        device, mesh, graphed):
+    cfg = DecoderConfig.tiny("qwen2")
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, **{mesh: object()})
+    assert engine._graphable(torch.device(device), cfg) is graphed
