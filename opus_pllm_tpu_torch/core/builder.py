@@ -56,6 +56,8 @@ def family_from_path(model_base: str) -> str:
     """The decoder family from the model directory's NAME (its basename,
     so a directory under a parent named "opt" is not taken for OPT)."""
     b = os.path.basename(os.path.normpath(model_base)).lower()
+    if "deepseek" in b:
+        return "deepseek_v2"
     if "llama" in b:
         return "llama"
     if "opt" in b or "galactica" in b:
@@ -74,9 +76,12 @@ def decoder_config_for(model_base: str) -> DecoderConfig:
     if not os.path.exists(cfg_path):
         return {"llama": DecoderConfig.llama3_8b,
                 "qwen2": DecoderConfig.qwen25_7b,
-                "opt": DecoderConfig.galactica_6_7b}[fam]()
+                "opt": DecoderConfig.galactica_6_7b,
+                "deepseek_v2": DecoderConfig.deepseek_v2_lite}[fam]()
     with open(cfg_path) as f:
         hf = json.load(f)
+    if fam == "deepseek_v2" or hf.get("model_type") == "deepseek_v2":
+        return deepseek_config(hf)
     if fam == "opt":
         return DecoderConfig(
             family="opt", vocab_size=hf["vocab_size"],
@@ -107,6 +112,50 @@ def decoder_config_for(model_base: str) -> DecoderConfig:
         max_position_embeddings=hf.get("max_position_embeddings", 8192),
         attention_bias=(fam == "qwen2"),
         tie_word_embeddings=hf.get("tie_word_embeddings", False))
+
+
+def deepseek_config(hf: dict) -> DecoderConfig:
+    """DecoderConfig of a DeepSeek-V2 config.json (model_type
+    deepseek_v2): MLA without q-LoRA, greedy softmax routing every layer
+    after the dense ones, YaRN or no rope scaling; other settings raise."""
+    rs = hf.get("rope_scaling") or {}
+    if (hf.get("q_lora_rank") is not None
+            or hf.get("moe_layer_freq", 1) != 1
+            or hf.get("topk_method", "greedy") != "greedy"
+            or hf.get("scoring_func", "softmax") != "softmax"
+            or hf.get("attention_bias", False)
+            or rs.get("type", "yarn") != "yarn"):
+        raise ValueError("this DeepSeek-V2 variant is not supported (the "
+                         "port runs q_lora_rank null, moe_layer_freq 1, "
+                         "greedy softmax routing, no attention bias, YaRN)")
+    nope, rope = hf["qk_nope_head_dim"], hf["qk_rope_head_dim"]
+    nh = hf["num_attention_heads"]
+    return DecoderConfig(
+        family="deepseek_v2", vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"], num_heads=nh,
+        num_kv_heads=hf.get("num_key_value_heads", nh),
+        head_dim=nope + rope, rope_theta=float(hf.get("rope_theta", 1e4)),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+        max_position_embeddings=hf.get("max_position_embeddings", 8192),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
+        kv_lora_rank=hf["kv_lora_rank"], qk_nope_head_dim=nope,
+        qk_rope_head_dim=rope, v_head_dim=hf["v_head_dim"],
+        n_routed_experts=hf["n_routed_experts"],
+        num_experts_per_tok=hf["num_experts_per_tok"],
+        moe_intermediate_size=hf["moe_intermediate_size"],
+        n_shared_experts=hf.get("n_shared_experts") or 0,
+        first_k_dense_replace=hf.get("first_k_dense_replace", 0),
+        norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
+        routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)),
+        rope_factor=float(rs.get("factor", 1.0)),
+        rope_original_max_position=rs.get(
+            "original_max_position_embeddings", 4096),
+        rope_beta_fast=float(rs.get("beta_fast", 32)),
+        rope_beta_slow=float(rs.get("beta_slow", 1)),
+        rope_mscale=float(rs.get("mscale", 1.0)),
+        rope_mscale_all_dim=float(rs.get("mscale_all_dim", 0.0)))
 
 
 def esm_config_for(esm_path: Optional[str]) -> ESM2Config:

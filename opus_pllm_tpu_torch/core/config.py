@@ -69,7 +69,11 @@ class ESM2Config:
 @dataclass(frozen=True)
 class DecoderConfig:
     """A decoder-only LLM of family "llama", "qwen2" or "opt"
-    (config.py:99-165)."""
+    (config.py:99-165), or "deepseek_v2" (the port's own: multi-head
+    latent attention over a latent cache, a leading dense SwiGLU, then
+    routed and shared experts; `deepseek_v2_lite` is the published
+    DeepSeek-V2-Lite). The MLA, MoE and YaRN fields below are read by that
+    family only; `head_dim` is its query/key head width (nope + rope)."""
 
     family: str = "llama"
     vocab_size: int = 128256
@@ -88,6 +92,29 @@ class DecoderConfig:
     do_layer_norm_before: bool = True
     activation: str = "silu"
     dtype: str = "bfloat16"
+    # deepseek_v2: latent attention (q_lora_rank None: a plain q_proj)
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # deepseek_v2: the first `first_k_dense_replace` layers dense, every
+    # later one routed (moe_layer_freq 1) over `n_routed_experts` of width
+    # `moe_intermediate_size`, top `num_experts_per_tok` by softmax score,
+    # plus `n_shared_experts` shared ones acting as one SwiGLU
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    # deepseek_v2: YaRN rope scaling ("factor" 1: none)
+    rope_factor: float = 1.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
     # tensor parallelism (parallel/partition.TensorParallel): set on the
     # rank-local config `partition.local_config` returns, whose head and
     # MLP widths are this rank's shares; None on a single process
@@ -128,8 +155,46 @@ class DecoderConfig:
         )
 
     @staticmethod
+    def deepseek_v2_lite() -> "DecoderConfig":
+        """DeepSeek-V2-Lite as published (huggingface.co/deepseek-ai/
+        DeepSeek-V2-Lite, config.json): 27 layers, MLA with no q-LoRA,
+        layer 0 dense, then 64 routed experts top-6 and 2 shared."""
+        return DecoderConfig(
+            family="deepseek_v2", vocab_size=102400, hidden_size=2048,
+            intermediate_size=10944, num_layers=27, num_heads=16,
+            num_kv_heads=16, head_dim=192, rope_theta=10000.0,
+            rms_norm_eps=1e-6, max_position_embeddings=163840,
+            kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128, n_routed_experts=64, num_experts_per_tok=6,
+            moe_intermediate_size=1408, n_shared_experts=2,
+            first_k_dense_replace=1, norm_topk_prob=False,
+            routed_scaling_factor=1.0, rope_factor=40.0,
+            rope_original_max_position=4096, rope_beta_fast=32.0,
+            rope_beta_slow=1.0, rope_mscale=0.707,
+            rope_mscale_all_dim=0.707)
+
+    @staticmethod
+    def tiny_deepseek_v2() -> "DecoderConfig":
+        """Test-only deepseek_v2: hidden 64, 4 heads, latent rank 32, rope
+        8 / nope 16 / v 16, 3 layers (1 dense + 2 with 8 experts, top 2, 1
+        shared), YaRN with mscale != mscale_all_dim."""
+        return DecoderConfig(
+            family="deepseek_v2", vocab_size=256, hidden_size=64,
+            intermediate_size=128, num_layers=3, num_heads=4,
+            num_kv_heads=4, head_dim=24, rope_theta=10000.0,
+            rms_norm_eps=1e-6, max_position_embeddings=512,
+            dtype="float32", kv_lora_rank=32, qk_nope_head_dim=16,
+            qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8,
+            num_experts_per_tok=2, moe_intermediate_size=64,
+            n_shared_experts=1, first_k_dense_replace=1, rope_factor=4.0,
+            rope_original_max_position=64, rope_mscale=0.8,
+            rope_mscale_all_dim=0.707)
+
+    @staticmethod
     def tiny(family: str = "llama") -> "DecoderConfig":
         """Test-only config."""
+        if family == "deepseek_v2":
+            return DecoderConfig.tiny_deepseek_v2()
         return DecoderConfig(
             family=family, vocab_size=256, hidden_size=64,
             intermediate_size=128, num_layers=2, num_heads=4,

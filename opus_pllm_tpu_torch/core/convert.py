@@ -362,10 +362,11 @@ def filter_prefix(sd, prefix: str) -> Dict[str, Any]:
 
 
 def decoder_from_hf(sd, cfg, dtype=None, *, quantize_int8: bool = False):
-    """A HF Llama / Qwen2 / OPT state dict -> the port's decoder tree in
-    `dtype` (None: the config's). A bitsandbytes 4-bit checkpoint is
-    dequantized first. quantize_int8: every projection and the head as
-    int8 + per-column scales (`_linear_int8`)."""
+    """A HF Llama / Qwen2 / OPT / DeepSeek-V2 state dict -> the port's
+    decoder tree in `dtype` (None: the config's). A bitsandbytes 4-bit
+    checkpoint is dequantized first. quantize_int8: every projection and
+    the head as int8 + per-column scales (`_linear_int8`; refused for
+    deepseek_v2)."""
     dtype = dtype or cfg.torch_dtype
     if has_bnb_4bit(sd):
         sd = dequantize_bnb_state_dict(sd)
@@ -374,6 +375,11 @@ def decoder_from_hf(sd, cfg, dtype=None, *, quantize_int8: bool = False):
         return _llama_like_from_hf(sd, cfg, dtype, lin)
     if cfg.family == "opt":
         return _opt_from_hf(sd, cfg, dtype, lin)
+    if cfg.family == "deepseek_v2":
+        if quantize_int8:
+            raise ValueError("quantized weights are not supported for the "
+                             "deepseek_v2 family")
+        return _deepseek_from_hf(sd, cfg, dtype)
     raise ValueError(cfg.family)
 
 
@@ -393,6 +399,45 @@ def _llama_like_from_hf(sd, cfg, dtype, lin):
         layer["ffn_norm"] = scale(lp + "post_attention_layernorm.weight")
         for name in ("gate_proj", "up_proj", "down_proj"):
             layer[name] = lin(sd, lp + "mlp." + name, dtype)
+        params["layers"].append(layer)
+    return params
+
+
+def _deepseek_from_hf(sd, cfg, dtype):
+    """DeepSeek-V2 (modeling_deepseek.py names): per layer
+    self_attn.{q_proj, kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj,
+    o_proj}, then mlp.{gate,up,down}_proj (the first
+    `first_k_dense_replace` layers) or mlp.gate (the router, (E, H)),
+    mlp.experts.{j}.{gate,up,down}_proj stacked into (E, in, out) and
+    mlp.shared_experts.*; each Linear's (out, in) weight transposed."""
+    pre = "model." if any(k.startswith("model.") for k in sd) else ""
+    scale = lambda key: {"scale": _cast(sd[key], dtype)}
+    params = {"embed_tokens": _embedding(sd, pre + "embed_tokens.weight",
+                                         dtype),
+              "final_norm": scale(pre + "norm.weight"), "layers": []}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = _linear(sd, "lm_head", dtype)
+    swiglu = lambda mp: {n: _linear(sd, mp + n, dtype)
+                         for n in ("gate_proj", "up_proj", "down_proj")}
+    for i in range(cfg.num_layers):
+        lp, at, mp = (f"{pre}layers.{i}.", f"{pre}layers.{i}.self_attn.",
+                      f"{pre}layers.{i}.mlp.")
+        layer = {"attn_norm": scale(lp + "input_layernorm.weight"),
+                 "q_proj": _linear(sd, at + "q_proj", dtype),
+                 "kv_a_proj": _linear(sd, at + "kv_a_proj_with_mqa", dtype),
+                 "kv_a_norm": scale(at + "kv_a_layernorm.weight"),
+                 "kv_b_proj": _linear(sd, at + "kv_b_proj", dtype),
+                 "o_proj": _linear(sd, at + "o_proj", dtype),
+                 "ffn_norm": scale(lp + "post_attention_layernorm.weight")}
+        if i < cfg.first_k_dense_replace:
+            layer.update(swiglu(mp))
+        else:
+            layer["router"] = _linear(sd, mp + "gate", dtype)
+            layer["experts"] = {n: {"kernel": torch.stack([
+                _cast(sd[f"{mp}experts.{j}.{n}.weight"], dtype).t()
+                for j in range(cfg.n_routed_experts)]).contiguous()}
+                for n in ("gate_proj", "up_proj", "down_proj")}
+            layer["shared"] = swiglu(mp + "shared_experts.")
         params["layers"].append(layer)
     return params
 

@@ -24,7 +24,12 @@ synchronizations (its host duration is `GenerateOutput.decode_seconds`),
 and in each step `engine.stop_check` (the loop's one read of the device),
 `engine.sample` and `engine.forward` (the step's input copies and its
 forward: a graph's launch once captured). Counters: `decode.steps` (the
-steps run) and `decode.graph_steps` (those whose forward was a replay).
+steps run) and `decode.graph_steps` (those whose forward was a replay);
+for a routed family (deepseek_v2) the decode forwards' routing, tallied on
+the device inside the step (`decoder.MoETally`) and read once at the end:
+`moe.pairs`, `moe.experts_hit` (experts with a pair, summed over the
+forwards and routed layers), `moe.busiest` (the busiest expert's pairs,
+summed alike) and `moe.slots` (routed layers x experts x forwards).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 
 from ..core.config import DecoderConfig
 from ..kernels import (decode_attention, flash_attention, flash_attention_bwd,
-                       fused_encoder, quant, quant4)
+                       fused_encoder, moe, quant, quant4)
 from ..models import decoder
 from ..utils.observability import count, prof_range, ranged, span
 
@@ -45,7 +50,7 @@ from ..utils.observability import count, prof_range, ranged, span
 FLASH_BLOCK_K = 256
 # the modules whose hand-written kernels count their launches (`launches`)
 KERNELS = (decode_attention, flash_attention, flash_attention_bwd,
-           fused_encoder, quant, quant4)
+           fused_encoder, moe, quant, quant4)
 
 
 class GenerateOutput(NamedTuple):
@@ -220,6 +225,8 @@ class DecodeStep:
         self.pos = torch.zeros((b, 1), dtype=pos_dtype, device=dev)
         self.slot = torch.zeros((), dtype=torch.long, device=dev)
         self.graphed = _graphable(dev, cfg)
+        self.tally = (decoder.MoETally(cfg, dev)
+                      if cfg.family == decoder.MLA else None)
         self.calls = self.replays = 0
         self.graph = self.logits = None
         self.recorded = []       # (counters, kernel, launches) a replay adds
@@ -233,7 +240,8 @@ class DecodeStep:
         lg, _ = decoder.forward(self.params, self.cfg,
                                 emb.to(self.cfg.torch_dtype), self.pos,
                                 self.mask[:, None, None, :], view,
-                                impl=self.impl, ntk_ctx=self.ntk_ctx)
+                                impl=self.impl, ntk_ctx=self.ntk_ctx,
+                                moe_tally=self.tally)
         return lg[:, 0].float()
 
     def __call__(self, tokens, positions, slot: int):
@@ -364,6 +372,12 @@ def generate(params, cfg: DecoderConfig, input_embeds, attn_mask, positions,
         _sync(dev)
     count("decode.steps", step)
     count("decode.graph_steps", forward.replays)
+    if forward.tally is not None:
+        moe_counts = forward.tally.read()
+        count("moe.pairs", moe_counts["pairs"])
+        count("moe.experts_hit", moe_counts["hit"])
+        count("moe.busiest", moe_counts["busiest"])
+        count("moe.slots", forward.tally.pairs.numel() * forward.calls)
     # the span's own interval when the recorder is on
     ns = decode.host_ns if decode is not None else time.perf_counter_ns() - t0
     return GenerateOutput(out, nwritten, step, ns / 1e9)
@@ -406,6 +420,7 @@ def beam_generate(params, cfg: DecoderConfig, input_embeds, attn_mask,
     step on the host (the JAX while_loop's condition). Returns the best
     finished hypothesis per row: tokens with the terminal EOS, padded with
     pad_token_id; lengths count the EOS; steps the beam steps run."""
+    decoder.refuse_deepseek(cfg, "beam search")
     k, k2 = num_beams, 2 * num_beams
     b, l, _ = input_embeds.shape
     v = cfg.vocab_size

@@ -89,6 +89,7 @@ def draft_from_target(params, cfg: DecoderConfig, n_layers: int):
     """Self-speculative (layer-skip) draft: the target's first `n_layers`
     with its embedding, final norm and head, sharing the tensors (no
     copy). Returns (draft params, draft config)."""
+    decoder.refuse_deepseek(cfg, "speculative decoding")
     if not 0 < n_layers < cfg.num_layers:
         raise ValueError(f"draft_layers must be in [1, {cfg.num_layers - 1}]"
                          f" (target has {cfg.num_layers} layers), "
@@ -150,6 +151,7 @@ def speculative_generate(draft_params, params, cfg_draft: DecoderConfig,
     rejection-verified speculative sampling under generate's warp, with
     randomness from `generator` (None: a fresh generator seeded 0 on the
     embeddings' device)."""
+    decoder.refuse_deepseek(cfg, "speculative decoding")
     out = _speculative(draft_params, params, cfg_draft, cfg, input_embeds,
                        draft_input_embeds, attn_mask, positions,
                        max_new_tokens, n_draft, eos_token_id, pad_token_id,

@@ -69,6 +69,10 @@ SIGNATURES = {
         "opus_int4_matmul_v1_unaligned": [_P, _P, _P, _P, _I, _I, _I, _I,
                                           _P],
     },
+    "moe_grouped_gemm": {
+        "opus_moe_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P],
+    },
 }
 
 _libs = {}

@@ -19,6 +19,25 @@ covers the three families of `DecoderConfig.family`:
           and no rope, q/k/v/o biases, fc1 -> relu/gelu -> fc2 with
           biases, MHA, a final LayerNorm when `do_layer_norm_before`
 
+and the port's own fourth, which the JAX package does not have:
+
+  deepseek_v2 : DeepSeek-V2 (modeling_deepseek.py): RMSNorm; multi-head
+          latent attention (`_mla`: q_proj, the joint kv_a product split
+          into the latent c and a one-head rope key, c RMS-normed, kv_b
+          decompressing c into per-head nope keys and values; YaRN rope
+          on interleaved pairs; softmax scale 1/sqrt(nope + rope) x
+          mscale(factor, mscale_all_dim)^2); the first
+          `first_k_dense_replace` layers a SwiGLU, the others a routed
+          layer (`_moe`: fp32 softmax router, top-k, the pairs sorted by
+          expert on the device, `kernels/moe.grouped_gemm` for gate|up and
+          down, the fp32 weighted sum) plus shared experts. Its cache
+          holds the latent state: {"c": (B, cap, rank), "k_pe": (B, cap,
+          rope)} a layer. A prefill decompresses the cache's keys and
+          values; a one-token step attends in the absorbed form, W_UK folded
+          into the query and W_UV applied after the weighted sum, so it
+          reads only the latent cache. bf16 weights and cache on one
+          process only (`refuse_deepseek`).
+
 `use_dynamic_ntk` rescales the rope base for contexts past
 `max_position_embeddings` (`layers.ntk_scaled_theta`), from the context
 bound `forward` derives as the JAX function does. Projections may be bf16
@@ -58,14 +77,58 @@ from ..core import mesh as mesh_mod
 from ..core.config import DecoderConfig
 from ..core.util import mm_fp32, resolve_device
 from ..kernels import decode_attention as da
+from ..kernels import moe as moe_kernels
 from ..utils.observability import prof_range
 from . import layers
-from .layers import (ACTIVATIONS, apply_rope, attention, dense, embed,
-                     layer_norm, lora_delta, lora_dense, ntk_scaled_theta,
-                     rms_norm, rope_cos_sin)
+from .layers import (ACTIVATIONS, apply_rope, apply_rope_interleaved,
+                     attention, dense, embed, layer_norm, lora_delta,
+                     lora_dense, mla_attention, ntk_scaled_theta, rms_norm,
+                     rope_cos_sin, yarn_cos_sin, yarn_get_mscale)
 
 OPT_POS_OFFSET = 2      # HF OPT learned-position offset (decoder.py:29)
-FAMILIES = ("llama", "qwen2", "opt")
+FAMILIES = ("llama", "qwen2", "opt", "deepseek_v2")
+MLA = "deepseek_v2"
+
+
+def refuse_deepseek(cfg: DecoderConfig, what: str) -> None:
+    """ValueError where `what` meets the deepseek_v2 family, which runs
+    only the annotate path: bf16 weights and cache, one process, greedy or
+    sampled `engine.generate`."""
+    if cfg.family == MLA:
+        raise ValueError(f"{what} is not supported for the deepseek_v2 "
+                         "family (bf16 weights and cache on one process, "
+                         "through engine.generate, only)")
+
+
+def _init_deepseek_layer(cfg: DecoderConfig, i: int, kw, norm):
+    """One deepseek_v2 layer's random parameters: MLA, then a SwiGLU
+    (i < first_k_dense_replace) or a router, the routed experts stacked
+    (E, in, out) and the shared experts as one SwiGLU."""
+    h, nh = cfg.hidden_size, cfg.num_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    dense_init = layers.dense_init
+    lp = {"attn_norm": norm(h),
+          "q_proj": dense_init(h, nh * (dn + dr), **kw),
+          "kv_a_proj": dense_init(h, r + dr, **kw),
+          "kv_a_norm": norm(r),
+          "kv_b_proj": dense_init(r, nh * (dn + dv), **kw),
+          "o_proj": dense_init(nh * dv, h, **kw),
+          "ffn_norm": norm(h)}
+    swiglu = lambda f: {"gate_proj": dense_init(h, f, **kw),
+                        "up_proj": dense_init(h, f, **kw),
+                        "down_proj": dense_init(f, h, **kw)}
+    if i < cfg.first_k_dense_replace:
+        lp.update(swiglu(cfg.intermediate_size))
+        return lp
+    e, f = cfg.n_routed_experts, cfg.moe_intermediate_size
+    stack = lambda fan_in, fan_out: {"kernel": layers.uniform_(
+        (e, fan_in, fan_out), 1.0 / fan_in ** 0.5, **kw)}
+    lp["router"] = dense_init(h, e, **kw)
+    lp["experts"] = {"gate_proj": stack(h, f), "up_proj": stack(h, f),
+                     "down_proj": stack(f, h)}
+    lp["shared"] = swiglu(f * cfg.n_shared_experts)
+    return lp
 
 
 def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None,
@@ -87,6 +150,10 @@ def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None,
     bias_attn = cfg.attention_bias or is_opt
     kw = dict(generator=generator, device=device, dtype=dt)
     norm = lambda: layers.norm_init(h, device=device, dtype=dt, bias=is_opt)
+    if cfg.family == MLA:
+        ds_norm = lambda n: layers.norm_init(n, device=device, dtype=dt,
+                                             bias=False)
+        make_layer = lambda i: _init_deepseek_layer(cfg, i, kw, ds_norm)
     params: Dict[str, Any] = {
         "embed_tokens": layers.embed_init(cfg.vocab_size, h, **kw),
         "final_norm": norm(),
@@ -101,7 +168,12 @@ def init(cfg: DecoderConfig, *, generator: torch.Generator, device=None,
             params["lm_head"] = finish_head(params["lm_head"])
     qdim, kvdim = cfg.num_heads * d, cfg.num_kv_heads * d
     f = cfg.intermediate_size
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
+        if cfg.family == MLA:
+            lp = make_layer(i)
+            params["layers"].append(finish_layer(lp) if finish_layer
+                                    else lp)
+            continue
         lp = {"attn_norm": norm(),
               "q_proj": layers.dense_init(h, qdim, bias=bias_attn, **kw),
               "k_proj": layers.dense_init(h, kvdim, bias=bias_attn, **kw),
@@ -123,7 +195,10 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
                *, device=None, quantize=False):
     """Zeroed KV cache with `max_len` slots per row. quantize=True/"int8"
     stores int8 K/V, "int4" packed int4, each with per-(token, head) fp32
-    scales, head-major (decoder.py:87-128), on `device` (None: CUDA)."""
+    scales, head-major (decoder.py:87-128), on `device` (None: CUDA). The
+    deepseek_v2 family's holds the latent state instead, {"c": (B, cap,
+    kv_lora_rank), "k_pe": (B, cap, qk_rope_head_dim)} a layer, in
+    `dtype` only."""
     device = resolve_device(device)
     if quantize is True:
         quantize = "int8"
@@ -132,6 +207,17 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
                          f"got {quantize!r}")
     dtype = dtype or cfg.torch_dtype
     hkv, d = cfg.num_kv_heads, cfg.head_dim
+    if cfg.family == MLA:
+        if quantize:
+            refuse_deepseek(cfg, "a quantized cache")
+        latent = lambda n: torch.zeros((batch, max_len, n), dtype=dtype,
+                                       device=device)
+        return {"layers": [{"c": latent(cfg.kv_lora_rank),
+                            "k_pe": latent(cfg.qk_rope_head_dim)}
+                           for _ in range(cfg.num_layers)],
+                "index": 0,
+                "mask": torch.zeros((batch, max_len), dtype=torch.bool,
+                                    device=device)}
 
     def leaf():
         if not quantize:
@@ -214,9 +300,11 @@ def _write_rows(buf, new, index, slot_dim: int, rows=None):
     buf[idx] = torch.where(keep, new.to(buf.dtype), buf[idx])
 
 
-def _write_cache(layer_cache, k_new, v_new, index, rows=None):
-    """Write S new keys/values into the cache in place; quantized leaves
-    quantize them first (decoder.py:171-214). An int index writes slots
+def _write_cache(layer_cache, k_new, v_new, index, rows=None,
+                 names=("k", "v")):
+    """Write S new keys/values (under `names`: the latent c and k_pe of
+    the deepseek_v2 cache, (B, S, X)) into the cache in place; quantized
+    leaves quantize them first (decoder.py:171-214). An int index writes slots
     [index, index + S) of every row, and so does a 0-dim tensor index,
     without reading it on the host; a (B,) tensor index writes each row at
     its own slots, dropping those past the capacity, into the cache rows
@@ -240,7 +328,7 @@ def _write_cache(layer_cache, k_new, v_new, index, rows=None):
         else:
             buf[:, :, index:index + s] = val
 
-    for name, new in (("k", k_new), ("v", v_new)):
+    for name, new in zip(names, (k_new, v_new)):
         buf = layer_cache[name]
         if isinstance(buf, dict):
             qn = _quantize_kv4(new) if "q4" in buf else _quantize_kv(new)
@@ -419,6 +507,192 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
                     fused, row(split))
 
 
+def mla_softmax_scale(cfg: DecoderConfig) -> float:
+    """1 / sqrt(nope + rope) x mscale(factor, mscale_all_dim)^2
+    (DeepseekV2Attention.softmax_scale)."""
+    m = (yarn_get_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim)
+         if cfg.rope_mscale_all_dim else 1.0)
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5 * m * m
+
+
+def _mla_absorbed(cfg: DecoderConfig, p, q_nope, q_pe, lc, mask4, scale):
+    """One token a row over the latent cache, W_UK folded into the query
+    and W_UV applied after the weighted sum: q_nope (B, 1, H, nope), q_pe
+    (B, 1, H, rope) -> (B, 1, H * v). Each product in the cache's dtype
+    with its output rounded there, as the published attention rounds its
+    q.k and weights.v products; the logits' two parts (latent, rope)
+    added, scaled and softmaxed in fp32, the weights rounded to the
+    cache's dtype."""
+    b, nh = q_nope.shape[0], cfg.num_heads
+    r, dn, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
+    c, kpe = lc["c"], lc["k_pe"]                         # (B, cap, X)
+    w = p["kv_b_proj"]["kernel"].view(r, nh, dn + dv).to(c.dtype)
+    w_uk = w[..., :dn].permute(1, 2, 0)                  # (H, nope, rank)
+    w_uv = w[..., dn:].permute(1, 0, 2)                  # (H, rank, v)
+    q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1).to(c.dtype), w_uk)
+    # the cache as the left operand (cap rows a batch, not the 16 heads):
+    # cuBLAS's kernels for this shape read the cache ~8x faster
+    logits = (torch.bmm(c, q_lat.permute(1, 2, 0)).float()
+              + torch.bmm(kpe, q_pe[:, 0].to(c.dtype).transpose(1, 2))
+              .float()).transpose(1, 2)                  # (B, H, cap)
+    logits = torch.where(mask4[:, 0], logits * scale,
+                         torch.full_like(logits, layers.NEG_INF))
+    wts = torch.softmax(logits, dim=-1).to(c.dtype)
+    o_lat = torch.bmm(c.transpose(1, 2), wts.transpose(1, 2))  # (B, rank, H)
+    out = torch.bmm(o_lat.permute(2, 0, 1), w_uv)       # (H, B, v)
+    return out.transpose(0, 1).reshape(b, 1, nh * dv).to(q_nope.dtype)
+
+
+def _mla(cfg: DecoderConfig, p, r, mask4, cos, sin, layer_cache, index,
+         impl: str):
+    """Multi-head latent attention (DeepseekV2Attention, q_lora_rank
+    None) of the normed input r (B, S, H) -> (B, S, H). With a cache the
+    new latent c and roped k_pe are written at `index`; one token (S = 1)
+    attends in the absorbed form over the cache (`_mla_absorbed`), more
+    decompress the cache's slots [0, index + S) through kv_b (an int
+    index: a prefill)."""
+    b, s, _ = r.shape
+    nh, rank = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if "q_kv_a_proj" in p:
+        q, ckv = _fused_product(p["q_kv_a_proj"], r,
+                                (("q_proj", nh * (dn + dr)),
+                                 ("kv_a_proj", rank + dr)), {}, 1.0, impl)
+    else:
+        q, ckv = dense(p["q_proj"], r, impl=impl), \
+            dense(p["kv_a_proj"], r, impl=impl)
+    q = q.reshape(b, s, nh, dn + dr)
+    q_nope = q[..., :dn]
+    q_pe = apply_rope_interleaved(q[..., dn:], cos, sin)
+    c = rms_norm(p["kv_a_norm"], ckv[..., :rank], eps=cfg.rms_norm_eps)
+    k_pe = apply_rope_interleaved(ckv[..., rank:].reshape(b, s, 1, dr),
+                                  cos, sin)[:, :, 0]
+    scale = mla_softmax_scale(cfg)
+    if layer_cache is not None:
+        _write_cache(layer_cache, c, k_pe, index, names=("c", "k_pe"))
+        if s == 1:
+            a = _mla_absorbed(cfg, p, q_nope, q_pe, layer_cache, mask4,
+                              scale)
+            return dense(p["o_proj"], a, impl=impl)
+        if isinstance(index, torch.Tensor):
+            raise ValueError("a deepseek_v2 prefill takes an int cache "
+                             "index")
+        n = index + s
+        c, k_pe = layer_cache["c"][:, :n], layer_cache["k_pe"][:, :n]
+        mask4 = mask4[..., :n]
+    n = c.shape[1]
+    kv = dense(p["kv_b_proj"], c, impl=impl).reshape(b, n, nh, dn + dv)
+    k = torch.cat([kv[..., :dn], k_pe[:, :, None].expand(b, n, nh, dr)],
+                  dim=-1)
+    a = mla_attention(torch.cat([q_nope, q_pe], dim=-1), k, kv[..., dn:],
+                      mask4, scale)
+    return dense(p["o_proj"], a.reshape(b, s, nh * dv), impl=impl)
+
+
+def _swiglu(p, x, width: int, impl: str):
+    """down(silu(gate x) * up x), gate|up fused or not."""
+    if "gateup_proj" in p:
+        g, u = _fused_product(p["gateup_proj"], x, (("gate_proj", width),
+                                                    ("up_proj", width)),
+                              {}, 1.0, impl)
+    else:
+        g, u = dense(p["gate_proj"], x, impl=impl), \
+            dense(p["up_proj"], x, impl=impl)
+    return dense(p["down_proj"], ACTIVATIONS["silu"](g) * u, impl=impl)
+
+
+class MoETally:
+    """A decode loop's routing, counted on the device: pairs per (routed
+    layer, expert), and per layer the experts with a pair and the busiest
+    expert's pairs, each summed over the forwards that ran. `add` is a few
+    device operations (inside a captured step, so replays count too);
+    `read` is one copy to the host."""
+
+    def __init__(self, cfg: DecoderConfig, device):
+        n = cfg.num_layers - cfg.first_k_dense_replace
+        self.pairs = torch.zeros((n, cfg.n_routed_experts),
+                                 dtype=torch.int64, device=device)
+        self.hit = torch.zeros((n,), dtype=torch.int64, device=device)
+        self.busiest = torch.zeros((n,), dtype=torch.int64, device=device)
+        self.first = cfg.first_k_dense_replace
+
+    def add(self, layer: int, counts) -> None:
+        i = layer - self.first
+        self.pairs[i] += counts
+        self.hit[i] += (counts > 0).sum()
+        self.busiest[i] += counts.max()
+
+    def read(self) -> dict:
+        return {"pairs": int(self.pairs.sum()), "hit": int(self.hit.sum()),
+                "busiest": int(self.busiest.sum())}
+
+
+def _experts(ep, rows, offsets, impl: str):
+    """The routed experts' SwiGLU over `rows` sorted by expert: the fused
+    gate|up (`interleave_gate_up`) in one grouped product with the
+    SiLU-mul epilogue, else gate and up apart; then down."""
+    mm = lambda x, w, **kw: moe_kernels.grouped_gemm(x, w["kernel"], offsets,
+                                                     impl=impl, **kw)
+    if "gateup_proj" in ep:
+        mid = mm(rows, ep["gateup_proj"], swiglu=True)
+    else:
+        g = mm(rows, ep["gate_proj"]).float()
+        mid = (ACTIVATIONS["silu"](g) * mm(rows, ep["up_proj"]).float()) \
+            .to(rows.dtype)
+    return mm(mid, ep["down_proj"])
+
+
+def _moe(cfg: DecoderConfig, p, x, impl: str, tally=None, layer: int = 0):
+    """The routed layer (DeepseekV2MoE, inference): the router's fp32
+    softmax scores, the top `num_experts_per_tok` (weights normalised or
+    scaled by `routed_scaling_factor`), the (token, expert) pairs sorted
+    by expert and their offsets computed on the device, the experts
+    (`_experts`), each pair's output put back in the token's order and
+    summed with its weight in fp32, plus the shared experts. Nothing is
+    read on the host. `tally` (MoETally) counts the pairs."""
+    b, s, h = x.shape
+    xt = x.reshape(-1, h)
+    k, e = cfg.num_experts_per_tok, cfg.n_routed_experts
+    with prof_range("decoder.moe.route"):
+        scores = torch.softmax(xt.float() @ p["router"]["kernel"].float(),
+                               dim=-1)
+        w, ids = torch.topk(scores, k, dim=-1)
+        if cfg.norm_topk_prob:
+            w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+        else:
+            w = w * cfg.routed_scaling_factor
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.zeros((e,), dtype=torch.int32, device=x.device)
+        counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+        offsets = torch.cat([counts.new_zeros((1,)),
+                             counts.cumsum(0, dtype=torch.int32)])
+        rows = xt.index_select(0, order // k)
+        if tally is not None:
+            tally.add(layer, counts)
+    with prof_range("decoder.moe.experts"):
+        y = _experts(p["experts"], rows, offsets, impl)
+        y = torch.empty_like(y).index_copy_(0, order, y)
+        routed = (y.view(-1, k, h).float() * w[..., None]).sum(1)
+        routed = routed.to(x.dtype).reshape(b, s, h)
+    return routed + _swiglu(p["shared"], x, cfg.moe_intermediate_size
+                            * cfg.n_shared_experts, impl)
+
+
+def _deepseek_block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache,
+                    index, impl: str, tally, layer: int):
+    """One deepseek_v2 layer: x + MLA(norm x), then + the SwiGLU or the
+    routed layer of norm x."""
+    eps = cfg.rms_norm_eps
+    with prof_range("decoder.mla"):
+        x = x + _mla(cfg, p, rms_norm(p["attn_norm"], x, eps=eps), mask4,
+                     cos, sin, layer_cache, index, impl)
+    r = rms_norm(p["ffn_norm"], x, eps=eps)
+    if "experts" in p:
+        return x + _moe(cfg, p, r, impl, tally, layer)
+    return x + _swiglu(p, r, cfg.intermediate_size, impl)
+
+
 def _gathered_block(cfg: DecoderConfig, p, *rest):
     """`_block` over this rank's data share of a layer (FSDP, `cfg.fsdp`):
     the layer's leaves are all-gathered over the data ranks first and die
@@ -430,7 +704,12 @@ def _gathered_block(cfg: DecoderConfig, p, *rest):
 def fuse_layer(lp: Dict) -> Dict:
     """One layer with q/k/v concatenated into "qkv_proj" and gate/up into
     "gateup_proj" (decoder.py:330-376): 7 projection products become 4,
-    each of the remaining ones wider. bf16 ("kernel"), int8 ("kernel_q" +
+    each of the remaining ones wider. A deepseek_v2 layer fuses [q |
+    kv_a] into "q_kv_a_proj", the dense or shared experts' gate|up, and
+    the routed experts' gate|up into the grouped GEMM's interleaved
+    "gateup_proj" (`kernels.moe.interleave_gate_up`; left unfused where
+    the expert width is not a multiple of 64); kv_b, o, down, the router
+    and the norms stay as they are. bf16 ("kernel"), int8 ("kernel_q" +
     per-column "scale") and int4 ("kernel_p" + group "gscale") projections
     all concatenate exactly along the output: kernels and gscale on axis
     1, scale and biases on axis 0. The input layer is not changed; the
@@ -446,11 +725,21 @@ def fuse_layer(lp: Dict) -> Dict:
 
     nlp = dict(lp)
     for fused, names in (("qkv_proj", ("q_proj", "k_proj", "v_proj")),
+                         ("q_kv_a_proj", ("q_proj", "kv_a_proj")),
                          ("gateup_proj", ("gate_proj", "up_proj"))):
-        if all(n in lp for n in names):
-            nlp[fused] = cat([lp[n] for n in names])
+        if all(n in nlp for n in names):
+            nlp[fused] = cat([nlp[n] for n in names])
             for n in names:
                 del nlp[n]
+    if "shared" in lp:
+        nlp["shared"] = fuse_layer(lp["shared"])
+    ep = lp.get("experts")
+    if ep is not None and "gate_proj" in ep and ep["gate_proj"][
+            "kernel"].shape[2] % moe_kernels.BLOCK == 0:
+        gate, up = ep["gate_proj"]["kernel"], ep["up_proj"]["kernel"]
+        nlp["experts"] = {"gateup_proj": {"kernel": moe_kernels
+                                          .interleave_gate_up(gate, up)},
+                          "down_proj": ep["down_proj"]}
     return nlp
 
 
@@ -506,9 +795,16 @@ def positions_and_rope(params, cfg: DecoderConfig, x, positions, *,
     """Front half of `forward` (decoder.py:535-552): OPT adds its learned
     position embeddings and has no rope (cos, sin None); the rope families
     build (cos, sin) in x's dtype, the base rescaled by dynamic NTK for the
-    context bound `ctx` when `use_dynamic_ntk`."""
+    context bound `ctx` when `use_dynamic_ntk`; deepseek_v2 its YaRN
+    tables over the rope dims."""
     if cfg.family == "opt":
         return x + opt_positions(params, positions), None, None
+    if cfg.family == MLA:
+        cos, sin = yarn_cos_sin(
+            positions, cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_factor,
+            cfg.rope_original_max_position, cfg.rope_beta_fast,
+            cfg.rope_beta_slow, cfg.rope_mscale, cfg.rope_mscale_all_dim)
+        return x, cos.to(x.dtype), sin.to(x.dtype)
     theta = cfg.rope_theta
     if cfg.use_dynamic_ntk:
         theta = ntk_scaled_theta(theta, cfg.head_dim, ctx,
@@ -547,7 +843,7 @@ def _remat_wrap(fn, remat):
 def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
             cache=None, *, lora=None, lora_scale: float = 1.0,
             impl: str = "auto", remat=False, return_hidden: bool = False,
-            ntk_ctx: Optional[int] = None, sp=None
+            ntk_ctx: Optional[int] = None, sp=None, moe_tally=None
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """input_embeds (B, S, H); positions (B, S); mask4 (B, 1, S, Skv) bool
     (Skv = S without a cache, the cache capacity with one). With a cache,
@@ -563,9 +859,16 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
     caller's `ntk_ctx` (an engine that prefills into a smaller scratch
     cache than its decode cache pins one bound for both), else the cache
     capacity, else this call's key length. `sp` (parallel.ring.SeqMesh)
-    goes with impl "ring" / "sp_decode" (`_block`).
+    goes with impl "ring" / "sp_decode" (`_block`). `moe_tally`
+    (MoETally): counts the routed layers' pairs (deepseek_v2).
     """
     _check_impl(impl)
+    mla = cfg.family == MLA
+    if mla and (cfg.tp is not None or cfg.fsdp is not None or sp is not None
+                or impl in ("ring", "sp_decode")):
+        refuse_deepseek(cfg, "tensor, FSDP or sequence sharding")
+    if mla and (lora is not None or remat):
+        refuse_deepseek(cfg, "training (LoRA, remat)")
     ctx = ntk_ctx if ntk_ctx is not None else (
         cache["mask"].shape[-1] if cache is not None else mask4.shape[-1])
     x, cos, sin = positions_and_rope(params, cfg, input_embeds, positions,
@@ -581,8 +884,12 @@ def forward(params, cfg: DecoderConfig, input_embeds, positions, mask4,
         # a profiler range a layer (only while one records): keeps each
         # idle gap of the device within reach of a name in its trace
         with prof_range("decoder.layer"):
-            x = block(cfg, p, x, mask4, cos, sin, lc, index, impl, la,
-                      lora_scale, rows, sp)
+            if mla:
+                x = _deepseek_block(cfg, p, x, mask4, cos, sin, lc, index,
+                                    impl, moe_tally, i)
+            else:
+                x = block(cfg, p, x, mask4, cos, sin, lc, index, impl, la,
+                          lora_scale, rows, sp)
     if cache is not None:
         cache["index"] = index + input_embeds.shape[1]
     x = _final_norm(params, cfg, x)

@@ -184,6 +184,62 @@ def apply_rope(x, cos, sin):
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
 
+# YaRN (DeepSeek-V2's `DeepseekV2YarnRotaryEmbedding`, modeling_deepseek.py):
+# the low frequencies interpolated by `factor`, the high ones kept, a linear
+# ramp between the correction dims of beta_fast and beta_slow rotations;
+# cos / sin scaled by mscale(factor, mscale) / mscale(factor, mscale_all_dim)
+
+def yarn_get_mscale(scale: float = 1.0, mscale: float = 1.0) -> float:
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_correction_dim(rotations, dim, base, max_pos):
+    return (dim * math.log(max_pos / (rotations * 2 * math.pi))) \
+        / (2 * math.log(base))
+
+
+def yarn_inv_freq(dim: int, base: float, factor: float, original_max: int,
+                  beta_fast: float, beta_slow: float, device=None):
+    """The YaRN inverse frequencies (dim / 2,) fp32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (base ** exps)
+    inter = 1.0 / (factor * base ** exps)
+    low = max(math.floor(_yarn_correction_dim(beta_fast, dim, base,
+                                              original_max)), 0)
+    high = min(math.ceil(_yarn_correction_dim(beta_slow, dim, base,
+                                              original_max)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def yarn_cos_sin(positions, dim: int, base: float, factor: float,
+                 original_max: int, beta_fast: float, beta_slow: float,
+                 mscale: float, mscale_all_dim: float):
+    """cos/sin (fp32, (*pos, dim)) of YaRN rope at integer positions."""
+    inv = yarn_inv_freq(dim, base, factor, original_max, beta_fast,
+                        beta_slow, device=positions.device)
+    freqs = positions.float()[..., None] * inv
+    emb = torch.cat([freqs, freqs], dim=-1)
+    m = yarn_get_mscale(factor, mscale) / yarn_get_mscale(factor,
+                                                          mscale_all_dim)
+    return torch.cos(emb) * m, torch.sin(emb) * m
+
+
+def apply_rope_interleaved(x, cos, sin):
+    """DeepSeek-V2's rope: the last dim's interleaved pairs (0, 1), (2, 3),
+    ... regrouped as evens then odds, then the half-split rotation of
+    `apply_rope` (x (B, S, H, D))."""
+    b, s, h, d = x.shape
+    x = x.reshape(b, s, h, d // 2, 2).transpose(3, 4).reshape(b, s, h, d)
+    return apply_rope(x, cos, sin)
+
+
 # ---------------------------------------------------------------------------
 # Attention (layers.py:186-243)
 # ---------------------------------------------------------------------------
@@ -227,6 +283,20 @@ def attention_xla(q, k, v, mask=None):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype).float(), v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def mla_attention(q, k, v, mask, scale: float):
+    """Multi-head attention with its own scale and a value width other
+    than the query's (latent attention decompressed: q, k (B, Sq|Skv, H,
+    Dqk), v (B, Skv, H, Dv)), the plain path of `attention_xla`: logits and
+    softmax in fp32, masked logits -1e9, the weights rounded to v's dtype
+    before the value product. mask (B, 1, Sq, Skv) bool or None."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
 
 
 def causal_mask(attn_mask, sq: Optional[int] = None):

@@ -339,6 +339,7 @@ class ServingEngine:
                  adapter_capacity: Optional[int] = None,
                  draft_layers: Optional[int] = None, spec_k: int = 4,
                  spec_adaptive: bool = True):
+        decoder.refuse_deepseek(cfg, "the serving engine")
         if mesh is not None:
             # tensor-parallel serving (serve/engine.py:197-211): this rank
             # holds its heads' cache and its slice of every projection;

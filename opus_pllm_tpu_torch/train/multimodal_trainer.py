@@ -60,6 +60,7 @@ from ..core.util import resolve_device, to_device
 from ..data.collate import count_positions
 from ..lora import lora as lora_mod
 from ..models import esm2, opus
+from ..models.decoder import refuse_deepseek
 from ..parallel import partition
 from ..utils.observability import ranged, span
 from ..utils.prefetch import prefetch_to_device
@@ -132,6 +133,7 @@ def create_state(cfg: OpusConfig, tcfg: TrainConfig, frozen_params, *,
                  trainable=None):
     """(state, optimizer). `trainable` starts from a given tree (e.g.
     `core.convert.trainable_from_jax`) instead of a fresh one."""
+    refuse_deepseek(cfg.llm, "training")
     if trainable is None:
         trainable = init_trainable(cfg, train_switch=train_switch,
                                    lora_cfg=lora_cfg,
@@ -343,6 +345,7 @@ def make_train_step(cfg: OpusConfig, tx: AdamW, *,
     `train.forward` and `train.backward` once a micro-chunk (the backward
     with the chunk's gradient added to the sum), then `train.optimizer`
     from the summed gradients to the end of `tx.zero_grad()`."""
+    refuse_deepseek(cfg.llm, "training")
     ls = lora_mod.scaling(lora_cfg) if lora_cfg is not None else 1.0
     layout = tx.layout
 

@@ -9,8 +9,10 @@ kernel and in the kernel kept for N that is not a multiple of 16); then
 the gradients through the autograd Functions and the launch counts of one
 tiny train step; flash at the serving engine's option masks and a tiny
 engine with every option; `generate`'s decode step replayed as a CUDA
-graph against the same step run eagerly (a CUDA kernel has no CPU mode:
-these skip where torch sees no GPU). Run on a GPU machine with:
+graph against the same step run eagerly; the grouped expert GEMM at
+DeepSeek-V2-Lite's decode and prefill shapes and the deepseek_v2 decode
+graph against its eager step (a CUDA kernel has no CPU mode: these skip
+where torch sees no GPU). Run on a GPU machine with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
@@ -1345,3 +1347,104 @@ def test_decode_graph_matches_the_eager_step(monkeypatch, quantize,
     assert g_launches == e_launches
     want = cfg.num_layers * new if quantize == "int8" else 0
     assert g_launches["decode_attention_int8"] == want
+
+
+# ---- the grouped expert GEMM and the deepseek_v2 decode graph ----
+
+def _routed(g, counts, k):
+    """Rows sorted by expert for `counts` (E,) and their int32 offsets."""
+    counts = torch.as_tensor(counts, dtype=torch.int64)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         counts.cumsum(0)]).to(torch.int32).cuda()
+    return _rnd(g, int(counts.sum()), k), offsets
+
+
+@pytest.mark.parametrize("regime", ["decode", "prefill"])
+@pytest.mark.parametrize("swiglu", [True, False])
+def test_moe_grouped_gemm(regime, swiglu):
+    """The grouped GEMM against its plain version at DeepSeek-V2-Lite's
+    widths (gate|up 2048 -> 2 x 1408 with the SiLU-mul epilogue, down 1408
+    -> 2048): the decode step's 768 pairs and the cell's prefill of 41,856
+    rows x 6 = 251,136 pairs over 64 experts, three of them given no rows
+    (at decode also 1- and 200-row experts)."""
+    from opus_pllm_tpu_torch.kernels import moe
+    g = _gen()
+    e = 64
+    k, n = (2048, 2 * 1408) if swiglu else (1408, 2048)
+    total = 768 if regime == "decode" else 41856 * 6
+    rng = np.random.default_rng(5)
+    share = rng.dirichlet(np.ones(e) * 4)
+    share[[3, 5, 6, 17, 40]] = 0.0
+    fixed = {5: 1, 6: 200} if regime == "decode" else {}
+    rest = total - sum(fixed.values())
+    counts = np.floor(share / share.sum() * rest).astype(np.int64)
+    counts[int(np.argmax(counts))] += rest - counts.sum()
+    for i, c in fixed.items():
+        counts[i] = c
+    assert counts.sum() == total and counts.min() >= 0
+    x, offsets = _routed(g, counts, k)
+    w = _rnd(g, e, k, n, scale=k ** -0.5)
+    moe.reset_launches()
+    _check(lambda x_, w_: moe.grouped_gemm(x_, w_, offsets, swiglu=swiglu),
+           lambda x_, w_: moe.grouped_gemm_plain(x_, w_, offsets,
+                                                 swiglu=swiglu), (x, w))
+    assert moe.launches["moe_grouped_gemm"] == 1
+    again = moe.grouped_gemm(x, w, offsets, swiglu=swiglu)
+    assert torch.equal(again, moe.grouped_gemm(x, w, offsets,
+                                               swiglu=swiglu))
+
+
+def _tiny_deepseek_card():
+    return dataclasses.replace(
+        DecoderConfig.tiny_deepseek_v2(), vocab_size=1024, hidden_size=512,
+        intermediate_size=1024, num_heads=4, num_kv_heads=4, head_dim=192,
+        kv_lora_rank=128, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, moe_intermediate_size=128, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.1])
+def test_deepseek_decode_graph_matches_the_eager_step(monkeypatch,
+                                                      temperature):
+    """deepseek_v2 (MLA over the latent cache, 8 routed experts through
+    the grouped GEMM) with its decode step captured and replayed against
+    the same loop run eagerly: the same tokens, bit-equal logits at every
+    step, the grouped GEMM's launches the eager ones, and the routing
+    tally's counters equal."""
+    from opus_pllm_tpu_torch.infer import engine
+    from opus_pllm_tpu_torch.kernels import moe
+    from opus_pllm_tpu_torch.utils.observability import SPANS
+    cfg = _tiny_deepseek_card()
+    g = _gen()
+    llm = decoder.fuse_projections(
+        decoder.init(cfg, generator=g, device="cuda"), cfg)
+    assert "gateup_proj" in llm["layers"][1]["experts"]
+    x = _rnd(g, 8, 24, 512, scale=0.5)
+    am = torch.ones((8, 24), dtype=torch.bool, device="cuda")
+    am[:3, :5] = False
+    new = 12
+    kw = dict(max_new_tokens=new, temperature=temperature, top_p=0.7,
+              eos_token_id=-1)
+    args = lambda: (llm, cfg, x, am, decoder.positions_from_mask(am),
+                    torch.Generator(device="cuda").manual_seed(3))
+    names = ("moe.pairs", "moe.experts_hit", "moe.busiest", "moe.slots")
+
+    def run():
+        moe.reset_launches()
+        before = SPANS.counters()
+        out = _generate_seen(monkeypatch, args(), **kw)
+        after = SPANS.counters()
+        return out, dict(moe.launches), {
+            n: after.get(n, 0) - before.get(n, 0) for n in names}
+
+    (g_out, g_seen, _, g_grew), g_moe, g_tally = run()
+    monkeypatch.setattr(engine, "_graphable", lambda *a: False)
+    (e_out, e_seen, _, e_grew), e_moe, e_tally = run()
+    assert g_out.steps == e_out.steps == new
+    assert torch.equal(g_out.tokens, e_out.tokens)
+    for step in range(new):
+        assert torch.equal(g_seen[step], e_seen[step]), step
+    assert g_grew == {"decode.steps": new, "decode.graph_steps": new - 1}
+    assert g_moe == e_moe
+    assert g_tally == e_tally
+    assert g_tally["moe.pairs"] == 2 * 8 * 2 * new      # layers x rows x k
+    assert g_tally["moe.slots"] == 2 * 8 * new
