@@ -83,10 +83,19 @@ and prints no result:
          five (K, N) of Llama-3-8B. Library: cuBLAS bf16 on W dequantized
          beforehand; the dequantize route (`quant4.dequant_matmul`) beside
          it (route_ms), and the earlier design, kept for unaligned N;
+       - moe_grouped_gemm at DeepSeek-V2-Lite's routed shapes (64 experts:
+         gate|up 2048 -> 2 x 1408 with the SiLU-mul epilogue, down 1408 ->
+         2048) at a decode step's 768 pairs (128 rows x top-6) and a
+         prefill's 251,136 (41,856 rows x 6), spread evenly at random over
+         60 experts, 4 given no rows; the bound counts the weights of the
+         experts with rows. Library: one torch._grouped_mm call of the same
+         grouped product where this PyTorch has it (no epilogue: gate|up's
+         is not the same function);
      the JSON line keeps, per kernel, the largest error over its shapes and
      the times of one shape: S=512 (encoder), 4096->4096 (int4), cap 391
      (decode attention), the serving prefill (flash), M=5120 4096->14336
-     (int8), the training shape (flash backward) and 4096->14336 (v1);
+     (int8), the training shape (flash backward), 4096->14336 (v1) and
+     the decode gate|up (moe_grouped_gemm);
   4. slice: OpusConfig() at full width (ESM2-650M and Llama-3-8B in bf16,
      CSTP 1280->5120 and the mlp2x_gelu switch 5120->8x4096 in fp32, random
      weights drawn on the card from a seeded torch.Generator) answers 16
@@ -307,7 +316,19 @@ and prints no result:
      every request is answered, and that one prefill's last-position
      logits and the captions' embeddings through the kernels stay within
      phase 3's bound of the fp32 plain path. Prints entries/s, decode
-     tok/s and GiB on the card;
+     tok/s and GiB on the card Then DeepSeek-V2-Lite
+     (deepseek_v2_lite(): MLA, 64 routed experts top-6, 2 shared; 27
+     layers) drawn in bf16 from the seed, each layer fused as drawn,
+     with the switch sized to 2048, answers 128 keywords requests in one
+     batch (32 new tokens, T=0.1, top_p=0.7): the decode step of the
+     deepseek benchmark cell. Launch counts reset just before and checked
+     exactly after: moe_grouped_gemm 52 a forward (gate|up and down in
+     each of the 26 routed layers: the prefill and every decode step,
+     eager or replayed), the encoder kernels 33, every other kernel 0
+     (the prefill's attention takes the plain path); every step after
+     the first replays the decode graph, and the step's routing tally
+     counts 26 x 128 x 6 pairs a step. Prints ms a step, the experts a
+     layer's rows reach and GiB on the card;
  14. cli: the port's command line in this process,
      opus_pllm_tpu_torch.cli.main.main(["annotate", ...]) with
      --model-base <tmp>/Meta-Llama-3-8B (no such directory: the
@@ -466,6 +487,12 @@ runs as a child of itself whose whole output, the ranks' included, is
 also written to chiprun_out/parallel.log beside the script. It prints
 no result line.
 
+    python3 chip_smoke.py --moe
+
+runs phases 1 and 2, phase 3's moe_grouped_gemm cases and phase 13's
+DeepSeek-V2-Lite (its ESM2, CSTP and switch drawn there), then prints the
+kernel's entry of the result line and the card.
+
     python3 chip_smoke.py --profile-serving
 
 runs phases 1 and 2, then the serving configuration of phase 8 (bf16
@@ -591,6 +618,13 @@ BANK_REQUESTS = 24
 CHUNK, CHUNK_CAP = 256, 1024    # chunk_prefill, the chunked engine's max_len
 # serve's defaults (cli/main.py:944-1000): 16 slots, max_len 1024, 8 steps
 SERVER_SLOTS, SERVER_LEN, SERVER_STEPS = 16, 1024, 8
+# DeepSeek-V2-Lite's routed layers (the deepseek cell's shapes): 64 experts,
+# gate|up 2048 -> 2 x 1408 with the SiLU-mul epilogue, down 1408 -> 2048;
+# a decode step's 128 rows x top-6 and a prefill's 41,856 rows x 6 pairs
+MOE_EXPERTS, MOE_HIDDEN, MOE_WIDTH = 64, 2048, 1408
+MOE_PAIRS = (("decode", 768), ("prefill", 251_136))
+MOE_EMPTY = 4                   # experts given no rows in each case
+DEEPSEEK_REQUESTS, DEEPSEEK_TOKENS = 128, 32
 
 
 def fail(msg):
@@ -647,8 +681,8 @@ def _kernel_modules():
     from opus_pllm_tpu_torch.kernels import flash_attention as fa
     from opus_pllm_tpu_torch.kernels import flash_attention_bwd as fab
     from opus_pllm_tpu_torch.kernels import fused_encoder as fe
-    from opus_pllm_tpu_torch.kernels import quant, quant4
-    return fe, quant4, da, fa, quant, fab
+    from opus_pllm_tpu_torch.kernels import moe, quant, quant4
+    return fe, quant4, da, fa, quant, fab, moe
 
 
 def reset_counts():
@@ -1266,6 +1300,186 @@ def check_train_kernels(card):
         torch.cuda.empty_cache()
     return rows
 
+
+def moe_offsets(pairs, g):
+    """(E + 1,) int32 offsets on the card: `pairs` rows spread evenly at
+    random over the experts but MOE_EMPTY, which get none."""
+    import torch
+    e = MOE_EXPERTS
+    p = torch.ones(e, device="cuda")
+    p[torch.randperm(e, generator=g, device="cuda")[:MOE_EMPTY]] = 0
+    ids = torch.multinomial(p, pairs, replacement=True, generator=g)
+    counts = torch.bincount(ids, minlength=e)
+    return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+
+
+def grouped_mm_library(x, w, offsets):
+    """One `torch._grouped_mm` call of the same grouped product (no
+    epilogue), where this PyTorch has it and it agrees with the kernel's
+    product within bf16 rounding; else None (printed)."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import moe
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        print("  torch._grouped_mm: not in this PyTorch", flush=True)
+        return None
+    wt = w.transpose(1, 2).contiguous().transpose(1, 2)
+    offs = offsets[1:].contiguous()
+    want = moe.grouped_gemm(x, w, offsets).float()
+    for name, b in (("(E, K, N)", w), ("(E, N, K) transposed", wt)):
+        try:
+            got = fn(x, b, offs=offs, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError, ValueError) as exc:
+            print(f"  torch._grouped_mm with w {name}: {exc}".splitlines()[0],
+                  flush=True)
+            continue
+        err = (got.float() - want).abs().max().item()
+        if err <= 2 * 2 ** -8 * max(1.0, want.abs().max().item()):
+            print(f"  torch._grouped_mm with w {name}: max |library - "
+                  f"kernel| {err:.3e}", flush=True)
+            return lambda: fn(x, b, offs=offs, out_dtype=torch.bfloat16)
+        print(f"  torch._grouped_mm with w {name}: off by {err:.3e}",
+              flush=True)
+    return None
+
+
+def check_moe_kernels(card):
+    """moe_grouped_gemm against its plain version (module docstring, phase
+    3): gate|up with the SiLU-mul epilogue and down, at a decode step's and
+    a prefill's pair counts, MOE_EMPTY experts given no rows."""
+    import torch
+    from opus_pllm_tpu_torch.kernels import moe
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    rows = {}
+    e, h, f = MOE_EXPERTS, MOE_HIDDEN, MOE_WIDTH
+    for label, pairs in MOE_PAIRS:
+        offsets = moe_offsets(pairs, g)
+        hit = int((offsets[1:] > offsets[:-1]).sum())
+        for swiglu, k, n in ((True, h, 2 * f), (False, f, h)):
+            x = torch.randn((pairs, k), generator=g, device="cuda").bfloat16()
+            w = (torch.randn((e, k, n), generator=g, device="cuda")
+                 * k ** -0.5).bfloat16()
+            n_out = n // 2 if swiglu else n
+            kern = lambda x, w, o, s=swiglu: moe.grouped_gemm(x, w, o,
+                                                              swiglu=s)
+            plain = lambda x, w, o, s=swiglu: moe.grouped_gemm_plain(
+                x, w, o, swiglu=s)
+            lib = grouped_mm_library(x, w, offsets)
+            what = "gate|up+silu*mul" if swiglu else "down"
+            res = compare(
+                f"moe_grouped_gemm {label} {what} P={pairs}", kern, plain,
+                (x, w), card, (offsets,), flops=2 * pairs * k * n,
+                # the hit experts' weights, the rows in and out, offsets
+                n_bytes=2 * (hit * k * n + pairs * k + pairs * n_out)
+                + 4 * (e + 1), library=lib)
+            print(f"  {label} {what}: {hit} of {e} experts with rows; "
+                  f"kernel {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} "
+                  f"ms ({res['bound_by']}), plain {res['plain_ms']:.4f} ms, "
+                  f"library "
+                  + (f"{res['library_ms']:.4f} ms" if lib else "none")
+                  + f" [{card}]", flush=True)
+            keep(rows, "moe_grouped_gemm", res,
+                 main=label == "decode" and swiglu)
+            del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_deepseek(card, params=None):
+    """Phase 13's DeepSeek-V2-Lite (module docstring): `params`' ESM2 and
+    CSTP (None: drawn here), the switch to 2048 and the decoder drawn in
+    bf16 from SEED, each layer fused as it is drawn."""
+    import dataclasses
+    import torch
+    from opus_pllm_tpu_torch.bridge import cstp, projector
+    from opus_pllm_tpu_torch.core.config import (DecoderConfig,
+                                                 ESM2Config,
+                                                 GenerationConfig,
+                                                 OpusConfig)
+    from opus_pllm_tpu_torch.evals import runner
+    from opus_pllm_tpu_torch.infer.tokenization import ByteTokenizer
+    from opus_pllm_tpu_torch.kernels import fused_encoder as fe
+    from opus_pllm_tpu_torch.models import decoder, esm2
+    from opus_pllm_tpu_torch.utils.observability import SPANS
+
+    lcfg = DecoderConfig.deepseek_v2_lite()
+    base = OpusConfig(esm=ESM2Config(dtype="bfloat16"))
+    cfg = dataclasses.replace(base, llm=lcfg, switch=dataclasses.replace(
+        base.switch, llm_hidden_size=lcfg.hidden_size))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    params = dict(params or {})
+    if "esm" not in params:
+        params["esm"] = esm2.init(cfg.esm, generator=g, device="cuda")
+        params["cstp"] = cstp.init(cfg.cstp, generator=g, device="cuda")
+    params["switch"] = projector.init(cfg.switch, generator=g, device="cuda")
+    params["llm"] = decoder.init(lcfg, generator=g, device="cuda",
+                                 finish_layer=decoder.fuse_layer)
+    torch.cuda.synchronize()
+    gib = torch.cuda.memory_allocated() / 2**30
+    tok = ByteTokenizer()
+    examples = synthetic_examples(DEEPSEEK_REQUESTS)
+    gen = GenerationConfig(max_new_tokens=DEEPSEEK_TOKENS, temperature=0.1,
+                           top_p=0.7, eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id, seed=SEED)
+    was = SPANS.counters()
+    reset_counts()
+    rep = runner.run_annotation_eval(
+        params, cfg, tok, "synthetic_keywords.json", gen=gen,
+        batch_size=DEEPSEEK_REQUESTS, examples=examples,
+        log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    now = SPANS.counters()
+    got = {k: now.get(k, 0) - was.get(k, 0) for k in now}
+    steps = got["decode.steps"]
+    routed = lcfg.num_layers - lcfg.first_k_dense_replace
+    # 2 a routed layer (gate|up, down) a forward: the prefill and each
+    # step's (eager, or a replay, which adds its capture's launches);
+    # the prefill's attention takes the plain path: no flash_attention
+    expect_counts("DeepSeek-V2-Lite annotate", counts,
+                  moe_grouped_gemm=2 * routed * (1 + steps),
+                  **{k: cfg.esm.num_layers for k in fe.launches})
+    if got["decode.graph_steps"] < steps - 1:
+        fail(f"DeepSeek-V2-Lite: {got['decode.graph_steps']} of {steps} "
+             "decode steps replayed the graph")
+    want_pairs = routed * DEEPSEEK_REQUESTS * lcfg.num_experts_per_tok \
+        * steps
+    if got["moe.pairs"] != want_pairs:
+        fail(f"DeepSeek-V2-Lite: {got['moe.pairs']} routed pairs in the "
+             f"decode steps, expected {want_pairs}")
+    if len(rep.results) != len(examples) or not all(
+            isinstance(r["generated"], str) for r in rep.results):
+        fail("DeepSeek-V2-Lite: not every request was answered")
+    tok_s = rep.decode_tokens / rep.decode_seconds
+    print(f"DeepSeek-V2-Lite: {len(rep.results)} entries in "
+          f"{rep.seconds:.2f} s, {steps} decode steps "
+          f"({got['decode.graph_steps']} replayed), "
+          f"{1e3 * rep.decode_seconds / steps:.2f} ms a step, decode "
+          f"{tok_s:.1f} tok/s; moe_grouped_gemm {counts['moe_grouped_gemm']}"
+          f" launches ({2 * routed} a forward); a decode layer's experts "
+          f"with rows {got['moe.experts_hit'] / (routed * steps):.2f} of "
+          f"{lcfg.n_routed_experts}; {gib:.1f} GiB on the card [{card}]",
+          flush=True)
+    params["llm"] = params["switch"] = None
+    torch.cuda.empty_cache()
+    return counts
+
+
+
+def moe_row(rows, counts):
+    """moe_grouped_gemm's entry of the result line: phase 3's numbers,
+    phase 13's launches. It replaces no TPU kernel."""
+    row = {"name": "moe_grouped_gemm", "route": "cuda",
+           "source": "opus_pllm_tpu_torch/csrc/moe_grouped_gemm.cu",
+           "replaces": None, "launches": counts["moe_grouped_gemm"]}
+    row.update({key: rows["moe_grouped_gemm"][key]
+                for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")
+                if key in rows["moe_grouped_gemm"]})
+    return row
 
 def attention_bytes(qkv, mask):
     """The bytes encoder_attention must move: every query row and output
@@ -6368,6 +6582,15 @@ def main():
         phase("training profile")
         profile_training(card)
         return
+    if "--moe" in sys.argv[1:]:
+        phase("kernels vs plain (moe_grouped_gemm)")
+        rows = check_moe_kernels(card)
+        phase("families (DeepSeek-V2-Lite)")
+        dcounts = check_deepseek(card)
+        phase("result")
+        print(json.dumps({"kernels": [moe_row(rows, dcounts)]}), flush=True)
+        print(card, flush=True)
+        return
     if "--parallel" in sys.argv[1:]:
         rows = {}
         phase("parallel (serving)")
@@ -6385,6 +6608,7 @@ def main():
     rows.update(check_quant_kernels(card))
     rows.update(check_serve_kernels(card))
     rows.update(check_train_kernels(card))
+    rows.update(check_moe_kernels(card))
 
     phase("slice")
     counts, params, cfg, examples, gen = check_slice(card)
@@ -6415,6 +6639,9 @@ def main():
 
     phase("families")
     check_families(card, params, cfg)
+    params["llm"] = params["switch"] = None
+    torch.cuda.empty_cache()
+    dcounts = check_deepseek(card, params)
     del params
     import gc
     gc.collect()
@@ -6454,6 +6681,7 @@ def main():
                   for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "route_ms")
                   if key in rows[k["name"]]})
+    kernels.append(moe_row(rows, dcounts))
     phase("result")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s [{card}]",
           flush=True)

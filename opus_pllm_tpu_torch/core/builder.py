@@ -53,17 +53,27 @@ NATIVE_FILE = "params.pt"
 
 
 def family_from_path(model_base: str) -> str:
-    """The decoder family from the model directory's NAME (its basename,
-    so a directory under a parent named "opt" is not taken for OPT)."""
+    """The decoder family of a model directory: its config.json's
+    `model_type` where the port runs that type, else the directory's NAME
+    (its basename, so a directory under a parent named "opt" is not taken
+    for OPT). "deepseek" in a name counts after the other families' names,
+    so DeepSeek-R1-Distill-Llama-8B without a config.json is a llama."""
+    cfg_path = os.path.join(model_base, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            model_type = json.load(f).get("model_type")
+        # each family is named after the model_type it runs
+        if model_type in ("llama", "qwen2", "opt", "deepseek_v2"):
+            return model_type
     b = os.path.basename(os.path.normpath(model_base)).lower()
-    if "deepseek" in b:
-        return "deepseek_v2"
     if "llama" in b:
         return "llama"
     if "opt" in b or "galactica" in b:
         return "opt"
     if "qwen" in b:
         return "qwen2"
+    if "deepseek" in b:
+        return "deepseek_v2"
     raise NotImplementedError(f"unknown LLM family in name: {model_base}")
 
 
@@ -80,7 +90,7 @@ def decoder_config_for(model_base: str) -> DecoderConfig:
                 "deepseek_v2": DecoderConfig.deepseek_v2_lite}[fam]()
     with open(cfg_path) as f:
         hf = json.load(f)
-    if fam == "deepseek_v2" or hf.get("model_type") == "deepseek_v2":
+    if fam == "deepseek_v2":
         return deepseek_config(hf)
     if fam == "opt":
         return DecoderConfig(
@@ -289,6 +299,9 @@ def load_pretrained(model_base: Optional[str], weights_dir: Optional[str],
     device = resolve_device(device)
     if quantize not in (None, "int8", "int4"):
         raise ValueError(f"unknown quantize mode: {quantize}")
+    if quantize:
+        from ..models.decoder import refuse_deepseek
+        refuse_deepseek(cfg.llm, "quantized weights")
     params: Dict[str, Any] = {}
 
     # CSTP adapter (+ the fine-tuned ESM2 it may carry)

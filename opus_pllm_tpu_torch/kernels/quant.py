@@ -114,9 +114,6 @@ def quantize_decoder(params: Dict) -> Dict:
     """Int8-quantize the vocab head and every projection of a decoder tree,
     fused ones included (embeddings and norms stay as they are), as the
     JAX function does."""
-    if any("kv_b_proj" in lp for lp in params["layers"]):
-        raise ValueError("quantized weights are not supported for the "
-                         "deepseek_v2 family")
     out = dict(params)
     if "lm_head" in params:
         out["lm_head"] = quantize_linear(params["lm_head"])

@@ -133,7 +133,6 @@ def create_state(cfg: OpusConfig, tcfg: TrainConfig, frozen_params, *,
                  trainable=None):
     """(state, optimizer). `trainable` starts from a given tree (e.g.
     `core.convert.trainable_from_jax`) instead of a fresh one."""
-    refuse_deepseek(cfg.llm, "training")
     if trainable is None:
         trainable = init_trainable(cfg, train_switch=train_switch,
                                    lora_cfg=lora_cfg,

@@ -8,11 +8,22 @@ The size table carries the file's published keys under their own names
 side's sizes under the names of `yardstick/spec.py`. Weights follow
 `yardstick/weights.py`: grouped draws on the device from the seed, the
 port's init distributions (a dense kernel and each expert's U(+-1 /
-sqrt(in)), embeddings N(0, 0.02), norms 1), the products that generation
+sqrt(in)), norms 1; embeddings below), the products that generation
 fuses (q and kv_a, the SwiGLUs' gate and up, the experts' gate and up) in
 buffers of their own, one a layer: each dies once its layer is fused, so
 set-up never holds the unfused experts of every layer beside their fused
 copies.
+
+One draw departs from `yardstick/weights.py`: the decoder's token
+embeddings are N(0, 1) (`EMBED_STD`, torch.nn.Embedding's own default),
+not N(0, 0.02). At 0.02 a token's row (0.019 rms) is small beside what
+the first layer adds to it, and that addition is nearly the same on every
+row: attention averages values over a prompt the rows share. The rows'
+hidden states then converge, every row of a decode step routes to the
+same 6-8 experts, and the step reads a tenth of the expert weights a
+deployment's step reads (PERF.md, section 5). At N(0, 1) each row keeps
+its token's direction through the depth, and the rows spread over the
+experts.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ from port_bench.yardstick import weights as W
 from port_bench.yardstick import work
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+EMBED_STD = 1.0        # the decoder's token embeddings (module docstring)
+EMBED = ("llm", "embed_tokens", "embedding")
 
 
 def model_spec(conf: dict) -> dict:
@@ -166,7 +179,8 @@ def make_weights(spec: dict, seed: int, device, *,
     front = dict(spec, num_layers=0, num_heads=1, head_dim=1,
                  num_kv_heads=1, intermediate_size=1,
                  max_position_embeddings=1, attention_bias=False)
-    leaves = W._leaves(front, llm_dtype, esm_dtype) \
+    leaves = [lf[:4] + (EMBED_STD,) + lf[5:] if lf[0] == EMBED else lf
+              for lf in W._leaves(front, llm_dtype, esm_dtype)] \
         + _llm_leaves(spec, llm_dtype)
     groups: "OrderedDict[tuple, list]" = OrderedDict()
     for lf in leaves:

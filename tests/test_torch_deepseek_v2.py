@@ -220,20 +220,20 @@ def test_decode_step_matches_the_int_index_step(model):
 
 def _refusals(cfg, fused):
     from opus_pllm_tpu_torch.infer import speculative
-    from opus_pllm_tpu_torch.kernels import quant, quant4
     from opus_pllm_tpu_torch.serve.engine import ServingEngine
     from opus_pllm_tpu_torch.train import multimodal_trainer as mmt
-    from opus_pllm_tpu_torch.core.config import TrainConfig
     llm, c = fused["llm"], cfg.llm
     x = torch.zeros(1, 4, c.hidden_size)
     pos = torch.arange(4)[None]
     m4 = torch.ones(1, 1, 4, 4, dtype=torch.bool)
     return {
-        "training": lambda: mmt.create_state(cfg, TrainConfig(), fused,
-                                             device="cpu"),
+        # no LoRA and no remat: a step decoder.forward would not refuse
+        "training": lambda: mmt.make_train_step(cfg, None, remat=False),
         "train_step": lambda: mmt.make_train_step(cfg, None),
-        "int8_weights": lambda: quant.quantize_decoder(llm),
-        "int4_weights": lambda: quant4.quantize_decoder4(llm),
+        "int8_weights": lambda: builder.load_pretrained(
+            None, None, cfg, quantize="int8", device="cpu"),
+        "int4_weights": lambda: builder.load_pretrained(
+            None, None, cfg, quantize="int4", device="cpu"),
         "int8_cache": lambda: decoder.init_cache(c, 1, 8, device="cpu",
                                                  quantize="int8"),
         "tensor_parallel": lambda: decoder.forward(
@@ -334,3 +334,34 @@ def test_deepseek_checkpoint_loads(model, tmp_path):
     assert set(fused["experts"]) == {"gateup_proj", "down_proj"}
     assert set(fused["shared"]) == {"gateup_proj", "down_proj"}
     assert np.isclose(decoder.mla_softmax_scale(c), dref.softmax_scale(spec))
+
+
+@pytest.mark.parametrize("name, model_type, family", [
+    ("DeepSeek-R1-Distill-Llama-8B", "llama", "llama"),
+    ("deepseek-coder-7b-qwen", "qwen2", "qwen2"),
+    ("my-model", "deepseek_v2", "deepseek_v2"),
+    ("DeepSeek-R1-Distill-Llama-8B", None, "llama"),
+    ("DeepSeek-V2-Lite", None, "deepseek_v2"),
+])
+def test_family_from_config_json_first(tmp_path, name, model_type, family):
+    """A directory's config.json `model_type` decides its family; only
+    without one does the name, with "deepseek" counted after the other
+    families' names. A deepseek-named llama or qwen2 directory builds as
+    that family (and its config, not DeepSeek's, is read)."""
+    d = tmp_path / name
+    d.mkdir()
+    if model_type is not None:
+        hf = {"model_type": model_type, "vocab_size": 300,
+              "hidden_size": 64, "intermediate_size": 128,
+              "num_hidden_layers": 2, "num_attention_heads": 4,
+              "num_key_value_heads": 2}
+        if model_type == "deepseek_v2":
+            hf.update(kv_lora_rank=32, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8,
+                      num_experts_per_tok=2, moe_intermediate_size=64,
+                      n_shared_experts=1, first_k_dense_replace=1)
+        (d / "config.json").write_text(json.dumps(hf))
+    assert builder.family_from_path(str(d)) == family
+    if model_type is not None:
+        cfg = builder.decoder_config_for(str(d))
+        assert cfg.family == family and cfg.hidden_size == 64
