@@ -44,6 +44,14 @@ and prints no result:
          decode's mask at B=8 over 391 slots (left padding, then an
          unwritten tail: the kernel skips the 16-slot slabs false
          everywhere, and the bound counts the valid slots only);
+       - decode_attention_bf16 (one token over the decoder's own bf16
+         cache, (B, cap, Hkv, D)) at the qwen2.5-7b annotate cell's shape
+         (B=128, Hq=28, Hkv=4, D=128, 455 slots; prompts left-padded by
+         0-63 slots of 327, one row's first tile masked everywhere, then
+         0-128 decode slots written) and at B=8, Hq=32, Hkv=8 over 391
+         slots; plain: layers.attention_xla; library: torch's
+         scaled_dot_product_attention with the same mask, K/V heads
+         repeated beforehand;
        - flash_attention at the serving prefill (16 rows of bucket 320, the
          engine's admission mask), the static prefill (8 x 327 queries over
          a 391-slot left-padded cache, whose padding rows have no valid key:
@@ -93,7 +101,8 @@ and prints no result:
          is not the same function);
      the JSON line keeps, per kernel, the largest error over its shapes and
      the times of one shape: S=512 (encoder), 4096->4096 (int4), cap 391
-     (decode attention), the serving prefill (flash), M=5120 4096->14336
+     (decode attention), the qwen cell's (bf16 decode attention), the
+     serving prefill (flash), M=5120 4096->14336
      (int8), the training shape (flash backward), 4096->14336 (v1) and
      the decode gate|up (moe_grouped_gemm);
   4. slice: OpusConfig() at full width (ESM2-650M and Llama-3-8B in bf16,
@@ -103,7 +112,9 @@ and prints no result:
      evals.runner.run_annotation_eval (batch 8, T=0.1, top_p=0.7, 64 new
      tokens, ByteTokenizer). Checks the launch counts exactly: every
      encoder kernel 33 x batches, flash_attention 32 x batches (each
-     prefill layer), no other kernel; that ESM2's pooled embedding through
+     prefill layer), decode_attention_bf16 32 x decode steps (each
+     decode layer over the bf16 cache; the steps are engine.generate's
+     `decode.steps` counter), no other kernel; that ESM2's pooled embedding through
      the kernels agrees with the plain layer composition on two proteins,
      and that the decoder's logits are finite; that the runner's metrics
      (Precision, Recall, F1 Score of the keywords task, against synthetic
@@ -116,7 +127,8 @@ and prints no result:
      random weights drawn on the card from SEED) and a WordPieceTokenizer
      over a vocab made in the script (the special tokens, the printable
      ASCII characters and their ## forms; no file is read). Checks exact
-     launch counts (each encoder kernel 33, flash_attention 32; the BERT's
+     launch counts (each encoder kernel 33, flash_attention 32,
+     decode_attention_bf16 32 x decode steps; the BERT's
      d = 64 fp32 attention takes the plain path, as in the JAX package);
      that ROUGE, BLEU, METEOR and BERTScore are finite and in [0, 1]; and
      that a text scored against itself gives BERTScore F1 = 1 within
@@ -135,7 +147,9 @@ and prints no result:
      [0, 1]), that the scored runner answers with option letters, exact
      launch counts (each encoder kernel 33 x splice batches;
      flash_attention 32 x batches for the static, scored and perplexity
-     runs and 32 x the engine's prefills; every other kernel 0), that one
+     runs and 32 x the engine's prefills; decode_attention_bf16 32 x the
+     static and the engine runs' decode steps; every other kernel 0), that
+     one
      batch's scored logits (`runner._mcq_next_logits`) through the kernels
      stay within the bound of phase 3 of the plain path in fp32 (ESM2 in
      fp32, the LLM with fp32 activations, embedding and norms), printed
@@ -166,8 +180,8 @@ and prints no result:
      Checks exact launch counts from the engine's own counters: every
      admission group is one prefill of n x bucket >= 256 rows, so
        flash_attention = 32 x prefills, int8_matmul = 7 x 32 x prefills,
-       decode_attention_<cache> = 32 x decode steps (int8 cache; none on
-       the bf16 cache), encoder kernels = 33 x splice batches,
+       decode_attention_<cache> = 32 x decode steps (bf16 or int8),
+       encoder kernels = 33 x splice batches,
        int4_matmul = 0, and every kernel kept for unaligned N
        (int8_matmul_unaligned, int4_matmul_unaligned,
        int4_matmul_v1_unaligned) 0 in every phase;
@@ -213,8 +227,10 @@ and prints no result:
      token) both ways.
      Exact launch counts: flash_attention = 32 x (prefills, chunks
      included), and with speculation 32 x (prefills + iterations) (each
-     verify pass has Sq = 4; the one-token draft steps take the plain
-     attention over the bf16 cache), + 32 for a pinned prefix;
+     verify pass has Sq = 4), + 32 for a pinned prefix;
+     decode_attention_bf16 = 32 x decode steps (ticks x 4), and with
+     speculation 8 x 3 x iterations (the K - 1 one-token draft steps
+     over the draft's 8 layers of the bf16 cache);
      int8_matmul = 224 x (prefills and chunks of n x bucket >= 256 rows,
      and a pinned prefix of >= 256 tokens) (decode M = 17 and verify
      M = 68 take the dequantize route); encoder kernels 33 x splice
@@ -234,8 +250,9 @@ and prints no result:
      /v1/adapters, /health and /metrics (the Prometheus completions
      counter and TTFT count equal the requests answered), then drain.
      Exact launch counts: flash_attention = 32 x (engine prefills + the
-     text embedding), encoder kernels 33 x (protein requests + the
-     protein embedding). Prints TTFT p50 / p99 and tok/s;
+     text embedding), decode_attention_bf16 = 32 x 8 x the engine's
+     ticks, encoder kernels 33 x (protein requests + the protein
+     embedding). Prints TTFT p50 / p99 and tok/s;
  11. training slice (`train-lora`): the earlier phases' LLM freed, a fresh
      Llama-3-8B drawn from the seed inside OpusConfig() (the ESM2, CSTP and
      switch of phase 4, frozen) trains LoRA adapters with train-lora's
@@ -312,7 +329,9 @@ and prints no result:
      32 new tokens, T=0.1, top_p=0.7) and embed 8 captions through
      models.text_encoder.text_embeddings. Checks exact launch counts
      (encoder kernels 33, flash_attention num_layers (28 / 32) for the
-     prefill and again for the captions, every other kernel 0), that
+     prefill and again for the captions, decode_attention_bf16
+     num_layers x decode steps (Qwen2.5-7B's G = 7 and Galactica's G = 1
+     over the bf16 cache), every other kernel 0), that
      every request is answered, and that one prefill's last-position
      logits and the captions' embeddings through the kernels stay within
      phase 3's bound of the fp32 plain path. Prints entries/s, decode
@@ -341,9 +360,13 @@ and prints no result:
      --temperature 0; --load-int4 --quantize-cache int4 --num-beams 4.
      The CLI decodes on fused projections (4 products a layer).
      Gates: every request answered in --save-path; exact launch counts
-     (encoder kernels 33, flash 32 for the prefill; the draft run 32 + 8
-     + 32 a verify pass; the int4 run int4_matmul 1 + 129 a beam step
-     and decode_attention_int4 32 a step); on each beam run's batch
+     (encoder kernels 33, flash 32 for the prefill; the bf16 beam run
+     decode_attention_bf16 32 a step (reorder_cache moves the cache's
+     rows in place, so a beam step attends it as a batch); the draft run
+     flash 32 + 8 + 32 a verify pass and decode_attention_bf16 8 x 4 an
+     iteration (its draft's one-token steps); the int4 run int4_matmul
+     1 + 129 a beam step and decode_attention_int4 32 a step); on each
+     beam run's batch
      num_beams = 1 gives greedy's tokens, and every token of every
      returned hypothesis ranks within the top 2K of a teacher-forced pass
      on the fp32 plain path, up to twice the prefill's logit bound (a
@@ -534,8 +557,11 @@ phase 3 times a kernel) with the card's name and power limit:
   - decode_attention_int8 / _int4 at phase 3's three shapes with the cache
     cold (rotated over copies past the L2), each with its bound, SDPA over
     a bf16 cache dequantized beforehand (marked *: not the same function)
-    and, at B=8, one decode step's 32 launches; then the floor at one
-    (row, KV head) over one 64-slot tile.
+    and, at B=8, one decode step's 32 launches, with a digest of each
+    output (two trees that give the same bits print the same digest);
+    then the floor at one (row, KV head) over one 64-slot tile; then,
+    where the tree has it, decode_attention_bf16 at phase 3's two shapes,
+    cold, with its bound and SDPA on the same cache.
 Naming the parent's checkout and this one in turns (parent, change,
 change, parent) compares two designs on one card. It checks nothing and
 prints no result line.
@@ -697,6 +723,14 @@ def read_counts():
     return counts
 
 
+def decode_steps():
+    """The decode steps engine.generate has run in this process (its
+    `decode.steps` counter): each attends the cache once a layer, through
+    decode_attention_bf16 over a bf16 cache."""
+    from opus_pllm_tpu_torch.utils.observability import SPANS
+    return SPANS.counters().get("decode.steps", 0)
+
+
 def expect_counts(label, counts, **want):
     """Every kernel's launch count against `want` (names not given: 0)."""
     full = {name: want.get(name, 0) for name in counts}
@@ -812,12 +846,14 @@ def keep(rows, name, res, main):
 
 
 def check_quant_kernels(card):
-    """int4_matmul and both decode attentions at the quantized slice's
-    shapes; the first shape of each is the one kept for the JSON line."""
+    """int4_matmul and both quantized decode attentions at the quantized
+    slice's shapes, then the bf16 decode attention at bf16_decode_cases';
+    the first shape of each is the one kept for the JSON line."""
     import torch
+    import torch.nn.functional as tnf
     from opus_pllm_tpu_torch.kernels import decode_attention as da
     from opus_pllm_tpu_torch.kernels import quant4
-    from opus_pllm_tpu_torch.models import decoder
+    from opus_pllm_tpu_torch.models import decoder, layers
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     rows = {}
@@ -852,6 +888,26 @@ def check_quant_kernels(card):
                 lambda q: da.decode_attention_plain(q, kl, vl, mask4), (q,),
                 card, flops=4 * hq * d * valid,
                 n_bytes=decode_bytes(q, kl, vl, mask4)), i == 0)
+    for i, (label, b, hq, hkv, cap, mask4) in enumerate(
+            bf16_decode_cases(g)):
+        q = (torch.randn((b, 1, hq, d), generator=g, device="cuda")
+             * 0.5).bfloat16()
+        k, v = (torch.randn((b, cap, hkv, d), generator=g,
+                            device="cuda").bfloat16() for _ in range(2))
+        # the library: SDPA over K / V heads repeated beforehand (timed
+        # only; the port never calls it)
+        kx, vx = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        qx = q.transpose(1, 2)
+        keep(rows, "decode_attention_bf16", compare(
+            f"decode_attention_bf16 {label}",
+            lambda q, k, v: da.decode_attention_bf16(q, k, v, mask4),
+            lambda q, k, v: layers.attention_xla(q, k, v, mask4),
+            (q, k, v), card, flops=4 * hq * d * mask4.sum().item(),
+            n_bytes=decode_bytes(q, k, v, mask4),
+            library=lambda: tnf.scaled_dot_product_attention(
+                qx, kx, vx, attn_mask=mask4)), i == 0)
+        del kx, vx
     return rows
 
 
@@ -877,11 +933,34 @@ def attn_cases(g):
 
 def decode_bytes(q, kl, vl, mask4):
     """The bytes decode attention must move: q, out and the mask once, and
-    the K and V rows and scales of the valid slots only."""
+    the K and V rows (and scales, quantized) of the valid slots only."""
     b, cap = mask4.shape[0], mask4.shape[-1]
     share = mask4.sum().item() / (b * cap)
-    return 2 * nbytes(q) + nbytes(mask4) + share * nbytes(*kl.values(),
-                                                         *vl.values())
+    leaves = ([*kl.values(), *vl.values()] if isinstance(kl, dict)
+              else [kl, vl])
+    return 2 * nbytes(q) + nbytes(mask4) + share * nbytes(*leaves)
+
+
+def bf16_decode_cases(g):
+    """decode_attention_bf16's shapes, masks drawn from `g`: (label, B, Hq,
+    Hkv, cap, mask4). The qwen2.5-7b annotate cell's (B = 128, 28 query /
+    4 KV heads, 455 slots: prompts left-padded by 0-63 slots of 327, row
+    0's by 70 so that its first 64-slot tile is masked everywhere, then
+    0-128 written decode slots: valid slots ending at 327..455) and B = 8
+    with Llama-3-8B's heads (32 / 8) over 391 slots (0-64 decode slots)."""
+    import torch
+    cases = []
+    for label, b, hq, hkv, cap in (("qwen annotate B=128 cap=455", 128, 28,
+                                    4, 455),
+                                   ("B=8 cap=391", 8, 32, 8, 391)):
+        pad = torch.randint(0, 64, (b,), generator=g, device="cuda")
+        pad[0] = 70
+        end = 327 + torch.randint(0, cap - 327 + 1, (b,), generator=g,
+                                  device="cuda")
+        slots = torch.arange(cap, device="cuda")[None]
+        mask = (slots >= pad[:, None]) & (slots < end[:, None])
+        cases.append((label, b, hq, hkv, cap, mask[:, None, None, :]))
+    return cases
 
 
 FIRST_FLASH_CASES = 4
@@ -1083,13 +1162,19 @@ def int4_times(tree, card):
 
 
 def decode_attention_times(tree, card):
-    """Both decode attentions at phase 3's shapes (attn_cases), the cache
-    cold: the calls rotate over copies of the cache that together exceed
-    the L2 (COLD_BYTES), as a decode step streams 32 layers' caches. Beside
-    each: the bound, SDPA over a bf16 cache dequantized beforehand (K/V
-    heads repeated; not the same function: the dequantize is not timed and
-    the cache read is bf16), and, at B = 8, one decode step's 32 launches.
-    Then the floor: one (row, KV head) over one 64-slot tile."""
+    """Both quantized decode attentions at phase 3's shapes (attn_cases),
+    the cache cold: the calls rotate over copies of the cache that
+    together exceed the L2 (COLD_BYTES), as a decode step streams 32
+    layers' caches. Beside each: the bound, SDPA over a bf16 cache
+    dequantized beforehand (K/V heads repeated; not the same function: the
+    dequantize is not timed and the cache read is bf16), and, at B = 8,
+    one decode step's 32 launches; each output's digest, which two trees
+    drawing the same inputs share where their kernels give the same bits.
+    Then the floor: one (row, KV head) over one 64-slot tile. Then, where
+    the tree has it, decode_attention_bf16 at bf16_decode_cases' shapes,
+    cold, beside its bound and SDPA over K/V heads repeated beforehand
+    (the same function)."""
+    import hashlib
     import itertools
     import torch
     import torch.nn.functional as tnf
@@ -1125,11 +1210,14 @@ def decode_attention_times(tree, card):
                 qx, kx, vx, attn_mask=mask4))
             step = (f", one decode step (32 launches) {32 * ms:.4f} ms"
                     if b == 8 else "")
+            digest = hashlib.sha256(fn(q, kl, vl, mask4).view(
+                torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
             print(f"{tree}: decode_attention_{kind} {label}: {ms:.4f} ms "
                   f"(cache cold, {copies} copies; hot {hot:.4f} ms), "
                   f"bound {b_ms:.4f} ms "
                   f"({b_by}; {100 * b_ms / ms:.1f}% of it), SDPA* on a bf16 "
-                  f"cache {lib:.4f} ms{step} [{card}]", flush=True)
+                  f"cache {lib:.4f} ms{step}; output digest {digest} "
+                  f"[{card}]", flush=True)
             del caches, turn, kx, vx
             torch.cuda.empty_cache()
     q = torch.randn((1, 1, 4, d), generator=g, device="cuda").bfloat16()
@@ -1141,6 +1229,32 @@ def decode_attention_times(tree, card):
         ms = time_ms(lambda: fn(q, kl, vl, mask4))
         print(f"{tree}: decode_attention_{kind} floor (B=1, one KV head, "
               f"one 64-slot tile): {ms:.4f} ms [{card}]", flush=True)
+    if not hasattr(da, "decode_attention_bf16"):
+        return
+    for label, b, hq, hkv, cap, mask4 in bf16_decode_cases(g):
+        q = (torch.randn((b, 1, hq, d), generator=g, device="cuda")
+             * 0.5).bfloat16()
+        kv = tuple(torch.randn((b, cap, hkv, d), generator=g,
+                               device="cuda").bfloat16() for _ in range(2))
+        copies = max(1, int(-(-COLD_BYTES // nbytes(*kv))))
+        caches = [kv] + [tuple(t.clone() for t in kv)
+                         for _ in range(copies - 1)]
+        b_ms, b_by = bound_ms(4 * hq * d * mask4.sum().item(),
+                              decode_bytes(q, *kv, mask4))
+        turn = itertools.cycle(caches)
+        ms = time_ms(lambda: da.decode_attention_bf16(q, *next(turn), mask4))
+        hot = time_ms(lambda: da.decode_attention_bf16(q, *kv, mask4))
+        kx, vx = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in kv)
+        qx = q.transpose(1, 2)
+        lib = time_ms(lambda: tnf.scaled_dot_product_attention(
+            qx, kx, vx, attn_mask=mask4))
+        print(f"{tree}: decode_attention_bf16 {label}: {ms:.4f} ms (cache "
+              f"cold, {copies} copies; hot {hot:.4f} ms), bound {b_ms:.4f} "
+              f"ms ({b_by}; {100 * b_ms / ms:.1f}% of it), SDPA on the "
+              f"same cache {lib:.4f} ms [{card}]", flush=True)
+        del caches, turn, kx, vx
+        torch.cuda.empty_cache()
 
 
 def check_serve_kernels(card):
@@ -1469,16 +1583,17 @@ def check_deepseek(card, params=None):
 
 
 
-def moe_row(rows, counts):
-    """moe_grouped_gemm's entry of the result line: phase 3's numbers,
-    phase 13's launches. It replaces no TPU kernel."""
-    row = {"name": "moe_grouped_gemm", "route": "cuda",
-           "source": "opus_pllm_tpu_torch/csrc/moe_grouped_gemm.cu",
-           "replaces": None, "launches": counts["moe_grouped_gemm"]}
-    row.update({key: rows["moe_grouped_gemm"][key]
+def own_row(rows, name, source, counts):
+    """The result line's entry of a kernel that replaces no TPU kernel:
+    phase 3's numbers, the launches in `counts` (moe_grouped_gemm: phase
+    13's; decode_attention_bf16: phase 4's)."""
+    row = {"name": name, "route": "cuda",
+           "source": f"opus_pllm_tpu_torch/csrc/{source}",
+           "replaces": None, "launches": counts[name]}
+    row.update({key: rows[name][key]
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")
-                if key in rows["moe_grouped_gemm"]})
+                if key in rows[name]})
     return row
 
 def attention_bytes(qkv, mask):
@@ -1624,14 +1739,17 @@ def check_slice(card):
     batch = 8
     n_batches = -(-len(examples) // batch)
     reset_counts()
+    steps0 = decode_steps()
     rep = runner.run_annotation_eval(
         params, cfg, tok, "synthetic_keywords.json", gen=gen,
         batch_size=batch, examples=examples, log_fn=lambda *_: None)
     torch.cuda.synchronize()
     counts = read_counts()
     expect_counts("slice", counts, flash_attention=cfg.llm.num_layers
-                  * n_batches, **{n: cfg.esm.num_layers * n_batches
-                                  for n in fe.launches})
+                  * n_batches, decode_attention_bf16=cfg.llm.num_layers
+                  * (decode_steps() - steps0),
+                  **{n: cfg.esm.num_layers * n_batches
+                     for n in fe.launches})
     if len(rep.results) != len(examples) or not all(
             isinstance(r["generated"], str) for r in rep.results):
         fail("the runner did not answer every request")
@@ -1731,6 +1849,7 @@ def check_function_metrics(card, params, cfg, gen):
     examples = synthetic_examples(
         batch, "What is the function of this protein?", FUNCTIONS)
     reset_counts()
+    steps0 = decode_steps()
     rep = runner.run_annotation_eval(
         params, cfg, ByteTokenizer(), "synthetic_function.json", gen=gen,
         batch_size=batch, examples=examples, bert_embed_fn=timed_embed,
@@ -1739,6 +1858,8 @@ def check_function_metrics(card, params, cfg, gen):
     counts = read_counts()
     expect_counts("function metrics", counts,
                   flash_attention=cfg.llm.num_layers,
+                  decode_attention_bf16=cfg.llm.num_layers
+                  * (decode_steps() - steps0),
                   **{n: cfg.esm.num_layers for n in fe.launches})
     if len(rep.results) != batch:
         fail("the runner did not answer every function request")
@@ -1882,11 +2003,15 @@ def check_mcq(card, params, cfg):
                 steps_per_tick=SERVE_STEPS, splice_batch=batch,
                 examples=examples, **quiet))):
         reset_counts()
+        steps0 = decode_steps()
         rep = run()
         torch.cuda.synchronize()
         prefills = rep.engine["prefills"] if rep.engine else n_batches
+        steps = (rep.engine["decode_steps"] if rep.engine
+                 else decode_steps() - steps0)
         expect_counts(f"mcq, {label}", read_counts(),
-                      flash_attention=layers * prefills, **encoder)
+                      flash_attention=layers * prefills,
+                      decode_attention_bf16=layers * steps, **encoder)
         m = rep.metrics
         if len(rep.results) != n or sum(m["OptionCounts"].values()) != n \
                 or not 0.0 <= m["Accuracy"] <= 1.0:
@@ -2177,8 +2302,7 @@ def check_serve_slice(card, params, cfg, gen):
         prefills, steps = eng["prefills"], eng["decode_steps"]
         want = {n: cfg.esm.num_layers * -(-n_req // splice_batch)
                 for n in fe.launches}
-        if kind:
-            want[f"decode_attention_{kind}"] = layers * steps
+        want[f"decode_attention_{kind or 'bf16'}"] = layers * steps
         expect_counts(f"serving, {label}", counts,
                       flash_attention=layers * prefills,
                       int8_matmul=7 * layers * prefills, **want)
@@ -2911,6 +3035,7 @@ def check_families(card, params, cfg):
         torch.cuda.synchronize()
         gib = torch.cuda.memory_allocated() / 2**30
         reset_counts()
+        steps0 = decode_steps()
         rep = runner.run_annotation_eval(
             params, fcfg, tok, "synthetic_keywords.json", gen=gen,
             batch_size=FAMILY_REQUESTS, examples=examples,
@@ -2918,6 +3043,8 @@ def check_families(card, params, cfg):
         counts = read_counts()
         expect_counts(f"{name} annotate", counts,
                       flash_attention=lcfg.num_layers,
+                      decode_attention_bf16=lcfg.num_layers
+                      * (decode_steps() - steps0),
                       **{k: cfg.esm.num_layers for k in fe.launches})
         if len(rep.results) != len(examples) or not all(
                 isinstance(r["generated"], str) for r in rep.results):
@@ -3140,6 +3267,8 @@ def check_bank(card, params, cfg, tok, examples):
     pre = eng.counters["prefills"]
     expect_counts("bank", read_counts(), flash_attention=layers * pre,
                   int8_matmul=7 * layers * pre,
+                  decode_attention_bf16=layers * eng._tick
+                  * eng.steps_per_tick,
                   **{n: cfg.esm.num_layers * -(-BANK_REQUESTS // 8)
                      for n in fe.launches})
     if len(done) != BANK_REQUESTS or eng.counters["completions"] != \
@@ -3258,7 +3387,8 @@ def check_spec(card, params, cfg, tok, tails, bucket):
     pre, iters = eng.counters["prefills"], eng._tick * eng.steps_per_tick
     expect_counts("speculative ticks", read_counts(),
                   flash_attention=layers * (pre + iters),
-                  int8_matmul=7 * layers * pre)
+                  int8_matmul=7 * layers * pre,
+                  decode_attention_bf16=SPEC_DRAFT * (SPEC_K - 1) * iters)
     if len(done) != 16 or eng.counters["completions"] != 16:
         fail("speculative ticks: not every request was answered")
     mean = acceptance("speculative ticks", records)
@@ -3366,6 +3496,8 @@ def check_prefix(card, params, cfg, tok, examples, gen):
             expect_counts(f"prefix cache, call {i + 1}", read_counts(),
                           flash_attention=layers * (len(shapes) + pinned),
                           int8_matmul=7 * layers * big,
+                          decode_attention_bf16=layers
+                          * reps[-1].engine["decode_steps"],
                           **{n: cfg.esm.num_layers * -(-len(examples) // 8)
                              for n in fe.launches})
         shapes.clear()
@@ -3481,7 +3613,9 @@ def check_chunked(card, params, cfg, tok, examples):
     pre = eng.counters["prefills"]
     expect_counts("chunked prefill", read_counts(),
                   flash_attention=layers * pre,
-                  int8_matmul=7 * layers * pre)
+                  int8_matmul=7 * layers * pre,
+                  decode_attention_bf16=layers * eng._tick
+                  * eng.steps_per_tick)
     _, mdt, mttft = run(prefill_buckets=(short_b, round_up(max(lens), 64)))
     print(f"chunked prefill ({CHUNK}-token chunks): 4 prompts of {lens} "
           f"tokens beside 12 of <= {short_b}: {pre} prefills (chunks "
@@ -3603,7 +3737,7 @@ def check_server(card, params, cfg):
     layers = cfg.llm.num_layers
     try:
         reset_counts()
-        pre0 = srv.engine.counters["prefills"]
+        pre0, tick0 = srv.engine.counters["prefills"], srv.engine._tick
         examples = synthetic_examples(SERVER_SLOTS)
         outs = [None] * SERVER_SLOTS
 
@@ -3679,6 +3813,8 @@ def check_server(card, params, cfg):
         # prefill of the LLM
         expect_counts("server", read_counts(),
                       flash_attention=layers * (pre + 1),
+                      decode_attention_bf16=layers * SERVER_STEPS
+                      * (srv.engine._tick - tick0),
                       **{n: cfg.esm.num_layers * (SERVER_SLOTS + 2 + 1)
                          for n in fe.launches})
         if not srv.drain(timeout=120):
@@ -4153,7 +4289,9 @@ def check_cli(card):
                 it = out.iterations
                 expect_counts(f"cli {label}", counts, **enc,
                               flash_attention=layers + CLI_DRAFT
-                              + layers * it)
+                              + layers * it,
+                              decode_attention_bf16=CLI_DRAFT * CLI_NDRAFT
+                              * it)
                 check_cli_draft(card, a, out)
                 rerun_rates(f"cli {label}", out,
                             lambda: speculative._speculative(*a, **k), card)
@@ -4165,6 +4303,8 @@ def check_cli(card):
                     # [gate|up] and down a layer, and the head
                     want.update(int4_matmul=1 + out.steps * (4 * layers + 1),
                                 decode_attention_int4=layers * out.steps)
+                else:
+                    want.update(decode_attention_bf16=layers * out.steps)
                 expect_counts(f"cli {label}", counts, **want)
                 check_cli_beams(card, label, a, out)
                 rerun_rates(f"cli {label}", out,
@@ -5127,6 +5267,9 @@ def par_gates(card, i, res, llm, lcfg):
                 # step, the prefill's head once; the int4 cache's decode
                 want.update(int4_matmul=1 + rr["steps"] * (4 * layers + 1),
                             decode_attention_int4=layers * rr["steps"])
+            else:
+                # a rank's 8 query and 2 KV heads over its bf16 cache
+                want.update(decode_attention_bf16=layers * rr["steps"])
         elif kind == "engine":
             want = dict(enc, flash_attention=layers * rr["prefills"],
                         int8_matmul=4 * layers * rr["prefills"],
@@ -6588,7 +6731,9 @@ def main():
         phase("families (DeepSeek-V2-Lite)")
         dcounts = check_deepseek(card)
         phase("result")
-        print(json.dumps({"kernels": [moe_row(rows, dcounts)]}), flush=True)
+        print(json.dumps({"kernels": [own_row(
+            rows, "moe_grouped_gemm", "moe_grouped_gemm.cu", dcounts)]}),
+            flush=True)
         print(card, flush=True)
         return
     if "--parallel" in sys.argv[1:]:
@@ -6681,7 +6826,10 @@ def main():
                   for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "route_ms")
                   if key in rows[k["name"]]})
-    kernels.append(moe_row(rows, dcounts))
+    kernels.append(own_row(rows, "moe_grouped_gemm", "moe_grouped_gemm.cu",
+                           dcounts))
+    kernels.append(own_row(rows, "decode_attention_bf16",
+                           "decode_attention.cu", counts))
     phase("result")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s [{card}]",
           flush=True)

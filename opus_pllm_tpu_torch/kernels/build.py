@@ -49,6 +49,7 @@ SIGNATURES = {
     },
     "decode_attention": {
         "opus_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
+        "opus_decode_attention_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
     },
     "int8_matmul": {
         "opus_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -58,8 +58,8 @@ keys and values into the cache IN PLACE and advances `cache["index"]`; the
 returned cache is the same object (the JAX version returns a new pytree).
 
 `impl`: "auto" (or "fused") takes the kernels where the shapes allow them
-(flash attention for prefills, decode attention over a quantized cache,
-int8 and int4 projections); the kernel wrappers run their plain versions
+(flash attention for prefills, decode attention over a quantized or a bf16
+cache, int8 and int4 projections); the kernel wrappers run their plain versions
 on CPU tensors. "torch" takes the plain versions on every device.
 """
 
@@ -492,6 +492,11 @@ def _block(cfg: DecoderConfig, p, x, mask4, cos, sin, layer_cache, index,
             fn = (da.decode_attention_int4 if "q4" in lk
                   else da.decode_attention_int8)
             a = fn(q, lk, lv, mask4)
+        elif (rows is None and impl not in ("torch", "sp_decode")
+                and da.supports_bf16(q, lk, mask4)):
+            # one-token attention straight over the bf16 cache: no fp32
+            # or batched-layout copy of it is made
+            a = da.decode_attention_bf16(q, lk, lv, mask4)
         else:
             # attend over the cache: a quantized one DEQUANTIZED, as
             # decoder.py:320-323 does (prefill, impl="torch" and

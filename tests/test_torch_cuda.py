@@ -2,7 +2,9 @@
 ragged shapes the main path can also produce (stage (a)'s precompute over
 the llama, qwen2 and opt text LMs included): the four fused-encoder
 kernels (ln_qkv_rope, out_proj and ffn at every tile width of their TMA +
-wgmma core, bit-identical across calls), the int4 v2 matmul, both quantized decode attentions, flash
+wgmma core, bit-identical across calls), the int4 v2 matmul, both quantized
+decode attentions and the bf16 one (with the benchmark's kernel probe
+installed too), flash
 attention, the int8 matmul, the two flash-attention backward kernels and
 the int4 v1 matmul (the int8 and the v1 matmul each in its TMA + wgmma
 kernel and in the kernel kept for N that is not a multiple of 16); then
@@ -401,6 +403,103 @@ def test_quantized_wrappers_raise_instead_of_falling_back():
         da.decode_attention_int8(q1, kl, vl, mask4.int())
     with pytest.raises(ValueError):            # int8 leaves to the int4 one
         da.decode_attention_int4(q1, kl, vl, mask4)
+
+
+def _annotate_mask(g, b, cap, prompt):
+    """(B, cap) masks of the static decode: row i's prompt of 1..`prompt`
+    tokens left-padded to `prompt` slots, then 0..cap - prompt written
+    steps; rows 0 and 1 hold one prompt token, so their first 64-slot
+    tiles are masked everywhere."""
+    n = torch.randint(1, prompt + 1, (b,), generator=g, device="cuda")
+    steps = torch.randint(0, cap - prompt + 1, (b,), generator=g,
+                          device="cuda")
+    n[:2] = 1
+    steps[0], steps[-1] = 0, cap - prompt
+    slots = torch.arange(cap, device="cuda")[None]
+    return (slots >= prompt - n[:, None]) & (slots < prompt + steps[:, None])
+
+
+# (B, Hq, Hkv, D, cap, prompt): the qwen2.5-7b annotate cell (valid slots
+# ending at 327..455), Galactica-6.7B's heads, Llama-3-8B's, D = 64
+BF16_DECODE_SHAPES = [(128, 28, 4, 128, 455, 327), (8, 32, 32, 128, 391, 327),
+                      (8, 32, 8, 128, 391, 327), (17, 16, 4, 64, 200, 120),
+                      (3, 8, 1, 128, 65, 64), (2, 8, 8, 64, 1, 1)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,cap,prompt", BF16_DECODE_SHAPES)
+def test_decode_attention_bf16(b, hq, hkv, d, cap, prompt):
+    """The bf16 kernel against its plain version (attention_xla) over a
+    left-padded bf16 cache, one launch a call, the same bits on a second
+    call. Tolerance as the module's (2 x the plain bf16 path's error +
+    4e-3): the plain path rounds q / sqrt(D), the normalized weights and
+    the output to bf16, the kernel the output only (the weights keep ~16
+    bits), so only its summation order may add error beyond the plain
+    bf16 path's."""
+    g = _gen()
+    mask4 = _annotate_mask(g, b, cap, prompt)[:, None, None, :]
+    q = _rnd(g, b, 1, hq, d, scale=0.5)
+    k, v = _rnd(g, b, cap, hkv, d), _rnd(g, b, cap, hkv, d)
+    assert da.supports_bf16(q, k, mask4)
+    da.reset_launches()
+    _check(lambda q, k, v: da.decode_attention_bf16(q, k, v, mask4),
+           lambda q, k, v: layers.attention_xla(q, k, v, mask4), (q, k, v))
+    assert da.launches == {"decode_attention_int8": 0,
+                           "decode_attention_int4": 0,
+                           "decode_attention_bf16": 1}
+    assert torch.equal(da.decode_attention_bf16(q, k, v, mask4),
+                       da.decode_attention_bf16(q, k, v, mask4))
+
+
+def test_decode_attention_bf16_row_without_a_slot_is_zero():
+    """A row with no valid slot gets out exactly 0; a row valid inside one
+    tile of a split range, and the other rows, match the plain version;
+    an fp32 q is refused (the gate takes bf16 only)."""
+    g = _gen()
+    b, hq, hkv, cap = 4, 32, 8, 391
+    mask4 = _decode_mask(g, b, cap, "left")[:, None, None, :].clone()
+    mask4[1] = False
+    mask4[2] = False
+    mask4[2, ..., 130:141] = True
+    q = _rnd(g, b, 1, hq, 128, scale=0.5)
+    k, v = _rnd(g, b, cap, hkv, 128), _rnd(g, b, cap, hkv, 128)
+    assert da.decode_splits(b, hkv, cap) > 1
+    out = da.decode_attention_bf16(q, k, v, mask4)
+    torch.cuda.synchronize()
+    assert bool((out[1] == 0).all())
+    keep = [0, 2, 3]
+    _check(lambda q, k, v: da.decode_attention_bf16(q, k, v, mask4)[keep],
+           lambda q, k, v: layers.attention_xla(q, k, v, mask4)[keep],
+           (q, k, v))
+    with pytest.raises(TypeError):
+        da.decode_attention_bf16(q.float(), k, v, mask4)
+
+
+def test_decode_step_under_the_kernel_probe():
+    """One decode step over a bf16 cache through the bf16 kernel while the
+    benchmark's KernelProbe wraps the launchers: the probe records the
+    quantized launcher only (it reads a quantized leaf's scales), so the
+    step runs, and the probe's bounds read, without error."""
+    from opus_pllm_tpu_torch.infer import engine
+    from port_bench.yardstick.instrument import KernelProbe
+    cfg = DecoderConfig(family="qwen2", vocab_size=1024, hidden_size=512,
+                        intermediate_size=1024, num_layers=2, num_heads=7,
+                        num_kv_heads=1, head_dim=128, attention_bias=True,
+                        dtype="bfloat16")
+    g = _gen()
+    llm = decoder.init(cfg, generator=g, device="cuda")
+    x = _rnd(g, 4, 12, 512, scale=0.5)
+    am = torch.ones((4, 12), dtype=torch.bool, device="cuda")
+    am[1:, :6] = False
+    probe = KernelProbe()
+    da.reset_launches()
+    with probe.installed():
+        out = engine.generate(llm, cfg, x, am, decoder.positions_from_mask(
+            am), torch.Generator(device="cuda").manual_seed(0),
+            max_new_tokens=2, temperature=0.0, eos_token_id=-1)
+    torch.cuda.synchronize()
+    assert out.steps == 2
+    assert da.launches["decode_attention_bf16"] == 2 * cfg.num_layers
+    assert "decode_attention" not in probe.bounds()
 
 
 def _flash_inputs(g, b, sq, skv, hq, hkv, d, mask_kind):
@@ -1270,7 +1369,7 @@ def test_decode_graph_matches_the_eager_step(monkeypatch, quantize,
     same loop with the step run eagerly (`_graphable` patched false),
     each on its own cache: the same tokens and the same logits at every
     step, greedy and sampled from one generator seed, over a bf16 and an
-    int8 cache (the decode-attention kernel inside the graph, its launch
+    int8 cache (a decode-attention kernel inside the graph, its launch
     count the eager one); also while another thread copies to the card,
     as the runner's prefetch does, and while a profiler records."""
     import threading
@@ -1345,8 +1444,10 @@ def test_decode_graph_matches_the_eager_step(monkeypatch, quantize,
     assert g_grew == {"decode.steps": new, "decode.graph_steps": new - 1}
     assert e_grew == {"decode.steps": new, "decode.graph_steps": 0}
     assert g_launches == e_launches
-    want = cfg.num_layers * new if quantize == "int8" else 0
-    assert g_launches["decode_attention_int8"] == want
+    want = cfg.num_layers * new
+    assert g_launches["decode_attention_int8"] == (want if quantize ==
+                                                   "int8" else 0)
+    assert g_launches["decode_attention_bf16"] == (0 if quantize else want)
 
 
 # ---- the grouped expert GEMM and the deepseek_v2 decode graph ----

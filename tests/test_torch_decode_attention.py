@@ -414,3 +414,141 @@ def test_no_path_attends_a_row_without_a_valid_slot(model, kind,
                           max_new_tokens=3 + i)
              for i, n in enumerate((9, 1))])
     assert n_static > 0 and len(rows_ok) > n_static and all(rows_ok)
+
+
+# ---- the bf16 cache: decode_attention_bf16 and its gate ----
+
+def _bf16_inputs(b, cap, hq, hkv, d, seed, lengths=None):
+    """q (B, 1, Hq, D), K / V (B, cap, Hkv, D) in bf16 and a left-padded
+    (B, 1, 1, cap) mask: row i valid over [pad_i, pad_i + n_i)."""
+    rng = np.random.default_rng(seed)
+    q = _t((rng.standard_normal((b, 1, hq, d)) * 0.5).astype(
+        np.float32)).bfloat16()
+    k, v = (_t(rng.standard_normal((b, cap, hkv, d)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    mask = np.zeros((b, cap), bool)
+    for i in range(b):
+        n = int(rng.integers(1, cap + 1)) if lengths is None else lengths[i]
+        pad = int(rng.integers(0, cap - n + 1))
+        mask[i, pad:pad + n] = True
+    return q, k, v, _t(mask)[:, None, None, :]
+
+
+def _bf16_case(case):
+    """(q, k, mask4) of a named gate case at B = 2, cap 70."""
+    b, cap, d, hq, hkv = 2, 70, 128, 8, 2
+    k_dtype, sq, mask = torch.bfloat16, 1, "broadcast"
+    if case.startswith("d"):
+        d = int(case[1:])
+    elif case.startswith("g"):
+        hq, hkv = int(case[1:]) * 2, 2
+    elif case.startswith("cap"):
+        cap = int(case[3:])
+    elif case == "sq2":
+        sq = 2
+    elif case == "fp32 leaf":
+        k_dtype = torch.float32
+    elif case == "per-head mask":
+        mask = "per-head"
+    elif case == "int mask":
+        mask = "int"
+    q = torch.zeros((b, sq, hq, d), dtype=torch.bfloat16)
+    k = torch.zeros((b, cap, hkv, d), dtype=k_dtype)
+    m = torch.ones((b, 1, 1, cap), dtype=torch.bool)
+    if mask == "per-head":
+        m = m.expand(b, hq, 1, cap)
+    elif mask == "int":
+        m = m.int()
+    if case == "quantized leaf":
+        return q, decoder._quantize_kv(k.float()), m
+    if case == "fp32 q":
+        q = q.float()
+    return q, k, m
+
+
+@pytest.mark.parametrize("case,taken", [
+    ("d64", True), ("d128", True), ("g1", True), ("g4", True),
+    ("g7", True), ("g8", True), ("cap1", True), ("cap63", True),
+    ("cap455", True), ("cap4097", True),
+    ("sq2", False), ("g9", False), ("d80", False), ("fp32 leaf", False),
+    ("quantized leaf", False), ("per-head mask", False),
+    ("int mask", False), ("fp32 q", False)])
+def test_supports_bf16_gate(case, taken):
+    """The bf16 kernel's shapes: one bf16 query token over a bf16 leaf,
+    D 64 / 128, up to 8 query heads a KV head, any capacity, a broadcast
+    bool mask; the quantized gate refuses every bf16 leaf."""
+    q, k, m = _bf16_case(case)
+    assert da.supports_bf16(q, k, m) is taken
+    if not isinstance(k, dict):
+        assert not da.supports(q, k, m)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (28, 4), (8, 1)])
+@pytest.mark.parametrize("cap", [1, 65, 455])
+def test_bf16_plain_is_attention_xla(d, hq, hkv, cap):
+    """On CPU tensors decode_attention_bf16 is attention_xla, bit for bit,
+    and launches nothing."""
+    from opus_pllm_tpu_torch.models.layers import attention_xla
+    q, k, v, mask4 = _bf16_inputs(3, cap, hq, hkv, d, seed=cap + hq)
+    da.reset_launches()
+    got = da.decode_attention_bf16(q, k, v, mask4)
+    assert da.supports_bf16(q, k, mask4)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 1, hq, d)
+    assert torch.equal(got, attention_xla(q, k, v, mask4))
+    assert set(da.launches.values()) == {0}
+
+
+def _bf16_llm(family):
+    """A tiny bf16 decoder of `family` whose one-token attention the bf16
+    gate takes: qwen2 7 query heads on 1 KV head (G = 7, D = 64), llama
+    8 on 2 (G = 4, D = 128), opt 4 on 4 (G = 1, D = 64)."""
+    import dataclasses
+    heads = {"qwen2": (7, 1, 64), "llama": (8, 2, 128), "opt": (4, 4, 64)}
+    hq, hkv, d = heads[family]
+    cfg = dataclasses.replace(DecoderConfig.tiny(family), num_heads=hq,
+                              num_kv_heads=hkv, head_dim=d,
+                              dtype="bfloat16")
+    params = decoder.init(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("family", ["qwen2", "llama", "opt"])
+def test_bf16_cache_generate_tokens_unchanged(family, temperature,
+                                              monkeypatch):
+    """engine.generate over a bf16 cache on CPU: every decode step's
+    attention goes through decode_attention_bf16 (layers x steps calls),
+    and the tokens equal those of the path before it, where the gate
+    refused every bf16 leaf and `attention` took attention_xla."""
+    from opus_pllm_tpu_torch.infer import engine
+    cfg, params = _bf16_llm(family)
+    rng = np.random.default_rng(7)
+    x = _t((rng.standard_normal((3, 9, cfg.hidden_size)) * 0.5).astype(
+        np.float32)).bfloat16()
+    am = torch.ones((3, 9), dtype=torch.bool)
+    am[1, :5] = False
+    am[2, :8] = False
+    pos = decoder.positions_from_mask(am)
+    calls, kernel = [], da.decode_attention_bf16
+
+    def spy(*a):
+        calls.append(a[0].shape)
+        return kernel(*a)
+
+    def run():
+        return engine.generate(
+            params, cfg, x, am, pos, torch.Generator().manual_seed(1),
+            max_new_tokens=6, temperature=temperature, eos_token_id=-1,
+            pad_token_id=0)
+
+    monkeypatch.setattr(da, "decode_attention_bf16", spy)
+    new = run()
+    assert len(calls) == cfg.num_layers * new.steps
+    assert all(s == (3, 1, cfg.num_heads, cfg.head_dim) for s in calls)
+    monkeypatch.setattr(da, "supports_bf16", lambda *a: False)
+    old = run()
+    assert len(calls) == cfg.num_layers * new.steps
+    assert torch.equal(new.tokens, old.tokens)
+    assert torch.equal(new.lengths, old.lengths)
