@@ -36,8 +36,7 @@ and prints no result:
          bf16 cuBLAS products they contain at the same (M, K, N), marked *;
        - int4_matmul at M = 8 for each distinct (K, N) of a Llama-3-8B
          decode step: 4096->4096, 4096->1024, 4096->14336, 14336->4096,
-         4096->128256 (random weights quantized by quant4.quantize_grouped),
-         with the kernel's earlier design (kept for N % 4 != 0) beside it;
+         4096->128256 (random weights quantized by quant4.quantize_grouped);
        - decode_attention_int8 / _int4 at B=8, Hq=32, Hkv=8, D=128 over a
          391-slot cache (the annotate decode capacity), at B=32 over 2048
          slots (lengths uniform over cap/2..cap), and with the static
@@ -76,8 +75,7 @@ and prints no result:
          prefill) for the four (K, N) of a Llama-3-8B layer. Library: the
          bf16 cuBLAS product on W dequantized beforehand (the dequantize
          not timed, so not the same function); the port's own dequantize
-         route (`quant.dequant_matmul`), which is, beside it (route_ms),
-         and the kernel's earlier design, kept for unaligned N;
+         route (`quant.dequant_matmul`), which is, beside it (route_ms);
        - flash_attention_bwd_dq and _dkv (the saved out and lse of the
          forward kernel as inputs, dk and dv stacked into one output) at
          the training shape (B=16, L=519, right-padded valid lengths, the
@@ -90,7 +88,7 @@ and prints no result:
        - int4_matmul_v1 at M = 8304 (a train-lora batch, 16 x 519) for the
          five (K, N) of Llama-3-8B. Library: cuBLAS bf16 on W dequantized
          beforehand; the dequantize route (`quant4.dequant_matmul`) beside
-         it (route_ms), and the earlier design, kept for unaligned N;
+         it (route_ms);
        - moe_grouped_gemm at DeepSeek-V2-Lite's routed shapes (64 experts:
          gate|up 2048 -> 2 x 1408 with the SiLU-mul epilogue, down 1408 ->
          2048) at a decode step's 768 pairs (128 rows x top-6) and a
@@ -181,10 +179,7 @@ and prints no result:
      admission group is one prefill of n x bucket >= 256 rows, so
        flash_attention = 32 x prefills, int8_matmul = 7 x 32 x prefills,
        decode_attention_<cache> = 32 x decode steps (bf16 or int8),
-       encoder kernels = 33 x splice batches,
-       int4_matmul = 0, and every kernel kept for unaligned N
-       (int8_matmul_unaligned, int4_matmul_unaligned,
-       int4_matmul_v1_unaligned) 0 in every phase;
+       encoder kernels = 33 x splice batches, int4_matmul = 0;
      that every request is answered; and that one admission group's
      prefill logits (16 rows, bucket 320) through the kernels stay within
      the bound above of the plain path in fp32. Prints entries/s, tokens/s,
@@ -422,10 +417,10 @@ and prints no result:
      exact launch counts a step per rank, each rank's LLM share 1/M of
      the projections and head, its peak within its share, its cache and
      4 GiB of working set (printed per rank); then every kernel of the
-     runs at its shard shapes against its plain version (`compare`),
-     with the variant it takes. A rank that raises or hangs fails the
-     phase. The collectives' host-clock times and the runs' walls
-     measure this rehearsal on one card, not tensor-parallel speed.
+     runs at its shard shapes against its plain version (`compare`). A
+     rank that raises or hangs fails the phase. The collectives'
+     host-clock times and the runs' walls measure this rehearsal on one
+     card, not tensor-parallel speed.
  17. parallel (training and serve): 4 ranks spawned as in phase 16, each
      running through the port's CLI: (a) train-lora --mesh 2,2 over a
      bf16 Llama-3-8B and (b) over its int4 v1 quantization (--load-int4:
@@ -620,9 +615,6 @@ INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                (4096, 128256))          # (K, N) of one Llama-3-8B decode step
 INT8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 ATTN_SHAPES = ((8, 391), (32, 2048))    # (B, capacity); Hq 32, Hkv 8, D 128
-# H100 SXM data sheet, dense, at the full 700 W power limit
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 SERVE_REQUESTS = 32
 SERVE_SLOTS, SERVE_STEPS = 16, 4
 MCQ_REQUESTS = 16
@@ -746,24 +738,26 @@ def nbytes(*ts):
 
 
 def bound_ms(flops, n_bytes):
-    """The least time the card could take: (ms, what bounds it)."""
-    ops = 1e3 * flops / PEAK_BF16_FLOPS
-    mem = 1e3 * n_bytes / PEAK_HBM_BYTES
-    return (ops, "operations") if ops >= mem else (mem, "bytes")
+    """The least time the card could take, by the benchmark's yardstick
+    (port_bench/yardstick/work.py: H100 SXM data sheet, dense, at the full
+    700 W power limit): (ms, what bounds it)."""
+    from port_bench.yardstick import work
+    by = ("operations" if flops / work.PEAK_BF16_FLOPS
+          >= n_bytes / work.PEAK_HBM_BYTES else "bytes")
+    return 1e3 * work.bound_s(flops, n_bytes), by
 
 
 def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
             more_bytes=0, n_bytes=None, library=None, route=None,
-            earlier=None, cublas=None, scaled_atol=False):
+            cublas=None, scaled_atol=False):
     """The kernel vs its plain version on the same inputs (module
     docstring, phase 3); `extra` arguments are passed as they are.
     `flops` and the bytes of the inputs, the output and `more_bytes`
     (operands the calls capture), or `n_bytes` where the data needs fewer
     (keys of padding that are never read), give the bound; `library` is the PyTorch
     yardstick, `route` another path of the port (its time is kept as
-    route_ms), `earlier` the kernel's earlier design, `cublas` the bare
-    cuBLAS products of a fused kernel (printed, marked *: not the same
-    function), all only timed.
+    route_ms), `cublas` the bare cuBLAS products of a fused kernel
+    (printed, marked *: not the same function), all only timed.
     scaled_atol: ATOL times max(1, max|plain_fp32|) (gradients). Returns
     the kernel's row of the JSON line, device times."""
     import torch
@@ -785,7 +779,6 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
     call_ms = time_ms(lambda: kern(*bf_in, *extra), hold=False)
     lib_ms = time_ms(library) if library is not None else None
     route_ms = time_ms(route) if route is not None else None
-    earlier_ms = time_ms(earlier) if earlier is not None else None
     cublas_ms = time_ms(cublas) if cublas is not None else None
     print(f"{name:38s} max_abs_err={err:.3e} (tol {tol:.3e}, plain bf16 "
           f"err {err_plain:.3e}) kernel {ms:.4f} ms "
@@ -793,8 +786,6 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
           + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
           + (f"  dequantize route {route_ms:.4f} ms"
              if route_ms is not None else "")
-          + (f"  earlier kernel {earlier_ms:.4f} ms"
-             if earlier_ms is not None else "")
           + (f"  cuBLAS* {cublas_ms:.4f} ms" if cublas_ms is not None
              else "")
           + f"  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
@@ -807,32 +798,6 @@ def compare(name, kern, plain, bf_in, card, extra=(), *, flops,
     if route is not None:
         res["route_ms"] = route_ms
     return res
-
-
-def earlier_kernel(name, x, w, scale):
-    """A call of the kernel that `name` keeps for unaligned N (its earlier
-    design), made directly at an aligned shape so that phase 3 times the
-    two designs in one run; not counted in `launches`."""
-    import torch
-    from opus_pllm_tpu_torch.kernels import build, quant4
-    lib = build.library(name)
-    fn = getattr(lib, f"opus_{name}_unaligned")
-    (m, k), n = x.shape, w.shape[1]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if name == "int4_matmul":                  # v2: its split-K workspace
-        n_sb = k // quant4.SUPER
-        splits = quant4._splits(n_sb, -(-n // quant4.KERNEL_COLS)
-                                * -(-m // quant4.KERNEL_MT))
-        ws = torch.empty((splits, m, n), dtype=torch.float32,
-                         device=x.device)
-        args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), m, n, k, -(-n_sb // splits), splits, 1)
-        stream = torch.cuda.current_stream().cuda_stream
-        return lambda: build.check(fn(*args, stream), name, lib)
-    args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, n, k) + ((0,) if name == "int4_matmul_v1" else ())
-    stream = torch.cuda.current_stream().cuda_stream
-    return lambda: build.check(fn(*args, stream), name, lib)
 
 
 def keep(rows, name, res, main):
@@ -867,8 +832,7 @@ def check_quant_kernels(card):
             f"int4_matmul M=8 K={k} N={n}",
             lambda x: quant4.int4_matmul(x, packed, s),
             lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
-            flops=2 * 8 * k * n, more_bytes=nbytes(packed, s),
-            earlier=earlier_kernel("int4_matmul", x, packed, s)), i == 0)
+            flops=2 * 8 * k * n, more_bytes=nbytes(packed, s)), i == 0)
         del packed, s
         torch.cuda.empty_cache()
     hq, hkv, d = 32, 8, 128
@@ -1320,8 +1284,7 @@ def check_serve_kernels(card):
                 lambda x: quant.int8_matmul_plain(x, wq, s), (x,), card,
                 flops=2 * m * n * k, more_bytes=nbytes(wq, s),
                 library=lambda: torch.mm(x, w_bf),
-                route=lambda: quant.dequant_matmul(x, wq, s),
-                earlier=earlier_kernel("int8_matmul", x, wq, s)),
+                route=lambda: quant.dequant_matmul(x, wq, s)),
                 (m, k, n) == (5120, 4096, 14336))
             del wq, s, w_bf, x
             torch.cuda.empty_cache()
@@ -1407,8 +1370,7 @@ def check_train_kernels(card):
             lambda x: quant4.int4_matmul_plain(x, packed, s), (x,), card,
             flops=2 * m * k * n, more_bytes=nbytes(packed, s),
             library=lambda: torch.mm(x, w_bf),
-            route=lambda: quant4.dequant_matmul(x, packed, s),
-            earlier=earlier_kernel("int4_matmul_v1", x, packed, s)),
+            route=lambda: quant4.dequant_matmul(x, packed, s)),
             (k, n) == (4096, 14336))
         del packed, s, w_bf, x
         torch.cuda.empty_cache()
@@ -4133,7 +4095,7 @@ def reorder_gate(label, lcfg, b, cap, quantize, card):
     ms = time_ms(lambda: decoder.reorder_cache(cache, rows), iters=5)
     print(f"{label}: reorder_cache of {b} rows x {cap} slots x "
           f"{lcfg.num_layers} layers equals index_select on every leaf; "
-          f"{ms:.3f} ms a step, bound {1e3 * n / PEAK_HBM_BYTES:.3f} ms "
+          f"{ms:.3f} ms a step, bound {bound_ms(0, n)[0]:.3f} ms "
           f"({n / 1e9:.2f} GB read + written) [{card}]", flush=True)
     return ms
 
@@ -5370,8 +5332,6 @@ def par_shard_kernels(card, rows):
                 torch.randn((k, n), generator=g, device="cuda"))
             packed = quant4.pack_int4_v2(q)
             x = rnd(rows_m, k)
-            print(f"int4_matmul M={rows_m} K={k} N={n}: variant "
-                  f"{quant4.v2_kernel_variant(n)}", flush=True)
             keep(rows, "int4_matmul", compare(
                 f"int4_matmul M={rows_m} K={k} N={n} (TP {m})",
                 lambda x: quant4.int4_matmul(x, packed, s),
@@ -5383,8 +5343,6 @@ def par_shard_kernels(card, rows):
         wq, s = quant.quantize_per_channel(
             torch.randn((k, n), generator=g, device="cuda"))
         x = rnd(8 * 384, k)
-        print(f"int8_matmul K={k} N={n}: variant "
-              f"{quant.kernel_variant(k, n)}", flush=True)
         keep(rows, "int8_matmul", compare(
             f"int8_matmul M={8 * 384} K={k} N={n} (TP 4)",
             lambda x: quant.int8_matmul(x, wq, s),

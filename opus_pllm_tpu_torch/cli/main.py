@@ -60,8 +60,8 @@ and without effect:
 port runs a plain loop over its layer list), and `--mesh` /
 `--distributed` on `precompute-pairs` and `convert-weights` (the JAX
 commands take them and never read them). `bench` runs the JAX
-package's TPU harness there; here it exits with a pointer to
-chip_smoke.py, which holds the port's measurements.
+package's TPU harness there; here it exits with a pointer to the port's
+benchmark, `python3 port_bench/run.py --workload <cell>`.
 
 Another option the JAX CLI lacks: `--trace-spans PATH` (annotate,
 train-lora, train-projector) writes the process's spans and counters
@@ -897,8 +897,10 @@ def cmd_convert(args) -> None:
 
 def cmd_bench(args) -> None:
     raise SystemExit("bench runs the JAX package's TPU harness (bench.py); "
-                     "the port's measurements are chip_smoke.py's: run "
-                     "`python3 chip_smoke.py` on a machine with a GPU")
+                     "the port's benchmark is port_bench/run.py: run "
+                     "`python3 port_bench/run.py --workload <cell>` on a "
+                     "machine with a GPU (the cells are BENCHMARK.json's "
+                     "workloads)")
 
 
 def _serve_mesh(args):

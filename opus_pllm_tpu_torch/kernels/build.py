@@ -44,8 +44,6 @@ SIGNATURES = {
     "int4_matmul": {
         "opus_int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P],
-        "opus_int4_matmul_unaligned": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _P],
     },
     "decode_attention": {
         "opus_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
@@ -53,7 +51,6 @@ SIGNATURES = {
     },
     "int8_matmul": {
         "opus_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "opus_int8_matmul_unaligned": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         "opus_flash_attention": [_P] * 7 + [_I] * 6 + [_L] * 12
@@ -67,8 +64,6 @@ SIGNATURES = {
     },
     "int4_matmul_v1": {
         "opus_int4_matmul_v1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "opus_int4_matmul_v1_unaligned": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                          _P],
     },
     "moe_grouped_gemm": {
         "opus_moe_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

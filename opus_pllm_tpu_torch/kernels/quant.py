@@ -30,25 +30,22 @@ int8_matmul
   fp32 accumulators in the registers, one rounding, a masked store. TMA
   zero-fills ragged M, N and K. Not the int8 tensor cores: x is bf16, and
   an int8 x would compute another function.
-  Tensor maps need 16-byte row strides, so that kernel takes N % 16 == 0
-  (every Llama-3-8B shape; `kernel_variant`); any other N takes the
-  earlier CUDA kernel, kept as `int8_matmul_unaligned` (WMMA 16x16x16 on
-  32-deep tiles staged through registers, every load masked). Each has its
-  own launch count, so a run shows which one its path took.
+  Tensor maps need 16-byte row strides, so the kernel takes N % 16 == 0:
+  every whole width of every shipped configuration.
 
-Dispatch (`int8_matmul`): the kernel's shapes are bf16 x with M >= 256
-rows and K % 16 == 0 (the JAX package's M >= 256 rule, without its
-M % 8 / N % 128 / K % 128 tiling rules). There, CPU tensors or
-impl="torch" take the kernel's plain version (`int8_matmul_plain`) and
-CUDA tensors launch one of the two kernels (`kernel_variant`) or raise.
-Every other shape (decode at M = slots + 1, the vocab head at M = rows,
-fp32 activations) takes `dequant_matmul`, as the JAX package takes
-`_matmul_xla` there. The routes compute the same function, except that
-`dequant_matmul` rounds the scale and the dequantized weights to x's
-dtype. Launches are counted in `launches`. With grad on, every route
-goes through `_Int8Function`, whose backward is the JAX custom VJP's dx
-(quant.py:101-113), a product the JAX package computes in XLA outside
-Pallas.
+Dispatch (`int8_matmul`): the kernel's shapes (`kernel_shape`) are bf16 x
+with M >= 256 rows, K % 16 == 0 and N % 16 == 0 (the JAX package's
+M >= 256 rule, without its M % 8 / N % 128 / K % 128 tiling rules). There,
+CPU tensors or impl="torch" take the kernel's plain version
+(`int8_matmul_plain`) and CUDA tensors launch the kernel or raise. Every
+other shape (decode at M = slots + 1, the vocab head at M = rows, fp32
+activations, an N the tensor maps cannot describe) takes
+`dequant_matmul`, as the JAX package takes `_matmul_xla` there. The routes
+compute the same function, except that `dequant_matmul` rounds the scale
+and the dequantized weights to x's dtype. Launches are counted in
+`launches`. With grad on, every route goes through `_Int8Function`, whose
+backward is the JAX custom VJP's dx (quant.py:101-113), a product the JAX
+package computes in XLA outside Pallas.
 """
 
 from __future__ import annotations
@@ -69,7 +66,7 @@ QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                  "up_proj", "down_proj", "fc1", "fc2", "qkv_proj",
                  "gateup_proj")
 
-launches = {"int8_matmul": 0, "int8_matmul_unaligned": 0}
+launches = {"int8_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -166,28 +163,21 @@ def dequant_matmul(x, wq, scale):
 # Wrapper: shape gate, then CPU -> plain version, CUDA -> the kernel
 # ---------------------------------------------------------------------------
 
-def kernel_shape(x) -> bool:
-    """The shapes the kernel takes (module docstring)."""
+def kernel_shape(x, n: int) -> bool:
+    """The shapes the kernel takes (module docstring): x (M, K) times N
+    weight columns, the tensor maps' rows 16-byte strides."""
     m, k = x.shape
     return (x.dtype == torch.bfloat16 and m >= KERNEL_MIN_M
-            and k % KERNEL_K_MULTIPLE == 0)
-
-
-def kernel_variant(k: int, n: int) -> str:
-    """The CUDA kernel for a (K, N) product on the kernel's shapes: the TMA
-    + wgmma one where tensor maps can describe x and the weights (16-byte
-    row strides: K % 8, N % 16), else the one kept for other N."""
-    if k % 8 == 0 and n % TMA_N_MULTIPLE == 0:
-        return "int8_matmul"
-    return "int8_matmul_unaligned"
+            and k % KERNEL_K_MULTIPLE == 0 and n % TMA_N_MULTIPLE == 0)
 
 
 def _kernel(x, wq, scale):
     m, k, n = _check_shapes(x, wq, scale)
-    if not kernel_shape(x):
+    if not kernel_shape(x, n):
         raise ValueError(f"int8_matmul kernel: x {tuple(x.shape)} "
-                         f"{x.dtype} (needs bf16, M >= {KERNEL_MIN_M}, "
-                         f"K % {KERNEL_K_MULTIPLE} == 0)")
+                         f"{x.dtype}, N={n} (needs bf16, M >= "
+                         f"{KERNEL_MIN_M}, K % {KERNEL_K_MULTIPLE} == 0, "
+                         f"N % {TMA_N_MULTIPLE} == 0)")
     if scale.dtype != torch.float32:
         raise TypeError(f"int8_matmul: scale of dtype {scale.dtype}")
     for name, t, align in (("x", x, 16), ("kernel_q", wq, 16),
@@ -198,20 +188,19 @@ def _kernel(x, wq, scale):
         if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"int8_matmul: {name} must be contiguous and "
                              f"{align}-byte aligned")
-    name = kernel_variant(k, n)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.library("int8_matmul")
     with torch.cuda.device(x.device):
-        rc = getattr(lib, f"opus_{name}")(
+        rc = lib.opus_int8_matmul(
             x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
-    launches[name] += 1
-    build.check(rc, name, lib)
+    launches["int8_matmul"] += 1
+    build.check(rc, "int8_matmul", lib)
     return out
 
 
 def _forward(x, wq, scale, impl):
-    if not kernel_shape(x):
+    if not kernel_shape(x, wq.shape[-1]):
         return dequant_matmul(x, wq, scale)
     if impl == "torch" or not x.is_cuda:
         return int8_matmul_plain(x, wq, scale)

@@ -48,11 +48,8 @@ int4_matmul (v2)
   flight a CTA of 64 columns; a column tile's K is split over a thread-
   block cluster of up to 8 CTAs (`v2_plan`), whose partials are reduced
   through distributed shared memory in a fixed order: one launch, no
-  workspace, deterministic. A tensor map needs N % 4 == 0
-  (`v2_kernel_variant`; every Llama-3-8B shape); other even N take the
-  earlier kernel, kept as `int4_matmul_unaligned` with its own launch
-  count (fp32 FMAs on the CUDA cores, x staged in shared memory, a K split
-  summed by a second launch from an fp32 workspace).
+  workspace, deterministic. A tensor map needs N % 4 == 0: every width of
+  every shipped configuration.
 int4_matmul_v1
   Replaces: quant4.py `_int4_matmul_impl` / `_kernel` (pallas_call at :359).
   Bound (H100): the tensor cores at the training shape: M = 16 x 519 =
@@ -70,28 +67,29 @@ int4_matmul_v1
   `lo` and `hi`. Each group's fp32 partial fragment is multiplied by its
   fp32 column scales before it joins the accumulator (never folded into
   bf16 weights); TMA zero-fills ragged M and N.
-  Tensor maps need 16-byte row strides, so that kernel takes N % 16 == 0
-  (`v1_kernel_variant`; every Llama-3-8B shape, the vocab head included);
-  other N take the earlier CUDA kernel, kept as `int4_matmul_v1_unaligned`
-  (mma.sync on 32-deep tiles staged through registers, each byte read once
-  per nibble, every load masked), with its own launch count.
+  Tensor maps need 16-byte row strides, so the kernel takes N % 16 == 0:
+  every whole width of every shipped configuration, but not Galactica's
+  vocab head cut over 2 or 4 model ranks (25000 or 12500 columns).
 
-Shape rule: v2 products with M > 64 rows (the annotate prefill: M = B * L
-= 2616) take the dequantize-to-bf16 + matmul route of the JAX
-`_matmul_xla` (quant4.py:215), which is what the JAX package runs at that
-shape too (2616 % 256 != 0 sends `_pallas_v2` there, :387); decode (M =
-batch) and both vocab-head calls take the kernel. Every v1 product takes
-its kernel, at any M (the JAX TPU dispatch takes its Pallas kernel only
-where M, N and K tile its blocks, quant4.py:337-353; the CUDA kernel masks
-ragged tiles).
+Shape rule (`kernel_shape`): v2 products with M > 64 rows (the annotate
+prefill: M = B * L = 2616) take the dequantize-to-bf16 + matmul route of
+the JAX `_matmul_xla` (quant4.py:215), which is what the JAX package runs
+at that shape too (2616 % 256 != 0 sends `_pallas_v2` there, :387); decode
+(M = batch) and both vocab-head calls take the kernel. Every v1 product
+takes its kernel, at any M (the JAX TPU dispatch takes its Pallas kernel
+only where M, N and K tile its blocks, quant4.py:337-353; the CUDA kernel
+masks ragged tiles). An N a kernel's tensor maps cannot describe (v2
+N % 4 != 0, v1 N % 16 != 0) takes the same route, as the JAX package
+takes `_matmul_xla` at N % 128 != 0.
 
-Dispatch: CPU tensors, or impl="torch", take the kernels' plain version
-(`int4_matmul_plain`); CUDA tensors launch the kernel or raise. Launches
-are counted in `launches`. Gradients: with grad on and x requiring grad,
-`int4_matmul` goes through `_Int4Function`, whose backward is the JAX
-`_int4_matmul_bwd` (quant4.py:314-324): the weights dequantized to bf16
-with the scales rounded to bf16, then dx = g @ W^T with fp32 accumulation
-(`torch.mm`), a product the JAX package computes outside Pallas.
+Dispatch: on the kernels' shapes, CPU tensors or impl="torch" take the
+kernels' plain version (`int4_matmul_plain`); CUDA tensors launch the
+kernel or raise. Launches are counted in `launches`. Gradients: with grad
+on and x requiring grad, `int4_matmul` goes through `_Int4Function`, whose
+backward is the JAX `_int4_matmul_bwd` (quant4.py:314-324): the weights
+dequantized to bf16 with the scales rounded to bf16, then dx = g @ W^T
+with fp32 accumulation (`torch.mm`), a product the JAX package computes
+outside Pallas.
 """
 
 from __future__ import annotations
@@ -111,16 +109,13 @@ KERNEL_MAX_M = 64       # larger M takes the dequantize + matmul route
 V2_COLS = 64            # weight columns a CTA (csrc/int4_matmul.cu)
 V2_MAX_CLUSTER = 8      # CTAs a cluster splitting K (the portable limit)
 V2_N_MULTIPLE = 4       # a word row's 4N bytes: a 16-byte stride
-KERNEL_COLS = 64        # the unaligned kernel's columns per CTA
-KERNEL_MT = 8           # and rows of x per CTA
 TARGET_CTAS = 264       # two CTAs for each of the H100's 132 SMs
 SMS = 132
 
 
 TMA_N_MULTIPLE = 16     # the nibble rows' N bytes: a 16-byte stride
 
-launches = {"int4_matmul": 0, "int4_matmul_unaligned": 0,
-            "int4_matmul_v1": 0, "int4_matmul_v1_unaligned": 0}
+launches = {"int4_matmul": 0, "int4_matmul_v1": 0}
 
 
 def reset_launches() -> None:
@@ -313,13 +308,14 @@ def dequant_matmul(x, packed, gscale):
 # Wrapper: shape rule, then CPU -> plain version, CUDA -> the kernel
 # ---------------------------------------------------------------------------
 
-def v2_kernel_variant(n: int) -> str:
-    """The CUDA kernel for a v2 product with N columns: the tensor-core one
-    where a tensor map can describe the words (16-byte row strides: N % 4),
-    else the one kept for other even N."""
-    if n % V2_N_MULTIPLE == 0:
-        return "int4_matmul"
-    return "int4_matmul_unaligned"
+def kernel_shape(x, packed) -> bool:
+    """The shapes the kernels take (module docstring): v2 at M <= 64 rows
+    and N % 4 == 0, v1 at N % 16 == 0, the tensor maps' rows 16-byte
+    strides."""
+    n = packed.shape[-1]
+    if packed.dtype == torch.int8:                                 # v1
+        return n % TMA_N_MULTIPLE == 0
+    return x.shape[0] <= KERNEL_MAX_M and n % V2_N_MULTIPLE == 0
 
 
 def v2_plan(m: int, n: int, k: int):
@@ -337,65 +333,35 @@ def v2_plan(m: int, n: int, k: int):
     return mt, -(-n_sb // per), per
 
 
-def _splits(n_sb: int, ctas: int) -> int:
-    """The unaligned kernel's split-K factor: enough CTAs to fill the card,
-    whole superblocks per split, no empty split."""
-    want = min(n_sb, max(1, -(-TARGET_CTAS // ctas)))
-    per = -(-n_sb // want)
-    return -(-n_sb // per)
-
-
 def _kernel(x, packed, gscale):
     m, k, n = _check_shapes(x, packed, gscale)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int4_matmul: x of dtype {x.dtype}")
     if gscale.dtype != torch.float32:
         raise TypeError(f"int4_matmul: gscale of dtype {gscale.dtype}")
-    if n % 2:
-        raise ValueError(f"int4_matmul: N={n} must be even")
-    name = v2_kernel_variant(n)
-    align = 16 if name == "int4_matmul" else 8        # TMA reads the words
+    if n % V2_N_MULTIPLE:
+        raise ValueError(f"int4_matmul: N={n} must be a multiple of "
+                         f"{V2_N_MULTIPLE}")
     xb = x.to(torch.bfloat16).contiguous()
-    for arg, t, a in (("x", xb, 16), ("kernel_p", packed, align),
-                      ("gscale", gscale, align)):
+    for arg, t in (("x", xb), ("kernel_p", packed), ("gscale", gscale)):
         if t.device != x.device:
             raise ValueError(f"int4_matmul: {arg} on {t.device}, x on "
                              f"{x.device}")
-        if not t.is_contiguous() or t.data_ptr() % a:
+        if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int4_matmul: {arg} must be contiguous and "
-                             f"{a}-byte aligned")
+                             f"16-byte aligned")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     out_bf16 = int(x.dtype == torch.bfloat16)
     lib = build.library("int4_matmul")
+    mt, cs, sb_per = v2_plan(m, n, k)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if name == "int4_matmul":
-            mt, cs, sb_per = v2_plan(m, n, k)
-            rc = lib.opus_int4_matmul(
-                xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
-                out.data_ptr(), m, n, k, mt, cs, sb_per, out_bf16, stream)
-        else:
-            n_sb = k // SUPER
-            splits = _splits(n_sb, -(-n // KERNEL_COLS) * -(-m // KERNEL_MT))
-            sb_per = -(-n_sb // splits)
-            ws = (torch.empty((splits, m, n), dtype=torch.float32,
-                              device=x.device) if splits > 1 else None)
-            rc = lib.opus_int4_matmul_unaligned(
-                xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
-                ws.data_ptr() if ws is not None else None, out.data_ptr(),
-                m, n, k, sb_per, splits, out_bf16, stream)
-    launches[name] += 1
-    build.check(rc, name, lib)
+        rc = lib.opus_int4_matmul(
+            xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
+            out.data_ptr(), m, n, k, mt, cs, sb_per, out_bf16,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    launches["int4_matmul"] += 1
+    build.check(rc, "int4_matmul", lib)
     return out
-
-
-def v1_kernel_variant(n: int) -> str:
-    """The CUDA kernel for a v1 product with N columns: the TMA + wgmma one
-    where tensor maps can describe the packed bytes and the scales (16-byte
-    row strides: N % 16), else the one kept for other N."""
-    if n % TMA_N_MULTIPLE == 0:
-        return "int4_matmul_v1"
-    return "int4_matmul_v1_unaligned"
 
 
 def _kernel_v1(x, packed, gscale):
@@ -404,38 +370,36 @@ def _kernel_v1(x, packed, gscale):
         raise TypeError(f"int4_matmul_v1: x of dtype {x.dtype}")
     if gscale.dtype != torch.float32:
         raise TypeError(f"int4_matmul_v1: gscale of dtype {gscale.dtype}")
-    name = v1_kernel_variant(n)
+    if n % TMA_N_MULTIPLE:
+        raise ValueError(f"int4_matmul_v1: N={n} must be a multiple of "
+                         f"{TMA_N_MULTIPLE}")
     xb = x.to(torch.bfloat16).contiguous()
-    s_align = 16 if name == "int4_matmul_v1" else 4       # TMA reads gscale
-    for arg, t, align in (("x", xb, 16), ("kernel_p", packed, 16),
-                          ("gscale", gscale, s_align)):
+    for arg, t in (("x", xb), ("kernel_p", packed), ("gscale", gscale)):
         if t.device != x.device:
             raise ValueError(f"int4_matmul_v1: {arg} on {t.device}, x on "
                              f"{x.device}")
-        if not t.is_contiguous() or t.data_ptr() % align:
+        if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int4_matmul_v1: {arg} must be contiguous "
-                             f"and {align}-byte aligned")
+                             f"and 16-byte aligned")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.library("int4_matmul_v1")
     with torch.cuda.device(x.device):
-        rc = getattr(lib, f"opus_{name}")(
+        rc = lib.opus_int4_matmul_v1(
             xb.data_ptr(), packed.data_ptr(), gscale.data_ptr(),
             out.data_ptr(), m, n, k, int(x.dtype == torch.float32),
             torch.cuda.current_stream(x.device).cuda_stream)
-    launches[name] += 1
-    build.check(rc, name, lib)
+    launches["int4_matmul_v1"] += 1
+    build.check(rc, "int4_matmul_v1", lib)
     return out
 
 
 def _forward(x, packed, gscale, impl):
-    if packed.dtype == torch.int8:                                 # v1
-        if impl == "torch" or not x.is_cuda:
-            return int4_matmul_plain(x, packed, gscale)
-        return _kernel_v1(x, packed, gscale)
-    if x.shape[0] > KERNEL_MAX_M:
+    if not kernel_shape(x, packed):
         return dequant_matmul(x, packed, gscale)
     if impl == "torch" or not x.is_cuda:
         return int4_matmul_plain(x, packed, gscale)
+    if packed.dtype == torch.int8:                                 # v1
+        return _kernel_v1(x, packed, gscale)
     return _kernel(x, packed, gscale)
 
 

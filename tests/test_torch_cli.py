@@ -341,13 +341,13 @@ def test_no_gpu_without_device_cpu_is_an_error(dirs, tmp_path):
                   str(tmp_path)])
 
 
-def test_unroll_layers_parses_and_bench_points_to_chip_smoke(dirs, byte_tok,
-                                                             tmp_path):
+def test_unroll_layers_parses_and_bench_points_to_the_benchmark(
+        dirs, byte_tok, tmp_path):
     out = str(tmp_path / "u.json")
     cli.main(tc.annotate_args(dirs, ("--unroll-layers",))
              + ["--save-path", out, "--device", "cpu"])
     with open(out) as f:
         assert tuple(r["generated"] for r in json.load(f)) == \
             tc.jax_cli_answers(())
-    with pytest.raises(SystemExit, match="chip_smoke.py"):
+    with pytest.raises(SystemExit, match=r"port_bench/run\.py --workload"):
         cli.main(["bench"])

@@ -6,8 +6,9 @@ wgmma core, bit-identical across calls), the int4 v2 matmul, both quantized
 decode attentions and the bf16 one (with the benchmark's kernel probe
 installed too), flash
 attention, the int8 matmul, the two flash-attention backward kernels and
-the int4 v1 matmul (the int8 and the v1 matmul each in its TMA + wgmma
-kernel and in the kernel kept for N that is not a multiple of 16); then
+the int4 v1 matmul (an N that a quantized matmul's kernel does not take
+takes the dequantize route, the JAX `_matmul_xla` function, with no
+launch); then
 the gradients through the autograd Functions and the launch counts of one
 tiny train step; flash at the serving engine's option masks and a tiny
 engine with every option; `generate`'s decode step replayed as a CUDA
@@ -65,6 +66,28 @@ def _gen():
 def _rnd(g, *shape, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(
         torch.bfloat16)
+
+
+def _check_dequant_route(out, x, w):
+    """An N a kernel's tensor maps cannot describe: the JAX `_matmul_xla`
+    function written out, x rounded to bf16 times `w` (the weights
+    dequantized to bf16 with the scales rounded to bf16), fp32
+    accumulation, one rounding to x's dtype; fp32 summation order apart."""
+    ref = x.to(torch.bfloat16).float() @ w.float()
+    torch.cuda.synchronize()
+    bound = 1e-5 * ref.abs().max().item()
+    if x.dtype == torch.bfloat16:
+        bound = bound + 2 ** -8 * ref.abs()
+    assert out.dtype == x.dtype and out.shape == ref.shape
+    assert ((out.float() - ref).abs() <= bound).all()
+
+
+def _int4_bf16_weights(q, s):
+    """(K, N) int4 values times their group scales rounded to bf16, in
+    bf16, as `_matmul_xla` builds them."""
+    k, n = q.shape
+    return (q.float().reshape(k // 128, 128, n)
+            * s.bfloat16().float()[:, None, :]).reshape(k, n).bfloat16()
 
 
 def _check(kern, plain, bf_in, extra=(), scaled=False):
@@ -262,30 +285,39 @@ def test_esm2_auto_takes_kernels_and_matches_plain():
 @pytest.mark.parametrize("n", [130, 1024, 4096, 14336])
 def test_int4_matmul(k, n):
     """M in {1, 3, 8, 17, 33, 64} (one or two 8-row tiles a CTA, ragged
-    M), bf16 and fp32 x. N = 130 takes the kernel kept for N % 4 != 0;
-    the others the tensor-core kernel, whose K splits over clusters of 1
-    to 8 CTAs (quant4.v2_plan). One launch a call, of the variant's
-    counter."""
+    M), bf16 and fp32 x. The tensor-core kernel, whose K splits over
+    clusters of 1 to 8 CTAs (quant4.v2_plan), one launch a call; N = 130
+    (N % 4 != 0, which a tensor map cannot describe) takes the dequantize
+    route, with no launch."""
     g = _gen()
     q, s = quant4.quantize_grouped(
         torch.randn((k, n), generator=g, device="cuda"))
     packed = quant4.pack_int4_v2(q)
+    w = _int4_bf16_weights(q, s)
     del q
-    name = quant4.v2_kernel_variant(n)
-    assert name == ("int4_matmul_unaligned" if n == 130 else "int4_matmul")
+    takes = n != 130
     for m in (1, 3, 8, 17, 33, 64):
         x = _rnd(g, m, k)
+        assert quant4.kernel_shape(x, packed) == takes
         quant4.reset_launches()
-        _check(lambda x: quant4.int4_matmul(x, packed, s),
-               lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
-        assert quant4.launches == dict(
-            {key: 0 for key in quant4.launches}, **{name: 1})
+        if takes:
+            _check(lambda x: quant4.int4_matmul(x, packed, s),
+                   lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
+        else:
+            _check_dequant_route(quant4.int4_matmul(x, packed, s), x, w)
+        assert quant4.launches == {"int4_matmul": int(takes),
+                                   "int4_matmul_v1": 0}
         # fp32 x: the output stays fp32 and differs from the plain version
-        # by summation order only
+        # (or, at N = 130, from the dequantize route's function) by
+        # summation order only
         out = quant4.int4_matmul(x.float(), packed, s)
-        ref = quant4.int4_matmul_plain(x.float(), packed, s)
-        assert out.dtype == torch.float32
-        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+        if takes:
+            ref = quant4.int4_matmul_plain(x.float(), packed, s)
+            assert out.dtype == torch.float32
+            assert ((out - ref).abs().max().item()
+                    <= 1e-5 * ref.abs().max().item())
+        else:
+            _check_dequant_route(out, x.float(), w)
 
 
 def test_int4_matmul_cluster_plans_are_deterministic():
@@ -393,10 +425,12 @@ def test_decode_attention_is_deterministic(kind, b, cap):
 
 
 def test_quantized_wrappers_raise_instead_of_falling_back():
-    q, s = quant4.quantize_grouped(torch.randn((512, 6), device="cuda"))
+    q, s = quant4.quantize_grouped(torch.randn((512, 8), device="cuda"))
     x = torch.zeros((2, 512), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError):            # odd N
-        quant4.int4_matmul(x, quant4.pack_int4_v2(q[:, :5]), s[:, :5])
+    with pytest.raises(ValueError):            # N % 4 != 0 at the launcher
+        quant4._kernel(x, quant4.pack_int4_v2(q[:, :5]), s[:, :5])
+    with pytest.raises(ValueError):            # words on the CPU
+        quant4.int4_matmul(x, quant4.pack_int4_v2(q).cpu(), s)
     kl, vl, mask4 = _cache(_gen(), 1, 1, 8, 128, "int8")
     q1 = torch.zeros((1, 1, 2, 128), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):            # int mask
@@ -684,18 +718,23 @@ def test_flash_attention_strided_kv_and_layer_dispatch():
 @pytest.mark.parametrize("m,k,n", [(256, 512, 256), (300, 48, 130),
                                    (257, 4096, 1000), (2616, 4096, 1024)])
 def test_int8_matmul(m, k, n):
-    """Ragged M and N (a scalar and a vector epilogue), K a multiple of 16
-    but not of 32, and the static prefill's M."""
+    """Ragged M and N, K a multiple of 16 but not of 32, and the static
+    prefill's M. N = 130 / 1000 are not 16-byte row strides: the
+    dequantize route, with no launch."""
     g = _gen()
     wq, s = quant.quantize_per_channel(torch.randn((k, n), generator=g,
                                                    device="cuda"))
-    quant.reset_launches()
-    _check(lambda x: quant.int8_matmul(x, wq, s),
-           lambda x: quant.int8_matmul_plain(x, wq, s), (_rnd(g, m, k),))
-    # N = 130 / 1000 are not 16-byte row strides: the kernel kept for them
+    x = _rnd(g, m, k)
     tma = n % 16 == 0
-    assert quant.launches == {"int8_matmul": int(tma),
-                              "int8_matmul_unaligned": int(not tma)}
+    assert quant.kernel_shape(x, n) == tma
+    quant.reset_launches()
+    if tma:
+        _check(lambda x: quant.int8_matmul(x, wq, s),
+               lambda x: quant.int8_matmul_plain(x, wq, s), (x,))
+    else:
+        _check_dequant_route(quant.int8_matmul(x, wq, s), x,
+                             (wq.float() * s.bfloat16().float()).bfloat16())
+    assert quant.launches == {"int8_matmul": int(tma)}
 
 
 @pytest.mark.parametrize("m,k,n", [(256, 4112, 1040), (257, 4112, 1040),
@@ -704,8 +743,8 @@ def test_int8_matmul(m, k, n):
 def test_int8_matmul_tma(m, k, n):
     """The TMA + wgmma kernel: ragged M (one row past a tile, 8304 = 64.875
     tiles), N a multiple of 16 but not of the 128-column tile, K a multiple
-    of 16 but not of the 64-row step, and the full vocab head; the kept
-    kernel is not launched, and two calls agree bit for bit."""
+    of 16 but not of the 64-row step, and the full vocab head; three
+    launches, and two calls agree bit for bit."""
     g = _gen()
     wq, s = quant.quantize_per_channel(torch.randn((k, n), generator=g,
                                                    device="cuda"))
@@ -715,7 +754,7 @@ def test_int8_matmul_tma(m, k, n):
            lambda x: quant.int8_matmul_plain(x, wq, s), (x,))
     assert torch.equal(quant.int8_matmul(x, wq, s),
                        quant.int8_matmul(x, wq, s))
-    assert quant.launches == {"int8_matmul": 3, "int8_matmul_unaligned": 0}
+    assert quant.launches == {"int8_matmul": 3}
 
 
 @pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
@@ -879,25 +918,32 @@ def test_flash_function_grads(mask_kind, causal):
 @pytest.mark.parametrize("m", [1, 70, 300])
 @pytest.mark.parametrize("k,n", [(256, 128), (768, 130), (4096, 1000)])
 def test_int4_matmul_v1(m, k, n):
-    """Ragged M and N (N = 130: scalar loads and stores), K one or several
-    256-row blocks; fp32 x stays fp32 and differs by summation order."""
+    """Ragged M and N, K one or several 256-row blocks; fp32 x stays fp32
+    and differs by summation order. N = 130 / 1000 are not 16-byte row
+    strides: the dequantize route, with no launch."""
     g = _gen()
     q, s = quant4.quantize_grouped(torch.randn((k, n), generator=g,
                                                device="cuda"))
     packed = quant4.pack_int4(q)
     x = _rnd(g, m, k)
-    quant4.reset_launches()
-    _check(lambda x: quant4.int4_matmul(x, packed, s),
-           lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
-    # N = 130 / 1000 are not 16-byte row strides: the kernel kept for them
+    w = _int4_bf16_weights(q, s)
     tma = n % 16 == 0
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
-                               "int4_matmul_v1": int(tma),
-                               "int4_matmul_v1_unaligned": int(not tma)}
+    assert quant4.kernel_shape(x, packed) == tma
+    quant4.reset_launches()
+    if tma:
+        _check(lambda x: quant4.int4_matmul(x, packed, s),
+               lambda x: quant4.int4_matmul_plain(x, packed, s), (x,))
+    else:
+        _check_dequant_route(quant4.int4_matmul(x, packed, s), x, w)
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": int(tma)}
     out = quant4.int4_matmul(x.float(), packed, s)
-    ref = quant4.int4_matmul_plain(x.float(), packed, s)
-    assert out.dtype == torch.float32
-    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    if tma:
+        ref = quant4.int4_matmul_plain(x.float(), packed, s)
+        assert out.dtype == torch.float32
+        assert ((out - ref).abs().max().item()
+                <= 1e-5 * ref.abs().max().item())
+    else:
+        _check_dequant_route(out, x.float(), w)
 
 
 @pytest.mark.parametrize("m,k,n", [
@@ -907,8 +953,8 @@ def test_int4_matmul_v1_tma(m, k, n):
     """The TMA + wgmma kernel: ragged M, N a multiple of 16 but not of the
     128-column tile, one to sixteen 256-row blocks, and the full vocab
     head; fp32 x stays fp32 within 1e-5 of the plain version (so the fp32
-    group scales were not rounded); the kept kernel is not launched, and
-    two calls agree bit for bit."""
+    group scales were not rounded); four launches, and two calls agree bit
+    for bit."""
     g = _gen()
     q, s = quant4.quantize_grouped(torch.randn((k, n), generator=g,
                                                device="cuda"))
@@ -924,9 +970,7 @@ def test_int4_matmul_v1_tma(m, k, n):
     ref = quant4.int4_matmul_plain(x.float(), packed, s)
     assert out.dtype == torch.float32
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
-                               "int4_matmul_v1": 4,
-                               "int4_matmul_v1_unaligned": 0}
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 4}
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4-v1"])
@@ -1021,7 +1065,9 @@ def test_train_step_launch_counts(base):
     """One `fit` step of LoRA training: per layer the flash forward twice
     (the remat recompute), each backward kernel once, every encoder kernel
     once per ESM2 layer, and with the v1 base 2 x 7 v1 products per layer
-    plus the head; the loss is finite and LoRA B moved."""
+    (the head's N = 260 is not a 16-byte row stride: it takes the
+    dequantize route, with no launch); the loss is finite and LoRA B
+    moved."""
     cfg = _tiny_train_cfg()
     params = opus.init(cfg, generator=_gen(), device="cuda")
     if base == "int4-v1":
@@ -1057,11 +1103,9 @@ def test_train_step_launch_counts(base):
     assert fab.launches == {"flash_attention_bwd_dq": nl,
                             "flash_attention_bwd_dkv": nl}
     assert fe.launches == {k: cfg.esm.num_layers for k in fe.launches}
-    # the head's N = 260 is not a 16-byte row stride: the kept kernel
     v1 = base == "int4-v1"
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
-                               "int4_matmul_v1": 2 * 7 * nl if v1 else 0,
-                               "int4_matmul_v1_unaligned": int(v1)}
+    assert quant4.launches == {"int4_matmul": 0,
+                               "int4_matmul_v1": 2 * 7 * nl if v1 else 0}
     assert set(quant.launches.values()) == {0}
     assert sum(da.launches.values()) == 0
     loss = float(logs[0].split("loss=")[1])
@@ -1175,7 +1219,7 @@ def test_int8_matmul_at_the_fused_widths(n):
     quant.reset_launches()
     _check(lambda x: quant.int8_matmul(x, wq, s),
            lambda x: quant.int8_matmul_plain(x, wq, s), (_rnd(g, 320, 4096),))
-    assert quant.launches == {"int8_matmul": 1, "int8_matmul_unaligned": 0}
+    assert quant.launches == {"int8_matmul": 1}
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
@@ -1294,7 +1338,7 @@ def test_int4_matmul_at_the_shard_shapes(rows, m, k, n):
     q, s = quant4.quantize_grouped(
         torch.randn((k, n), generator=g, device="cuda"))
     packed = quant4.pack_int4_v2(q)
-    assert quant4.v2_kernel_variant(n) == "int4_matmul"
+    assert quant4.kernel_shape(torch.empty((rows, k), device="meta"), packed)
     quant4.reset_launches()
     _check(lambda x: quant4.int4_matmul(x, packed, s),
            lambda x: quant4.int4_matmul_plain(x, packed, s),

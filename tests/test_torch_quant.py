@@ -91,16 +91,16 @@ def test_int8_matmul_plain_matches_pallas_interpret(k, dtype):
 
 def test_int8_matmul_dispatch_on_cpu():
     """On CPU tensors nothing launches: the kernel's shapes (bf16, M >= 256,
-    K % 16 == 0) take the plain version, every other shape (decode M, fp32
-    x) `dequant_matmul`; qdense folds leading dims and adds the bias in
+    K % 16 == 0, N % 16 == 0) take the plain version, every other shape
+    (decode M, fp32 x) `dequant_matmul`; qdense folds leading dims and adds the bias in
     fp32."""
     q, s = quant.quantize_per_channel(_t(_w(64, 32)))
     x = torch.from_numpy(np.random.default_rng(5).normal(
         size=(2, 150, 64)).astype(np.float32)).bfloat16()
     quant.reset_launches()
-    assert quant.kernel_shape(x.reshape(-1, 64))
-    assert not quant.kernel_shape(x[0])                     # M = 150
-    assert not quant.kernel_shape(x.reshape(-1, 64).float())
+    assert quant.kernel_shape(x.reshape(-1, 64), 32)
+    assert not quant.kernel_shape(x[0], 32)                 # M = 150
+    assert not quant.kernel_shape(x.reshape(-1, 64).float(), 32)
     bias = torch.linspace(-1, 1, 32)
     got = quant.qdense({"kernel_q": q, "scale": s, "bias": bias}, x)
     ref = (quant.int8_matmul_plain(x.reshape(-1, 64), q, s).float()
@@ -113,7 +113,7 @@ def test_int8_matmul_dispatch_on_cpu():
                                                  impl="torch"),
                                quant.int8_matmul_plain(x.reshape(-1, 64),
                                                        q, s), rtol=0, atol=0)
-    assert quant.launches == {"int8_matmul": 0, "int8_matmul_unaligned": 0}
+    assert quant.launches == {"int8_matmul": 0}
     with pytest.raises(ValueError):
         quant.int8_matmul_plain(x[0], q[:, :5], s)
 
@@ -129,14 +129,30 @@ def _cfgs(dtype):
     (4096, 4096, "int8_matmul"), (4096, 1024, "int8_matmul"),
     (4096, 14336, "int8_matmul"), (14336, 4096, "int8_matmul"),
     (4096, 128256, "int8_matmul"), (4112, 1040, "int8_matmul"),
-    (64, 130, "int8_matmul_unaligned"), (512, 1000, "int8_matmul_unaligned")])
-def test_int8_kernel_variant(k, n, want):
-    """The CUDA kernel a (K, N) product takes on the kernel's shapes: the
-    TMA + wgmma kernel needs 16-byte row strides in its tensor maps (N
-    int8 bytes of W, K bf16 of x), which every Llama-3-8B shape has; other
-    N take the kernel kept for them, each counted apart."""
-    assert quant.kernel_variant(k, n) == want
-    assert quant.launches[want] == 0
+    (64, 130, "dequant"), (512, 1000, "dequant")])
+def test_int8_kernel_route(k, n, want):
+    """The route a bf16 product of M >= 256 rows takes: the TMA + wgmma
+    kernel needs 16-byte row strides in its tensor maps (N int8 bytes of W,
+    K bf16 of x), which every whole width of every shipped configuration
+    has; other N take `dequant_matmul`, as the JAX package takes
+    `_matmul_xla` at N % 128 != 0: the same function up to fp32 summation
+    order and one bf16 rounding of the output, and no launch."""
+    m = quant.KERNEL_MIN_M
+    shape = torch.empty((m, k), dtype=torch.bfloat16, device="meta")
+    assert ("int8_matmul" if quant.kernel_shape(shape, n)
+            else "dequant") == want
+    if want == "dequant":
+        x = jnp.asarray(np.random.default_rng(k).normal(
+            size=(m, k)).astype(np.float32), jnp.bfloat16)
+        q, s = jq.quantize_per_channel(jnp.asarray(_w(k, n, seed=n)))
+        ref = np.asarray(jq._matmul_xla(x, q, s).astype(jnp.float32))
+        quant.reset_launches()
+        got = quant.int8_matmul(_t(np.asarray(x.astype(jnp.float32)))
+                                .bfloat16(), _t(q), _t(s))
+        assert got.dtype == torch.bfloat16
+        assert (np.abs(got.float().numpy() - ref).max()
+                <= 2 ** -8 * np.abs(ref).max())
+    assert quant.launches == {"int8_matmul": 0}
 
 
 @pytest.fixture(scope="module")

@@ -237,14 +237,15 @@ def test_v2_plan_splits_k_over_a_cluster_without_empty_ctas(m, k, n):
 
 def test_v2_plan_at_the_decode_shapes():
     """M = 8: the narrow outputs split K over a cluster, the wide ones and
-    the vocab head do not; the unaligned kernel takes N % 4 != 0 only."""
+    the vocab head do not; N % 4 != 0 takes the dequantize route."""
     plans = {(k, n): quant4.v2_plan(8, n, k) for k, n in DECODE_SHAPES}
     assert plans == {(4096, 4096): (1, 4, 2), (4096, 1024): (1, 8, 1),
                      (4096, 14336): (1, 1, 8), (14336, 4096): (1, 5, 6),
                      (4096, 128256): (1, 1, 8)}
-    assert [quant4.v2_kernel_variant(n) for n in (4, 130, 1024, 1026)] == [
-        "int4_matmul", "int4_matmul_unaligned", "int4_matmul",
-        "int4_matmul_unaligned"]
+    x = torch.empty((8, 4096), dtype=torch.bfloat16, device="meta")
+    assert [quant4.kernel_shape(x, torch.empty(
+        (512, n), dtype=torch.int32, device="meta"))
+        for n in (4, 130, 1024, 1026)] == [True, False, True, False]
 
 
 def test_v2_word_is_an_a_fragment_register():

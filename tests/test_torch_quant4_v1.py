@@ -94,9 +94,7 @@ def test_v1_plain_matches_pallas_interpret():
                                         jnp.asarray(s), impl="pallas"))
     quant4.reset_launches()
     got = quant4.int4_matmul(_t(x), _t(packed), _t(s)).numpy()
-    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_unaligned": 0,
-                               "int4_matmul_v1": 0,
-                               "int4_matmul_v1_unaligned": 0}
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 0}
     assert got.dtype == np.float32 and got.shape == (m, n)
     assert np.abs(got - ref).max() <= 2e-5 * np.abs(ref).max()
     torch.testing.assert_close(
@@ -107,15 +105,32 @@ def test_v1_plain_matches_pallas_interpret():
 @pytest.mark.parametrize("n,want", [
     (4096, "int4_matmul_v1"), (1024, "int4_matmul_v1"),
     (14336, "int4_matmul_v1"), (128256, "int4_matmul_v1"),
-    (1040, "int4_matmul_v1"), (130, "int4_matmul_v1_unaligned"),
-    (260, "int4_matmul_v1_unaligned"), (1000, "int4_matmul_v1_unaligned")])
-def test_v1_kernel_variant(n, want):
-    """The CUDA kernel a v1 product with N columns takes: the TMA + wgmma
-    kernel needs 16-byte row strides for the nibble bytes (N) and the fp32
-    scales, which every Llama-3-8B shape has, the vocab head included;
-    other N (a tiny test head of 260) take the kernel kept for them."""
-    assert quant4.v1_kernel_variant(n) == want
-    assert quant4.launches[want] == 0
+    (1040, "int4_matmul_v1"), (130, "dequant"), (260, "dequant"),
+    (1000, "dequant")])
+def test_v1_kernel_route(n, want):
+    """The route a v1 product with N columns takes: the TMA + wgmma kernel
+    needs 16-byte row strides for the nibble bytes (N) and the fp32
+    scales, which every whole width of every shipped configuration has,
+    the vocab heads included; other N (a tiny test head of 260) take
+    `dequant_matmul`, as the JAX package takes `_matmul_xla` at
+    N % 128 != 0: the same function up to fp32 summation order, and no
+    launch."""
+    m, k = 24, 256
+    shape = torch.empty((m, k), dtype=torch.bfloat16, device="meta")
+    packed = torch.empty((k // 2, n), dtype=torch.int8, device="meta")
+    assert ("int4_matmul_v1" if quant4.kernel_shape(shape, packed)
+            else "dequant") == want
+    if want == "dequant":
+        x = np.random.default_rng(n).normal(size=(m, k)).astype(np.float32)
+        q, s = jq.quantize_grouped(_w(n, k, n))
+        packed = np.asarray(jq.pack_int4(q))
+        ref = np.asarray(jq._matmul_xla(jnp.asarray(x), jnp.asarray(packed),
+                                        jnp.asarray(s)))
+        quant4.reset_launches()
+        got = quant4.int4_matmul(_t(x), _t(packed), _t(s)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
+    assert quant4.launches == {"int4_matmul": 0, "int4_matmul_v1": 0}
 
 
 def test_v1_plain_vs_matmul_xla():
